@@ -1,0 +1,406 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (``pllmod_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py [--profile]
+
+It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``,
+holds each kernel against its plain torch version on the card, drives
+the main path (``engine.tree_loglikelihood`` with ``schedule="auto"``)
+and checks the logL against the float64 serial engine. It then times
+both kernels, forced, over a sweep of state and category counts (the
+measurements behind ``engine.fast_eval_schedule``'s rule). It prints the
+flagship metric, one ``{"routing": [...]}`` and one ``{"kernels": [...]}``
+line, the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Any failed check raises and the script exits non-zero; without
+CUDA it exits 1 and prints no result.
+
+``--profile`` also traces the main path's timed loop of each cell with
+``torch.profiler`` and prints where the device time of one evaluation
+goes (device kernels only) and the device's busy share of the window.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pllmod_tpu_torch import flagship
+from pllmod_tpu_torch.ops import _build, engine, fused, resident
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor flop/s
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+LOGL_RTOL = 1e-6          # float32 kernels vs the float64 serial engine
+PROD_RTOL = 1e-6          # kernel vs plain version, relative to max |plain|
+FLAGSHIP = dict(n_taxa=128, n_sites=16384, seed=3)        # bench.py's shape
+PROTEIN = dict(n_taxa=512, n_sites=4096, seed=5, states=20)
+# the widest alphabet of the registries (MULTI64) +G4: the resident
+# kernel's live slots do not fit a block's shared memory, so auto routes
+# it to the fused kernel
+WIDE = dict(n_taxa=128, n_sites=4096, seed=7, states=64)
+# (label, cell, the kernel auto must pick)
+CELLS = [("flagship DNA", FLAGSHIP, "resident"),
+         ("protein", PROTEIN, "resident"),
+         ("64-state", WIDE, "fused")]
+TIMED_EVALS = 100
+# the routing sweep: (states, categories) at two sizes, (taxa, patterns)
+SWEEP_SHAPES = [(4, 1), (4, 4), (5, 4), (10, 4), (16, 4), (20, 4), (32, 4),
+                (64, 4)]
+SWEEP_SIZES = [(128, 16384), (64, 4096)]
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def walk_flops(idx8, C: int, S: int, Ppad: int, n_codes: int) -> int:
+    """Operations a walk over this run's table needs: per pattern, C·S·S
+    multiply-adds (2 flops each) for every child that is not a tip, C·S
+    multiplies for the root row's diag(freqs) child, and the product, max
+    and scale (C·S each) of every row. A tip child's P·x is a lookup of
+    P·codetab, which costs its n_codes columns once per row, not per
+    pattern."""
+    rows = idx8.cpu().numpy()
+    tip = rows[:, 2:4] != 0
+    mat = 2 * C * S * S
+    per_pattern = (mat * int((~tip[:-1]).sum()) + C * S * int(~tip[-1, 0])
+                   + mat * int(~tip[-1, 1]) + 3 * C * S * len(rows))
+    tables = (mat * int(tip[:-1].sum()) + C * S * int(tip[-1, 0])
+              + mat * int(tip[-1, 1])) * n_codes
+    return Ppad * per_pattern + tables
+
+
+def bound(in_out_bytes: int, flops: int):
+    t_bytes = in_out_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def rel_close(got: float, want: float, rtol: float, what: str) -> None:
+    rel = abs(got - want) / abs(want)
+    print(f"{what}: {got!r} vs {want!r} (relative {rel:.3e})")
+    if not rel <= rtol:
+        raise AssertionError(f"{what}: relative error {rel} > {rtol}")
+
+
+def compare(name, got, want):
+    """(max_abs_err, max_rel_err) of a kernel's float32 output against
+    its plain version, relative to the largest plain value."""
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    print(f"{name}: max abs err {err!r}, relative {rel:.3e}")
+    if not rel <= PROD_RTOL:
+        raise AssertionError(f"{name}: kernel differs from its plain "
+                             f"version by {rel} > {PROD_RTOL}")
+    return err, rel
+
+
+def check_resident(part, tree, part64):
+    """Phase 3: the resident kernel against its plain version."""
+    idx8, e1, e2, ns = resident.compile_resident(part, tree)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=part.device)
+    P5 = fused.pair_pmats(part, brl, e1, e2)
+    tab = fused.code_table(part)
+    args = (idx8, P5, part.tip_states, tab, ns)
+    t0 = time.perf_counter()
+    prod_p, sc_p = resident.resident_walk_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    prod_k, sc_k = resident.resident_walk(*args)
+    torch.cuda.synchronize()
+    err, rel = compare("resident prod", prod_k, prod_p)
+    if not torch.equal(sc_k, sc_p):
+        raise AssertionError("resident scaler rows differ from the plain "
+                             "version")
+    ms = time_ms(lambda: resident.resident_walk(*args), 20)
+    l_k = float(resident.loglikelihood_resident(part, idx8, brl, (e1, e2),
+                                                ns))
+    l64 = float(engine.tree_loglikelihood(part64, tree, schedule="scan"))
+    rel_close(l_k, l64, LOGL_RTOL, "resident logL vs float64 scan")
+    b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab, prod_k, sc_k),
+                       walk_flops(idx8, part.n_cats, part.states,
+                                  part.n_patterns_padded, tab.shape[0]))
+    print(f"resident: {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots")
+    return dict(name="resident_walk", route="cuda",
+                source="pllmod_tpu_torch/csrc/pruning.cu",
+                replaces="pllmod_tpu/ops/pallas_resident.py:325",
+                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_fused(part, tree, part64, label):
+    """Phase 4: the fused kernel against its plain version (every slot
+    and scaler row) and its logL against the float64 serial engine."""
+    idx8, e1, e2, ri, ns = fused.compile_fused(part, tree, fuse_root=True)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=part.device)
+    P5 = fused.pair_pmats(part, brl, e1, e2)
+    tab = fused.code_table(part)
+    args = (idx8, P5, part.tip_states, tab, ns)
+    t0 = time.perf_counter()
+    clv_p, sc_p = fused.fused_walk_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    clv_k, sc_k = fused.fused_walk(*args)
+    torch.cuda.synchronize()
+    err, rel = compare(f"fused CLVs ({label})", clv_k, clv_p)
+    if not torch.equal(sc_k, sc_p):
+        raise AssertionError(f"fused scaler rows ({label}) differ from "
+                             "the plain version")
+    ms = time_ms(lambda: fused.fused_walk(*args), 10)
+    l_k = float(fused.loglikelihood_fused(part, idx8, brl, e1, e2, ri, ns))
+    l64 = float(engine.tree_loglikelihood(part64, tree, schedule="scan"))
+    rel_close(l_k, l64, LOGL_RTOL, f"fused logL ({label}) vs float64 scan")
+    b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab, clv_k, sc_k),
+                       walk_flops(idx8, part.n_cats, part.states,
+                                  part.n_patterns_padded, tab.shape[0]))
+    print(f"fused ({label}): {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots")
+    return dict(name="fused_walk", route="cuda",
+                source="pllmod_tpu_torch/csrc/pruning.cu",
+                replaces="pllmod_tpu/ops/pallas_clv.py:582",
+                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def eval_loop(part, tree, schedule="auto"):
+    """The main path's compiled evaluator over TIMED_EVALS varying branch
+    lengths: returns ``loop()``, which issues them all and returns the
+    summed logL (a device tensor)."""
+    ev = engine.compile_fast_eval(part, tree, schedule=schedule)
+    base = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                           device=part.device)
+    scales = 1.0 + 1e-4 * torch.arange(TIMED_EVALS, device=part.device)
+    brls = base[None, :] * scales[:, None]
+
+    def loop():
+        acc = torch.zeros((), dtype=torch.float32, device=part.device)
+        for i in range(TIMED_EVALS):
+            acc = acc + ev(part, brls[i])
+        return acc
+    return loop
+
+
+def timed_main_path(part, tree, label, schedule="auto"):
+    """(ms per full evaluation on the device, host ms to issue one):
+    P-matrices, kernel and epilogue, after one warm-up loop."""
+    loop = eval_loop(part, tree, schedule)
+    loop()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    acc = loop()
+    stop.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3 / TIMED_EVALS
+    stop.synchronize()
+    if not np.isfinite(float(acc)):
+        raise AssertionError(f"non-finite logL sum on the main path "
+                             f"({label}, {schedule})")
+    ms = start.elapsed_time(stop) / TIMED_EVALS
+    print(f"main path ({label}, {schedule}): {ms:.4f} ms/eval on the "
+          f"device, host issues one eval in {issue_ms:.4f} ms")
+    return ms, issue_ms
+
+
+def profile_main_path(part, tree, label):
+    """Trace one timed loop of the main path: device time per eval of
+    each device kernel (torch.profiler's kernel events, not the host ops
+    that launched them) and the device's busy share of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    loop = eval_loop(part, tree)
+    loop()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    per_kernel: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = per_kernel.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us()
+            row[1] += 1
+    busy_us = sum(us for us, _ in per_kernel.values())
+    rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    print(json.dumps({
+        "profile": label, "evals": TIMED_EVALS,
+        "window_ms_per_eval": window_s * 1e3 / TIMED_EVALS,
+        "device_busy_ms_per_eval": busy_us / 1e3 / TIMED_EVALS,
+        "device_busy_share": busy_us / 1e6 / window_s,
+        "kernel_launches_per_eval": sum(n for _, n in per_kernel.values())
+        / TIMED_EVALS,
+        "kernels": [{"name": k[:90], "device_us_per_eval": us / TIMED_EVALS,
+                     "calls_per_eval": n / TIMED_EVALS}
+                    for k, (us, n) in rows[:12]]}))
+
+
+def routing_sweep():
+    """Both kernels, forced, at every (states, categories) of SWEEP_SHAPES
+    and size of SWEEP_SIZES: ms per launch of each (the resident one
+    where its live slots fit a block's shared memory), what ``auto``
+    picks, and the resident root product held against the fused one's."""
+    out = []
+    for n_taxa, n_sites in SWEEP_SIZES:
+        for states, cats in SWEEP_SHAPES:
+            part, tree = flagship.example(n_taxa, n_sites, seed=11 + states,
+                                          states=states, n_rate_cats=cats,
+                                          device="cuda")
+            part = part.cache_eigen()
+            brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                                  device="cuda")
+            tab = fused.code_table(part)
+            fi, fe1, fe2, ri, fns = fused.compile_fused(part, tree,
+                                                        fuse_root=True)
+            fargs = (fi, fused.pair_pmats(part, brl, fe1, fe2),
+                     part.tip_states, tab, fns)
+            fused_ms = time_ms(lambda: fused.fused_walk(*fargs), 10)
+            ri8, re1, re2, rns = resident.compile_resident(part, tree)
+            smem = _build.walk_smem_bytes(cats, states, tab.shape[0], rns,
+                                          resident=True)
+            res_ms = None
+            if smem <= _build.SMEM_PER_BLOCK:
+                rargs = (ri8, fused.pair_pmats(part, brl, re1, re2),
+                         part.tip_states, tab, rns)
+                res_ms = time_ms(lambda: resident.resident_walk(*rargs), 10)
+                compare(f"resident vs fused root product (S={states}, "
+                        f"C={cats})", resident.resident_walk(*rargs)[0],
+                        fused.fused_walk(*fargs)[0][ri[3]])
+            row = dict(taxa=n_taxa, patterns=part.n_patterns_padded,
+                       states=states, cats=cats, cs=states * cats,
+                       resident_slots=rns, resident_smem_bytes=smem,
+                       resident_ms=res_ms, fused_ms=fused_ms,
+                       auto=engine.auto_schedule(part, rns))
+            print(f"sweep: {row}")
+            out.append(row)
+            del part, fargs
+            torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the main path's timed loops")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    gpu = gpu_line()
+    print(gpu)
+    name, power = (s.strip() for s in gpu.split(",", 1))
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _build.BUILD_LOG.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+
+    cells = {}
+    for label, spec, want in CELLS:
+        part, tree = flagship.example(**spec, device="cuda")
+        part64, _ = flagship.example(**spec, dtype=torch.float64,
+                                     device="cuda")
+        cells[label] = (part.cache_eigen(), tree, part64, want)
+    dna, tree, dna64, _ = cells["flagship DNA"]
+    prot, ptree, prot64, _ = cells["protein"]
+    wide, wtree, wide64, _ = cells["64-state"]
+
+    res_row = check_resident(dna, tree, dna64)
+    check_resident(prot, ptree, prot64)
+    check_fused(dna, tree, dna64, "flagship DNA")
+    check_fused(prot, ptree, prot64, "protein")
+    fused_row = check_fused(wide, wtree, wide64, "64-state")
+
+    # ---- main path: schedule="auto" on every cell; every launch from
+    # here to the reading of the counts is counted
+    resident.LAUNCHES = 0
+    fused.LAUNCHES = 0
+    ms = {}
+    for label, (part, tr, part64, want) in cells.items():
+        got = engine.compile_fast_eval(part, tr).schedule
+        if got != want:
+            raise AssertionError(f"auto routed {label} to {got}, not "
+                                 f"{want}")
+        kernel = resident if want == "resident" else fused
+        before = kernel.LAUNCHES
+        logl = float(engine.tree_loglikelihood(part, tr))
+        ms[label], _ = timed_main_path(part, tr, label)
+        if kernel.LAUNCHES == before:
+            raise AssertionError(f"{label}: the {want} kernel was not "
+                                 "launched")
+        rel_close(logl, float(engine.tree_loglikelihood(part64, tr)),
+                  LOGL_RTOL, f"main path logL ({label})")
+    res_row["launches"] = resident.LAUNCHES
+    fused_row["launches"] = fused.LAUNCHES
+    if resident.LAUNCHES == 0 or fused.LAUNCHES == 0:
+        raise AssertionError(f"main path missed a kernel: resident "
+                             f"{resident.LAUNCHES}, fused {fused.LAUNCHES}")
+
+    # ---- the other schedule of each cell, forced, end to end (the
+    # 64-state cell's resident slots do not fit)
+    timed_main_path(dna, tree, "flagship DNA", schedule="fused")
+    timed_main_path(prot, ptree, "protein", schedule="fused")
+    if args.profile:
+        for label, (part, tr, _, _) in cells.items():
+            profile_main_path(part, tr, label)
+    del cells, dna64, prot64, wide64
+    routing = routing_sweep()
+
+    n_inner = FLAGSHIP["n_taxa"] - 2
+    rate = n_inner * dna.n_patterns_padded / (ms["flagship DNA"] * 1e-3)
+    print(json.dumps({"metric": "clv_pattern_node_updates_per_s",
+                      "value": rate, "unit": "updates/s",
+                      "ms_per_eval": ms, "gpu": name,
+                      "power_limit": power}))
+    print(json.dumps({"routing": routing}))
+    print(json.dumps({"kernels": [res_row, fused_row]}))
+    print(gpu_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

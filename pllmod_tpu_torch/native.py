@@ -1,0 +1,121 @@
+"""ctypes bindings for the native C++ host-runtime kernels.
+
+The same library as ``pllmod_tpu.native``: builds
+``native/libpllmod_native.so`` from ``native/pllmod_native.cpp`` on first
+use (g++ -O3 -march=native) and exposes the entry points this package
+uses so far:
+
+- :func:`compress_patterns` — site-pattern dedup (pll_compress_site_patterns)
+- :func:`parse_newick` — one-pass Newick -> flat arrays
+
+Every entry point has a pure-python fallback in the calling module;
+callers use :func:`available` to pick the fast path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_HERE, "native", "pllmod_native.cpp")
+_LIB = os.path.join(_HERE, "native", "libpllmod_native.so")
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _build() -> bool:
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
+             "-o", _LIB, _SRC],
+            check=True, capture_output=True, timeout=120)
+        return True
+    except Exception:
+        return False
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        if not os.path.exists(_LIB) or (
+                os.path.exists(_SRC)
+                and os.path.getmtime(_SRC) > os.path.getmtime(_LIB)):
+            if not os.path.exists(_SRC) or not _build():
+                return None
+        try:
+            lib = ctypes.CDLL(_LIB)
+        except OSError:
+            return None
+        lib.pllmod_compress_patterns.restype = ctypes.c_int64
+        lib.pllmod_newick_parse.restype = ctypes.c_int
+        lib.pllmod_newick_extract.restype = ctypes.c_int
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _ptr(a, t):
+    return a.ctypes.data_as(ctypes.POINTER(t))
+
+
+def compress_patterns(codes: np.ndarray, weights: np.ndarray | None = None):
+    """Native site-pattern compression. codes int32 [taxa, sites].
+    Returns (codes_out [taxa, n_patterns], weights [n_patterns])."""
+    lib = _load()
+    codes = np.ascontiguousarray(codes, np.int32)
+    T, S = codes.shape
+    w_in = (np.ascontiguousarray(weights, np.float64)
+            if weights is not None else None)
+    out = np.zeros_like(codes)
+    w_out = np.zeros(S, np.float64)
+    n = lib.pllmod_compress_patterns(
+        _ptr(codes, ctypes.c_int32), ctypes.c_int64(T), ctypes.c_int64(S),
+        _ptr(w_in, ctypes.c_double) if w_in is not None else None,
+        _ptr(out, ctypes.c_int32), _ptr(w_out, ctypes.c_double))
+    if n < 0:
+        raise RuntimeError("native compress_patterns failed")
+    return out[:, :n].copy(), w_out[:n].copy()
+
+
+def parse_newick(newick: str):
+    """Native Newick parse. Returns (n_tips, edges int32 [E,2],
+    lengths [E], labels list, root_id, root_children)."""
+    lib = _load()
+    data = newick.encode()
+    n_tips = ctypes.c_int64()
+    n_edges = ctypes.c_int64()
+    n_nodes = ctypes.c_int64()
+    lab_bytes = ctypes.c_int64()
+    root_children = ctypes.c_int64()
+    rc = lib.pllmod_newick_parse(
+        ctypes.c_char_p(data), ctypes.c_int64(len(data)),
+        ctypes.byref(n_tips), ctypes.byref(n_edges), ctypes.byref(n_nodes),
+        ctypes.byref(lab_bytes), ctypes.byref(root_children))
+    if rc != 0:
+        raise ValueError(f"newick parse error {rc}")
+    E = n_edges.value
+    edges = np.zeros((E, 2), np.int32)
+    lengths = np.zeros(E, np.float64)
+    labels_buf = ctypes.create_string_buffer(lab_bytes.value)
+    root = ctypes.c_int64()
+    rc = lib.pllmod_newick_extract(
+        _ptr(edges, ctypes.c_int32), _ptr(lengths, ctypes.c_double),
+        labels_buf, ctypes.c_int64(lab_bytes.value), ctypes.byref(root))
+    if rc != 0:
+        raise ValueError(f"newick extract error {rc}")
+    labels = labels_buf.raw.decode().split("\x00")[:n_tips.value]
+    return (int(n_tips.value), edges, lengths, labels, int(root.value),
+            int(root_children.value), int(n_nodes.value))

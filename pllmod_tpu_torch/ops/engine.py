@@ -1,0 +1,151 @@
+"""Single-partition end-to-end likelihood evaluation — the counterpart of
+``pllmod_tpu.ops.engine``: P-matrices → pruning → edge log-likelihood.
+
+Schedules:
+
+- ``"resident"``: the shared-memory-resident CUDA kernel
+  (:mod:`pllmod_tpu_torch.ops.resident`) — logL only;
+- ``"fused"``: the CUDA kernel that leaves every CLV in device memory
+  (:mod:`pllmod_tpu_torch.ops.fused`);
+- ``"scan"``: the serial reference engine (:func:`loglikelihood`), any
+  dtype — the float64 path;
+- ``"auto"``: the rule of :func:`auto_schedule`.
+
+The kernels' wrappers run their plain torch versions on CPU tensors, so
+every schedule also runs on ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pllmod_tpu_torch.ops import _build
+from pllmod_tpu_torch.ops import clv as clv_mod
+from pllmod_tpu_torch.ops import fused as fused_mod
+from pllmod_tpu_torch.ops import likelihood as lk_mod
+from pllmod_tpu_torch.ops import resident as resident_mod
+
+SCHEDULES = ("auto", "resident", "fused", "scan")
+
+
+def loglikelihood(partition, ops, brlens, root_info):
+    """Full-traversal log-likelihood on the serial reference engine.
+
+    Args:
+      ops: int [n_inner, 5] from Tree.traversal_ops
+      brlens: [n_edges] branch lengths (indexed by edge id)
+      root_info: (node_u, node_v, root_edge) from Tree.traversal_ops
+    """
+    P = partition.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials(partition, P, ops)
+    u, v, e = (int(x) for x in root_info)
+    return lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
+
+
+def loglikelihood_bounded(partition, tree, brlens=None, root_edge=None):
+    """Memory-bounded full-tree logL: the serial engine over the
+    Sethi-Ullman slot-recycled schedule (pll_tree.c:1509-1573), so the
+    CLV buffer holds only the O(log n) concurrently live slots.
+    Returns (logL, n_slots)."""
+    if brlens is None:
+        brlens = tree.lengths
+    ops, root_info = tree.traversal_ops(root_edge)
+    u, v, e = (int(x) for x in root_info)
+    n_tips = partition.n_tips
+    ops_b, n_slots, slot_map = clv_mod.bounded_slot_ops(
+        ops, n_tips, root_refs=(u, v))
+    P = partition.prob_matrices(brlens)
+    init = torch.zeros((n_slots, partition.n_patterns_padded,
+                        partition.n_cats, partition.states),
+                       dtype=partition.dtype, device=partition.device)
+    clvs, scalers = clv_mod.update_partials(partition, P, ops_b, init)
+
+    def remap(x):
+        return x if x < n_tips else n_tips + slot_map[x - n_tips]
+
+    lnl = lk_mod.edge_loglikelihood(partition, clvs, scalers, remap(u),
+                                    remap(v), P[e])
+    return lnl, n_slots
+
+
+def fast_eval_schedule(partition, n_slots: int) -> str:
+    """The evaluation kernel for this partition's shape on the H100.
+
+    Rule: ``"resident"`` when the resident kernel's ``n_slots`` live
+    slots (the compiled tree's own count,
+    :func:`resident.compile_resident`) fit in a block's shared memory at
+    its pattern tile, ``"fused"`` otherwise. Measured with both kernels
+    forced (``chip_smoke.py``'s routing sweep, PERF.md): wherever its
+    slots fit, the resident kernel was the faster, at C·S from 4 to 128,
+    at 64 × 4096 and 128 × 16384 — the fused kernel's CLV traffic costs
+    more than the occupancy the resident slots take. DNA and protein
+    trees run resident; 64-state alphabets (+Γ4), whose slots do not
+    fit, run fused. The TPU's CS % 8 gate and its VMEM crossover are
+    facts of Mosaic and do not apply here."""
+    smem = _build.walk_smem_bytes(partition.n_cats, partition.states,
+                                  partition.code_clv.shape[0], n_slots,
+                                  resident=True)
+    return "resident" if smem <= _build.SMEM_PER_BLOCK else "fused"
+
+
+def auto_schedule(partition, n_slots: int | None) -> str:
+    """``schedule="auto"``: the kernel of :func:`fast_eval_schedule` for a
+    float32 partition, the serial engine for float64 (the kernels'
+    rescale is float32-exponent based; float64 runs ``"scan"``, as in the
+    JAX package, and ``n_slots`` may be None). The kernels take every
+    alphabet the registries define (up to 64 states) and up to 256 rate
+    categories; a float32 partition beyond that raises in the kernel's
+    wrapper, it is not rerouted."""
+    if partition.dtype == torch.float32:
+        return fast_eval_schedule(partition, n_slots)
+    return "scan"
+
+
+def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
+    """Compile the host-side tables of ``schedule`` for this (partition
+    shape, topology) once; returns ``ev(part, brlens) -> logL`` (a 0-dim
+    tensor on the partition's device), with the schedule it runs as
+    ``ev.schedule``. ``auto`` decides on this tree's own resident slot
+    count. ``part`` may differ from ``partition`` in model parameters,
+    not in data or shape."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; one of "
+                         f"{SCHEDULES}")
+    table = None
+    if schedule == "auto":
+        if partition.dtype == torch.float32:
+            table = resident_mod.compile_resident(partition, tree, root_edge)
+        schedule = auto_schedule(partition,
+                                 table[3] if table is not None else None)
+    if schedule == "resident":
+        idx8, e1, e2, n_slots = table or resident_mod.compile_resident(
+            partition, tree, root_edge)
+
+        def ev(part, brl):
+            return resident_mod.loglikelihood_resident(
+                part, idx8, brl, (e1, e2), n_slots)
+    elif schedule == "fused":
+        idx8, e1, e2, ri, n_slots = fused_mod.compile_fused(
+            partition, tree, root_edge, fuse_root=True)
+
+        def ev(part, brl):
+            return fused_mod.loglikelihood_fused(part, idx8, brl, e1, e2,
+                                                 ri, n_slots)
+    else:
+        ops, root_info = tree.traversal_ops(root_edge)
+
+        def ev(part, brl):
+            return loglikelihood(part, ops, brl, root_info)
+    ev.schedule = schedule
+    return ev
+
+
+def tree_loglikelihood(partition, tree, brlens=None, root_edge=None,
+                       schedule: str = "auto"):
+    """Compile the traversal of ``tree`` and evaluate its logL on the
+    partition's device. ``schedule`` ∈ {"auto", "resident", "fused",
+    "scan"}; a kernel schedule forced on a float64 partition raises."""
+    if brlens is None:
+        brlens = tree.lengths
+    ev = compile_fast_eval(partition, tree, root_edge, schedule)
+    return ev(partition, brlens)

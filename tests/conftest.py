@@ -44,3 +44,8 @@ def _bound_xla_compiler_state():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on machines without one")

@@ -1,0 +1,260 @@
+"""``engine.tree_loglikelihood`` of the port, every schedule, against the
+JAX float64 scan and the numpy brute force of ``tests/reference_impl``:
+1e-6 relative for the float32 kernel schedules (their plain versions on
+the CPU), 1e-10 for the float64 scan. Plus virtual-root invariance, the
+reference's 5-state and blopt-minimal goldens, the bounded engine at 1k
+taxa and the ``auto`` routing rule."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from pllmod_tpu.ops import charmap as jax_charmap
+from pllmod_tpu.ops import engine as jax_engine
+from pllmod_tpu.ops.partition import create_partition as jax_create
+from pllmod_tpu_torch import flagship
+from pllmod_tpu_torch.common import PllModError
+from pllmod_tpu_torch.ops import _build, charmap, engine
+from pllmod_tpu_torch.ops import clv as clv_mod
+from pllmod_tpu_torch.ops import likelihood as lk_mod
+from pllmod_tpu_torch.ops.partition import create_partition
+from pllmod_tpu_torch.tree.topology import Tree
+from tests import reference_impl as ref
+from tests.test_reference_parity import (ALPHA, BRLENS, FREQS4,
+                                         LOGL5_INITIAL, LOGL5_OPTIMIZED,
+                                         LOGL_INITIAL, SUBST, TIP1, TIP2,
+                                         TIP3, BRLENS5_OPT)
+from tests.torch_cases import make_case, rel_err, to_torch, to_torch_tree
+
+F32_RTOL = 1e-6
+F64_RTOL = 1e-10
+ODD5 = {"A": 0x01, "B": 0x02, "C": 0x04, "D": 0x08, "E": 0x0c,
+        "-": 0x1f, "?": 0x1f}
+# (states, cats): C·S = 16 (DNA+Γ4), 4 (DNA), 20 (5-state+Γ4), 80 (AA+Γ4),
+# 256 (the widest multistate alphabet +Γ4), 128 (DNA, 32 categories)
+SHAPES = [(4, 4), (4, 1), (5, 4), (20, 4), (64, 4), (4, 32)]
+
+
+def _case(states, cats, pinv=0.0, seed=None, n_taxa=10, n_sites=96):
+    cmap = {5: jax_charmap.custom(5, ODD5, "odd5"),
+            64: jax_charmap.multistate(64)}.get(states)
+    return make_case(seed if seed is not None else 100 + states + cats,
+                     n_taxa, n_sites, states=states, cats=cats, pinv=pinv,
+                     charmap=cmap)
+
+
+@pytest.mark.parametrize("schedule", ["auto", "resident", "fused", "scan"])
+@pytest.mark.parametrize("states,cats", SHAPES)
+def test_every_schedule_matches_jax_f64(states, cats, schedule):
+    case = _case(states, cats, pinv=0.1)
+    want = float(jax_engine.tree_loglikelihood(case.jpart64, case.jtree,
+                                               schedule="scan"))
+    got = engine.tree_loglikelihood(case.tpart, case.tree, schedule=schedule)
+    assert got.dtype == torch.float32
+    assert rel_err(got, want) < F32_RTOL
+    got64 = engine.tree_loglikelihood(to_torch(case.jpart64), case.tree,
+                                      schedule="scan")
+    assert got64.dtype == torch.float64
+    assert rel_err(got64, want) < F64_RTOL
+
+
+@pytest.mark.parametrize("pinv", [0.0, 0.3])
+def test_matches_brute_force(pinv):
+    """DNA+Γ4 on uncompressed sites against the independent recursive
+    pruning with scipy matrix exponentials."""
+    rng = np.random.default_rng(9)
+    jtree = ref.random_binary_tree(rng, 8)
+    seqs = ref.random_sequences(rng, 8, 60)
+    rates = rng.uniform(0.5, 2.0, 6)
+    freqs = rng.dirichlet([6] * 4)
+    part = create_partition(seqs, states=4, n_rate_cats=4, alpha=0.9,
+                            subst_rates=rates, freqs=freqs, prop_invar=pinv,
+                            compress=False, dtype=torch.float64,
+                            device="cpu")
+    codes, masks = charmap.DNA.encode(seqs)
+    want, _ = ref.brute_force_loglh(jtree, masks[codes], rates, freqs,
+                                    part.rate_cats.numpy(),
+                                    part.rate_weights.numpy(), pinv)
+    tree = to_torch_tree(jtree)
+    assert rel_err(engine.tree_loglikelihood(part, tree), want) < F64_RTOL
+    part32 = part.to(dtype=torch.float32)
+    for schedule in ("resident", "fused"):
+        got = engine.tree_loglikelihood(part32, tree, schedule=schedule)
+        assert rel_err(got, want) < F32_RTOL
+
+
+@pytest.mark.parametrize("schedule", ["resident", "fused", "scan"])
+def test_virtual_root_invariance(schedule):
+    """Any virtual-root edge (tip edges included) gives the same logL
+    (pulley principle)."""
+    case = _case(4, 4, pinv=0.05, seed=17, n_taxa=12)
+    part = case.tpart if schedule != "scan" else to_torch(case.jpart64)
+    rtol = F64_RTOL if schedule == "scan" else F32_RTOL
+    vals = [float(engine.tree_loglikelihood(part, case.tree, root_edge=e,
+                                            schedule=schedule))
+            for e in range(len(case.tree.lengths))]
+    np.testing.assert_allclose(vals, vals[0], rtol=rtol, atol=0)
+
+
+def test_blopt_minimal_initial_logl_golden():
+    """The reference's blopt-minimal fixture (literal tip CLVs injected
+    as starting buffers; masked rows skipped)."""
+    part = create_partition(["ACGT", "ACGT", "ACGT"], states=4,
+                            n_rate_cats=4, alpha=ALPHA, subst_rates=SUBST,
+                            freqs=FREQS4, compress=False,
+                            dtype=torch.float64, device="cpu")
+    P = part.prob_matrices(BRLENS)
+
+    def pad(clv):
+        out = torch.ones((part.n_patterns_padded, 4, 4), dtype=torch.float64)
+        out[:4] = torch.as_tensor(clv)
+        return out
+
+    init = torch.stack([pad(TIP1), pad(TIP2), pad(TIP3), pad(TIP1)])
+    ops = np.asarray([[-1, 0, 0, 0, 0], [-1, 0, 0, 0, 0], [-1, 0, 0, 0, 0],
+                      [3, 3 + 0, 0, 3 + 1, 1]], np.int32)
+    clvs, scalers = clv_mod.update_partials(part, P, ops, init_clvs=init)
+    logl = float(lk_mod.edge_loglikelihood(part, clvs, scalers, 3 + 3,
+                                           3 + 2, P[2]))
+    assert logl == pytest.approx(LOGL_INITIAL, abs=1e-6)
+
+
+@pytest.mark.parametrize("brlens,golden,tol", [
+    (BRLENS, LOGL5_INITIAL, 1e-6), (BRLENS5_OPT, LOGL5_OPTIMIZED, 1e-5)])
+def test_5state_goldens(brlens, golden, tol):
+    """The reference's blopt-5states fixture (odd state count, an
+    ambiguity code), at its initial and its optimized branch lengths."""
+    part = create_partition(
+        ["DABC", "DAEC", "DEEC"], charmap=charmap.custom(5, ODD5, "odd5"),
+        n_rate_cats=4, alpha=ALPHA,
+        subst_rates=np.array([1.452176, 0.937951, 0.462880, 0.617729,
+                              1.745312, 0.937951, 0.462880, 0.617729,
+                              1.745312, 1.0]),
+        freqs=np.full(5, 0.2), compress=False, dtype=torch.float64,
+        device="cpu")
+    P = part.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials(
+        part, P, np.asarray([[0, 0, 0, 1, 1]], np.int32))
+    logl = float(lk_mod.edge_loglikelihood(part, clvs, scalers, 3 + 0, 2,
+                                           P[2]))
+    assert logl == pytest.approx(golden, abs=tol)
+
+
+def test_bounded_1k_taxa():
+    """1000 taxa: the slot-recycled serial engine holds ≤ ⌈log2 n⌉+3 CLV
+    slots and equals the JAX bounded engine and the full scan."""
+    rng = np.random.default_rng(23)
+    n = 1000
+    jtree = ref.random_binary_tree(rng, n)
+    seqs = ref.random_sequences(rng, n, 48)
+    jpart = jax_create(seqs, states=4, n_rate_cats=4, alpha=0.9,
+                       prop_invar=0.1, dtype=jnp.float64)
+    want, want_slots = jax_engine.loglikelihood_bounded(jpart, jtree)
+    part, tree = to_torch(jpart), to_torch_tree(jtree)
+    got, n_slots = engine.loglikelihood_bounded(part, tree)
+    assert n_slots == want_slots
+    assert n_slots <= int(np.ceil(np.log2(n))) + 3
+    assert rel_err(got, float(want)) < F64_RTOL
+    full = engine.tree_loglikelihood(part, tree, schedule="scan")
+    assert rel_err(got, full) < F64_RTOL
+
+
+def _alignment(states, n_taxa, cmap=None):
+    """n_taxa copies of one row holding every state once."""
+    syms = {4: "ACGT", 20: charmap.AA_ORDER}.get(
+        states, charmap.MULTI_SYMBOLS[:states])
+    return create_partition([syms] * n_taxa, states=states, charmap=cmap,
+                            n_rate_cats=4, alpha=0.5, device="cpu")
+
+
+def test_auto_routing_rule():
+    """Resident while the tree's live slots fit a block's shared memory,
+    fused beyond them, the serial engine for float64; never the serial
+    engine for a float32 partition, however wide."""
+    for states in (4, 5, 20):
+        case = _case(states, 4)
+        ev = engine.compile_fast_eval(case.tpart, case.tree)
+        assert ev.schedule == "resident"
+    ev = engine.compile_fast_eval(to_torch(case.jpart64), case.tree)
+    assert ev.schedule == "scan"
+    prot = _alignment(20, 512, charmap.AA)
+    tree = Tree.from_newick(flagship.random_newick(
+        512, np.random.default_rng(3)))
+    assert engine.compile_fast_eval(prot, tree).schedule == "resident"
+    wide = _alignment(64, 8, charmap.multistate(64))
+    assert engine.auto_schedule(wide, n_slots=4) == "fused"
+    for part, ns in ((prot, 6), (prot, 12), (wide, 2), (wide, 4)):
+        fits = _build.walk_smem_bytes(
+            part.n_cats, part.states, part.code_clv.shape[0], ns,
+            resident=True) <= _build.SMEM_PER_BLOCK
+        assert fits == (engine.auto_schedule(part, ns) == "resident")
+
+
+@pytest.mark.parametrize("schedule", ["resident", "fused"])
+def test_forced_kernel_on_float64_raises(schedule):
+    case = _case(4, 4)
+    with pytest.raises(PllModError, match="float32"):
+        engine.tree_loglikelihood(to_torch(case.jpart64), case.tree,
+                                  schedule=schedule)
+
+
+def test_compiled_eval_reuses_tables():
+    """compile_fast_eval's closure over new branch lengths equals a fresh
+    tree_loglikelihood (the timed loop of chip_smoke.py relies on it)."""
+    case = _case(4, 4, seed=44)
+    ev = engine.compile_fast_eval(case.tpart, case.tree)
+    brl = torch.as_tensor(case.tree.lengths * 1.3, dtype=torch.float32)
+    assert float(ev(case.tpart, brl)) == float(engine.tree_loglikelihood(
+        case.tpart, case.tree, brlens=brl))
+    with pytest.raises(ValueError, match="schedule"):
+        engine.compile_fast_eval(case.tpart, case.tree, schedule="levels")
+
+
+@pytest.mark.parametrize("seed,n_taxa", [(1, 12), (2, 40)])
+def test_schedulers_match_jax(seed, n_taxa):
+    """The copied host schedulers give the JAX package's tables."""
+    from pllmod_tpu.ops import clv as jax_clv
+    jtree = ref.random_binary_tree(np.random.default_rng(seed), n_taxa)
+    ops, (u, v, _) = jtree.traversal_ops()
+    js = jax_clv.LevelSchedule(ops, n_taxa)
+    ts = clv_mod.LevelSchedule(ops, n_taxa)
+    assert (ts.n_slots, ts.offsets, ts.n_levels) == \
+        (js.n_slots, js.offsets, js.n_levels)
+    np.testing.assert_array_equal(ts.remap, js.remap)
+    for a, b in zip(ts.levels, js.levels):
+        np.testing.assert_array_equal(a, b)
+    assert ts.remap_node(n_taxa + 3) == js.remap_node(n_taxa + 3)
+    live = ops[ops[:, 0] >= 0]
+    assert clv_mod._su_emission_order(live, n_taxa) == \
+        jax_clv._su_emission_order(live, n_taxa)
+    got = clv_mod.bounded_slot_ops(ops, n_taxa, root_refs=(u, v))
+    want = jax_clv.bounded_slot_ops(ops, n_taxa, root_refs=(u, v))
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+
+
+def test_serial_engine_buffers_match_jax_f64():
+    """update_partials (every CLV and scaler row) and the root/edge logL
+    functions against the JAX engine in float64."""
+    from pllmod_tpu.ops import clv as jax_clv
+    from pllmod_tpu.ops import likelihood as jax_lk
+    case = _case(4, 4, pinv=0.2, seed=51, n_taxa=14)
+    ops, (u, v, e) = case.jtree.traversal_ops()
+    jp = case.jpart64
+    jP = jp.prob_matrices(jnp.asarray(case.jtree.lengths))
+    jclv, jsc = jax_clv.update_partials(jp, jP, jnp.asarray(ops))
+    tp = to_torch(jp)
+    tP = tp.prob_matrices(case.tree.lengths)
+    tclv, tsc = clv_mod.update_partials(tp, tP, ops)
+    n = ops.shape[0]
+    np.testing.assert_allclose(tclv.numpy()[:n], np.asarray(jclv)[:n],
+                               rtol=1e-12, atol=0)
+    np.testing.assert_array_equal(tsc.numpy()[:n], np.asarray(jsc)[:n])
+    for node in (u, v):
+        want = float(jax_lk.root_loglikelihood(jp, jclv, jsc, node))
+        got = lk_mod.root_loglikelihood(tp, tclv, tsc, node)
+        assert rel_err(got, want) < F64_RTOL
+    want = float(jax_lk.edge_loglikelihood(jp, jclv, jsc, u, v, jP[e]))
+    got = lk_mod.edge_loglikelihood(tp, tclv, tsc, u, v, tP[e])
+    assert rel_err(got, want) < F64_RTOL

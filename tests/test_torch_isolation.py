@@ -1,0 +1,93 @@
+"""The PyTorch port stays apart from JAX: no module of it imports JAX or
+the JAX package, importing it loads neither, and its entry points run on
+the CUDA card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pllmod_tpu_torch
+from pllmod_tpu_torch import common, convert, flagship
+from pllmod_tpu_torch.ops import _build
+from pllmod_tpu_torch.ops.partition import create_partition
+
+FORBIDDEN = {"jax", "jaxlib", "flax", "ml_dtypes", "pllmod_tpu"}
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PKG = os.path.dirname(pllmod_tpu_torch.__file__)
+PORT_FILES = sorted(
+    [os.path.join(d, f) for d, _, fs in os.walk(_PKG) for f in fs
+     if f.endswith(".py")] + [os.path.join(_ROOT, "chip_smoke.py")])
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[os.path.relpath(p, _ROOT) for p in PORT_FILES])
+def test_no_jax_imports(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_loads_no_jax():
+    code = ("import sys\n"
+            "before = set(sys.modules)\n"
+            "import pllmod_tpu_torch, pllmod_tpu_torch.flagship\n"
+            "import pllmod_tpu_torch.convert, pllmod_tpu_torch.ops.engine\n"
+            "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
+            "print(sorted(new & %r))\n" % FORBIDDEN)
+    out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_cuda(no_cuda):
+    with pytest.raises(common.PllModError):
+        common.resolve_device()
+    with pytest.raises(common.PllModError):
+        create_partition(["ACGT", "ACGA", "ACTT"], states=4)
+    with pytest.raises(common.PllModError):
+        flagship.example(6, 32)
+
+
+def test_convert_default_device_raises_without_cuda(no_cuda):
+    part = create_partition(["ACGT", "ACGA", "ACTT"], states=4,
+                            device="cpu")
+    arrays = {f: getattr(part, f).numpy() for f in convert.ARRAY_FIELDS}
+    meta = {f: getattr(part, f) for f in convert.META_FIELDS}
+    assert convert.partition_from_arrays(arrays, meta, "cpu").n_tips == 3
+    with pytest.raises(common.PllModError):
+        convert.partition_from_arrays(arrays, meta)
+    with pytest.raises(common.PllModError):
+        part.to("cuda")
+
+
+def test_kernel_launch_rejects_cpu_tensors():
+    """The launch path checks devices before it builds or loads anything:
+    a CPU tensor never reaches the kernel."""
+    idx8 = torch.zeros((1, 8), dtype=torch.int32)
+    P5 = torch.zeros((1, 2, 4, 4, 4))
+    codes = torch.zeros((3, 128), dtype=torch.int32)
+    tab = torch.ones((1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.launch_walk("pllmod_fused_walk", idx8, P5, codes, tab,
+                           torch.empty(2, 16, 128),
+                           torch.empty(2, 1, 128, dtype=torch.int32), 2)
+
