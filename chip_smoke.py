@@ -5,20 +5,30 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--profile]
 
-It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``,
-holds each kernel against its plain torch version on the card, drives
-the main path (``engine.tree_loglikelihood`` with ``schedule="auto"``)
-and checks the logL against the float64 serial engine. It then times
-both kernels, forced, over a sweep of state and category counts (the
-measurements behind ``engine.fast_eval_schedule``'s rule). It prints the
-flagship metric, one ``{"routing": [...]}`` and one ``{"kernels": [...]}``
-line, the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``. Any failed check raises and the script exits non-zero; without
-CUDA it exits 1 and prints no result.
+It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
+(one ``nvcc`` a source, all at once), holds each kernel against its
+plain torch version on the card, and drives two paths, each with the
+kernels' launch counts set to 0 just before it and read just after:
 
-``--profile`` also traces the main path's timed loop of each cell with
-``torch.profiler`` and prints where the device time of one evaluation
-goes (device kernels only) and the device's busy share of the window.
+1. the full-tree logL (``engine.tree_loglikelihood``, ``schedule=
+   "auto"``) on every cell, checked against the float64 serial engine;
+2. branch-length optimization (``blo.optimize_branch_lengths``) at the
+   flagship DNA cell, checked against the float64 serial engine at the
+   returned lengths; then the same call with ``fused_newton=False``, on
+   the protein cell, and the memory-bounded sweep against it.
+
+It also times both walk kernels, forced, over a sweep of state and
+category counts (the measurements behind ``engine.fast_eval_schedule``'s
+rule). It prints the flagship metric, one ``{"blo": [...]}``, one
+``{"routing": [...]}`` and one ``{"kernels": [...]}`` line, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Any
+failed check raises and the script exits non-zero; without CUDA it
+exits 1 and prints no result.
+
+``--profile`` also traces the main path's timed loop of each cell and
+one flagship BLO call with ``torch.profiler`` and prints where the
+device time of one evaluation or call goes (device kernels only) and the
+device's busy share of the window.
 """
 
 from __future__ import annotations
@@ -33,13 +43,22 @@ import numpy as np
 import torch
 
 from pllmod_tpu_torch import flagship
-from pllmod_tpu_torch.ops import _build, engine, fused, resident
+from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
+                                     TOL_BRANCH_LEN)
+from pllmod_tpu_torch.ops import _build, deriv, engine, fused, resident
+from pllmod_tpu_torch.optimize import blo, blo_bounded
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 LOGL_RTOL = 1e-6          # float32 kernels vs the float64 serial engine
 PROD_RTOL = 1e-6          # kernel vs plain version, relative to max |plain|
+# derivative kernels vs plain versions (pattern sums in another order):
+# logL relative to max(|l|, 1e-3), derivatives relative to max(|d|, 1),
+# Newton lengths relative to max(|t|, 1e-4), lnl0 to max(|l|, 1e-2)
+DERIV_RTOL = dict(lnl=2e-6, d=2e-5, t=5e-4, lnl0=2e-6)
+BOUNDED_ABS, BOUNDED_REL = 0.05, 1e-7   # bounded vs full BLO: |Δl| bar
+SITE_OPS = 20             # flops of the site math of one pattern (K9/K10)
 FLAGSHIP = dict(n_taxa=128, n_sites=16384, seed=3)        # bench.py's shape
 PROTEIN = dict(n_taxa=512, n_sites=4096, seed=5, states=20)
 # the widest alphabet of the registries (MULTI64) +G4: the resident
@@ -132,7 +151,7 @@ def check_resident(part, tree, part64):
     idx8, e1, e2, ns = resident.compile_resident(part, tree)
     brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
                           device=part.device)
-    P5 = fused.pair_pmats(part, brl, e1, e2)
+    P5 = fused.pair_pmats(part, brl, e1, e2, root_row=True)
     tab = fused.code_table(part)
     args = (idx8, P5, part.tip_states, tab, ns)
     t0 = time.perf_counter()
@@ -168,7 +187,7 @@ def check_fused(part, tree, part64, label):
     idx8, e1, e2, ri, ns = fused.compile_fused(part, tree, fuse_root=True)
     brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
                           device=part.device)
-    P5 = fused.pair_pmats(part, brl, e1, e2)
+    P5 = fused.pair_pmats(part, brl, e1, e2, root_row=True)
     tab = fused.code_table(part)
     args = (idx8, P5, part.tip_states, tab, ns)
     t0 = time.perf_counter()
@@ -195,6 +214,171 @@ def check_fused(part, tree, part64, label):
                 replaces="pllmod_tpu/ops/pallas_clv.py:582",
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def _rel(got, want, floor):
+    return float(((got - want).abs() / want.abs().clamp(min=floor)).max())
+
+
+def check_deriv(part, tree, label):
+    """Kernels 8, 9 and 10 against their plain versions on the directed
+    table of ``part`` / ``tree`` at its lengths, every edge (the shape of
+    the BLO's polish sweeps). Returns their kernel-line rows."""
+    trav = blo.DirectedTraversal(tree)
+    tabs = blo._compile_tables(part, trav)
+    brl = torch.as_tensor(np.clip(tree.lengths, MIN_BRANCH_LEN,
+                                  MAX_BRANCH_LEN), dtype=torch.float32,
+                          device=part.device)
+    clvs, scalers = blo._directed_clvs(part, tabs, brl)
+    live = torch.as_tensor(np.nonzero(trav.edge_mask)[0], device=part.device)
+    eref = tabs.eref6[live]
+    E, C, S = len(live), part.n_cats, part.states
+    CS, Ppad = C * S, part.n_patterns_padded
+    rows = []
+
+    # kernel 8: bit for bit
+    args = (part, clvs, scalers, eref, tabs.basis)
+    st_p, sc_p = deriv.edge_sumtables_plain(*args)
+    plain_ms = time_ms(lambda: deriv.edge_sumtables_plain(*args), 1, 0)
+    st, sc = deriv.edge_sumtables(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(st, st_p) and torch.equal(sc, sc_p)):
+        raise AssertionError(f"edge_sumtables ({label}) differs from its "
+                             "plain version")
+    err = float((st - st_p).abs().max())
+    ms = time_ms(lambda: deriv.edge_sumtables(*args), 10)
+    ref = eref.cpu().numpy()
+    n_inner = int((ref[:, 2:4] == 0).sum())
+    in_bytes = (n_inner * (CS + 1) * Ppad * 4            # CLV + scaler rows
+                + int((ref[:, 2:4] != 0).sum()) * Ppad * 4   # tip codes
+                + nbytes(eref, tabs.basis))
+    b_ms, b_by = bound(in_bytes + nbytes(st, sc),
+                       Ppad * (n_inner * 2 * C * S * S + E * CS))
+    print(f"edge_sumtables ({label}): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), {E} edges, "
+          f"bit for bit")
+    rows.append(dict(name="edge_sumtables", route="cuda",
+                     source="pllmod_tpu_torch/csrc/deriv.cu",
+                     replaces="pllmod_tpu/ops/pallas_deriv.py:109",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # kernel 9
+    t = brl[live]
+    kw = dict(lw=tabs.lw, lnB=tabs.lnB)
+    want = deriv.edge_derivatives_plain(part, st, sc, t, **kw)
+    plain_ms = time_ms(
+        lambda: deriv.edge_derivatives_plain(part, st, sc, t, **kw), 1, 0)
+    got = deriv.edge_derivatives_k(part, st, sc, t, **kw)
+    errs = [_rel(got[0], want[0], 1e-3), _rel(got[1], want[1], 1.0),
+            _rel(got[2], want[2], 1.0)]
+    print(f"edge_derivatives ({label}): relative errors {errs}")
+    if errs[0] > DERIV_RTOL["lnl"] or max(errs[1:]) > DERIV_RTOL["d"]:
+        raise AssertionError(f"edge_derivatives ({label}) differs from its "
+                             f"plain version: {errs}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    ms = time_ms(lambda: deriv.edge_derivatives_k(part, st, sc, t, **kw), 10)
+    in_bytes = nbytes(st, sc, t, tabs.lw, tabs.lnB) + Ppad * 4
+    site_flops = Ppad * (6 * CS + SITE_OPS)
+    b_ms, b_by = bound(in_bytes + 3 * E * 4, E * site_flops)
+    print(f"edge_derivatives ({label}): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows.append(dict(name="edge_derivatives", route="cuda",
+                     source="pllmod_tpu_torch/csrc/deriv.cu",
+                     replaces="pllmod_tpu/ops/pallas_deriv.py:288",
+                     max_abs_err=err, max_rel_err=errs, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+
+    # kernel 10
+    nargs = (part, st, sc, t, MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+             TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS)
+    want = deriv.newton_edges_plain(*nargs, **kw)
+    plain_ms = time_ms(lambda: deriv.newton_edges_plain(*nargs, **kw), 1, 0)
+    got = deriv.newton_edges(*nargs, **kw)
+    errs = [_rel(got[0], want[0], 1e-4), _rel(got[1], want[1], 1e-2)]
+    print(f"newton_edges ({label}): relative errors t {errs[0]}, lnl0 "
+          f"{errs[1]}")
+    if errs[0] > DERIV_RTOL["t"] or errs[1] > DERIV_RTOL["lnl0"]:
+        raise AssertionError(f"newton_edges ({label}) differs from its "
+                             f"plain version: {errs}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    ms = time_ms(lambda: deriv.newton_edges(*nargs, **kw), 10)
+    iters = int(got[2].sum())
+    b_ms, b_by = bound(in_bytes + 3 * E * 4, iters * site_flops)
+    print(f"newton_edges ({label}): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), mean "
+          f"{iters / E:.2f} iterations an edge")
+    rows.append(dict(name="newton_edges", route="cuda",
+                     source="pllmod_tpu_torch/csrc/deriv.cu",
+                     replaces="pllmod_tpu/ops/pallas_deriv.py:400",
+                     max_abs_err=err, max_rel_err=errs, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, mean_iters=iters / E))
+    return rows
+
+
+def run_blo(part, tree, part64, label, **kw):
+    """One ``blo.optimize_branch_lengths`` call on a copy of ``tree``:
+    ms by CUDA events and by the host clock, sweeps, sub-sweeps, mean
+    Newton iterations; the logL checked against the start and against
+    the float64 serial engine at the returned lengths."""
+    tr = tree.copy()
+    start_l = float(engine.tree_loglikelihood(part, tr))
+    stats = {}
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    _, lnl = blo.optimize_branch_lengths(part, tr, stats=stats, **kw)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not lnl >= start_l:
+        raise AssertionError(f"BLO ({label}) ended below its start: "
+                             f"{lnl} < {start_l}")
+    l64 = float(engine.tree_loglikelihood(part64, tr, schedule="scan"))
+    rel_close(lnl, l64, LOGL_RTOL, f"BLO logL ({label}) vs float64 scan")
+    row = dict(cell=label, start_lnl=start_l, lnl=lnl, lnl_f64=l64,
+               ms_events=ev0.elapsed_time(ev1), ms_host=host_ms,
+               sweeps=stats["sweeps"], sub_sweeps=stats["sub_sweeps"],
+               mean_newton_iters=(stats["newton_iters"]
+                                  / max(stats["newton_edges"], 1)), **kw)
+    row["ms_per_sub_sweep"] = row["ms_events"] / stats["sub_sweeps"]
+    print(f"BLO ({label}, {kw or 'defaults'}): {row}")
+    return row, tr
+
+
+def sub_sweep_split(part, tree, label):
+    """Device ms of one colored sub-sweep at ``tree``'s lengths, and of
+    its stages: the fused walk over the directed table, kernel 8 on the
+    color's edges, kernel 10 on them."""
+    trav = blo.DirectedTraversal(tree)
+    tabs = blo._compile_tables(part, trav)
+    sel = torch.as_tensor(np.nonzero(blo._edge_colors(tree)[0])[0],
+                          device=part.device)
+    brl = torch.as_tensor(np.clip(tree.lengths, MIN_BRANCH_LEN,
+                                  MAX_BRANCH_LEN), dtype=torch.float32,
+                          device=part.device)
+    clvs, scalers = blo._directed_clvs(part, tabs, brl)
+    st, sc = deriv.edge_sumtables(part, clvs, scalers, tabs.eref6[sel],
+                                  tabs.basis)
+    nargs = (part, st, sc, brl[sel], MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+             TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS, tabs.lw, tabs.lnB)
+    split = dict(
+        cell=label, edges=len(sel),
+        sub_sweep_ms=time_ms(lambda: blo._blo_sweep(
+            part, tabs, sel, brl, MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+            TOL_BRANCH_LEN), 10),
+        fused_walk_ms=time_ms(lambda: blo._directed_clvs(part, tabs, brl),
+                              10),
+        edge_sumtables_ms=time_ms(lambda: deriv.edge_sumtables(
+            part, clvs, scalers, tabs.eref6[sel], tabs.basis), 10),
+        newton_edges_ms=time_ms(lambda: deriv.newton_edges(*nargs), 10),
+        newton_iters=float(deriv.newton_edges(*nargs)[2].float().mean()))
+    print(f"sub-sweep split ({label}): {split}")
+    return split
 
 
 def eval_loop(part, tree, schedule="auto"):
@@ -238,19 +422,19 @@ def timed_main_path(part, tree, label, schedule="auto"):
     return ms, issue_ms
 
 
-def profile_main_path(part, tree, label):
-    """Trace one timed loop of the main path: device time per eval of
-    each device kernel (torch.profiler's kernel events, not the host ops
-    that launched them) and the device's busy share of the window."""
+def profile_window(label, fn, calls: int) -> None:
+    """Trace ``fn()`` (``calls`` evaluations or BLO calls, after one
+    warm-up): device time per call of each device kernel (torch.profiler's
+    kernel events, not the host ops that launched them) and the device's
+    busy share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    loop = eval_loop(part, tree)
-    loop()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop()
+        fn()
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
     per_kernel: dict[str, list] = {}
@@ -262,14 +446,14 @@ def profile_main_path(part, tree, label):
     busy_us = sum(us for us, _ in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
     print(json.dumps({
-        "profile": label, "evals": TIMED_EVALS,
-        "window_ms_per_eval": window_s * 1e3 / TIMED_EVALS,
-        "device_busy_ms_per_eval": busy_us / 1e3 / TIMED_EVALS,
+        "profile": label, "calls": calls,
+        "window_ms_per_call": window_s * 1e3 / calls,
+        "device_busy_ms_per_call": busy_us / 1e3 / calls,
         "device_busy_share": busy_us / 1e6 / window_s,
-        "kernel_launches_per_eval": sum(n for _, n in per_kernel.values())
-        / TIMED_EVALS,
-        "kernels": [{"name": k[:90], "device_us_per_eval": us / TIMED_EVALS,
-                     "calls_per_eval": n / TIMED_EVALS}
+        "kernel_launches_per_call": sum(n for _, n in per_kernel.values())
+        / calls,
+        "kernels": [{"name": k[:90], "device_us_per_call": us / calls,
+                     "calls_per_call": n / calls}
                     for k, (us, n) in rows[:12]]}))
 
 
@@ -290,7 +474,8 @@ def routing_sweep():
             tab = fused.code_table(part)
             fi, fe1, fe2, ri, fns = fused.compile_fused(part, tree,
                                                         fuse_root=True)
-            fargs = (fi, fused.pair_pmats(part, brl, fe1, fe2),
+            fargs = (fi, fused.pair_pmats(part, brl, fe1, fe2,
+                                          root_row=True),
                      part.tip_states, tab, fns)
             fused_ms = time_ms(lambda: fused.fused_walk(*fargs), 10)
             ri8, re1, re2, rns = resident.compile_resident(part, tree)
@@ -298,7 +483,8 @@ def routing_sweep():
                                           resident=True)
             res_ms = None
             if smem <= _build.SMEM_PER_BLOCK:
-                rargs = (ri8, fused.pair_pmats(part, brl, re1, re2),
+                rargs = (ri8, fused.pair_pmats(part, brl, re1, re2,
+                                                      root_row=True),
                          part.tip_states, tab, rns)
                 res_ms = time_ms(lambda: resident.resident_walk(*rargs), 10)
                 compare(f"resident vs fused root product (S={states}, "
@@ -373,9 +559,51 @@ def main(argv=None) -> int:
                   LOGL_RTOL, f"main path logL ({label})")
     res_row["launches"] = resident.LAUNCHES
     fused_row["launches"] = fused.LAUNCHES
+    fused_row["launches_by_path"] = {"loglikelihood": fused.LAUNCHES}
     if resident.LAUNCHES == 0 or fused.LAUNCHES == 0:
         raise AssertionError(f"main path missed a kernel: resident "
                              f"{resident.LAUNCHES}, fused {fused.LAUNCHES}")
+
+    # ---- branch-length optimization: the derivative kernels against
+    # their plain versions, then the BLO path with every count set to 0
+    deriv_rows = check_deriv(dna, tree, "flagship DNA")
+    check_deriv(prot, ptree, "protein")
+    fused.LAUNCHES = 0
+    for k in deriv.LAUNCHES:
+        deriv.LAUNCHES[k] = 0
+    blo_rows = [run_blo(dna, tree, dna64, "flagship DNA")[0]]
+    blo_launches = dict(deriv.LAUNCHES, fused_walk=fused.LAUNCHES)
+    print(f"BLO path launches: {blo_launches}")
+    missed = [k for k, n in blo_launches.items() if n == 0]
+    if missed:
+        raise AssertionError(f"the BLO path missed kernels: {missed}")
+    for row in deriv_rows:
+        row["launches"] = blo_launches[row["name"]]
+    fused_row["launches_by_path"]["blo"] = blo_launches["fused_walk"]
+    fused_row["launches"] += blo_launches["fused_walk"]
+    full = blo_rows[0]
+    row, opt_tree = run_blo(dna, tree, dna64, "flagship DNA",
+                            fused_newton=False)
+    if row["lnl"] < full["lnl"] - 1e-4 * abs(full["lnl"]):
+        raise AssertionError(f"fused_newton=False reached {row['lnl']}, "
+                             f"below {full['lnl']}")
+    blo_rows.append(row)
+    blo_rows.append(run_blo(prot, ptree, prot64, "protein")[0])
+    split = [sub_sweep_split(dna, tree, "flagship DNA, start lengths"),
+             sub_sweep_split(dna, opt_tree, "flagship DNA, optimized")]
+    tr = tree.copy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, l_b = blo_bounded.optimize_branch_lengths_bounded(dna, tr)
+    torch.cuda.synchronize()
+    bounded_ms = (time.perf_counter() - t0) * 1e3
+    gap = abs(l_b - full["lnl"])
+    print(f"bounded BLO (flagship DNA): {l_b!r} in {bounded_ms:.1f} ms, "
+          f"|Δl| {gap!r} against the full driver")
+    if gap > BOUNDED_ABS + BOUNDED_REL * abs(full["lnl"]):
+        raise AssertionError(f"bounded BLO off the full driver by {gap}")
+    blo_rows.append(dict(cell="flagship DNA", bounded=True, lnl=l_b,
+                         ms_host=bounded_ms, gap_to_full=gap))
 
     # ---- the other schedule of each cell, forced, end to end (the
     # 64-state cell's resident slots do not fit)
@@ -383,8 +611,12 @@ def main(argv=None) -> int:
     timed_main_path(prot, ptree, "protein", schedule="fused")
     if args.profile:
         for label, (part, tr, _, _) in cells.items():
-            profile_main_path(part, tr, label)
+            profile_window(label, eval_loop(part, tr), TIMED_EVALS)
+        profile_window("BLO, flagship DNA",
+                       lambda: blo.optimize_branch_lengths(dna, tree.copy()),
+                       1)
     del cells, dna64, prot64, wide64
+    torch.cuda.empty_cache()
     routing = routing_sweep()
 
     n_inner = FLAGSHIP["n_taxa"] - 2
@@ -393,8 +625,9 @@ def main(argv=None) -> int:
                       "value": rate, "unit": "updates/s",
                       "ms_per_eval": ms, "gpu": name,
                       "power_limit": power}))
+    print(json.dumps({"blo": blo_rows, "sub_sweeps": split}))
     print(json.dumps({"routing": routing}))
-    print(json.dumps({"kernels": [res_row, fused_row]}))
+    print(json.dumps({"kernels": [res_row, fused_row, *deriv_rows]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@ uses so far:
 
 - :func:`compress_patterns` — site-pattern dedup (pll_compress_site_patterns)
 - :func:`parse_newick` — one-pass Newick -> flat arrays
+- :func:`directed_traversal` — the directed-CLV schedule of the
+  branch-length optimizer
 
 Every entry point has a pure-python fallback in the calling module;
 callers use :func:`available` to pick the fast path.
@@ -59,6 +61,7 @@ def _load():
         lib.pllmod_compress_patterns.restype = ctypes.c_int64
         lib.pllmod_newick_parse.restype = ctypes.c_int
         lib.pllmod_newick_extract.restype = ctypes.c_int
+        lib.pllmod_directed_traversal.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -119,3 +122,27 @@ def parse_newick(newick: str):
     labels = labels_buf.raw.decode().split("\x00")[:n_tips.value]
     return (int(n_tips.value), edges, lengths, labels, int(root.value),
             int(root_children.value), int(n_nodes.value))
+
+
+def directed_traversal(edges: np.ndarray, n_tips: int, n_nodes: int,
+                       root_tip: int):
+    """Directed-CLV schedule build (optimize/blo.DirectedTraversal's
+    host hot loop). Returns (ops int32 [n_rows, 5], slot_de int32
+    [E, 2]) with slot_de[e][side] = the slot of the CLV at
+    ``edges[e][side]`` directed toward the other endpoint (-1 = tip or
+    unreachable), or None on multifurcating/malformed trees (python
+    fallback)."""
+    lib = _load()
+    edges = np.ascontiguousarray(edges, np.int32)
+    E = edges.shape[0]
+    cap = max(3 * (n_tips - 2), 1)
+    ops = np.zeros((cap, 5), np.int32)
+    slot_de = np.full((E, 2), -1, np.int32)
+    n = lib.pllmod_directed_traversal(
+        _ptr(edges, ctypes.c_int32), ctypes.c_int64(E),
+        ctypes.c_int64(n_tips), ctypes.c_int64(n_nodes),
+        ctypes.c_int32(root_tip), _ptr(ops, ctypes.c_int32),
+        ctypes.c_int64(cap), _ptr(slot_de, ctypes.c_int32))
+    if n < 0:
+        return None
+    return ops[:n], slot_de

@@ -44,6 +44,25 @@ def get_node_clv(partition, clvs, scalers, node: int):
     return clvs[slot], scalers[slot]
 
 
+def gather_node_clvs(partition, clvs, scalers, nodes):
+    """Batched CLV gather for a vector of node references (tips through
+    the code lookup table, inner nodes from the slot buffer).
+
+    nodes int [W]; clvs [n_buf, P, C, S], scalers [n_buf, P]. Returns
+    ([W, P, C, S], [W, P])."""
+    nodes = torch.as_tensor(nodes, device=clvs.device).long()
+    n_tips = partition.n_tips
+    C = clvs.shape[2]
+    is_tip = nodes < n_tips
+    codes = partition.tip_states[torch.where(is_tip, nodes, 0)].long()
+    tclv = partition.code_clv[codes].to(clvs.dtype)           # [W, P, S]
+    tclv = tclv[:, :, None, :].expand(-1, -1, C, -1)
+    slot = torch.where(is_tip, 0, nodes - n_tips)
+    clv = torch.where(is_tip[:, None, None, None], tclv, clvs[slot])
+    sc = torch.where(is_tip[:, None], 0, scalers[slot])
+    return clv.to(partition.dtype), sc
+
+
 def clv_op_compute(c1, c2, P1, P2):
     """One pruning op: clv_p[p,c,i] = (Σ_j P1[c,i,j] c1[p,c,j]) ·
     (Σ_j P2[c,i,j] c2[p,c,j]). Shapes: c* [P,C,S], P* [C,S,S]."""
@@ -112,11 +131,12 @@ def update_partials(partition, P, ops, init_clvs=None, init_scalers=None):
 # so kernel and plain version agree bit for bit.
 # ---------------------------------------------------------------------------
 def apply_pmat(Pk, x):
-    """Σ_j Pk[c,i,j] · x[c,j,p] for Pk [C,S,S], x [C,S,P], summed over
-    j = 0..S-1 in order with separately rounded products and sums."""
-    acc = Pk[:, :, 0, None] * x[:, None, 0, :]
-    for j in range(1, x.shape[1]):
-        acc = acc + Pk[:, :, j, None] * x[:, None, j, :]
+    """Σ_j Pk[c,i,j] · x[...,c,j,p] for Pk [C,S,S], x [...,C,S,P], summed
+    over j = 0..S-1 in order with separately rounded products and
+    sums."""
+    acc = Pk[:, :, 0, None] * x[..., :, None, 0, :]
+    for j in range(1, x.shape[-2]):
+        acc = acc + Pk[:, :, j, None] * x[..., :, None, j, :]
     return acc
 
 
@@ -132,7 +152,8 @@ def rescale_bits(prod):
     return prod * scale, e
 
 
-def walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots: int):
+def walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots: int,
+                    out=None):
     """The kernels' row walk in plain torch.
 
     Args:
@@ -140,17 +161,23 @@ def walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots: int):
         out_slot, flag)
       P5: float32 [nW, 2, C, S, S] the two child matrices of each row
       tip_codes: int [n_tips, Ppad]; codetab: float32 [n_codes, S]
+      out: optional prior (clvs, scalers) of the shapes below, written
+        in place (slots no row writes keep their values)
     Returns:
       (clvs [n_slots, C·S, Ppad] float32, scalers [n_slots, 1, Ppad] int32)
       with every row's rescaled product and cumulative scaler stored in
-      its out slot (slots no row writes stay zero).
+      its out slot (slots no row writes stay zero, or as in ``out``).
     """
     _, _, C, S, _ = P5.shape
     Ppad = tip_codes.shape[1]
     dev = P5.device
-    slots = torch.zeros((n_slots, C, S, Ppad), dtype=torch.float32,
-                        device=dev)
-    ssc = torch.zeros((n_slots, Ppad), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.zeros((n_slots, C * S, Ppad), dtype=torch.float32,
+                           device=dev),
+               torch.zeros((n_slots, 1, Ppad), dtype=torch.int32,
+                           device=dev))
+    slots = out[0].view(n_slots, C, S, Ppad)
+    ssc = out[1].view(n_slots, Ppad)
     zero_sc = torch.zeros(Ppad, dtype=torch.int32, device=dev)
 
     def child(row, k):
@@ -167,7 +194,7 @@ def walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots: int):
         scaled, e = rescale_bits(prod)
         slots[row[6]] = scaled
         ssc[row[6]] = s1 + s2 + e
-    return slots.reshape(n_slots, C * S, Ppad), ssc[:, None, :]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,37 @@ def loglikelihood_bounded(partition, tree, brlens=None, root_edge=None):
     return lnl, n_slots
 
 
+def loglikelihood_bounded_fused(partition, tree, brlens=None,
+                                root_edge=None):
+    """Memory-bounded full-tree logL on the fused kernel: the
+    Sethi-Ullman slot-recycled schedule (:func:`clv.bounded_slot_ops`,
+    O(log n) live slots) compiled in its original order
+    (``fused.compile_fused_ops(serial=True)``) with the root pseudo-node
+    row appended; a float32 partition. Returns (logL, n_slots)."""
+    if brlens is None:
+        brlens = tree.lengths
+    ops, root_info = tree.traversal_ops(root_edge)
+    u, v, e = (int(x) for x in root_info)
+    n_tips = partition.n_tips
+    ops_b, _, slot_map = clv_mod.bounded_slot_ops(ops, n_tips,
+                                                  root_refs=(u, v))
+
+    def remap(x):
+        return x if x < n_tips else n_tips + int(slot_map[x - n_tips])
+
+    idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(partition, ops_b,
+                                                        serial=True)
+    idx8, e1, e2, root_slot = fused_mod.append_root_row(
+        idx8, e1, e2, n_tips, remap(u), remap(v), e, n_slots)
+    dev = partition.device
+    lnl = fused_mod.loglikelihood_fused(
+        partition, torch.as_tensor(idx8, device=dev), brlens,
+        torch.as_tensor(e1, device=dev).long(),
+        torch.as_tensor(e2, device=dev).long(),
+        (u, v, e, root_slot), n_slots)
+    return lnl, n_slots
+
+
 def fast_eval_schedule(partition, n_slots: int) -> str:
     """The evaluation kernel for this partition's shape on the H100.
 

@@ -6,10 +6,17 @@ counterpart of the evaluation part of ``pllmod_tpu.ops.pallas_clv``
 is_tip2, tip1, tip2, out_slot, level fence) in one launch of the CUDA
 kernel ``pllmod_fused_walk`` (``csrc/pruning.cu``) and returns every
 CLV ``[n_slots, C·S, Ppad]`` float32 with its cumulative scaler row
-``[n_slots, 1, Ppad]`` int32. The branch-length optimization, SPR and
-incremental paths of later slices build on these buffers. The kernel
-needs no level fences (a CTA walks its own pattern columns in order);
-the tables keep the column for layout parity with the JAX package.
+``[n_slots, 1, Ppad]`` int32. The branch-length optimization (directed
+tables, and the bounded sweep's serial slot-recycled tables) builds on
+these buffers, as SPR scoring and incremental evaluation will. The
+kernel needs no level fences: a CTA walks its own pattern columns in
+row order and a thread reads only values it wrote itself, so serial
+and slot-recycled tables run as they are (``csrc/pruning.cu``'s header
+says why); the tables keep the column for layout parity with the JAX
+package. The JAX kernel's ``init=`` aliasing is ``fused_walk(out=
+(clvs, scalers))`` here: the wrapper passes the prior buffers to the
+kernel as its outputs, so the slots the table does not write keep
+their values.
 
 On a CPU tensor the wrapper runs :func:`fused_walk_plain`, the same
 arithmetic in plain torch; on a CUDA tensor it launches the kernel or
@@ -29,39 +36,64 @@ from pllmod_tpu_torch.ops import likelihood as lk_mod
 LAUNCHES = 0            # launches of the fused kernel (counted by fused_walk)
 
 
-def compile_fused_ops(partition, ops):
+def compile_fused_ops(partition, ops, pad_to: int | None = None,
+                      n_slots_min: int | None = None, serial: bool = False):
     """Compile a pruning-op list for the fused kernel, PRESERVING the op
-    table's slot numbering (pallas_clv.compile_fused_ops, level mode).
+    table's slot numbering (pallas_clv.compile_fused_ops).
 
-    Rows are emitted in dependency-level order; column 7 flags the first
-    row of each level after the first. Returns (idx8 [n_live, 8], e1, e2,
-    n_slots) as int numpy arrays, with n_slots = max_slot + 2 (the last
-    slot is scratch).
+    Default (level mode): rows are emitted in dependency-level order;
+    column 7 flags the first row of each level after the first. Child
+    slots the table does not define are taken as already valid in the
+    buffer the walk writes into (``fused_walk(out=...)``) and impose no
+    order. ``serial=True`` keeps the ORIGINAL row order, as a
+    slot-recycled table (``clv.bounded_slot_ops``, the bounded BLO
+    schedule) needs; column 7 then flags rows that read a slot written
+    one or two rows before (the JAX package's fence column, kept for
+    table parity; the CUDA kernel needs no fences). ``pad_to`` appends
+    dummy tip/tip rows writing the scratch slot up to that many rows;
+    ``n_slots_min`` fixes the buffer size from below.
+
+    Returns (idx8 [rows, 8], e1, e2, n_slots) as int numpy arrays, with
+    n_slots = max_slot + 2 (the last slot is scratch) or n_slots_min.
     """
     ops = np.asarray(ops)
     n_tips = partition.n_tips
     live = ops[ops[:, 0] >= 0]
     if live.size == 0:
         raise ValueError("no live ops")
-    level_of: dict[int, int] = {}
-    rows_by_level: dict[int, list] = {}
-    for row in live:
-        # child slots this table does not define impose no ordering
-        deps = [level_of.get(int(c) - n_tips, -1)
-                for c in (row[1], row[3]) if int(c) >= n_tips]
-        lvl = (max(deps) + 1) if deps else 0
-        level_of[int(row[0])] = lvl
-        rows_by_level.setdefault(lvl, []).append(row)
+    if serial:
+        arr = live.astype(np.int64)
+        fence = np.zeros(len(arr), np.int64)
+        for w in range(len(arr)):
+            for c in (arr[w, 1], arr[w, 3]):
+                if c >= n_tips and (c - n_tips) in arr[max(w - 2, 0):w, 0]:
+                    fence[w] = 1
+        groups = [(arr, fence)]
+    else:
+        level_of: dict[int, int] = {}
+        rows_by_level: dict[int, list] = {}
+        for row in live:
+            # child slots this table does not define impose no ordering
+            deps = [level_of.get(int(c) - n_tips, -1)
+                    for c in (row[1], row[3]) if int(c) >= n_tips]
+            lvl = (max(deps) + 1) if deps else 0
+            level_of[int(row[0])] = lvl
+            rows_by_level.setdefault(lvl, []).append(row)
+        groups = []
+        for li, lvl in enumerate(sorted(rows_by_level)):
+            arr = np.stack(rows_by_level[lvl]).astype(np.int64)
+            fence = np.zeros(arr.shape[0], np.int64)
+            if li > 0:
+                fence[0] = 1
+            groups.append((arr, fence))
     n_slots = int(live[:, 0].max()) + 2
+    if n_slots_min is not None:
+        n_slots = max(n_slots, n_slots_min)
     rows8, e1s, e2s = [], [], []
-    for li, lvl in enumerate(sorted(rows_by_level)):
-        arr = np.stack(rows_by_level[lvl]).astype(np.int64)
+    for arr, fence in groups:
         c1, c2 = arr[:, 1], arr[:, 3]
         it1 = (c1 < n_tips).astype(np.int64)
         it2 = (c2 < n_tips).astype(np.int64)
-        fence = np.zeros(arr.shape[0], np.int64)
-        if li > 0:
-            fence[0] = 1
         rows8.append(np.stack([
             np.where(it1 == 1, 0, c1 - n_tips),
             np.where(it2 == 1, 0, c2 - n_tips),
@@ -71,8 +103,35 @@ def compile_fused_ops(partition, ops):
         ], axis=1))
         e1s.append(arr[:, 2])
         e2s.append(arr[:, 4])
-    return (np.concatenate(rows8).astype(np.int32), np.concatenate(e1s),
-            np.concatenate(e2s), n_slots)
+    idx8 = np.concatenate(rows8)
+    e1 = np.concatenate(e1s)
+    e2 = np.concatenate(e2s)
+    if pad_to is not None and pad_to > idx8.shape[0]:
+        npad = pad_to - idx8.shape[0]
+        dummy = np.zeros((npad, 8), np.int64)
+        dummy[:, 2] = dummy[:, 3] = 1            # tip/tip children
+        dummy[:, 6] = n_slots - 1                # scratch slot
+        idx8 = np.concatenate([idx8, dummy])
+        e1 = np.concatenate([e1, np.zeros(npad, np.int64)])
+        e2 = np.concatenate([e2, np.zeros(npad, np.int64)])
+    return idx8.astype(np.int32), e1, e2, n_slots
+
+
+def append_root_row(idx8, e1, e2, n_tips: int, u: int, v: int, e: int,
+                    n_slots: int):
+    """Append the ROOT PSEUDO-NODE row to a numpy table: children
+    (u, v), matrices (diag(freqs_per_cat), P(t_e)) through
+    ``pair_pmats(root_row=True)``, out = the scratch slot
+    ``n_slots - 1``. Returns (idx8, e1, e2, root_slot)."""
+    def enc(ref):
+        return (0, 1, ref) if ref < n_tips else (ref - n_tips, 0, 0)
+
+    s_u, it_u, t_u = enc(u)
+    s_v, it_v, t_v = enc(v)
+    root_slot = n_slots - 1
+    idx8 = np.concatenate([idx8, np.asarray(
+        [[s_u, s_v, it_u, it_v, t_u, t_v, root_slot, 1]], np.int32)])
+    return idx8, np.append(e1, 0), np.append(e2, e), root_slot
 
 
 def compile_fused(partition, tree, root_edge=None, fuse_root: bool = False):
@@ -83,24 +142,16 @@ def compile_fused(partition, tree, root_edge=None, fuse_root: bool = False):
     matrices (diag(freqs_per_cat), P_root), out = the scratch slot
     ``n_slots - 1``; the kernel's ordinary row then leaves the root-edge
     per-category site product (f ⊙ clv_u)·(P_root clv_v) and the total
-    scaler there, and root_info is (u, v, e, root_slot)."""
+    scaler there, and root_info is (u, v, e, root_slot). Its matrices
+    come from ``pair_pmats(root_row=True)``; a table without the row
+    takes ``root_row=False``."""
     ops, root_info = tree.traversal_ops(root_edge)
     idx8, e1, e2, n_slots = compile_fused_ops(partition, ops)
     u, v, e = (int(x) for x in root_info)
     info = (u, v, e)
     if fuse_root:
-        n_tips = partition.n_tips
-
-        def enc(ref):
-            return (0, 1, ref) if ref < n_tips else (ref - n_tips, 0, 0)
-
-        s_u, it_u, t_u = enc(u)
-        s_v, it_v, t_v = enc(v)
-        root_slot = n_slots - 1                  # the scratch slot
-        idx8 = np.concatenate([idx8, np.asarray(
-            [[s_u, s_v, it_u, it_v, t_u, t_v, root_slot, 1]], np.int32)])
-        e1 = np.append(e1, 0)
-        e2 = np.append(e2, e)
+        idx8, e1, e2, root_slot = append_root_row(
+            idx8, e1, e2, partition.n_tips, u, v, e, n_slots)
         info = (u, v, e, root_slot)
     dev = partition.device
     return (torch.as_tensor(idx8, dtype=torch.int32, device=dev),
@@ -117,17 +168,21 @@ def _root_pair(partition, P_root):
     return torch.stack([fdiag, P_root]).to(torch.float32)
 
 
-def pair_pmats(partition, brlens, e1, e2):
+def pair_pmats(partition, brlens, e1, e2, *, root_row: bool):
     """The kernels' per-row matrices [nW, 2, C, S, S] float32:
-    (P(t_{e1[w]}), P(t_{e2[w]})) for every row, the last row being the
-    root pseudo-node (:func:`_root_pair` with P_root = P(t_{e2[-1]})).
-    One batched P build over the 2·nW gathered branch lengths (the
+    (P(t_{e1[w]}), P(t_{e2[w]})) for every row. ``root_row=True`` (the
+    tables of ``compile_fused(fuse_root=True)`` and
+    ``resident.compile_resident``): the last row is the root pseudo-node
+    (:func:`_root_pair` with P_root = P(t_{e2[-1]})); directed and
+    bounded tables have no such row and pass ``root_row=False``. One
+    batched P build over the 2·nW gathered branch lengths (the
     counterpart of pallas_clv.fused_p12)."""
     brlens = torch.as_tensor(brlens).to(partition.device, partition.dtype)
     t = brlens[torch.stack([e1, e2], dim=1)]                    # [nW, 2]
     P = partition.prob_matrices(t.reshape(-1))
     P5 = P.reshape(t.shape[0], 2, *P.shape[1:]).to(torch.float32)
-    P5[-1] = _root_pair(partition, P5[-1, 1])
+    if root_row:
+        P5[-1] = _root_pair(partition, P5[-1, 1])
     return P5.contiguous()
 
 
@@ -136,30 +191,44 @@ def code_table(partition):
     return partition.code_clv.to(torch.float32).contiguous()
 
 
-def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int):
+def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None):
     """Run a fused op table: (clvs [n_slots, C·S, Ppad] float32, scalers
-    [n_slots, 1, Ppad] int32). Slots no row writes are left unset.
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    [n_slots, 1, Ppad] int32). Without ``out`` the slots no row writes
+    are left unset; ``out=(clvs, scalers)`` (prior buffers of those
+    shapes) is written in place, so the slots the table does not write
+    keep their values — the ``init=`` aliasing of
+    ``pallas_clv.update_partials_fused``. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
     global LAUNCHES
     if P5.device.type == "cpu":
-        return fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots)
+        return fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots, out)
     _, _, C, S, _ = P5.shape
     Ppad = tip_codes.shape[1]
-    clvs = torch.empty((n_slots, C * S, Ppad), dtype=torch.float32,
-                       device=P5.device)
-    scalers = torch.empty((n_slots, 1, Ppad), dtype=torch.int32,
-                          device=P5.device)
+    if out is None:
+        clvs = torch.empty((n_slots, C * S, Ppad), dtype=torch.float32,
+                           device=P5.device)
+        scalers = torch.empty((n_slots, 1, Ppad), dtype=torch.int32,
+                              device=P5.device)
+    else:
+        clvs, scalers = out
+        if (tuple(clvs.shape) != (n_slots, C * S, Ppad)
+                or tuple(scalers.shape) != (n_slots, 1, Ppad)):
+            raise ValueError("fused_walk: out buffers must be "
+                             f"[{n_slots}, {C * S}, {Ppad}] and "
+                             f"[{n_slots}, 1, {Ppad}]")
     _build.launch_walk("pllmod_fused_walk", idx8, P5, tip_codes, codetab,
                        clvs, scalers, n_slots)
     LAUNCHES += 1
     return clvs, scalers
 
 
-def fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots: int):
+def fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots: int,
+                     out=None):
     """Plain torch version of the fused kernel: the same row walk and
-    arithmetic (:func:`pllmod_tpu_torch.ops.clv.walk_rows_plain`), every
-    slot kept (unwritten slots are zero)."""
-    return clv_mod.walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots)
+    arithmetic (:func:`pllmod_tpu_torch.ops.clv.walk_rows_plain`);
+    unwritten slots are zero, or keep their values in ``out``."""
+    return clv_mod.walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots,
+                                   out)
 
 
 def root_from_prod_slot(partition, clvs, scalers, root_slot: int):
@@ -183,7 +252,7 @@ def loglikelihood_fused(partition, idx8, brlens, e1, e2, root_info,
                           f"(got {partition.dtype}); use schedule='scan'")
     if len(root_info) != 4:
         raise ValueError("loglikelihood_fused needs a fuse_root table")
-    P5 = pair_pmats(partition, brlens, e1, e2)
+    P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
     clvs, scalers = fused_walk(idx8, P5, partition.tip_states,
                                code_table(partition), n_slots)
     return root_from_prod_slot(partition, clvs, scalers, root_info[3])

@@ -119,7 +119,7 @@ def loglikelihood_resident(partition, idx8, brlens, e12, n_slots: int):
                           "schedule='scan'")
     e1, e2 = e12
     C, S = partition.n_cats, partition.states
-    P5 = pair_pmats(partition, brlens, e1, e2)
+    P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
     prod, rsc = resident_walk(idx8, P5, partition.tip_states,
                               code_table(partition), n_slots)
     per_cat = prod.to(partition.dtype).reshape(C, S, -1).sum(dim=1)

@@ -1,0 +1,532 @@
+"""Branch-length optimization of all edges at once from directed CLVs —
+PyTorch counterpart of ``pllmod_tpu.optimize.blo`` (single partition).
+
+The reference's iterative BLO (``pllmod_opt_optimize_branch_lengths_
+local`` + ``recomp_iterative``, pll_optimize.c:1395-1951) walks the tree
+edge by edge with a serial Newton per edge. Here, as in the JAX
+package:
+
+1. **Directed CLVs in O(n)**: one post-order and one pre-order pass give,
+   for every edge (u, v), the two CLVs facing each other across it
+   (:class:`DirectedTraversal`).
+2. **Batched sumtables** of the edges a sub-sweep updates.
+3. **Batched bracketed Newton**: those edges optimize at once, each
+   against its own sumtable (the others held at their incoming
+   lengths). Edge colors (:func:`_edge_colors`) make every sub-sweep a
+   block Gauss-Seidel step; the smoothing driver keeps the best iterate
+   and damps on overshoot.
+
+Routing of a sweep (:func:`_blo_sweep`):
+
+- float32 partition — the kernel pipeline: ``fused.pair_pmats``
+  (``root_row=False``) → ``fused.fused_walk`` over the directed table →
+  sumtables (kernel 8, :func:`pllmod_tpu_torch.ops.deriv.edge_sumtables`)
+  of the sub-sweep's edges → the per-edge Newton (kernel 10) or, with
+  ``fused_newton=False``, :func:`minimize_newton_multi` over kernel 9;
+  kernel 9 also serves ``safe=True`` and :func:`_lnl_at`. On CUDA
+  tensors a shape a kernel does not take raises; on CPU tensors the
+  wrappers run their plain versions.
+- float64 partition — the plain path: the serial engine
+  (``clv.update_partials``) over the directed ops, ``derivatives``
+  sumtables and :func:`minimize_newton_multi`.
+
+Only the sub-sweep's own edges get sumtables and Newton steps (the JAX
+package computes every edge and masks); the results of those edges are
+the same. The driver (:func:`optimize_branch_lengths`) is the JAX
+package's host loop; its one host sync a sweep is reading the sweep's
+start logL.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
+                                     TOL_BRANCH_LEN)
+from pllmod_tpu_torch.ops import clv as clv_mod
+from pllmod_tpu_torch.ops import deriv as kern
+from pllmod_tpu_torch.ops import derivatives as deriv_mod
+from pllmod_tpu_torch.ops import fused as fused_mod
+from pllmod_tpu_torch.optimize.newton import minimize_newton_multi
+
+MAX_NEWTON_ITERS = 10
+N_POLISH = 4
+# device-memory budget for the full-buffer BLO's working set (directed
+# CLVs 3(n−2) slots + per-edge sumtables ~2n rows); past it, whole-tree
+# smoothing routes to the O(n log n) bounded sweep (the JAX package's
+# budget, so that routing matches it)
+BLO_MEM_BUDGET = 8 << 30
+
+
+class DirectedTraversal:
+    """Compiled directed-CLV schedule for a tree (host-side, O(n)).
+
+    Attributes:
+      ops: int32 [3*(n_tips-2), 5] — schedule rows for every (inner node,
+        direction) CLV. Node references encode tips as ``t < n_tips`` and
+        directed slots as ``n_tips + slot``.
+      edge_ref: int32 [n_edge_slots, 2] — per edge id, the references of
+        the two CLVs facing each other across the edge (masked rows (0,0)).
+      edge_mask: bool [n_edge_slots] — live edges.
+    """
+
+    def __init__(self, tree, root_tip: int = 0):
+        n_tips = tree.n_tips
+        self.n_tips = n_tips
+        from pllmod_tpu_torch import native
+        if native.available():
+            out = native.directed_traversal(tree.edge_nodes, n_tips,
+                                            tree.n_nodes, root_tip)
+            if out is not None:
+                # native fast path (identical slot numbering)
+                ops, slot_de = out
+                en = tree.edge_nodes
+                live = en[:, 0] >= 0
+                tip0 = en[:, 0] < n_tips
+                tip1 = en[:, 1] < n_tips
+                ref0 = np.where(tip0, en[:, 0], n_tips + slot_de[:, 0])
+                ref1 = np.where(tip1, en[:, 1], n_tips + slot_de[:, 1])
+                ok = (live & (tip0 | (slot_de[:, 0] >= 0))
+                      & (tip1 | (slot_de[:, 1] >= 0)))
+                edge_ref = np.zeros((len(en), 2), np.int32)
+                edge_ref[ok, 0] = ref0[ok]
+                edge_ref[ok, 1] = ref1[ok]
+                self.ops = np.ascontiguousarray(ops)
+                self.edge_ref = edge_ref
+                self.edge_mask = np.asarray(ok)
+                self._slot_de = slot_de
+                self._en = en.copy()
+                self._slot_of = None
+                return
+        adj = tree.adjacency()
+        # root at root_tip's neighbor
+        (r, _e0), = adj[root_tip]
+        slot_of: dict[tuple[int, int], int] = {}
+        rows: list[list[int]] = []
+
+        def ref(node, toward):
+            return node if node < n_tips else n_tips + slot_of[(node, toward)]
+
+        # --- post-order: slot (u -> parent) for every inner u -------------
+        post = tree.postorder(r, avoid_edge=_e0)
+        for node, parent, pedge in post:
+            if node < n_tips:
+                continue
+            par = parent if parent != -1 else root_tip
+            kids = [(nbr, e) for nbr, e in adj[node]
+                    if nbr != par and e != (pedge if parent != -1 else _e0)]
+            assert len(kids) == 2, "tree must be binary for BLO"
+            slot = len(rows)
+            slot_of[(node, par)] = slot
+            rows.append([slot, ref(kids[0][0], node), kids[0][1],
+                         ref(kids[1][0], node), kids[1][1]])
+
+        # --- pre-order: slots (u -> child) ---------------------------------
+        stack = [(r, root_tip, _e0)]  # (node, parent, edge_to_parent)
+        while stack:
+            u, par, pe = stack.pop()
+            if u < n_tips:
+                continue
+            kids = [(nbr, e) for nbr, e in adj[u] if e != pe]
+            (c1, e1), (c2, e2) = kids
+            for (c, ec), (o, eo) in (((c1, e1), (c2, e2)),
+                                     ((c2, e2), (c1, e1))):
+                slot = len(rows)
+                slot_of[(u, c)] = slot
+                rows.append([slot, ref(par, u), pe, ref(o, u), eo])
+            stack.append((c1, u, e1))
+            stack.append((c2, u, e2))
+
+        edge_ref = np.zeros((len(tree.edge_nodes), 2), np.int32)
+        edge_mask = np.zeros(len(tree.edge_nodes), bool)
+        for e, (u, v) in enumerate(tree.edge_nodes):
+            u, v = int(u), int(v)
+            if u < 0:
+                continue
+            try:
+                edge_ref[e] = (ref(u, v), ref(v, u))
+                edge_mask[e] = True
+            except KeyError:
+                pass  # edge outside the traversed component
+        self.ops = np.asarray(rows, np.int32).reshape(-1, 5)
+        self.edge_ref = edge_ref
+        self.edge_mask = edge_mask
+        self._slot_of = slot_of
+
+    @property
+    def slot_of(self) -> dict:
+        """(node, toward-neighbor) -> directed slot (built lazily on the
+        native path)."""
+        if self._slot_of is None:
+            so = {}
+            en, sd = self._en, self._slot_de
+            for e in range(len(en)):
+                u, v = int(en[e, 0]), int(en[e, 1])
+                if u < 0:
+                    continue
+                if sd[e, 0] >= 0:
+                    so[(u, v)] = int(sd[e, 0])
+                if sd[e, 1] >= 0:
+                    so[(v, u)] = int(sd[e, 1])
+            self._slot_of = so
+        return self._slot_of
+
+
+def _edge_colors(tree, edge_mask=None):
+    """Greedy proper edge coloring (host): no two same-color edges share
+    a node, so a same-color batched Newton step is a true block
+    Gauss-Seidel step. Trees have max degree 3, so greedy uses ≤ 3-4
+    colors. Returns a list of bool [n_edge_slots] masks."""
+    adj = tree.adjacency()
+    n_edges = len(tree.edge_nodes)
+    colors: dict[int, int] = {}
+    for e, (u, v) in enumerate(tree.edge_nodes):
+        u, v = int(u), int(v)
+        if u < 0 or (edge_mask is not None and not edge_mask[e]):
+            continue
+        used = {colors.get(int(ee)) for n in (u, v) for _, ee in adj[n]
+                if int(ee) != e}
+        c = 0
+        while c in used:
+            c += 1
+        colors[e] = c
+    ncol = max(colors.values()) + 1 if colors else 1
+    masks = [np.zeros(n_edges, bool) for _ in range(ncol)]
+    for e, c in colors.items():
+        masks[c][e] = True
+    return masks
+
+
+def _edge_sumtables(partition, clvs, scalers, edge_ref, eigen):
+    """Plain-path sumtables of the edges whose facing-CLV references are
+    ``edge_ref`` [K, 2], from serial-engine buffers. Returns
+    (st [K, P, C, S], sc [K, P])."""
+    clv_p, s_p = clv_mod.gather_node_clvs(partition, clvs, scalers,
+                                          edge_ref[:, 0])
+    clv_c, s_c = clv_mod.gather_node_clvs(partition, clvs, scalers,
+                                          edge_ref[:, 1])
+    return deriv_mod.sumtable(partition, clv_p, clv_c, eigen), s_p + s_c
+
+
+def _safe_accept(t0, t_opt, l_old, l_new):
+    """Per-edge eval-and-revert of the reference's SAFE mode
+    (PLLMOD_OPT_BLO_NEWTON_SAFE, pll_optimize.c:1587-1632): an edge's
+    proposed length is kept only if the tree logL with ONLY that edge
+    changed (``l_new``, through the edge's own sumtable) does not drop
+    below ``l_old``. The tolerance absorbs the dtype's rounding at the
+    logL scale (the reference compares exactly, in double)."""
+    dtype = t0.dtype
+    l_old = l_old.to(dtype)
+    eps = 32.0 * torch.finfo(dtype).eps * (1.0 + l_old.abs())
+    return torch.where(l_new.to(dtype) >= l_old - eps, t_opt, t0)
+
+
+@dataclasses.dataclass
+class _Tables:
+    """The per-call tables of a directed traversal on the partition's
+    device: ``ops`` / ``edge_ref`` for the plain path; the fused-walk
+    table and the derivative kernels' constants for the kernel path."""
+    kernel: bool
+    ops: np.ndarray
+    edge_ref: torch.Tensor                 # long [E, 2]
+    idx8: torch.Tensor | None = None
+    e1: torch.Tensor | None = None
+    e2: torch.Tensor | None = None
+    n_slots: int = 0
+    eref6: torch.Tensor | None = None      # int32 [E, 6]
+    codetab: torch.Tensor | None = None
+    basis: torch.Tensor | None = None
+    lw: torch.Tensor | None = None
+    lnB: torch.Tensor | None = None
+
+
+def _compile_tables(partition, trav) -> _Tables:
+    dev = partition.device
+    tabs = _Tables(kernel=partition.dtype == torch.float32, ops=trav.ops,
+                   edge_ref=torch.as_tensor(trav.edge_ref, device=dev).long())
+    if tabs.kernel:
+        idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(partition,
+                                                            trav.ops)
+        tabs.idx8 = torch.as_tensor(idx8, device=dev)
+        tabs.e1 = torch.as_tensor(e1, device=dev).long()
+        tabs.e2 = torch.as_tensor(e2, device=dev).long()
+        tabs.n_slots = n_slots
+        tabs.eref6 = kern.compile_edge_refs(trav.edge_ref, trav.edge_mask,
+                                            partition.n_tips, dev)
+        tabs.codetab = fused_mod.code_table(partition)
+        tabs.basis = kern.sumtable_basis(partition)
+        tabs.lw = kern._lam_weight_rows(partition)
+        tabs.lnB = kern.invar_log_plane(partition)
+    return tabs
+
+
+def _directed_clvs(partition, tabs, brlens):
+    """The kernel path's directed CLVs: the fused walk over the directed
+    table (no root row) at ``brlens``."""
+    P5 = fused_mod.pair_pmats(partition, brlens, tabs.e1, tabs.e2,
+                              root_row=False)
+    return fused_mod.fused_walk(tabs.idx8, P5, partition.tip_states,
+                                tabs.codetab, tabs.n_slots)
+
+
+def _edge_evaluator(partition, tabs, brlens, edges):
+    """Sumtables of the edge ids ``edges`` (long [K]) at ``brlens`` and
+    their evaluator ``t [K] -> (logL, d/dt, d²/dt²)``, each edge through
+    its own sumtable: the fused walk, kernel 8 and kernel 9 on the
+    kernel path, the serial engine and the float64 formulation on the
+    plain path. Returns (evaluator, (st, sc))."""
+    if tabs.kernel:
+        clvs, scalers = _directed_clvs(partition, tabs, brlens)
+        st, sc = kern.edge_sumtables(partition, clvs, scalers,
+                                     tabs.eref6[edges], tabs.basis)
+
+        def derivs(t):
+            return kern.edge_derivatives_k(partition, st, sc, t, tabs.lw,
+                                           tabs.lnB)
+    else:
+        P = partition.prob_matrices(brlens)
+        clvs, scalers = clv_mod.update_partials(partition, P, tabs.ops)
+        eigen = partition.eigen()
+        st, sc = _edge_sumtables(partition, clvs, scalers,
+                                 tabs.edge_ref[edges], eigen)
+
+        def derivs(t):
+            return deriv_mod.edge_derivatives_batch(partition, st, sc, t,
+                                                    eigen)
+    return derivs, (st, sc)
+
+
+def _newton_edges(partition, derivs, st, sc, t0, min_brlen, max_brlen,
+                  tol, fused_newton: bool, lw=None, lnB=None, stats=None):
+    """The bracketed Newton of every edge from ``t0`` against its own
+    sumtable: kernel 10 with ``fused_newton`` (float32 sumtables ``st``,
+    ``sc``), else :func:`minimize_newton_multi` over ``derivs``. Returns
+    (t_opt, logL of each edge at ``t0``)."""
+    if fused_newton:
+        t_opt, lnl0, iters = kern.newton_edges(
+            partition, st, sc, t0, min_brlen, max_brlen, tol,
+            MAX_NEWTON_ITERS, lw, lnB)
+        if stats is not None:
+            stats["newton_iters"] += iters.sum()
+            stats["newton_edges"] += len(t0)
+        return t_opt.to(t0.dtype), lnl0
+
+    def deriv_fn(t):
+        _, df, ddf = derivs(t)
+        return df.to(t.dtype), ddf.to(t.dtype)
+
+    t_opt = minimize_newton_multi(deriv_fn, t0, min_brlen, max_brlen,
+                                  tol=tol, max_iters=MAX_NEWTON_ITERS)
+    return t_opt, derivs(t0)[0]
+
+
+def _blo_sweep(partition, tabs, edges, brlens, min_brlen, max_brlen, tol,
+               fused_newton: bool = True, safe: bool = False, stats=None):
+    """One batched BLO (sub-)sweep over the edge ids ``edges`` (long
+    [K], ascending; an edge-color class or every selected edge).
+    Returns (new brlens, logL at the incoming brlens as a 0-dim tensor,
+    read through ``edges[0]``'s sumtable)."""
+    t0 = brlens[edges]
+    derivs, (st, sc) = _edge_evaluator(partition, tabs, brlens, edges)
+    fused_newton = fused_newton and tabs.kernel
+    t_opt, lnl0_all = _newton_edges(partition, derivs, st, sc, t0,
+                                    min_brlen, max_brlen, tol, fused_newton,
+                                    tabs.lw, tabs.lnB, stats)
+    if safe:
+        # after the Newton kernel, the baseline comes through the same
+        # evaluator as l_new, so that their rounding noise is symmetric
+        l_old = derivs(t0)[0] if fused_newton else lnl0_all
+        t_opt = _safe_accept(t0, t_opt, l_old, derivs(t_opt)[0])
+    new = brlens.clone()
+    new[edges] = t_opt.to(brlens.dtype)
+    return new, lnl0_all[0].to(brlens.dtype)
+
+
+def _lnl_at(partition, tabs, brlens, edge: int):
+    """Tree logL at ``brlens`` (0-dim tensor) through the sumtable of the
+    live edge ``edge`` (kernel 9 on the kernel path)."""
+    sel = torch.as_tensor([edge], device=brlens.device)
+    derivs, _ = _edge_evaluator(partition, tabs, brlens, sel)
+    return derivs(brlens[sel])[0][0].to(brlens.dtype)
+
+
+def smooth(sweep, polish, brlens, max_sweeps: int, tolerance: float):
+    """The smoothing loop of ``pllmod_opt_optimize_branch_lengths_local``
+    (pll_optimize.c:1849-1919) over ``sweep(brlens) -> (new brlens,
+    logL at the incoming brlens)``: sweeps until the logL gain drops
+    below ``tolerance`` or ``max_sweeps`` is hit; a sweep that worsens
+    logL is retried from a half step toward the best iterate; then
+    :data:`N_POLISH` damped half-step ``polish`` sweeps from where it
+    ended settle the oscillation that simultaneous updates can leave
+    around the joint optimum. Returns (best brlens, best logL, the last
+    iterate, which no sweep has scored)."""
+    best_brlens, best_lnl = brlens, -np.inf
+    lnl_prev = None
+    for _ in range(max_sweeps):
+        new_brlens, lnl_here = sweep(brlens)
+        if lnl_here > best_lnl:
+            best_lnl, best_brlens = lnl_here, brlens
+        if lnl_prev is not None and lnl_here < lnl_prev - 1e-9:
+            # overshoot: damp toward the best iterate and retry
+            brlens = 0.5 * (best_brlens + new_brlens)
+            lnl_prev = None
+            continue
+        brlens = new_brlens
+        if lnl_prev is not None and abs(lnl_here - lnl_prev) < tolerance:
+            break
+        lnl_prev = lnl_here
+    for _ in range(N_POLISH):
+        new_brlens, lnl_here = polish(brlens)
+        if lnl_here > best_lnl:
+            best_lnl, best_brlens = lnl_here, brlens
+        brlens = 0.5 * (brlens + new_brlens)
+    return best_brlens, best_lnl, brlens
+
+
+def _bounded_blo_auto(partition, tree, mem_budget: int) -> bool:
+    """True when whole-tree smoothing should run the memory-bounded
+    sweep: a kernel-path (float32) partition whose full directed-CLV
+    buffer + sumtable working set exceeds ``mem_budget`` bytes (e.g.
+    ≥ ~800 taxa at 100k patterns)."""
+    if partition.dtype != torch.float32 or tree.n_tips < 8:
+        return False
+    n = tree.n_tips
+    cs = partition.n_cats * partition.states
+    est = (3 * (n - 2) + 2 * (2 * n - 3)) * cs \
+        * partition.n_patterns_padded * 4
+    return est > mem_budget
+
+
+def _edges_within_radius(tree, edge: int, radius: int):
+    """Edge ids within BFS distance ``radius`` of ``edge``'s endpoints
+    (the reference's local-BLO neighborhood, pll_optimize.c:1646-1682)."""
+    adj = tree.adjacency()
+    u, v = (int(x) for x in tree.edge_nodes[edge])
+    seen_edges = {edge}
+    frontier = [(u, 0), (v, 0)]
+    visited = {u, v}
+    while frontier:
+        node, d = frontier.pop()
+        if d >= radius:
+            continue
+        for nbr, e in adj[node]:
+            seen_edges.add(int(e))
+            if nbr not in visited:
+                visited.add(nbr)
+                frontier.append((nbr, d + 1))
+    return sorted(seen_edges)
+
+
+def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
+                            tolerance: float = 1e-4,
+                            min_brlen: float = MIN_BRANCH_LEN,
+                            max_brlen: float = MAX_BRANCH_LEN,
+                            newton_tol: float = TOL_BRANCH_LEN,
+                            write_back: bool = True,
+                            edges=None, radius: int | None = None,
+                            around_edge: int | None = None,
+                            colored: bool = True, safe: bool = False,
+                            fused_newton: bool = True,
+                            mem_budget: int = BLO_MEM_BUDGET,
+                            stats: dict | None = None):
+    """Optimize the branch lengths of ``tree`` under ``partition``, on
+    the partition's device.
+
+    Driver semantics mirror ``pllmod_opt_optimize_branch_lengths_local``
+    (smoothing loop, acceptance threshold, SAFE fallback): sweeps repeat
+    until the logL gain drops below ``tolerance`` or ``max_sweeps`` is
+    hit; a sweep that worsens logL is retried with half steps toward the
+    best iterate; a few damped half-step polish sweeps follow, and the
+    best iterate always wins.
+
+    - ``colored=True``: each sweep runs as 3-4 edge-color sub-sweeps
+      (block Gauss-Seidel); ``False``: plain Jacobi sweeps.
+    - ``safe=True``: the reference's per-edge SAFE revert inside every
+      sweep (:func:`_safe_accept`).
+    - ``edges`` (edge ids) or ``around_edge`` + ``radius``: the
+      reference's LOCAL mode; only that subset moves.
+    - ``fused_newton``: float32 partitions run the per-edge Newton
+      kernel (kernel 10); ``False`` runs :func:`minimize_newton_multi`
+      over the derivative kernel (kernel 9).
+    - ``mem_budget``: bytes; whole-tree smoothing of a float32 partition
+      whose directed buffers would exceed it runs
+      :func:`~pllmod_tpu_torch.optimize.blo_bounded.optimize_branch_lengths_bounded`.
+    - ``stats``: optional dict, filled with ``sweeps``, ``sub_sweeps``
+      and (kernel 10) ``newton_iters`` / ``newton_edges``.
+
+    Returns (brlens [n_edge_slots] tensor, logL float) and writes the
+    lengths back into ``tree`` unless ``write_back=False``.
+    """
+    if partition.eigen_lam is None:
+        partition = partition.cache_eigen()
+    if (edges is None and around_edge is None
+            and _bounded_blo_auto(partition, tree, mem_budget)):
+        from pllmod_tpu_torch.optimize.blo_bounded import \
+            optimize_branch_lengths_bounded
+        return optimize_branch_lengths_bounded(
+            partition, tree, max_sweeps=max_sweeps, tolerance=tolerance,
+            min_brlen=min_brlen, max_brlen=max_brlen,
+            newton_tol=newton_tol, write_back=write_back,
+            colored=colored, fused_newton=fused_newton)
+    trav = DirectedTraversal(tree)
+    tabs = _compile_tables(partition, trav)
+    mask_np = trav.edge_mask.copy()
+    if around_edge is not None:
+        edges = _edges_within_radius(tree, around_edge,
+                                     radius if radius is not None else 1)
+    if edges is not None:
+        sel = np.zeros_like(mask_np)
+        sel[np.asarray(list(edges), int)] = True
+        mask_np &= sel
+    dev = partition.device
+
+    def ids(mask):
+        return torch.as_tensor(np.nonzero(mask)[0], device=dev)
+
+    # color classes emptied by an edge subset are dropped
+    masks = ([cm for m in _edge_colors(tree, mask_np)
+              if (cm := m & mask_np).any()] if colored else []) or [mask_np]
+    sweep_sets = [ids(m) for m in masks]
+    all_edges = ids(mask_np)
+    first_edge = int(np.nonzero(mask_np)[0][0])
+    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
+                             dtype=partition.dtype, device=dev)
+    if stats is not None:
+        stats.update(sweeps=0, sub_sweeps=0, newton_edges=0,
+                     newton_iters=torch.zeros((), dtype=torch.int64,
+                                              device=dev))
+
+    def sub_sweep(brl, sel):
+        if stats is not None:
+            stats["sub_sweeps"] += 1
+        return _blo_sweep(partition, tabs, sel, brl, min_brlen, max_brlen,
+                          newton_tol, fused_newton=fused_newton, safe=safe,
+                          stats=stats)
+
+    def sweep(brl):
+        if stats is not None:
+            stats["sweeps"] += 1
+        lnl_start = None
+        for sel in sweep_sets:
+            brl, lnl_sub = sub_sweep(brl, sel)
+            if lnl_start is None:
+                lnl_start = float(lnl_sub)   # logL at sweep-START brl
+        return brl, lnl_start
+
+    def polish(brl):
+        new, lnl = sub_sweep(brl, all_edges)
+        return new, float(lnl)
+
+    best_brlens, best_lnl, brlens = smooth(sweep, polish, brlens,
+                                           max_sweeps, tolerance)
+    final_lnl = float(_lnl_at(partition, tabs, brlens, first_edge))
+    if final_lnl >= best_lnl:
+        best_lnl, best_brlens = final_lnl, brlens
+    if stats is not None:
+        stats["newton_iters"] = int(stats["newton_iters"])
+    if write_back:
+        tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+    return best_brlens, best_lnl

@@ -26,6 +26,7 @@ from tests.test_reference_parity import (ALPHA, BRLENS, FREQS4,
                                          LOGL_INITIAL, SUBST, TIP1, TIP2,
                                          TIP3, BRLENS5_OPT)
 from tests.torch_cases import make_case, rel_err, to_torch, to_torch_tree
+from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 F32_RTOL = 1e-6
 F64_RTOL = 1e-10

@@ -14,6 +14,7 @@ from pllmod_tpu.ops import engine as jax_engine
 from pllmod_tpu.ops import pallas_clv
 from pllmod_tpu_torch.ops import fused
 from tests.torch_cases import lengths, make_case, rel_err
+from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 LOGL_RTOL = 1e-6
 CLV_RTOL = 1e-5

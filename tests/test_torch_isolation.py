@@ -45,6 +45,9 @@ def test_import_loads_no_jax():
             "before = set(sys.modules)\n"
             "import pllmod_tpu_torch, pllmod_tpu_torch.flagship\n"
             "import pllmod_tpu_torch.convert, pllmod_tpu_torch.ops.engine\n"
+            "import pllmod_tpu_torch.ops.deriv\n"
+            "import pllmod_tpu_torch.optimize.blo\n"
+            "import pllmod_tpu_torch.optimize.blo_bounded\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
             "print(sorted(new & %r))\n" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -77,6 +80,17 @@ def test_convert_default_device_raises_without_cuda(no_cuda):
         convert.partition_from_arrays(arrays, meta)
     with pytest.raises(common.PllModError):
         part.to("cuda")
+
+
+def test_blo_default_device_raises_without_cuda(no_cuda):
+    """The BLO runs where its partition lies: a partition asks for the
+    card by default, and a CPU one is the caller's choice."""
+    from pllmod_tpu_torch.optimize import blo
+    with pytest.raises(common.PllModError):
+        part, tree = flagship.example(6, 32)
+    part, tree = flagship.example(6, 32, device="cpu")
+    _, lnl = blo.optimize_branch_lengths(part, tree, max_sweeps=1)
+    assert lnl < 0
 
 
 def test_kernel_launch_rejects_cpu_tensors():

@@ -20,6 +20,7 @@ from tests.test_reference_parity import (ALPHA, BRLENS, FREQS4,
                                          PMAT_GOLDEN_TEXT, SUBST,
                                          _parse_pmat)
 from tests.torch_cases import make_case, to_torch
+from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 FIELDS = ("tip_states", "code_clv", "pattern_weights", "inv_indicator",
           "subst_rates", "freqs", "rate_cats", "rate_weights", "prop_invar",
@@ -65,10 +66,7 @@ def test_create_partition_matches_jax(kind, compress):
 @pytest.mark.parametrize("mode", [GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN])
 @pytest.mark.parametrize("alpha,rtol", [
     (0.05, 1e-12), (0.3, 1e-12), (ALPHA, 1e-12), (2.5, 1e-12), (10.0, 1e-12),
-    # above shape 20 torch.special.gammainc switches to an asymptotic
-    # series accurate to ~1e-9 (scipy and JAX: ~1e-15), which moves the
-    # Newton-solved quantiles by ~2e-11 relative
-    (40.0, 1e-10)])
+    (40.0, 1e-12)])
 def test_gamma_cats_match_jax(alpha, rtol, mode):
     want = np.asarray(jax_gamma.compute_gamma_cats(
         jnp.asarray(alpha, jnp.float64), 4, mode))
@@ -77,6 +75,20 @@ def test_gamma_cats_match_jax(alpha, rtol, mode):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
     np.testing.assert_allclose(gamma.compute_gamma_cats_host(alpha, 4, mode),
                                want, rtol=1e-12, atol=0)
+
+
+def test_gammainc_matches_scipy():
+    """The port's regularized lower incomplete gamma (series below
+    a + 1, continued fraction above) against scipy, over shapes 1e-2 to
+    1e3 on both sides of the switch."""
+    from scipy.special import gammainc as sp_gammainc
+    rng = np.random.default_rng(4)
+    a = 10 ** rng.uniform(-2, 3, 400)
+    x = a * 10 ** rng.uniform(-2, 0.7, 400)
+    x[:5] = 0.0
+    got = gamma.gammainc(torch.as_tensor(a), torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, sp_gammainc(a, x), rtol=1e-11,
+                               atol=1e-300)
 
 
 def test_with_alpha_matches_jax():

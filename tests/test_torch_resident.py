@@ -14,6 +14,7 @@ from pllmod_tpu.ops import pallas_resident
 from pllmod_tpu_torch.common import PllModError
 from pllmod_tpu_torch.ops import fused, resident
 from tests.torch_cases import lengths, make_case, rel_err
+from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
 LOGL_RTOL = 1e-6
 
@@ -71,7 +72,8 @@ def test_resident_walk_outputs():
     its total scaler row [1, Ppad] int32."""
     case = make_case(31, 10, 128)
     idx8, e1, e2, ns = resident.compile_resident(case.tpart, case.tree)
-    P5 = fused.pair_pmats(case.tpart, lengths(case.tree), e1, e2)
+    P5 = fused.pair_pmats(case.tpart, lengths(case.tree), e1, e2,
+                          root_row=True)
     prod, sc = resident.resident_walk(idx8, P5, case.tpart.tip_states,
                                       fused.code_table(case.tpart), ns)
     assert prod.shape == (16, case.tpart.n_patterns_padded)

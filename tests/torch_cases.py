@@ -9,6 +9,7 @@ import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from pllmod_tpu.ops import charmap as jax_charmap
@@ -17,6 +18,20 @@ from pllmod_tpu_torch.convert import (ARRAY_FIELDS, EIGEN_FIELDS,
                                       META_FIELDS, partition_from_arrays)
 from pllmod_tpu_torch.tree.topology import Tree as TorchTree
 from tests import reference_impl as ref
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's torch ops on one intra-op thread (autouse in
+    every module that imports it). The suite runs in several worker
+    processes, and torch's default of one OpenMP thread a core in each
+    oversubscribes the cores, so that every parallel op spins: six
+    concurrent runs of ``test_blo_matches_jax`` took 215 s each, against
+    11 s each on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_torch(jpart, device="cpu"):
@@ -45,11 +60,43 @@ class Case:
     freqs: np.ndarray
 
 
+def simulate(rng, tree, n_sites, rates, freqs, symbols, alpha=0.7, cats=4):
+    """Sequences evolved along ``tree`` under (rates, freqs)+Γ, state i
+    written as ``symbols[i]``: tree-signal data, whose likelihood has
+    well-conditioned optima (random sequences have flat, saturated ones
+    that equally correct optimizers resolve differently)."""
+    from scipy.linalg import expm
+    Q = ref.build_q(rates, freqs)
+    cat_rates = ref.gamma_cats_mean(alpha, cats)
+    site_cat = rng.integers(0, cats, n_sites)
+    adj = tree.adjacency()
+    seqs = {tree.n_tips: rng.choice(len(freqs), n_sites, p=freqs)}
+    stack = [(tree.n_tips, -1)]
+    while stack:
+        node, parent = stack.pop()
+        for nbr, e in adj[node]:
+            if nbr == parent:
+                continue
+            cum = np.stack([expm(Q * tree.lengths[e] * r)
+                            for r in cat_rates]).cumsum(-1)
+            rows = cum[site_cat, seqs[node]]                # [sites, S]
+            seqs[nbr] = np.minimum((rng.random((n_sites, 1)) > rows)
+                                   .sum(1), len(freqs) - 1)
+            stack.append((nbr, node))
+    chars = np.array(list(symbols))
+    return ["".join(chars[seqs[t]]) for t in range(tree.n_tips)]
+
+
 def make_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
-              dtype=jnp.float32, cache=True, charmap=None):
+              dtype=jnp.float32, cache=True, charmap=None,
+              symbols=None):
+    """A case of random sequences, or with ``symbols`` (one character per
+    state) sequences simulated along the tree (:func:`simulate`)."""
     rng = np.random.default_rng(seed)
     jtree = ref.random_binary_tree(rng, n_taxa)
-    if states == 20:
+    if symbols is not None:
+        seqs = None
+    elif states == 20:
         seqs = ref.random_sequences(rng, n_taxa, n_sites,
                                     alphabet=jax_charmap.AA_ORDER,
                                     gap_frac=0.0)
@@ -60,6 +107,8 @@ def make_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
         seqs = ref.random_sequences(rng, n_taxa, n_sites)
     rates = rng.uniform(0.5, 2.0, states * (states - 1) // 2)
     freqs = rng.dirichlet([8] * states)
+    if symbols is not None:
+        seqs = simulate(rng, jtree, n_sites, rates, freqs, symbols)
 
     def build(dt):
         p = jax_create(seqs, states=states, n_rate_cats=cats, alpha=0.7,
