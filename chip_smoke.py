@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile]
 
 It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
-(one ``nvcc`` a source, all at once), holds each kernel against its
-plain torch version on the card, and drives two paths, each with the
+(one ``nvcc`` a source, all four at once), holds each kernel against its
+plain torch version on the card, and drives three paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 1. the full-tree logL (``engine.tree_loglikelihood``, ``schedule=
@@ -15,20 +15,27 @@ kernels' launch counts set to 0 just before it and read just after:
 2. branch-length optimization (``blo.optimize_branch_lengths``) at the
    flagship DNA cell, checked against the float64 serial engine at the
    returned lengths; then the same call with ``fused_newton=False``, on
-   the protein cell, and the memory-bounded sweep against it.
+   the protein cell, and the memory-bounded sweep against it;
+3. the level and grouped schedules at the flagship DNA and protein
+   cells: ``schedule="pallas"`` (kernels 3 and 4 each level), the
+   ``level_update`` driver (kernel 3 twice a level), the
+   ``level_update_combined`` driver (kernel 5), the grouped walk
+   (kernel 7) and ``schedule="levels"`` (plain torch), each checked
+   against the float64 serial engine.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
-rule). It prints the flagship metric, one ``{"blo": [...]}``, one
-``{"routing": [...]}`` and one ``{"kernels": [...]}`` line, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Any
-failed check raises and the script exits non-zero; without CUDA it
-exits 1 and prints no result.
+rule). It prints the flagship metric with every timed schedule's
+ms/eval, one ``{"blo": [...]}``, one ``{"routing": [...]}`` and one
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Any failed check raises and the
+script exits non-zero; without CUDA it exits 1 and prints no result.
 
-``--profile`` also traces the main path's timed loop of each cell and
-one flagship BLO call with ``torch.profiler`` and prints where the
-device time of one evaluation or call goes (device kernels only) and the
-device's busy share of the window.
+``--profile`` also traces the main path's timed loop of each cell, the
+flagship's ``pallas`` and grouped loops and one flagship BLO call with
+``torch.profiler`` and prints where the device time of one evaluation
+or call goes (device kernels only) and the device's busy share of the
+window.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ import torch
 from pllmod_tpu_torch import flagship
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
-from pllmod_tpu_torch.ops import _build, deriv, engine, fused, resident
+from pllmod_tpu_torch.ops import (_build, deriv, engine, fused, grouped,
+                                  levels, resident)
 from pllmod_tpu_torch.optimize import blo, blo_bounded
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor flop/s
@@ -70,6 +78,7 @@ CELLS = [("flagship DNA", FLAGSHIP, "resident"),
          ("protein", PROTEIN, "resident"),
          ("64-state", WIDE, "fused")]
 TIMED_EVALS = 100
+SPIN_HZ = 1.98e9          # H100 SXM boost clock: cycles a second of a spin
 # the routing sweep: (states, categories) at two sizes, (taxa, patterns)
 SWEEP_SHAPES = [(4, 1), (4, 4), (5, 4), (10, 4), (16, 4), (20, 4), (32, 4),
                 (64, 4)]
@@ -91,6 +100,30 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls where the host
+    issues ``fn``'s launches more slowly than the device runs them (a
+    loop of short per-level kernels): the stream first runs a spin kernel
+    three times as long as the host takes to issue the calls, so that
+    every launch is queued before the device reaches the start event and
+    no host gap is timed."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * iters * host_s * SPIN_HZ) + 1)
     start.record()
     for _ in range(iters):
         fn()
@@ -318,6 +351,263 @@ def check_deriv(part, tree, label):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the level and grouped schedules: kernels 3, 4, 5 (csrc/levels.cu) and 7
+# (csrc/grouped.cu)
+# ---------------------------------------------------------------------------
+def _child_cost(part, rows, side: int, n_codes: int):
+    """(bytes read, flops) of the side-``side`` children of level rows
+    ``rows`` (numpy [W, 6]): an inner child's CLV and scaler rows and
+    2·C·S·S flops a pattern; a tip child's code row and, as in
+    ``walk_flops``, a lookup of P·codetab (n_codes columns a row)."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    tip = rows[:, 2 + side] != 0
+    n_in, n_tip = int((~tip).sum()), int(tip.sum())
+    return ((n_in * (C * S + 1) + n_tip) * Ppad * 4,
+            2 * C * S * S * (n_in * Ppad + n_tip * n_codes))
+
+
+def level_bounds(part, idx, slices, n_codes: int):
+    """Per kernel, its mean bound over the levels' launches (ms) and what
+    sets the larger share of it: inputs read once (children, rows,
+    matrices, code table, and kernel 4's left and s1), outputs written
+    once; the product, maximum and scale cost C·S flops each a
+    pattern."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    rows_all = idx.cpu().numpy()
+    per = {"child_pass": [], "child2_pass": [], "level_combined": []}
+    for s in slices:
+        r = rows_all[s]
+        W = len(r)
+        fixed = W * 6 * 4 + W * C * S * S * 4 + n_codes * S * 4
+        blk = W * (C * S + 1) * Ppad * 4           # CLV + scaler rows
+        b0, f0 = _child_cost(part, r, 0, n_codes)
+        b1, f1 = _child_cost(part, r, 1, n_codes)
+        comb = 3 * C * S * Ppad * W
+        per["child_pass"].append((b0 + fixed + blk, f0))
+        per["child2_pass"].append((b1 + fixed + 2 * blk, f1 + comb))
+        per["level_combined"].append(
+            (b0 + b1 + fixed + W * C * S * S * 4 + blk, f0 + f1 + comb))
+    out = {}
+    for k, v in per.items():
+        ms = sum(bound(b, f)[0] for b, f in v) / len(v)
+        out[k] = (ms, bound(sum(b for b, _ in v), sum(f for _, f in v))[1])
+    return out
+
+
+def check_levels(part, tree, label):
+    """Kernels 3, 4 and 5 against their plain versions on every level of
+    the cell's LevelSchedule, bit for bit: kernel 3 on both children of
+    each level (on the plain walk's buffers), kernels 3+4 and kernel 5 as
+    drivers of the whole schedule (every level's block and scaler rows
+    against the plain walk), and kernels 4 and 5 once more when timed in
+    place. Times per launch are means over the levels. Returns the three
+    kernel rows."""
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+    tables = levels.level_tables(part, lvls)
+    idx, e1, e2 = tables
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=part.device)
+    P = part.prob_matrices(brl)
+    P1, P2 = P[e1], P[e2]
+    tc, tab = part.tip_states, fused.code_table(part)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    sl = [slice(o, o + len(lv)) for lv, o in zip(lvls, offsets)]
+    L = len(sl)
+    ref = (torch.zeros((ns, C * S, Ppad), device=part.device),
+           torch.zeros((ns, 1, Ppad), dtype=torch.int32, device=part.device))
+    lefts = []
+
+    def walk_plain():
+        lefts.clear()
+        for s, off in zip(sl, offsets):
+            left, s1 = levels.child_pass_plain(idx[s], 0, *ref, tc, tab, P1[s])
+            levels.child2_pass_plain(idx[s], *ref, tc, tab, P2[s], left, s1,
+                                     off)
+            lefts.append((left, s1))
+
+    walk_plain()
+    want = [t.clone() for t in ref]
+    err = 0.0
+
+    def equal(got, ref_t, what):
+        nonlocal err
+        for g, w in zip(got, ref_t):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what} ({label}) differs from its "
+                                     "plain version")
+            if g.is_floating_point():
+                err = max(err, float((g - w).abs().max()))
+
+    for step in ("child2", "combined"):
+        equal(levels.update_partials_pallas(part, P, lvls, offsets, ns, step,
+                                            tables), want,
+              f"the {step} driver's buffers")
+    for s in sl:
+        for side, Pm in ((0, P1[s]), (1, P2[s])):
+            equal(levels.child_pass(idx[s], side, *ref, tc, tab, Pm),
+                  levels.child_pass_plain(idx[s], side, *ref, tc, tab, Pm),
+                  f"child_pass side {side}")
+
+    def k3():
+        for s in sl:
+            levels.child_pass(idx[s], 0, *ref, tc, tab, P1[s])
+
+    def k4():
+        for s, off, (left, s1) in zip(sl, offsets, lefts):
+            levels.child2_pass(idx[s], *ref, tc, tab, P2[s], left, s1, off)
+
+    def k5():
+        for s, off in zip(sl, offsets):
+            levels.level_update_combined(*ref, idx[s], tc, tab, P1[s], P2[s],
+                                         off)
+
+    def p3():
+        for s in sl:
+            levels.child_pass_plain(idx[s], 0, *ref, tc, tab, P1[s])
+
+    def p5():
+        for s, off in zip(sl, offsets):
+            levels.level_combined_plain(idx[s], *ref, tc, tab, P1[s], P2[s],
+                                        off)
+
+    # bmm of the gathered child block: the one library call that computes
+    # kernel 3's P·child (its inputs gathered outside the timed call)
+    xs = [levels.gather_children(idx[s], 0, *ref, tc, tab, C)[0]
+          .reshape(-1, S, Ppad).contiguous() for s in sl]
+    ms_ = [P1[s].reshape(-1, S, S).contiguous() for s in sl]
+    bounds = level_bounds(part, idx, sl, tab.shape[0])
+    # device time a launch (the per-level launches issue slower than the
+    # kernels run); the plain versions are timed as issued
+    times = {"child_pass": (device_ms(k3, 10) / L, time_ms(p3, 1) / L,
+                            device_ms(lambda: [torch.bmm(m, x) for m, x
+                                               in zip(ms_, xs)], 10) / L),
+             "child2_pass": (device_ms(k4, 10) / L,
+                             time_ms(walk_plain, 1) / L, None),
+             "level_combined": (device_ms(k5, 10) / L, time_ms(p5, 1) / L,
+                                None)}
+    equal(ref, want, "kernels 4 and 5 timed in place")
+    del xs, ms_
+    rows = []
+    for name, line in (("child_pass", 113), ("child2_pass", 195),
+                       ("level_combined", 282)):
+        ms, plain_ms, lib_ms = times[name]
+        b_ms, b_by = bounds[name]
+        print(f"{name} ({label}): {ms:.4f} ms/launch (mean of {L} levels), "
+              f"plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"library {lib_ms}, bit for bit")
+        rows.append(dict(name=name, route="cuda",
+                         source="pllmod_tpu_torch/csrc/levels.cu",
+                         replaces=f"pllmod_tpu/ops/pallas_clv.py:{line}",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         levels=L))
+    return rows
+
+
+def check_grouped(part, tree, label):
+    """Kernel 7 against its plain version on every position a member
+    writes, bit for bit; time per launch. Returns its kernel row."""
+    sched = grouped.GroupedSchedule(part, tree)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=part.device)
+    PQ = grouped.grouped_pmats(part, brl, sched.e_sides)
+    tab = fused.code_table(part)
+    args = (sched.side_meta, sched.dst_meta, PQ, part.tip_states, tab)
+    want_b, want_s = grouped.grouped_walk_plain(*args)
+    plain_ms = time_ms(lambda: grouped.grouped_walk_plain(*args), 1)
+    bufs, sbufs = grouped.grouped_walk(*args)
+    dst = sched.dst_meta.long()
+    dg, dq = dst[..., 0], dst[..., 1]
+    if not (torch.equal(bufs[dg, dq], want_b[dg, dq])
+            and torch.equal(sbufs[dg, dq], want_s[dg, dq])):
+        raise AssertionError(f"grouped_walk ({label}) differs from its plain "
+                             "version")
+    err = float((bufs[dg, dq] - want_b[dg, dq]).abs().max())
+    ms = device_ms(lambda: grouped.grouped_walk(*args), 10)
+    # work of the real members (a dummy writes a trash position of the
+    # landing buffer, q >= 2): tip children read their code rows, inner
+    # children are the kernel's own outputs
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    d = sched.dst_meta.cpu().numpy()
+    side = sched.side_meta.cpu().numpy()
+    real = ~((d[..., 0] == sched.nG) & (d[..., 1] >= 2))       # [nG, G]
+    tips = np.concatenate([side[:, :sched.G, 0], side[:, sched.G:, 0]],
+                          axis=1)[np.concatenate([real, real], axis=1)] != 0
+    n_real, n_tip = int(real.sum()), int(tips.sum())
+    n_in = 2 * n_real - n_tip
+    in_bytes = nbytes(sched.side_meta, sched.dst_meta, PQ, tab) + \
+        n_tip * Ppad * 4
+    out_bytes = n_real * (C * S + 1) * Ppad * 4
+    flops = (2 * C * S * S * (n_in * Ppad + n_tip * tab.shape[0])
+             + 3 * C * S * Ppad * n_real)
+    b_ms, b_by = bound(in_bytes + out_bytes, flops)
+    print(f"grouped_walk ({label}): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), G {sched.G}, "
+          f"{sched.nG} groups, {n_real} members, bit for bit")
+    return dict(name="grouped_walk", route="cuda",
+                source="pllmod_tpu_torch/csrc/grouped.cu",
+                replaces="pllmod_tpu/ops/pallas_grouped.py:234",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, G=sched.G, groups=sched.nG)
+
+
+# the paths of phase 3 and the kernels each must launch
+LEVEL_PATHS = {"pallas": ("child_pass", "child2_pass"),
+               "level_update": ("child_pass",),
+               "level_update_combined": ("level_combined",),
+               "grouped": ("grouped_walk",), "levels": ()}
+
+
+def _level_counts():
+    return dict(levels.LAUNCHES, grouped_walk=grouped.LAUNCHES)
+
+
+def run_level_paths(cells):
+    """Phase 3: every path of LEVEL_PATHS at each (label, part, tree,
+    part64) of ``cells``, its logL against the float64 serial engine, with
+    every count set to 0 just before and read just after. Returns
+    {kernel: {path: launches}}."""
+    for k in levels.LAUNCHES:
+        levels.LAUNCHES[k] = 0
+    grouped.LAUNCHES = 0
+    by_kernel = {k: {} for k in _level_counts()}
+    for label, part, tr, part64 in cells:
+        l64 = float(engine.tree_loglikelihood(part64, tr, schedule="scan"))
+        lvls, offsets, ri, ns = engine.compile_schedule(part, tr)
+        brl = torch.as_tensor(tr.lengths, dtype=torch.float32,
+                              device=part.device)
+        runs = {
+            "pallas": lambda: engine.tree_loglikelihood(part, tr,
+                                                        schedule="pallas"),
+            "level_update": lambda: levels.loglikelihood_pallas(
+                part, lvls, brl, offsets, ri, ns, step="split"),
+            "level_update_combined": lambda: levels.loglikelihood_pallas(
+                part, lvls, brl, offsets, ri, ns, step="combined"),
+            "grouped": lambda: grouped.loglikelihood_grouped(
+                part, brl, grouped.GroupedSchedule(part, tr)),
+            "levels": lambda: engine.tree_loglikelihood(part, tr,
+                                                        schedule="levels")}
+        for path, fn in runs.items():
+            before = _level_counts()
+            lnl = float(fn())
+            rel_close(lnl, l64, LOGL_RTOL, f"{path} logL ({label}) vs "
+                      "float64 scan")
+            delta = {k: n - before[k] for k, n in _level_counts().items()}
+            missed = [k for k in LEVEL_PATHS[path] if delta[k] == 0]
+            if missed:
+                raise AssertionError(f"{path} ({label}) did not launch "
+                                     f"{missed}")
+            for k, n in delta.items():
+                if n:
+                    by_kernel[k][path] = by_kernel[k].get(path, 0) + n
+    counts = _level_counts()
+    print(f"level paths launches: {counts}, by path {by_kernel}")
+    if not all(counts.values()):
+        raise AssertionError(f"the level paths missed kernels: {counts}")
+    return by_kernel
+
+
 def run_blo(part, tree, part64, label, **kw):
     """One ``blo.optimize_branch_lengths`` call on a copy of ``tree``:
     ms by CUDA events and by the host clock, sweeps, sub-sweeps, mean
@@ -384,8 +674,16 @@ def sub_sweep_split(part, tree, label):
 def eval_loop(part, tree, schedule="auto"):
     """The main path's compiled evaluator over TIMED_EVALS varying branch
     lengths: returns ``loop()``, which issues them all and returns the
-    summed logL (a device tensor)."""
-    ev = engine.compile_fast_eval(part, tree, schedule=schedule)
+    summed logL (a device tensor). ``schedule="grouped"`` evaluates
+    through ``grouped.loglikelihood_grouped`` on a schedule compiled
+    once."""
+    if schedule == "grouped":
+        sched = grouped.GroupedSchedule(part, tree)
+
+        def ev(p, brl):
+            return grouped.loglikelihood_grouped(p, brl, sched)
+    else:
+        ev = engine.compile_fast_eval(part, tree, schedule=schedule)
     base = torch.as_tensor(tree.lengths, dtype=torch.float32,
                            device=part.device)
     scales = 1.0 + 1e-4 * torch.arange(TIMED_EVALS, device=part.device)
@@ -511,6 +809,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     gpu = gpu_line()
     print(gpu)
     name, power = (s.strip() for s in gpu.split(",", 1))
@@ -605,13 +904,38 @@ def main(argv=None) -> int:
     blo_rows.append(dict(cell="flagship DNA", bounded=True, lnl=l_b,
                          ms_host=bounded_ms, gap_to_full=gap))
 
-    # ---- the other schedule of each cell, forced, end to end (the
+    # ---- the level and grouped schedules at the flagship and protein
+    # cells: kernels 3, 4, 5 and 7 against their plain versions, then
+    # their paths with every count set to 0
+    level_rows = {}
+    for label, (part, tr) in (("flagship DNA", (dna, tree)),
+                              ("protein", (prot, ptree))):
+        level_rows[label] = check_levels(part, tr, label) + [
+            check_grouped(part, tr, label)]
+    by_kernel = run_level_paths([("flagship DNA", dna, tree, dna64),
+                                 ("protein", prot, ptree, prot64)])
+    for row, prow in zip(*level_rows.values()):
+        row["launches"] = sum(by_kernel[row["name"]].values())
+        row["launches_by_path"] = by_kernel[row["name"]]
+        row["protein"] = {k: prow[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "max_abs_err")}
+
+    # ---- the other schedules of each cell, forced, end to end (the
     # 64-state cell's resident slots do not fit)
-    timed_main_path(dna, tree, "flagship DNA", schedule="fused")
-    timed_main_path(prot, ptree, "protein", schedule="fused")
+    ms_by_schedule = {}
+    for label, (part, tr) in (("flagship DNA", (dna, tree)),
+                              ("protein", (prot, ptree))):
+        ms_by_schedule[label] = {
+            sched: dict(zip(("ms", "host_issue_ms"),
+                            timed_main_path(part, tr, label, sched)))
+            for sched in ("fused", "pallas", "levels", "grouped")}
     if args.profile:
         for label, (part, tr, _, _) in cells.items():
             profile_window(label, eval_loop(part, tr), TIMED_EVALS)
+        for sched in ("pallas", "grouped"):
+            profile_window(f"flagship DNA, {sched}",
+                           eval_loop(dna, tree, sched), TIMED_EVALS)
         profile_window("BLO, flagship DNA",
                        lambda: blo.optimize_branch_lengths(dna, tree.copy()),
                        1)
@@ -623,11 +947,14 @@ def main(argv=None) -> int:
     rate = n_inner * dna.n_patterns_padded / (ms["flagship DNA"] * 1e-3)
     print(json.dumps({"metric": "clv_pattern_node_updates_per_s",
                       "value": rate, "unit": "updates/s",
-                      "ms_per_eval": ms, "gpu": name,
-                      "power_limit": power}))
+                      "ms_per_eval": ms,
+                      "ms_per_eval_by_schedule": ms_by_schedule,
+                      "gpu": name, "power_limit": power}))
     print(json.dumps({"blo": blo_rows, "sub_sweeps": split}))
     print(json.dumps({"routing": routing}))
-    print(json.dumps({"kernels": [res_row, fused_row, *deriv_rows]}))
+    print(json.dumps({"kernels": [res_row, fused_row, *deriv_rows,
+                                  *level_rows["flagship DNA"]]}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,285 @@
+// Per-level pruning kernels for Hopper (sm_90a): one level of a
+// LevelSchedule a launch, in the C*S x P layout clvs [n_slots, C*S, Ppad] /
+// scalers [n_slots, Ppad]. A level's rows are [W, 6] int32 (slot1, slot2,
+// is_tip1, is_tip2, tip1, tip2), its matrices [W, C, S, S] per child.
+//
+//  * pllmod_child_pass replaces the TPU kernel
+//    pllmod_tpu/ops/pallas_clv.py::_make_child_kernel (call in
+//    _child_pass): out[w] = P[w] x child(w) for one child (side 0 or 1) of
+//    every row w, [W, C*S, Ppad], and the child's scaler row (0 for a tip).
+//  * pllmod_child2_pass replaces pallas_clv.py::_make_child2_kernel: the
+//    second child times its matrix, times `left` (the side-0 pass's
+//    output), the exact power-of-two rescale and the cumulative scaler
+//    s1 + s2 + e, written straight into slots [off, off + W) of the
+//    buffers. The JAX dynamic_update_slice has no counterpart: a level's
+//    children live in earlier levels, so no launch reads a slot it writes.
+//  * pllmod_level_combined replaces pallas_clv.py::_make_combined_kernel:
+//    both children, product and rescale in one launch, written in place
+//    the same way. The TPU kernel's full-buffer copy (a workaround for
+//    Mosaic's alias analysis) has no counterpart.
+//
+// Design. Grid (pattern tile, row): a CTA owns row w of the level and T
+// pattern columns; thread (c, p) owns category c of pattern p. It reads
+// the S values of its child(ren) into registers (coalesced across p),
+// applies the category's S x S matrix row by row and, in the two
+// combining kernels, multiplies, exchanges its category maximum through
+// shared memory and rescales. Tip children are expanded from int32 tip
+// codes through the code -> CLV table, never from expanded tip planes.
+// The row's matrices and the code table are staged in shared memory when
+// they fit (a template flag), else read from device memory, where they
+// stay in L1/L2.
+//
+// Exactness: as csrc/pruning.cu, products and sums are rounded separately
+// (__fmul_rn / __fadd_rn) in child-state order j = 0..S-1 and the rescale
+// is the bit formula clipped to [-125, 127] (pallas_clv.py:224-232), so
+// each kernel equals its plain version in ops/levels.py bit for bit.
+//
+// Bound on the H100 at the flagship (128 taxa x 16384 patterns GTR+G4,
+// C*S = 16, 126 rows in 17 levels; chip_smoke.py computes the exact
+// figure from the run's tables): bytes, for all three. Over one
+// evaluation the side-0 child pass writes 126 blocks of 16 x 16384 floats
+// (132 MB) and reads the inner children's (~65 MB): ~60 us at 3.35 TB/s,
+// ~3.5 us a launch. The second-child pass reads that again beside its own
+// children and writes the level blocks (~330 MB, ~6 us a launch); the
+// combined kernel reads the children once and writes the blocks (~200
+// MB). The operations (2 C*S*S flops a pattern for an inner child, the
+// rescale's 3 C*S) come to ~0.4 GFLOP an evaluation, ~6 us at 67 TFLOP/s.
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
+
+// [W, 6] row columns: slot1, slot2, is_tip1, is_tip2, tip1, tip2
+constexpr int kSlot = 0, kIsTip = 2, kTip = 4;
+
+enum Mode { kChild = 0, kChild2 = 1, kCombined = 2 };
+
+struct LevelArgs {
+  const int* idx;        // [W, 6]
+  int W, side;           // side: the child pass's child (kChild)
+  const float* P1;       // [W, C, S, S]: kChild the pass's, kChild2 side
+                         // 1's, kCombined side 0's matrices
+  const float* P2;       // kCombined: [W, C, S, S] side 1's
+  float* clvs;           // [n_slots, C*S, Ppad]: the children; kChild2 and
+                         // kCombined write slots [off, off + W)
+  int* scalers;          // [n_slots, Ppad]
+  int n_slots;
+  const int* codes;      // [n_tips, Ppad]
+  int n_tips;
+  const float* codetab;  // [n_codes, S]
+  int n_codes;
+  const float* left;     // kChild2: [W, C*S, Ppad]
+  const int* s1;         // kChild2: [W, Ppad]
+  float* out;            // kChild: [W, C*S, Ppad]
+  int* out_sc;           // kChild: [W, Ppad]
+  int off, Ppad, C, S, T;
+};
+
+int n_mats(int mode) { return mode == kCombined ? 2 : 1; }
+
+// Shared memory beside the category maxima [C][T]: the code table and the
+// row's matrices.
+size_t stage_floats(int mode, int C, int S, int n_codes) {
+  return (size_t)n_codes * S + (size_t)n_mats(mode) * C * S * S;
+}
+
+bool stages(int mode, int C, int S, int n_codes, int T) {
+  return 4 * ((size_t)C * T + stage_floats(mode, C, S, n_codes)) <= kSmemOptin;
+}
+
+// Row i of Pk times x, summed in order j = 0..S-1, rounding each product
+// and sum separately.
+template <int MAXS>
+__device__ __forceinline__ float row_dot(const float* Pk, int i, int S,
+                                         const float (&x)[MAXS]) {
+  float acc = __fmul_rn(Pk[i * S], x[0]);
+#pragma unroll
+  for (int j = 1; j < MAXS; ++j)
+    if (j < S) acc = __fadd_rn(acc, __fmul_rn(Pk[i * S + j], x[j]));
+  return acc;
+}
+
+// Child k of the row: its S values of category c at pattern p, and its
+// scaler (read by category 0 only, which alone writes scalers).
+template <int MAXS>
+__device__ __forceinline__ void load_child(const LevelArgs& a,
+                                           const float* tab, const int* row,
+                                           int k, int c, int p,
+                                           float (&x)[MAXS], int& sc) {
+  const int S = a.S;
+  if (row[kIsTip + k] != 0) {
+    const int tip = min(max(row[kTip + k], 0), a.n_tips - 1);
+    int code = a.codes[(size_t)tip * a.Ppad + p];
+    code = min(max(code, 0), a.n_codes - 1);
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) x[j] = tab[code * S + j];
+    sc = 0;
+    return;
+  }
+  const int slot = min(max(row[kSlot + k], 0), a.n_slots - 1);
+  const float* src = a.clvs + ((size_t)slot * a.C * S + c * S) * a.Ppad + p;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j)
+    if (j < S) x[j] = src[(size_t)j * a.Ppad];
+  sc = (c == 0) ? a.scalers[(size_t)slot * a.Ppad + p] : 0;
+}
+
+template <int MAXS, int MODE, bool STAGE>
+__global__ void __launch_bounds__(kMaxThreads)
+level_kernel(LevelArgs a) {
+  extern __shared__ float smem[];
+  const int T = a.T, C = a.C, S = a.S, CS = C * S;
+  const int w = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int c = tid / T;
+  const int pl = tid - c * T;
+  const int p = blockIdx.x * T + pl;
+  const size_t msz = (size_t)C * S * S;
+  float* red = smem;                        // [C][T]
+  float* tab_s = red + C * T;               // [n_codes * S]
+  float* P_s = tab_s + a.n_codes * S;       // [n_mats][C*S*S]
+  const float* Pw1 = a.P1 + w * msz;
+  const float* Pw2 = MODE == kCombined ? a.P2 + w * msz : Pw1;
+  if (STAGE) {
+    for (int i = tid; i < a.n_codes * S; i += blockDim.x)
+      tab_s[i] = a.codetab[i];
+    for (size_t i = tid; i < msz; i += blockDim.x) {
+      P_s[i] = Pw1[i];
+      if (MODE == kCombined) P_s[msz + i] = Pw2[i];
+    }
+    __syncthreads();
+  }
+  const float* tab = STAGE ? tab_s : a.codetab;
+  const float* Pa = (STAGE ? P_s : Pw1) + c * S * S;
+  const float* Pb = (STAGE ? P_s + msz : Pw2) + c * S * S;
+  const int* row = a.idx + 6 * w;
+  // up to 32 states every output row is unrolled and o[] stays in
+  // registers; the 64-state tile keeps o[] in local memory
+  constexpr int kUnrollRows = MAXS <= 32 ? MAXS : 1;
+  float x[MAXS];
+  int sc;
+
+  if (MODE == kChild) {
+    load_child<MAXS>(a, tab, row, a.side, c, p, x, sc);
+    float* dst = a.out + ((size_t)w * CS + c * S) * a.Ppad + p;
+#pragma unroll kUnrollRows
+    for (int i = 0; i < MAXS; ++i)
+      if (i < S) dst[(size_t)i * a.Ppad] = row_dot<MAXS>(Pa, i, S, x);
+    if (c == 0) a.out_sc[(size_t)w * a.Ppad + p] = sc;
+    return;
+  }
+
+  float o[MAXS];
+  int stot;
+  if (MODE == kChild2) {
+    load_child<MAXS>(a, tab, row, 1, c, p, x, sc);
+    const float* lw = a.left + ((size_t)w * CS + c * S) * a.Ppad + p;
+#pragma unroll kUnrollRows
+    for (int i = 0; i < MAXS; ++i)
+      if (i < S)
+        o[i] = __fmul_rn(lw[(size_t)i * a.Ppad], row_dot<MAXS>(Pa, i, S, x));
+    stot = (c == 0) ? a.s1[(size_t)w * a.Ppad + p] + sc : 0;
+  } else {
+    float x2[MAXS];
+    int sc2;
+    load_child<MAXS>(a, tab, row, 0, c, p, x, sc);
+    load_child<MAXS>(a, tab, row, 1, c, p, x2, sc2);
+#pragma unroll kUnrollRows
+    for (int i = 0; i < MAXS; ++i)
+      if (i < S)
+        o[i] = __fmul_rn(row_dot<MAXS>(Pa, i, S, x),
+                         row_dot<MAXS>(Pb, i, S, x2));
+    stot = sc + sc2;
+  }
+  float m = -INFINITY;
+#pragma unroll kUnrollRows
+  for (int i = 0; i < MAXS; ++i)
+    if (i < S) m = fmaxf(m, o[i]);
+  red[c * T + pl] = m;
+  __syncthreads();                          // category maxima visible
+  float mm = red[pl];
+  for (int k = 1; k < C; ++k) mm = fmaxf(mm, red[k * T + pl]);
+  int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
+  if (!(mm > 0.f)) e = 0;
+  e = min(max(e, -125), 127);
+  const float scale = __int_as_float((127 - e) << 23);
+  const size_t slot = (size_t)a.off + w;
+  float* dst = a.clvs + (slot * CS + c * S) * a.Ppad + p;
+#pragma unroll kUnrollRows
+  for (int i = 0; i < MAXS; ++i)
+    if (i < S) dst[(size_t)i * a.Ppad] = __fmul_rn(o[i], scale);
+  if (c == 0) a.scalers[slot * a.Ppad + p] = stot + e;
+}
+
+template <int MAXS, int MODE>
+int launch_t(const LevelArgs& a, cudaStream_t stream) {
+  const bool stage = stages(MODE, a.C, a.S, a.n_codes, a.T);
+  const size_t smem =
+      4 * ((size_t)a.C * a.T +
+           (stage ? stage_floats(MODE, a.C, a.S, a.n_codes) : 0));
+  auto kern = stage ? level_kernel<MAXS, MODE, true>
+                    : level_kernel<MAXS, MODE, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.Ppad / a.T, a.W), block(a.C * a.T);
+  kern<<<grid, block, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch(const LevelArgs& a, cudaStream_t stream) {
+  if (a.C * a.T > kMaxThreads || a.T <= 0 || a.Ppad % a.T != 0 ||
+      a.W <= 0 || a.W > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  if (a.S <= 4) return launch_t<4, MODE>(a, stream);
+  if (a.S <= 8) return launch_t<8, MODE>(a, stream);
+  if (a.S <= 16) return launch_t<16, MODE>(a, stream);
+  if (a.S <= 20) return launch_t<20, MODE>(a, stream);
+  if (a.S <= 32) return launch_t<32, MODE>(a, stream);
+  if (a.S <= 64) return launch_t<64, MODE>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Every entry point returns the CUDA error code of its launch (0 = queued).
+extern "C" int pllmod_child_pass(
+    const int* idx, int W, int side, const float* P, const float* clvs,
+    const int* scalers, int n_slots, const int* codes, int n_tips,
+    const float* codetab, int n_codes, float* out, int* out_sc, int Ppad,
+    int C, int S, int T, void* stream) {
+  if (side != 0 && side != 1) return (int)cudaErrorInvalidValue;
+  LevelArgs a{idx, W, side, P, nullptr, const_cast<float*>(clvs),
+              const_cast<int*>(scalers), n_slots, codes, n_tips, codetab,
+              n_codes, nullptr, nullptr, out, out_sc, 0, Ppad, C, S, T};
+  return launch<kChild>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pllmod_child2_pass(
+    const int* idx, int W, const float* P, float* clvs, int* scalers,
+    int n_slots, const int* codes, int n_tips, const float* codetab,
+    int n_codes, const float* left, const int* s1, int off, int Ppad, int C,
+    int S, int T, void* stream) {
+  if (off < 0 || off + W > n_slots) return (int)cudaErrorInvalidValue;
+  LevelArgs a{idx, W, 1, P, nullptr, clvs, scalers, n_slots, codes, n_tips,
+              codetab, n_codes, left, s1, nullptr, nullptr, off, Ppad, C, S,
+              T};
+  return launch<kChild2>(a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pllmod_level_combined(
+    const int* idx, int W, const float* P1, const float* P2, float* clvs,
+    int* scalers, int n_slots, const int* codes, int n_tips,
+    const float* codetab, int n_codes, int off, int Ppad, int C, int S,
+    int T, void* stream) {
+  if (off < 0 || off + W > n_slots) return (int)cudaErrorInvalidValue;
+  LevelArgs a{idx, W, 0, P1, P2, clvs, scalers, n_slots, codes, n_tips,
+              codetab, n_codes, nullptr, nullptr, nullptr, nullptr, off,
+              Ppad, C, S, T};
+  return launch<kCombined>(a, static_cast<cudaStream_t>(stream));
+}

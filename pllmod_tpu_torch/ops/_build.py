@@ -19,7 +19,7 @@ import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("pruning", "deriv")}
+           for name in ("pruning", "deriv", "levels", "grouped")}
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +39,17 @@ ENTRY_POINTS = {
     "pllmod_newton_edges": ("deriv", [_VP] * 6 + [_F, _F, _F, _I, _VP, _VP,
                                                   _VP, _I, _I, _I, _VP],
                             _I),
+    "pllmod_child_pass": ("levels", [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _I,
+                                     _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
+                          _I),
+    "pllmod_child2_pass": ("levels", [_VP, _I, _VP, _VP, _VP, _I, _VP, _I,
+                                      _VP, _I, _VP, _VP] + [_I] * 5 + [_VP],
+                           _I),
+    "pllmod_level_combined": ("levels", [_VP, _I] + [_VP] * 4 + [_I, _VP, _I,
+                                                                 _VP]
+                              + [_I] * 6 + [_VP], _I),
+    "pllmod_grouped_walk": ("grouped", [_VP, _VP, _I, _I, _VP, _VP, _I, _VP,
+                                        _I, _VP, _VP] + [_I] * 4 + [_VP], _I),
 }
 
 _lock = threading.Lock()

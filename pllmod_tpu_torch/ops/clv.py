@@ -1,17 +1,21 @@
 """Felsenstein-pruning CLV update engine — PyTorch counterpart of
 ``pllmod_tpu.ops.clv`` (libpll's ``pll_update_partials``).
 
-Two things live here:
+What lives here:
 
 - the **serial reference engine** (:func:`update_partials`): a Python loop
   over op rows ``(parent_slot, child1_node, child1_edge, child2_node,
   child2_edge)`` in the standard ``[slots, patterns, C, S]`` layout, with
   the exact frexp power-of-two rescale. It runs in any dtype and is the
   float64 path of ``schedule="scan"``;
+- the **level-batched engine** (:func:`update_partials_sched`), every op
+  of a :class:`LevelSchedule` level in one batched product, plain torch
+  in any dtype (``schedule="levels"``);
 - the **host schedulers** copied from the JAX package
   (:class:`LevelSchedule`, :func:`bounded_slot_ops`,
-  :func:`_su_emission_order`), and the row arithmetic shared by the two
-  CUDA kernels' plain versions (:func:`walk_rows_plain`).
+  :func:`_su_emission_order`), and the row arithmetic shared by the CUDA
+  kernels' plain versions (:func:`apply_pmat`, :func:`rescale_bits`,
+  :func:`walk_rows_plain`).
 
 Node refs: ``node < n_tips`` is a tip (CLV gathered from the per-code
 lookup table — the PATTERN_TIP analog), otherwise inner slot
@@ -63,6 +67,42 @@ def gather_node_clvs(partition, clvs, scalers, nodes):
     return clv.to(partition.dtype), sc
 
 
+def update_partials_sched(partition, P, levels, offsets, n_slots: int,
+                          init_clvs=None, init_scalers=None):
+    """Level-batched pruning over a :class:`LevelSchedule`: every op of a
+    level in one batched product, the level's block written into its
+    contiguous slots, frexp rescale (``pllmod_tpu.ops.clv.
+    update_partials_sched``; plain torch, as the JAX engine is XLA).
+
+    Args:
+      P: [edges, C, S, S] transition matrices
+      levels: int [W_l, 5] op arrays of the schedule (renumbered; numpy
+        or tensors on the partition's device)
+      offsets: starting slot of each level
+      init_clvs/init_scalers: optional starting buffers, updated in place
+    Returns:
+      (clvs [n_slots, patterns, C, S], scalers [n_slots, patterns])
+    """
+    Ppad, C, S = (partition.n_patterns_padded, partition.n_cats,
+                  partition.states)
+    dev, dtype = partition.device, partition.dtype
+    clvs = init_clvs if init_clvs is not None else \
+        torch.zeros((n_slots, Ppad, C, S), dtype=dtype, device=dev)
+    scalers = init_scalers if init_scalers is not None else \
+        torch.zeros((n_slots, Ppad), dtype=torch.int32, device=dev)
+    for ops_lvl, off in zip(levels, offsets):
+        ops_lvl = torch.as_tensor(ops_lvl, device=dev).long()
+        c1, s1 = gather_node_clvs(partition, clvs, scalers, ops_lvl[:, 1])
+        c2, s2 = gather_node_clvs(partition, clvs, scalers, ops_lvl[:, 3])
+        left = torch.einsum("wpcj,wcij->wpci", c1, P[ops_lvl[:, 2]])
+        right = torch.einsum("wpcj,wcij->wpci", c2, P[ops_lvl[:, 4]])
+        clv, e = rescale(left * right, (2, 3))
+        W = ops_lvl.shape[0]
+        clvs[off:off + W] = clv
+        scalers[off:off + W] = s1 + s2 + e[:, :, 0, 0]
+    return clvs, scalers
+
+
 def clv_op_compute(c1, c2, P1, P2):
     """One pruning op: clv_p[p,c,i] = (Σ_j P1[c,i,j] c1[p,c,j]) ·
     (Σ_j P2[c,i,j] c2[p,c,j]). Shapes: c* [P,C,S], P* [C,S,S]."""
@@ -71,15 +111,18 @@ def clv_op_compute(c1, c2, P1, P2):
     return left * right
 
 
-def rescale(clv):
-    """Exact power-of-two per-site rescaling (frexp exponent of the
-    per-site max over categories and states; 0 where the site is
-    all-zero). Returns (clv · 2^-e, e int32)."""
-    m = clv.amax(dim=(1, 2))
+def rescale(clv, dims):
+    """Exact power-of-two per-site rescaling of the engines in torch
+    (``jnp.frexp`` / ``jnp.ldexp``, unclipped): e = frexp exponent of the
+    maximum over ``dims`` (kept, size 1; 0 where the maximum is ≤ 0).
+    Returns (clv · 2^-e, e int32). The power of two is built from its
+    float64 bits and the product rounded once, so a subnormal site
+    maximum (2^-e beyond the float32 range) rescales as ldexp does."""
+    m = clv.amax(dim=dims, keepdim=True)
     _, e = torch.frexp(m)
     e = torch.where(m > 0, e, torch.zeros_like(e)).to(torch.int32)
-    scale = torch.exp2((-e).to(clv.dtype))
-    return clv * scale[:, None, None], e
+    pow2 = ((1023 - e.to(torch.int64)) << 52).view(torch.float64)
+    return (clv.to(torch.float64) * pow2).to(clv.dtype), e
 
 
 def update_partials(partition, P, ops, init_clvs=None, init_scalers=None):
@@ -117,9 +160,9 @@ def update_partials(partition, P, ops, init_clvs=None, init_scalers=None):
             continue
         x1, s1 = get_node_clv(partition, clvs, scalers, c1)
         x2, s2 = get_node_clv(partition, clvs, scalers, c2)
-        clv, e = rescale(clv_op_compute(x1, x2, P[e1], P[e2]))
+        clv, e = rescale(clv_op_compute(x1, x2, P[e1], P[e2]), (1, 2))
         clvs[out] = clv
-        scalers[out] = s1 + s2 + e
+        scalers[out] = s1 + s2 + e[:, 0, 0]
     return clvs, scalers
 
 
@@ -131,25 +174,28 @@ def update_partials(partition, P, ops, init_clvs=None, init_scalers=None):
 # so kernel and plain version agree bit for bit.
 # ---------------------------------------------------------------------------
 def apply_pmat(Pk, x):
-    """Σ_j Pk[c,i,j] · x[...,c,j,p] for Pk [C,S,S], x [...,C,S,P], summed
-    over j = 0..S-1 in order with separately rounded products and
-    sums."""
-    acc = Pk[:, :, 0, None] * x[..., :, None, 0, :]
+    """Σ_j Pk[...,c,i,j] · x[...,c,j,p] for Pk [..., C,S,S] and x
+    [..., C,S,P] (leading dimensions broadcast: one matrix set for a
+    batch of CLVs, or one a row), summed over j = 0..S-1 in order with
+    separately rounded products and sums."""
+    acc = Pk[..., 0, None] * x[..., None, 0, :]
     for j in range(1, x.shape[-2]):
-        acc = acc + Pk[:, :, j, None] * x[..., :, None, j, :]
+        acc = acc + Pk[..., j, None] * x[..., None, j, :]
     return acc
 
 
 def rescale_bits(prod):
-    """The kernels' exact power-of-two rescale of a float32 [C, S, P]
-    product: e = exponent field of the per-site max − 126 (0 where the
-    max is ≤ 0), clipped to [−125, 127], scale 2^−e built from its bits
-    (pallas_resident.py:469-477). Agrees with frexp for normal maxima."""
-    m = prod.amax(dim=(0, 1))
+    """The kernels' exact power-of-two rescale of a float32 [..., C, S, P]
+    product: e = exponent field of the per-site max over (C, S) − 126 (0
+    where the max is ≤ 0), clipped to [−125, 127], scale 2^−e built from
+    its bits (pallas_resident.py:469-477). Agrees with frexp for normal
+    maxima. Returns (scaled product, e [..., P])."""
+    m = prod.amax(dim=(-3, -2))
     e = ((m.view(torch.int32) >> 23) & 0xFF) - 126
     e = torch.where(m > 0, e, torch.zeros_like(e)).clamp(-125, 127)
     scale = ((127 - e) << 23).view(torch.float32)
-    return prod * scale, e
+    return prod * scale[..., None, None, :], e
+
 
 
 def walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots: int,

@@ -7,8 +7,16 @@ Schedules:
   (:mod:`pllmod_tpu_torch.ops.resident`) — logL only;
 - ``"fused"``: the CUDA kernel that leaves every CLV in device memory
   (:mod:`pllmod_tpu_torch.ops.fused`);
+- ``"pallas"``: the per-level CUDA kernels (:mod:`pllmod_tpu_torch.ops.
+  levels`: kernel 3 then kernel 4 on every level of the
+  :class:`~pllmod_tpu_torch.ops.clv.LevelSchedule`; the JAX package's
+  name, kept so that callers port unchanged) — float32;
+- ``"levels"``: the level-batched engine in plain torch
+  (:func:`loglikelihood_levels`), any dtype;
 - ``"scan"``: the serial reference engine (:func:`loglikelihood`), any
   dtype — the float64 path;
+- ``"repeats"``: the host numpy float64 site-repeats engine
+  (:mod:`pllmod_tpu_torch.ops.repeats`); returns a Python float;
 - ``"auto"``: the rule of :func:`auto_schedule`.
 
 The kernels' wrappers run their plain torch versions on CPU tensors, so
@@ -22,10 +30,13 @@ import torch
 from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
+from pllmod_tpu_torch.ops import levels as levels_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
+from pllmod_tpu_torch.ops import repeats as repeats_mod
 from pllmod_tpu_torch.ops import resident as resident_mod
 
-SCHEDULES = ("auto", "resident", "fused", "scan")
+SCHEDULES = ("auto", "resident", "fused", "pallas", "levels", "scan",
+             "repeats")
 
 
 def loglikelihood(partition, ops, brlens, root_info):
@@ -39,6 +50,36 @@ def loglikelihood(partition, ops, brlens, root_info):
     P = partition.prob_matrices(brlens)
     clvs, scalers = clv_mod.update_partials(partition, P, ops)
     u, v, e = (int(x) for x in root_info)
+    return lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
+
+
+def compile_schedule(partition, tree, root_edge=None):
+    """Host-side: compile a tree into the level schedule and the remapped
+    root info (``pllmod_tpu.ops.engine.compile_schedule``). Returns
+    (levels tuple of int32 numpy [W_l, 5], offsets tuple, root_info,
+    n_slots)."""
+    ops, root_info = tree.traversal_ops(root_edge)
+    sched = clv_mod.LevelSchedule(ops, partition.n_tips)
+    u, v, e = (int(x) for x in root_info)
+    ri = (sched.remap_node(u), sched.remap_node(v), e)
+    return tuple(sched.levels), tuple(sched.offsets), ri, sched.n_slots
+
+
+def loglikelihood_levels(partition, levels, brlens, offsets, root_info,
+                         n_slots: int):
+    """Level-batched log-likelihood: every node of a level in one batched
+    product, with contiguous block writes (:func:`clv.
+    update_partials_sched`), any dtype.
+
+    Args:
+      levels, offsets, n_slots: from :func:`compile_schedule` (the op
+        arrays as numpy or as tensors on the partition's device)
+      root_info: (u, v, e) with u/v remapped through the LevelSchedule
+    """
+    P = partition.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials_sched(partition, P, levels,
+                                                  offsets, n_slots)
+    u, v, e = root_info
     return lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
 
 
@@ -135,7 +176,8 @@ def auto_schedule(partition, n_slots: int | None) -> str:
 def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
     """Compile the host-side tables of ``schedule`` for this (partition
     shape, topology) once; returns ``ev(part, brlens) -> logL`` (a 0-dim
-    tensor on the partition's device), with the schedule it runs as
+    tensor on the partition's device; a float for "repeats", which keeps
+    no tables), with the schedule it runs as
     ``ev.schedule``. ``auto`` decides on this tree's own resident slot
     count. ``part`` may differ from ``partition`` in model parameters,
     not in data or shape."""
@@ -162,6 +204,28 @@ def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
         def ev(part, brl):
             return fused_mod.loglikelihood_fused(part, idx8, brl, e1, e2,
                                                  ri, n_slots)
+    elif schedule in ("pallas", "levels"):
+        levels, offsets, ri, n_slots = compile_schedule(partition, tree,
+                                                        root_edge)
+        if schedule == "pallas":
+            tables = levels_mod.level_tables(partition, levels)
+
+            def ev(part, brl):
+                return levels_mod.loglikelihood_pallas(
+                    part, levels, brl, offsets, ri, n_slots, tables=tables)
+        else:
+            levels = tuple(torch.as_tensor(lv, dtype=torch.int64,
+                                           device=partition.device)
+                           for lv in levels)
+
+            def ev(part, brl):
+                return loglikelihood_levels(part, levels, brl, offsets, ri,
+                                            n_slots)
+    elif schedule == "repeats":
+
+        def ev(part, brl):
+            return repeats_mod.loglikelihood_repeats(part, tree, brl,
+                                                     root_edge)
     else:
         ops, root_info = tree.traversal_ops(root_edge)
 
@@ -174,8 +238,10 @@ def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
 def tree_loglikelihood(partition, tree, brlens=None, root_edge=None,
                        schedule: str = "auto"):
     """Compile the traversal of ``tree`` and evaluate its logL on the
-    partition's device. ``schedule`` ∈ {"auto", "resident", "fused",
-    "scan"}; a kernel schedule forced on a float64 partition raises."""
+    partition's device. ``schedule`` is one of :data:`SCHEDULES` (module
+    docstring); a kernel schedule ("resident", "fused", "pallas") forced
+    on a float64 partition raises. "repeats" returns a Python float, the
+    others a 0-dim tensor."""
     if brlens is None:
         brlens = tree.lengths
     ev = compile_fast_eval(partition, tree, root_edge, schedule)

@@ -1,6 +1,7 @@
-"""The CUDA kernels on the card, against their plain versions: the walk
-and sumtable kernels bit for bit (both round every product and sum
-separately, in the same order); the derivative and Newton kernels, whose
+"""The CUDA kernels on the card, against their plain versions: the walk,
+sumtable, per-level and grouped kernels bit for bit (all round every
+product and sum separately, in the same order); the derivative and Newton
+kernels, whose
 pattern sums run in another order, to 2e-6 relative on logL and 2e-5 on
 the derivatives, and 5e-4 on the Newton lengths.
 
@@ -15,10 +16,14 @@ never at import)."""
 import pytest
 import torch
 
+import numpy as np
+
 from pllmod_tpu_torch import flagship
 from pllmod_tpu_torch.common import PllModError
-from pllmod_tpu_torch.ops import _build, deriv, engine, fused, resident
+from pllmod_tpu_torch.ops import (_build, deriv, engine, fused, grouped,
+                                  levels, resident)
 from pllmod_tpu_torch.optimize import blo, blo_bounded
+from pllmod_tpu_torch.tree.topology import Tree
 
 pytestmark = pytest.mark.cuda
 
@@ -226,3 +231,187 @@ def test_deriv_kernels_raise_on_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError, match="max_iters"):
         deriv.newton_edges(part, st, sc, _brl(tree, part), 1e-4, 100.0,
                            1e-4, 0)
+
+
+# ---------------------------------------------------------------------------
+# the per-level kernels (3, 4, 5) and the grouped kernel (7)
+# ---------------------------------------------------------------------------
+# every register tile (S ≤ 4, 8, 16, 20, 32, 64) at C = 1 and 4
+LEVEL_SHAPES = [(s, c) for s in (4, 8, 16, 20, 32, 64) for c in (1, 4)]
+
+
+def _caterpillar(n):
+    """The maximally unbalanced tree: every level of its schedule has one
+    row."""
+    return Tree.from_newick("(t0:0.1," + "".join(
+        f"(t{i}:0.1," for i in range(1, n - 1)) + f"t{n - 1}:0.1"
+        + ")" * (n - 2) + ");")
+
+
+def _tip_edge(tree):
+    return next(e for e, (u, v) in enumerate(tree.edge_nodes)
+                if int(u) >= 0 and (tree.is_tip(int(u))
+                                    or tree.is_tip(int(v))))
+
+
+def _level_walk_plain(idx, P1, P2, tc, tab, lvls, offsets, n_slots, C, S):
+    """Kernels 3 then 4 on every level, their plain versions."""
+    Ppad = tc.shape[1]
+    clvs = torch.zeros((n_slots, C * S, Ppad), device=tc.device)
+    sc = torch.zeros((n_slots, 1, Ppad), dtype=torch.int32, device=tc.device)
+    for lv, off in zip(lvls, offsets):
+        s = slice(off, off + len(lv))
+        left, s1 = levels.child_pass_plain(idx[s], 0, clvs, sc, tc, tab, P1[s])
+        levels.child2_pass_plain(idx[s], clvs, sc, tc, tab, P2[s], left, s1,
+                                 off)
+    return clvs, sc
+
+
+def _check_level_kernels(part, tree, root_edge=None):
+    """Kernels 3, 4 and 5 against their plain versions on every level, and
+    the three drivers of update_partials_pallas against the plain walk."""
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree, root_edge)
+    idx, e1, e2 = levels.level_tables(part, lvls)
+    P = part.prob_matrices(_brl(tree, part))
+    P1, P2 = P[e1], P[e2]
+    tc, tab = part.tip_states, fused.code_table(part)
+    C, S = part.n_cats, part.states
+    want = _level_walk_plain(idx, P1, P2, tc, tab, lvls, offsets, ns, C, S)
+    before = dict(levels.LAUNCHES)
+    for step in ("child2", "combined"):
+        got = levels.update_partials_pallas(part, P, lvls, offsets, ns, step)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for lv, off in zip(lvls, offsets):
+        s = slice(off, off + len(lv))
+        for side, Pm in ((0, P1[s]), (1, P2[s])):
+            got = levels.child_pass(idx[s], side, *want, tc, tab, Pm)
+            ref = levels.child_pass_plain(idx[s], side, *want, tc, tab, Pm)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        k5 = [t.clone() for t in want]
+        levels.level_update_combined(*k5, idx[s], tc, tab, P1[s], P2[s], off)
+        p5 = [t.clone() for t in want]
+        levels.level_combined_plain(idx[s], *p5, tc, tab, P1[s], P2[s], off)
+        assert torch.equal(k5[0], p5[0]) and torch.equal(k5[1], p5[1])
+    n = len(lvls)
+    assert {k: levels.LAUNCHES[k] - before[k] for k in before} == \
+        {"child_pass": 3 * n, "child2_pass": n, "level_combined": 2 * n}
+
+
+def _check_grouped_kernel(part, tree, root_edge=None, group=0):
+    """Kernel 7 against its plain version on every position a member
+    writes (the tip positions of the buffers hold nothing)."""
+    sched = grouped.GroupedSchedule(part, tree, root_edge, group)
+    PQ = grouped.grouped_pmats(part, _brl(tree, part), sched.e_sides)
+    args = (sched.side_meta, sched.dst_meta, PQ, part.tip_states,
+            fused.code_table(part))
+    before = grouped.LAUNCHES
+    bufs, sbufs = grouped.grouped_walk(*args)
+    assert grouped.LAUNCHES == before + 1
+    want_b, want_s = grouped.grouped_walk_plain(*args)
+    dg, dq = sched.dst_meta[..., 0].long(), sched.dst_meta[..., 1].long()
+    assert torch.equal(bufs[dg, dq], want_b[dg, dq])
+    assert torch.equal(sbufs[dg, dq], want_s[dg, dq])
+    return sched
+
+
+@pytest.mark.parametrize("states,cats", LEVEL_SHAPES)
+def test_level_kernels_match_plain(cuda, states, cats):
+    part, tree = _example(states, cats, cuda)
+    _check_level_kernels(part, tree)
+
+
+@pytest.mark.parametrize("states,cats", LEVEL_SHAPES)
+def test_grouped_kernel_matches_plain(cuda, states, cats):
+    part, tree = _example(states, cats, cuda)
+    _check_grouped_kernel(part, tree)
+
+
+@pytest.mark.parametrize("case", ["caterpillar", "tip_root", "g16"])
+def test_level_and_grouped_kernels_edge_cases(cuda, case):
+    """A caterpillar tree (one row a level, one member a group), a root on
+    a tip edge (one landing position is a tip) and G = 16 (C·S = 4)."""
+    if case == "g16":
+        part, tree = _example(4, 1, cuda, n_taxa=40)
+        assert _check_grouped_kernel(part, tree).G == 16
+        _check_level_kernels(part, tree)
+        return
+    part, tree = _example(4, 4, cuda, n_taxa=14)
+    root_edge = None
+    if case == "caterpillar":
+        tree = _caterpillar(14)
+        tree.lengths[:] = np.linspace(0.02, 0.3, len(tree.lengths))
+    else:
+        root_edge = _tip_edge(tree)
+    _check_level_kernels(part, tree, root_edge)
+    _check_grouped_kernel(part, tree, root_edge)
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (5, 4)])
+def test_level_schedules_on_card_match_float64(cuda, states, cats):
+    """The per-level drivers and the grouped walk on the card agree with
+    the float64 serial engine, each launching its kernels."""
+    part, tree = _example(states, cats, cuda)
+    want = float(engine.tree_loglikelihood(part.to(dtype=torch.float64),
+                                           tree, schedule="scan"))
+    lvls, offsets, ri, ns = engine.compile_schedule(part, tree)
+    before = dict(levels.LAUNCHES), grouped.LAUNCHES
+    got = [float(engine.tree_loglikelihood(part, tree, schedule="pallas")),
+           float(engine.tree_loglikelihood(part, tree, schedule="levels"))]
+    for step in ("split", "combined"):
+        got.append(float(levels.loglikelihood_pallas(
+            part, lvls, _brl(tree, part), offsets, ri, ns, step=step)))
+    got.append(float(grouped.loglikelihood_grouped(
+        part, _brl(tree, part), grouped.GroupedSchedule(part, tree))))
+    for g in got:
+        assert abs(g - want) / abs(want) < 1e-6
+    assert all(levels.LAUNCHES[k] > before[0][k] for k in before[0])
+    assert grouped.LAUNCHES == before[1] + 1
+
+
+def test_level_and_grouped_wrappers_raise(cuda):
+    """Each wrapper raises on tensors on two devices and beyond 64
+    states; none falls back to its plain version."""
+    part, tree = _example(4, 4, cuda)
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+    idx, e1, e2 = levels.level_tables(part, lvls)
+    P = part.prob_matrices(_brl(tree, part))
+    W = len(lvls[0])
+    rows, P1, P2 = idx[:W], P[e1][:W], P[e2][:W]
+    Ppad = part.n_patterns_padded
+    clvs = torch.zeros((ns, 16, Ppad), device=cuda)
+    sc = torch.zeros((ns, 1, Ppad), dtype=torch.int32, device=cuda)
+    tab, tc = fused.code_table(part), part.tip_states
+    left, s1 = levels.child_pass(rows, 0, clvs, sc, tc, tab, P1)
+    calls = [
+        lambda tc, P1, P2, tab: levels.child_pass(rows, 0, clvs, sc, tc, tab,
+                                                  P1),
+        lambda tc, P1, P2, tab: levels.child2_pass(rows, clvs, sc, tc, tab,
+                                                   P2, left, s1, 0),
+        lambda tc, P1, P2, tab: levels.level_update_combined(
+            clvs, sc, rows, tc, tab, P1, P2, 0)]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA device"):
+            call(tc.cpu(), P1, P2, tab)
+    sched = grouped.GroupedSchedule(part, tree)
+    PQ = grouped.grouped_pmats(part, _brl(tree, part), sched.e_sides)
+    with pytest.raises(ValueError, match="CUDA device"):
+        grouped.grouped_walk(sched.side_meta, sched.dst_meta, PQ, tc.cpu(),
+                             tab)
+    # 65 states: every tensor of the right shape on the card
+    S = 65
+    P65 = torch.rand((W, 4, S, S), device=cuda)
+    tab65 = torch.rand((3, S), device=cuda)
+    clv65 = torch.zeros((ns, 4 * S, Ppad), device=cuda)
+    left65 = torch.zeros((W, 4 * S, Ppad), device=cuda)
+    wide = [lambda: levels.child_pass(rows, 0, clv65, sc, tc, tab65, P65),
+            lambda: levels.child2_pass(rows, clv65, sc, tc, tab65, P65,
+                                       left65, s1, 0),
+            lambda: levels.level_update_combined(clv65, sc, rows, tc, tab65,
+                                                 P65, P65, 0),
+            lambda: grouped.grouped_walk(
+                sched.side_meta, sched.dst_meta,
+                torch.rand((sched.nG, sched.Q, 4, S, S), device=cuda), tc,
+                tab65)]
+    for call in wide:
+        with pytest.raises(ValueError, match="64 states"):
+            call()

@@ -45,7 +45,8 @@ def _case(states, cats, pinv=0.0, seed=None, n_taxa=10, n_sites=96):
                      charmap=cmap)
 
 
-@pytest.mark.parametrize("schedule", ["auto", "resident", "fused", "scan"])
+@pytest.mark.parametrize("schedule", ["auto", "resident", "fused", "pallas",
+                                      "levels", "scan"])
 @pytest.mark.parametrize("states,cats", SHAPES)
 def test_every_schedule_matches_jax_f64(states, cats, schedule):
     case = _case(states, cats, pinv=0.1)
@@ -209,7 +210,7 @@ def test_compiled_eval_reuses_tables():
     assert float(ev(case.tpart, brl)) == float(engine.tree_loglikelihood(
         case.tpart, case.tree, brlens=brl))
     with pytest.raises(ValueError, match="schedule"):
-        engine.compile_fast_eval(case.tpart, case.tree, schedule="levels")
+        engine.compile_fast_eval(case.tpart, case.tree, schedule="packed")
 
 
 @pytest.mark.parametrize("seed,n_taxa", [(1, 12), (2, 40)])

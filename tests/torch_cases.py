@@ -121,6 +121,33 @@ def make_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
                 to_torch_tree(jtree), seqs, rates, freqs)
 
 
+def caterpillar_newick(n):
+    """The maximally unbalanced tree on t0..t{n-1}: every level of its
+    schedule holds one node."""
+    return ("(t0:0.1," + "".join(f"(t{i}:0.{i + 1}," for i in range(1, n - 1))
+            + f"t{n - 1}:0.1" + ")" * (n - 2) + ");")
+
+
+def level_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
+               caterpillar=False, **kw):
+    """A :func:`make_case`, its tree replaced by a caterpillar on request."""
+    case = make_case(seed, n_taxa, n_sites, states=states, cats=cats,
+                     pinv=pinv, **kw)
+    if caterpillar:
+        from pllmod_tpu.tree.topology import Tree as JaxTree
+        jtree = JaxTree.from_newick(caterpillar_newick(n_taxa))
+        case = dataclasses.replace(case, jtree=jtree,
+                                   tree=to_torch_tree(jtree))
+    return case
+
+
+def tip_edge(tree):
+    """The first edge with a tip endpoint."""
+    return next(e for e, (u, v) in enumerate(tree.edge_nodes)
+                if int(u) >= 0 and (tree.is_tip(int(u))
+                                    or tree.is_tip(int(v))))
+
+
 def lengths(tree, dtype=torch.float32):
     return torch.as_tensor(tree.lengths, dtype=dtype)
 
