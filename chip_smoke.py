@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile]
 
 It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
-(one ``nvcc`` a source, all four at once), holds each kernel against its
-plain torch version on the card, and drives three paths, each with the
+(one ``nvcc`` a source, all five at once), holds each kernel against its
+plain torch version on the card, and drives five paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 1. the full-tree logL (``engine.tree_loglikelihood``, ``schedule=
@@ -21,7 +21,17 @@ kernels' launch counts set to 0 just before it and read just after:
    ``level_update`` driver (kernel 3 twice a level), the
    ``level_update_combined`` driver (kernel 5), the grouped walk
    (kernel 7) and ``schedule="levels"`` (plain torch), each checked
-   against the float64 serial engine.
+   against the float64 serial engine;
+4. the packed walk (``packed.loglikelihood_packed``, kernel 6) at the
+   flagship DNA and protein cells, checked against the float64 serial
+   engine;
+5. a partitioned analysis: a ``TreeInfo`` on the flagship tree with two
+   partitions (the flagship DNA alignment and a protein alignment of
+   4096 sites +G4), its ``compute_loglh`` (full, incremental after one
+   changed length, per site) and ``optimize_branch_lengths_treeinfo`` in
+   LINKED and SCALED (1.0, 0.5) modes, checked against the float64
+   serial engine; kernel 10 for two partitions against its plain
+   version.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -52,9 +62,11 @@ import torch
 from pllmod_tpu_torch import flagship
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
+from pllmod_tpu_torch.common import BRLEN_LINKED, BRLEN_SCALED
 from pllmod_tpu_torch.ops import (_build, deriv, engine, fused, grouped,
-                                  levels, resident)
+                                  levels, packed, resident)
 from pllmod_tpu_torch.optimize import blo, blo_bounded
+from pllmod_tpu_torch.tree.treeinfo import TreeInfo
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor flop/s
 HBM_BYTES_PER_S = 3.35e12
@@ -69,6 +81,10 @@ BOUNDED_ABS, BOUNDED_REL = 0.05, 1e-7   # bounded vs full BLO: |Δl| bar
 SITE_OPS = 20             # flops of the site math of one pattern (K9/K10)
 FLAGSHIP = dict(n_taxa=128, n_sites=16384, seed=3)        # bench.py's shape
 PROTEIN = dict(n_taxa=512, n_sites=4096, seed=5, states=20)
+# the partitioned cell's second partition, on the flagship tree
+PARTITION2 = dict(n_sites=4096, seed=5, states=20)
+SCALED_SCALERS = (1.0, 0.5)
+TIMED_LOGLH = 20          # compute_loglh calls timed on the partitioned cell
 # the widest alphabet of the registries (MULTI64) +G4: the resident
 # kernel's live slots do not fit a block's shared memory, so auto routes
 # it to the fused kernel
@@ -608,6 +624,246 @@ def run_level_paths(cells):
     return by_kernel
 
 
+# ---------------------------------------------------------------------------
+# the packed walk: kernel 6 (csrc/packed.cu)
+# ---------------------------------------------------------------------------
+def check_packed(part, tree, part64, label):
+    """Kernel 6 against its plain version on every slot and scaler row
+    (the dummy rows' included), bit for bit; its time per launch against
+    the bound of the real rows' work; the packed logL against the
+    float64 serial engine. Returns its kernel row."""
+    sched = packed.PackedSchedule(part, tree)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=part.device)
+    P = part.prob_matrices(brl).to(torch.float32).contiguous()
+    tab = fused.code_table(part)
+    args = (sched.idxm, sched.e1, sched.e2, P, part.tip_states, tab,
+            sched.G)
+    want_c, want_s = packed.packed_walk_plain(*args)
+    plain_ms = time_ms(lambda: packed.packed_walk_plain(*args), 1)
+    clvs, scalers = packed.packed_walk(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(clvs, want_c) and torch.equal(scalers, want_s)):
+        raise AssertionError(f"packed_walk ({label}) differs from its plain "
+                             "version")
+    err = float((clvs - want_c).abs().max())
+    ms = device_ms(lambda: packed.packed_walk(*args), 10)
+    l_k = float(packed.loglikelihood_packed(part, brl, sched))
+    l64 = float(engine.tree_loglikelihood(part64, tree, schedule="scan"))
+    rel_close(l_k, l64, LOGL_RTOL, f"packed logL ({label}) vs float64 scan")
+    # the real rows' work (a dummy row has tip 0 on both sides; no real
+    # row does): tip children read their code rows, inner children are
+    # the kernel's own outputs
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    m = sched.idxm.cpu().numpy()
+    dummy = (m[:, 1] == 1) & (m[:, 3] == 1) & (m[:, 4] == 0) & (m[:, 5] == 0)
+    real = m[~dummy]
+    n_real = len(real)
+    n_tip = int(real[:, 1].sum() + real[:, 3].sum())
+    n_in = 2 * n_real - n_tip
+    in_bytes = (nbytes(sched.idxm, sched.e1, sched.e2, P, tab)
+                + n_tip * Ppad * 4)
+    out_bytes = n_real * (C * S + 1) * Ppad * 4
+    flops = (2 * C * S * S * (n_in * Ppad + n_tip * tab.shape[0])
+             + 3 * C * S * Ppad * n_real)
+    b_ms, b_by = bound(in_bytes + out_bytes, flops)
+    print(f"packed_walk ({label}): {ms:.4f} ms/launch, plain {plain_ms:.1f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}), G {sched.G}, {sched.nG} groups, "
+          f"{sched.n_slots_pad} padded slots for {sched.n_slots} real ones, "
+          f"contig {sched.contig_frac:.3f}, bit for bit")
+    return dict(name="packed_walk", route="cuda",
+                source="pllmod_tpu_torch/csrc/packed.cu",
+                replaces="pllmod_tpu/ops/pallas_clv.py:1511",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, G=sched.G, groups=sched.nG,
+                n_slots_pad=sched.n_slots_pad, n_slots=sched.n_slots)
+
+
+def run_packed_path(cells):
+    """Phase 4: ``loglikelihood_packed`` at each (label, part, tree,
+    part64) of ``cells``, its logL against the float64 serial engine and
+    its ms/eval with the host issue time, with the count set to 0 just
+    before and read just after. Returns ({label: (ms, issue ms)},
+    launches)."""
+    packed.LAUNCHES["packed_walk"] = 0
+    ms = {}
+    for label, part, tr, part64 in cells:
+        before = packed.LAUNCHES["packed_walk"]
+        lnl = float(packed.loglikelihood_packed(part, tr.lengths,
+                                                packed.PackedSchedule(part,
+                                                                      tr)))
+        rel_close(lnl, float(engine.tree_loglikelihood(part64, tr,
+                                                       schedule="scan")),
+                  LOGL_RTOL, f"packed path logL ({label}) vs float64 scan")
+        ms[label] = timed_main_path(part, tr, label, "packed")
+        if packed.LAUNCHES["packed_walk"] == before:
+            raise AssertionError(f"the packed path ({label}) did not launch "
+                                 "kernel 6")
+    launches = packed.LAUNCHES["packed_walk"]
+    print(f"packed path launches: {launches}")
+    return ms, launches
+
+
+# ---------------------------------------------------------------------------
+# the partitioned analysis: TreeInfo, kernel 10 over two partitions
+# ---------------------------------------------------------------------------
+def f64_total(ti, parts64):
+    """The float64 serial engine's total logL of a TreeInfo's state."""
+    return sum(float(engine.tree_loglikelihood(
+        p64, ti.tree, brlens=torch.as_tensor(ti.partition_brlens(i)),
+        schedule="scan")) for i, p64 in enumerate(parts64))
+
+
+def check_newton_multi(parts, tree, scalers, label):
+    """Kernel 10 for K = len(parts) partitions (each sumtable at the
+    tree's lengths times its scaler) against its plain version. Returns
+    its kernel row."""
+    trav = blo.DirectedTraversal(tree)
+    live = torch.as_tensor(np.nonzero(trav.edge_mask)[0],
+                           device=parts[0].device)
+    brl = torch.as_tensor(np.clip(tree.lengths, MIN_BRANCH_LEN,
+                                  MAX_BRANCH_LEN), dtype=torch.float32,
+                          device=parts[0].device)
+    sts, scs, lws, lnbs = [], [], [], []
+    for part, s in zip(parts, scalers):
+        tabs = blo._compile_tables(part, trav)
+        clvs, sclr = blo._directed_clvs(part, tabs, brl * s)
+        st, sc = deriv.edge_sumtables(part, clvs, sclr, tabs.eref6[live],
+                                      tabs.basis)
+        sts.append(st)
+        scs.append(sc)
+        lws.append(deriv._lam_weight_rows(part, scale=s))
+        lnbs.append(tabs.lnB)
+        del clvs, sclr
+    t = brl[live]
+    nargs = (parts, sts, scs, t, scalers, MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+             TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS, lws, lnbs)
+    want = deriv.newton_edges_multi_plain(*nargs)
+    plain_ms = time_ms(lambda: deriv.newton_edges_multi_plain(*nargs), 1, 0)
+    got = deriv.newton_edges_multi(*nargs)
+    errs = [_rel(got[0], want[0], 1e-4), _rel(got[1], want[1], 1e-2)]
+    print(f"newton_edges_multi ({label}, K {len(parts)}): relative errors t "
+          f"{errs[0]}, lnl0 {errs[1]}")
+    if errs[0] > DERIV_RTOL["t"] or errs[1] > DERIV_RTOL["lnl0"]:
+        raise AssertionError(f"newton_edges_multi ({label}) differs from its "
+                             f"plain version: {errs}")
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    ms = time_ms(lambda: deriv.newton_edges_multi(*nargs), 10)
+    iters = int(got[2].sum())
+    E = len(t)
+    in_bytes = nbytes(t, *sts, *scs, *lws, *lnbs) + sum(
+        p.n_patterns_padded * 4 for p in parts)
+    flops = iters * sum(p.n_patterns_padded
+                        * (6 * p.n_cats * p.states + SITE_OPS)
+                        for p in parts)
+    b_ms, b_by = bound(in_bytes + 3 * E * 4, flops)
+    print(f"newton_edges_multi ({label}): {ms:.4f} ms/launch, plain "
+          f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), mean "
+          f"{iters / E:.2f} iterations an edge")
+    return dict(name="newton_edges_multi", route="cuda",
+                source="pllmod_tpu_torch/csrc/deriv.cu",
+                replaces="pllmod_tpu/ops/pallas_deriv.py:400",
+                max_abs_err=err, max_rel_err=errs, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                mean_iters=iters / E, partitions=len(parts))
+
+
+def _events_ms(fn, calls: int = 1):
+    """(result of the last call, device ms a call by CUDA events, host ms
+    a call) of ``fn`` called ``calls`` times."""
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    for _ in range(calls):
+        out = fn()
+    ev1.record()
+    torch.cuda.synchronize()
+    return (out, ev0.elapsed_time(ev1) / calls,
+            (time.perf_counter() - t0) * 1e3 / calls)
+
+
+def run_partitioned(parts, parts64, tree):
+    """Phase 5 on a two-partition TreeInfo over ``tree``: compute_loglh
+    (against the partitions' own tree_loglikelihood and the float64
+    engine, timed), the incremental path after one changed length, the
+    per-site vectors, and optimize_branch_lengths_treeinfo in LINKED and
+    SCALED modes (at or above the start, within LOGL_RTOL of the float64
+    engine). Every count is set to 0 just before and read after; returns
+    (summary row, {kernel: launches})."""
+    fused.LAUNCHES = 0
+    resident.LAUNCHES = 0
+    for k in deriv.LAUNCHES:
+        deriv.LAUNCHES[k] = 0
+    out = {}
+    ti = TreeInfo(tree.copy(), list(parts))
+    lnl, ms, host_ms = _events_ms(ti.compute_loglh, TIMED_LOGLH)
+    each = sum(float(engine.tree_loglikelihood(p, tree)) for p in parts)
+    if abs(lnl - each) > 1e-9 * abs(each):
+        raise AssertionError(f"compute_loglh {lnl!r} is not the partitions' "
+                             f"sum {each!r}")
+    rel_close(lnl, f64_total(ti, parts64), LOGL_RTOL,
+              "TreeInfo compute_loglh vs float64 scan")
+    out.update(compute_loglh=lnl, ms_per_compute_loglh=ms,
+               host_ms_per_compute_loglh=host_ms)
+    # incremental: one changed length runs fewer rows than a full walk
+    ti.compute_loglh(incremental=True)
+    edge = int(np.nonzero(tree.edge_nodes[:, 0] >= 0)[0][5])
+    ti.set_branch_length(edge, float(ti.tree.lengths[edge]) * 1.5)
+    before = ti.counters.clv_updates, fused.LAUNCHES
+    inc, inc_ms, _ = _events_ms(lambda: ti.compute_loglh(incremental=True))
+    rows = (ti.counters.clv_updates - before[0]) // sum(
+        p.n_patterns_padded for p in parts)
+    full = ti.compute_loglh()
+    rel_close(inc, full, LOGL_RTOL, "incremental compute_loglh vs full")
+    n_inner = tree.n_tips - 2
+    if not 0 < rows < n_inner or fused.LAUNCHES == before[1]:
+        raise AssertionError(f"the incremental path ran {rows} rows of "
+                             f"{n_inner} on {fused.LAUNCHES - before[1]} "
+                             "fused launches")
+    out.update(incremental_rows=rows, inner_rows=n_inner,
+               ms_incremental=inc_ms)
+    total, persite = ti.compute_loglh_persite()
+    by_sites = sum(float((torch.as_tensor(site, device=p.device)
+                          * p.pattern_weights).sum())
+                   for site, p in zip(persite, parts))
+    rel_close(by_sites, total, LOGL_RTOL, "persite entries x weights vs total")
+    # the multi-partition BLO, LINKED then SCALED
+    blo_rows = []
+    for mode, scalers in ((BRLEN_LINKED, (1.0, 1.0)),
+                          (BRLEN_SCALED, SCALED_SCALERS)):
+        ti = TreeInfo(tree.copy(), list(parts), brlen_linkage=mode)
+        ti.brlen_scalers[:] = scalers
+        start = ti.compute_loglh()
+        stats = {}
+        lnl, ms, host_ms = _events_ms(
+            lambda: blo.optimize_branch_lengths_treeinfo(ti, stats=stats))
+        name = "LINKED" if mode == BRLEN_LINKED else f"SCALED {scalers}"
+        if not lnl >= start:
+            raise AssertionError(f"TreeInfo BLO ({name}) ended below its "
+                                 f"start: {lnl} < {start}")
+        rel_close(lnl, f64_total(ti, parts64), LOGL_RTOL,
+                  f"TreeInfo BLO logL ({name}) vs float64 scan")
+        if stats["newton_edges"] == 0 or stats["iterative_edges"]:
+            raise AssertionError(f"TreeInfo BLO ({name}) did not take kernel "
+                                 f"10 for every edge: {stats}")
+        row = dict(mode=name, start_lnl=start, lnl=lnl, ms_events=ms,
+                   ms_host=host_ms, **stats)
+        print(f"TreeInfo BLO: {row}")
+        blo_rows.append(row)
+    out["blo"] = blo_rows
+    launches = dict(fused_walk=fused.LAUNCHES, resident_walk=resident.LAUNCHES,
+                    **deriv.LAUNCHES)
+    print(f"partitioned path launches: {launches}")
+    missed = [k for k in ("fused_walk", "resident_walk", "edge_sumtables",
+                          "newton_edges_multi") if launches[k] == 0]
+    if missed:
+        raise AssertionError(f"the partitioned path missed kernels: {missed}")
+    print(f"partitioned cell: {out}")
+    return out, launches
+
+
 def run_blo(part, tree, part64, label, **kw):
     """One ``blo.optimize_branch_lengths`` call on a copy of ``tree``:
     ms by CUDA events and by the host clock, sweeps, sub-sweeps, mean
@@ -616,22 +872,15 @@ def run_blo(part, tree, part64, label, **kw):
     tr = tree.copy()
     start_l = float(engine.tree_loglikelihood(part, tr))
     stats = {}
-    torch.cuda.synchronize()
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    ev0.record()
-    _, lnl = blo.optimize_branch_lengths(part, tr, stats=stats, **kw)
-    ev1.record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3
+    (_, lnl), ms, host_ms = _events_ms(
+        lambda: blo.optimize_branch_lengths(part, tr, stats=stats, **kw))
     if not lnl >= start_l:
         raise AssertionError(f"BLO ({label}) ended below its start: "
                              f"{lnl} < {start_l}")
     l64 = float(engine.tree_loglikelihood(part64, tr, schedule="scan"))
     rel_close(lnl, l64, LOGL_RTOL, f"BLO logL ({label}) vs float64 scan")
     row = dict(cell=label, start_lnl=start_l, lnl=lnl, lnl_f64=l64,
-               ms_events=ev0.elapsed_time(ev1), ms_host=host_ms,
+               ms_events=ms, ms_host=host_ms,
                sweeps=stats["sweeps"], sub_sweeps=stats["sub_sweeps"],
                mean_newton_iters=(stats["newton_iters"]
                                   / max(stats["newton_edges"], 1)), **kw)
@@ -682,6 +931,11 @@ def eval_loop(part, tree, schedule="auto"):
 
         def ev(p, brl):
             return grouped.loglikelihood_grouped(p, brl, sched)
+    elif schedule == "packed":
+        psched = packed.PackedSchedule(part, tree)
+
+        def ev(p, brl):
+            return packed.loglikelihood_packed(p, brl, psched)
     else:
         ev = engine.compile_fast_eval(part, tree, schedule=schedule)
     base = torch.as_tensor(tree.lengths, dtype=torch.float32,
@@ -818,7 +1072,8 @@ def main(argv=None) -> int:
     _build.load()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("== ") or any(
+                k in line for k in ("entry function", "registers", "spill")):
             print("  ptxas:", line.strip())
 
     cells = {}
@@ -871,7 +1126,10 @@ def main(argv=None) -> int:
     for k in deriv.LAUNCHES:
         deriv.LAUNCHES[k] = 0
     blo_rows = [run_blo(dna, tree, dna64, "flagship DNA")[0]]
-    blo_launches = dict(deriv.LAUNCHES, fused_walk=fused.LAUNCHES)
+    # one partition: kernel 10 in its K = 1 form
+    blo_launches = {k: n for k, n in deriv.LAUNCHES.items()
+                    if k != "newton_edges_multi"}
+    blo_launches["fused_walk"] = fused.LAUNCHES
     print(f"BLO path launches: {blo_launches}")
     missed = [k for k, n in blo_launches.items() if n == 0]
     if missed:
@@ -921,6 +1179,40 @@ def main(argv=None) -> int:
                                                "bound_by", "library_ms",
                                                "max_abs_err")}
 
+    # ---- the packed walk (kernel 6) at the flagship and protein cells:
+    # the kernel against its plain version, then its path with the count
+    # set to 0
+    packed_row = check_packed(dna, tree, dna64, "flagship DNA")
+    prow = check_packed(prot, ptree, prot64, "protein")
+    packed_ms, packed_row["launches"] = run_packed_path(
+        [("flagship DNA", dna, tree, dna64),
+         ("protein", prot, ptree, prot64)])
+    packed_row["protein"] = {k: prow[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+        "G", "groups", "n_slots_pad", "n_slots")}
+
+    # ---- the partitioned analysis on the flagship tree: DNA + protein
+    prot2 = flagship.partition_on_tree(tree, **PARTITION2,
+                                       device="cuda").cache_eigen()
+    prot2_64 = flagship.partition_on_tree(tree, **PARTITION2,
+                                          dtype=torch.float64, device="cuda")
+    multi_row = check_newton_multi((dna, prot2), tree, SCALED_SCALERS,
+                                   "flagship DNA + protein")
+    partitioned, part_launches = run_partitioned((dna, prot2),
+                                                 (dna64, prot2_64), tree)
+    multi_row["launches"] = part_launches["newton_edges_multi"]
+    fused_row["launches_by_path"]["partitioned"] = part_launches["fused_walk"]
+    fused_row["launches"] += part_launches["fused_walk"]
+    res_row["launches_by_path"] = {"loglikelihood": res_row["launches"],
+                                   "partitioned":
+                                       part_launches["resident_walk"]}
+    res_row["launches"] += part_launches["resident_walk"]
+    for row in deriv_rows:
+        row["launches_by_path"] = {"blo": row["launches"],
+                                   "partitioned": part_launches[row["name"]]}
+        row["launches"] += part_launches[row["name"]]
+    del prot2_64
+
     # ---- the other schedules of each cell, forced, end to end (the
     # 64-state cell's resident slots do not fit)
     ms_by_schedule = {}
@@ -951,9 +1243,13 @@ def main(argv=None) -> int:
                       "ms_per_eval_by_schedule": ms_by_schedule,
                       "gpu": name, "power_limit": power}))
     print(json.dumps({"blo": blo_rows, "sub_sweeps": split}))
+    print(json.dumps({"packed": {k: dict(zip(("ms", "host_issue_ms"), v))
+                                 for k, v in packed_ms.items()},
+                      "partitioned": partitioned}))
     print(json.dumps({"routing": routing}))
     print(json.dumps({"kernels": [res_row, fused_row, *deriv_rows,
-                                  *level_rows["flagship DNA"]]}))
+                                  *level_rows["flagship DNA"], packed_row,
+                                  multi_row]}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,11 @@ Slice 1 ports the full-tree log-likelihood:
 ``ops.partition.create_partition`` → ``ops.engine.tree_loglikelihood``,
 on two CUDA kernels (``csrc/pruning.cu``): the shared-memory-resident
 traversal (``ops.resident``) and the traversal that keeps every CLV in
-device memory (``ops.fused``).
+device memory (``ops.fused``). Later slices add branch-length
+optimization (``optimize.blo``), the level, grouped and packed
+schedules (``ops.levels``, ``ops.grouped``, ``ops.packed``) and the
+partitioned layer (``tree.treeinfo``). ``ROADMAP.md`` lists what is
+ported and what is left.
 """
 
 import torch

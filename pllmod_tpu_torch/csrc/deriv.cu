@@ -33,23 +33,32 @@
 //    pattern-weighted sums in double, in a fixed order (warp shuffles,
 //    then shared memory): deterministic, no atomics.
 //  * pllmod_newton_edges replaces pallas_deriv.py::_make_newton_kernel
-//    (n_parts = 1). One CTA per edge runs the bracketed Newton of
-//    optimize/newton.py::minimize_newton_multi: each iteration is the
-//    derivative pass above at the current x; thread 0 applies the
-//    bracket, step clamp, Newton-or-bisect and freeze rule in float32
-//    and broadcasts x and the stop flag through shared memory; the edge
-//    stops on its own convergence. Bound: one read of st and sc (the
-//    inputs' bytes); each iteration streams the edge's row again from
-//    L2 / device memory, since a flagship row (1 MB) does not fit in
-//    shared memory (227 KB).
-#include <cuda_runtime.h>
-#include <math.h>
+//    for any number K of partitions (the n_parts > 1 form is the
+//    multi-partition BLO's, pallas_deriv.py:415-420). One CTA per edge
+//    runs the bracketed Newton of optimize/newton.py::
+//    minimize_newton_multi: each iteration forms every partition's
+//    coefficient rows in shared memory, then runs the derivative pass
+//    above over each partition in turn, partition by partition through
+//    the same fixed-order block reduction, and adds the K (logL, d/dt,
+//    d2/dt2) sums in double in that order; thread 0 applies the bracket,
+//    step clamp, Newton-or-bisect and freeze rule in float32 and
+//    broadcasts x and the stop flag through shared memory; the edge stops
+//    on its own convergence. The partitions come as a device array of
+//    descriptors (pointers to st, sc, lw, lnB, pw; C*S; Ppad); a SCALED
+//    linkage's branch-length scaler s is folded into lw's lr row by the
+//    caller (lr' = s lr, sumtables built at b s), so the sums are the
+//    derivatives in the shared length b (pallas_deriv.py:512-520). With
+//    K = 1 every operation is the single-partition kernel's. Bound: one
+//    read of every st and sc (the inputs' bytes); each iteration streams
+//    the edge's rows again from L2 / device memory, since a flagship row
+//    (1 MB) does not fit in shared memory (227 KB).
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+using common::kMaxThreads;
+using common::kSmemOptin;
 constexpr int kDerivThreads = 512;
-constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kTiny = 1e-37f;
 
@@ -80,19 +89,7 @@ size_t sumtable_stage_floats(int C, int S, int n_codes) {
 }
 
 bool sumtable_stages(int C, int S, int n_codes) {
-  return 4 * sumtable_stage_floats(C, S, n_codes) <= kSmemOptin;
-}
-
-// Row i of Bk times x, summed in order j = 0..S-1, rounding each product
-// and sum separately.
-template <int MAXS>
-__device__ __forceinline__ float row_dot(const float* Bk, int i, int S,
-                                         const float (&x)[MAXS]) {
-  float acc = __fmul_rn(Bk[i * S], x[0]);
-#pragma unroll
-  for (int j = 1; j < MAXS; ++j)
-    if (j < S) acc = __fadd_rn(acc, __fmul_rn(Bk[i * S + j], x[j]));
-  return acc;
+  return common::fits_smem(sumtable_stage_floats(C, S, n_codes));
 }
 
 // Side k (0: A applied, 1: Vinv applied) of edge row `row`, category c,
@@ -102,7 +99,7 @@ __device__ __forceinline__ void sumtable_side(
     const SumtableArgs& a, const float* basis, const float* tab,
     const int* row, int k, int c, int p, float (&out)[MAXS], int& s) {
   const int S = a.S, C = a.C, CS = C * S;
-  constexpr int kUnrollRows = MAXS <= 32 ? MAXS : 1;
+  constexpr int kUnrollRows = common::unroll_rows<MAXS>();
   if (row[kIsTip1 + k] != 0) {
     const int tip = min(max(row[kTip1 + k], 0), a.n_tips - 1);
     int code = a.codes[(size_t)tip * a.Ppad + p];
@@ -117,13 +114,11 @@ __device__ __forceinline__ void sumtable_side(
   const int slot = min(max(row[kSlot1 + k], 0), a.n_slots - 1);
   const float* src = a.clvs + ((size_t)slot * CS + c * S) * a.Ppad + p;
   float x[MAXS];
-#pragma unroll
-  for (int j = 0; j < MAXS; ++j)
-    if (j < S) x[j] = src[(size_t)j * a.Ppad];
+  common::load_column<MAXS>(src, a.Ppad, S, x);
   const float* Bk = basis + ((size_t)k * C + c) * S * S;
 #pragma unroll kUnrollRows
   for (int i = 0; i < MAXS; ++i)
-    if (i < S) out[i] = row_dot<MAXS>(Bk, i, S, x);
+    if (i < S) out[i] = common::row_dot<MAXS>(Bk, i, S, x);
   s = a.scalers[(size_t)slot * a.Ppad + p];
 }
 
@@ -164,14 +159,10 @@ int launch_sumtable_t(const SumtableArgs& a, cudaStream_t stream) {
   const bool stage = sumtable_stages(a.C, a.S, a.n_codes);
   const size_t smem = stage ? 4 * sumtable_stage_floats(a.C, a.S, a.n_codes)
                             : 0;
-  auto kern = stage ? edge_sumtable_kernel<MAXS, true>
-                    : edge_sumtable_kernel<MAXS, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.nE, a.Ppad / a.T), block(a.C * a.T);
-  kern<<<grid, block, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  return common::launch_kernel(stage ? edge_sumtable_kernel<MAXS, true>
+                                     : edge_sumtable_kernel<MAXS, false>,
+                               dim3(a.nE, a.Ppad / a.T), dim3(a.C * a.T),
+                               smem, stream, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -288,13 +279,28 @@ edge_deriv_kernel(DerivArgs a, const float* t, float* out) {
   }
 }
 
+// One partition of the Newton kernel: 64-bit fields, the layout of the
+// rows that ops/deriv.py::newton_edges_multi uploads.
+struct PartDesc {
+  long long st, sc, lw, lnB, pw, CS, Ppad;
+};
+
+__device__ __forceinline__ DerivArgs part_args(const PartDesc& d, int nE) {
+  return DerivArgs{reinterpret_cast<const float*>(d.st),
+                   reinterpret_cast<const int*>(d.sc),
+                   reinterpret_cast<const float*>(d.lw),
+                   reinterpret_cast<const float*>(d.lnB),
+                   reinterpret_cast<const float*>(d.pw), nE, (int)d.CS,
+                   (int)d.Ppad};
+}
+
 __global__ void __launch_bounds__(kDerivThreads)
-newton_edge_kernel(DerivArgs a, const float* t0, float xmin, float xmax,
-                   float tol, int max_iters, float* t_out, float* lnl0_out,
-                   int* iters_out) {
+newton_edge_kernel(const PartDesc* parts, int K, int nE, const float* t0,
+                   float xmin, float xmax, float tol, int max_iters,
+                   float* t_out, float* lnl0_out, int* iters_out) {
   extern __shared__ double dsmem[];
   double* red = dsmem;
-  float* coef = reinterpret_cast<float*>(dsmem + 96);
+  float* coef = reinterpret_cast<float*>(dsmem + 96);   // [3 * sum CS_k]
   __shared__ float s_x;
   __shared__ int s_stop;
   const int e = blockIdx.x;
@@ -308,12 +314,26 @@ newton_edge_kernel(DerivArgs a, const float* t0, float xmin, float xmax,
   }
   __syncthreads();
   for (int it = 0; it < max_iters; ++it) {
-    edge_coeffs(a, s_x, coef);
+    int off = 0;
+    for (int k = 0; k < K; ++k) {
+      const DerivArgs a = part_args(parts[k], nE);
+      edge_coeffs(a, s_x, coef + off);
+      off += 3 * a.CS;
+    }
     __syncthreads();
-    double s_l, s_d, s_dd;
-    edge_sums(a, e, coef, red, s_l, s_d, s_dd);
+    double t_l = 0.0, t_d = 0.0, t_dd = 0.0;
+    off = 0;
+    for (int k = 0; k < K; ++k) {
+      const DerivArgs a = part_args(parts[k], nE);
+      double s_l, s_d, s_dd;
+      edge_sums(a, e, coef + off, red, s_l, s_d, s_dd);
+      t_l += s_l;
+      t_d += s_d;
+      t_dd += s_dd;
+      off += 3 * a.CS;
+    }
     if (threadIdx.x == 0) {
-      const float lnl = (float)s_l, df = (float)s_d, ddf = (float)s_dd;
+      const float lnl = (float)t_l, df = (float)t_d, ddf = (float)t_dd;
       if (it == 0) lnl0 = lnl;
       if (df > 0.f) xl = x;
       if (df < 0.f) xh = x;
@@ -361,13 +381,8 @@ extern "C" int pllmod_edge_sumtables(
   if (C * T > kMaxThreads || Ppad % T != 0 || Ppad / T > 65535)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (S <= 4) return launch_sumtable_t<4>(a, s);
-  if (S <= 8) return launch_sumtable_t<8>(a, s);
-  if (S <= 16) return launch_sumtable_t<16>(a, s);
-  if (S <= 20) return launch_sumtable_t<20>(a, s);
-  if (S <= 32) return launch_sumtable_t<32>(a, s);
-  if (S <= 64) return launch_sumtable_t<64>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return common::dispatch_states(
+      S, [&](auto m) { return launch_sumtable_t<decltype(m)::value>(a, s); });
 }
 
 extern "C" int pllmod_edge_derivs(
@@ -383,18 +398,19 @@ extern "C" int pllmod_edge_derivs(
   return (int)cudaGetLastError();
 }
 
+// parts: a device array of K descriptors (PartDesc); total_cs = the sum
+// of their C*S, which sets the shared memory of the coefficient rows.
 extern "C" int pllmod_newton_edges(
-    const float* st, const int* sc, const float* lw, const float* lnB,
-    const float* pw, const float* t0, float xmin, float xmax, float tol,
-    int max_iters, float* t_out, float* lnl0_out, int* iters_out, int nE,
-    int CS, int Ppad, void* stream) {
-  DerivArgs a{st, sc, lw, lnB, pw, nE, CS, Ppad};
-  if (max_iters < 1) return (int)cudaErrorInvalidValue;
+    const void* parts, int K, int total_cs, const float* t0, float xmin,
+    float xmax, float tol, int max_iters, float* t_out, float* lnl0_out,
+    int* iters_out, int nE, void* stream) {
+  if (max_iters < 1 || K < 1) return (int)cudaErrorInvalidValue;
   size_t smem;
-  int err = prepare_deriv((const void*)newton_edge_kernel, CS, smem);
+  int err = prepare_deriv((const void*)newton_edge_kernel, total_cs, smem);
   if (err != 0) return err;
   newton_edge_kernel<<<nE, kDerivThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      a, t0, xmin, xmax, tol, max_iters, t_out, lnl0_out, iters_out);
+      static_cast<const PartDesc*>(parts), K, nE, t0, xmin, xmax, tol,
+      max_iters, t_out, lnl0_out, iters_out);
   return (int)cudaGetLastError();
 }

@@ -28,10 +28,11 @@
 // mode, tile-major buffers and probe knobs have no counterpart: patterns
 // are independent, and one CTA never waits on another.
 //
-// Exactness: as csrc/pruning.cu (products and sums rounded separately in
-// state order, the bit-formula rescale clipped to [-125, 127],
-// pallas_grouped.py:378-385), so the kernel equals its plain version in
-// ops/grouped.py bit for bit on every position a member writes.
+// Exactness: the walks' contract of csrc/common.cuh (products and sums
+// rounded separately in state order, the bit-formula rescale clipped to
+// [-125, 127], pallas_grouped.py:378-385), so the kernel equals its plain
+// version in ops/grouped.py bit for bit on every position a member
+// writes.
 //
 // Bound on the H100 at the flagship (128 taxa x 16384 patterns GTR+G4,
 // C*S = 16, G = 4, nG = 35; chip_smoke.py computes the exact figure from
@@ -40,13 +41,11 @@
 // codes are read once (8.4 MB): ~45 us at 3.35 TB/s, against ~0.4 GFLOP
 // (~6 us at 67 TFLOP/s). As designed each inner child is also read back
 // once by its consumer (~66 MB more).
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
+using common::kMaxThreads;
 
 struct GroupedArgs {
   const int* side_meta;  // [nG, Q, 2] (is_tip, tip)
@@ -68,22 +67,6 @@ size_t stage_floats(int C, int S, int n_codes) {
   return (size_t)n_codes * S + (size_t)2 * C * S * S;
 }
 
-bool stages(int C, int S, int n_codes, int T) {
-  return 4 * ((size_t)C * T + stage_floats(C, S, n_codes)) <= kSmemOptin;
-}
-
-// Row i of Pk times x, summed in order j = 0..S-1, rounding each product
-// and sum separately.
-template <int MAXS>
-__device__ __forceinline__ float row_dot(const float* Pk, int i, int S,
-                                         const float (&x)[MAXS]) {
-  float acc = __fmul_rn(Pk[i * S], x[0]);
-#pragma unroll
-  for (int j = 1; j < MAXS; ++j)
-    if (j < S) acc = __fadd_rn(acc, __fmul_rn(Pk[i * S + j], x[j]));
-  return acc;
-}
-
 // The child at position q of group g: its S values of category c at
 // pattern p, and its scaler (read by category 0 only).
 template <int MAXS>
@@ -95,19 +78,14 @@ __device__ __forceinline__ void load_child(const GroupedArgs& a,
   const int* side = a.side_meta + ((size_t)g * Q + q) * 2;
   if (side[0] != 0) {
     const int tip = min(max(side[1], 0), a.n_tips - 1);
-    int code = a.codes[(size_t)tip * a.Ppad + p];
-    code = min(max(code, 0), a.n_codes - 1);
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j)
-      if (j < S) x[j] = tab[code * S + j];
+    common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
+                           S, x);
     sc = 0;
     return;
   }
   const size_t pos = (size_t)g * Q + q;
-  const float* src = a.bufs + (pos * a.C * S + c * S) * a.Ppad + p;
-#pragma unroll
-  for (int j = 0; j < MAXS; ++j)
-    if (j < S) x[j] = src[(size_t)j * a.Ppad];
+  common::load_column<MAXS>(a.bufs + (pos * a.C * S + c * S) * a.Ppad + p,
+                            a.Ppad, S, x);
   sc = (c == 0) ? a.sbufs[pos * a.Ppad + p] : 0;
 }
 
@@ -128,9 +106,6 @@ grouped_walk(GroupedArgs a) {
   if (STAGE)
     for (int i = tid; i < a.n_codes * S; i += nthr) tab_s[i] = a.codetab[i];
   const float* tab = STAGE ? tab_s : a.codetab;
-  // up to 32 states every output row is unrolled and o[] stays in
-  // registers; the 64-state tile keeps o[] in local memory
-  constexpr int kUnrollRows = MAXS <= 32 ? MAXS : 1;
 
   for (int g = 0; g < a.nG; ++g) {
     for (int m = 0; m < G; ++m) {
@@ -149,31 +124,14 @@ grouped_walk(GroupedArgs a) {
       int sc1, sc2;
       load_child<MAXS>(a, tab, g, m, c, p, x1, sc1);
       load_child<MAXS>(a, tab, g, G + m, c, p, x2, sc2);
-      float mx = -INFINITY;
-#pragma unroll kUnrollRows
-      for (int i = 0; i < MAXS; ++i) {
-        if (i < S) {
-          o[i] = __fmul_rn(row_dot<MAXS>(Pa, i, S, x1),
-                           row_dot<MAXS>(Pb, i, S, x2));
-          mx = fmaxf(mx, o[i]);
-        }
-      }
-      red[c * T + pl] = mx;
-      __syncthreads();                      // category maxima visible
-      float mm = red[pl];
-      for (int k = 1; k < C; ++k) mm = fmaxf(mm, red[k * T + pl]);
-      int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
-      if (!(mm > 0.f)) e = 0;
-      e = min(max(e, -125), 127);
-      const float scale = __int_as_float((127 - e) << 23);
+      const float mx = common::child_product<MAXS>(Pa, Pb, S, x1, x2, o);
+      const int e = common::rescale_exponent(red, mx, c, pl, C, T);
       const int* dst_m = a.dst_meta + ((size_t)g * G + m) * 2;
       const int dg = min(max(dst_m[0], 0), a.nG);
       const int dq = min(max(dst_m[1], 0), Q - 1);
       const size_t pos = (size_t)dg * Q + dq;
-      float* dst = a.bufs + (pos * CS + c * S) * a.Ppad + p;
-#pragma unroll kUnrollRows
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S) dst[(size_t)i * a.Ppad] = __fmul_rn(o[i], scale);
+      common::store_scaled<MAXS>(a.bufs + (pos * CS + c * S) * a.Ppad + p,
+                                 a.Ppad, S, o, e);
       if (c == 0) a.sbufs[pos * a.Ppad + p] = sc1 + sc2 + e;
     }
   }
@@ -181,16 +139,12 @@ grouped_walk(GroupedArgs a) {
 
 template <int MAXS>
 int launch_t(const GroupedArgs& a, cudaStream_t stream) {
-  const bool stage = stages(a.C, a.S, a.n_codes, a.T);
-  const size_t smem =
-      4 * ((size_t)a.C * a.T + (stage ? stage_floats(a.C, a.S, a.n_codes) : 0));
-  auto kern = stage ? grouped_walk<MAXS, true> : grouped_walk<MAXS, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Ppad / a.T), block(a.C * a.T);
-  kern<<<grid, block, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  const size_t stage = stage_floats(a.C, a.S, a.n_codes);
+  const bool staged = common::fits_smem((size_t)a.C * a.T + stage);
+  const size_t smem = 4 * ((size_t)a.C * a.T + (staged ? stage : 0));
+  return common::launch_kernel(
+      staged ? grouped_walk<MAXS, true> : grouped_walk<MAXS, false>,
+      dim3(a.Ppad / a.T), dim3(a.C * a.T), smem, stream, a);
 }
 
 }  // namespace
@@ -205,11 +159,6 @@ extern "C" int pllmod_grouped_walk(
   GroupedArgs a{side_meta, dst_meta, nG, G, PQ, codes, n_tips, codetab,
                 n_codes, bufs, sbufs, Ppad, C, S, T};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S <= 4) return launch_t<4>(a, st);
-  if (S <= 8) return launch_t<8>(a, st);
-  if (S <= 16) return launch_t<16>(a, st);
-  if (S <= 20) return launch_t<20>(a, st);
-  if (S <= 32) return launch_t<32>(a, st);
-  if (S <= 64) return launch_t<64>(a, st);
-  return (int)cudaErrorInvalidValue;
+  return common::dispatch_states(
+      S, [&](auto m) { return launch_t<decltype(m)::value>(a, st); });
 }

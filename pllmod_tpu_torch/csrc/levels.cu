@@ -29,10 +29,11 @@
 // they fit (a template flag), else read from device memory, where they
 // stay in L1/L2.
 //
-// Exactness: as csrc/pruning.cu, products and sums are rounded separately
-// (__fmul_rn / __fadd_rn) in child-state order j = 0..S-1 and the rescale
-// is the bit formula clipped to [-125, 127] (pallas_clv.py:224-232), so
-// each kernel equals its plain version in ops/levels.py bit for bit.
+// Exactness: the walks' contract of csrc/common.cuh, products and sums
+// rounded separately (__fmul_rn / __fadd_rn) in child-state order j =
+// 0..S-1 and the rescale the bit formula clipped to [-125, 127]
+// (pallas_clv.py:224-232), so each kernel equals its plain version in
+// ops/levels.py bit for bit.
 //
 // Bound on the H100 at the flagship (128 taxa x 16384 patterns GTR+G4,
 // C*S = 16, 126 rows in 17 levels; chip_smoke.py computes the exact
@@ -44,13 +45,11 @@
 // combined kernel reads the children once and writes the blocks (~200
 // MB). The operations (2 C*S*S flops a pattern for an inner child, the
 // rescale's 3 C*S) come to ~0.4 GFLOP an evaluation, ~6 us at 67 TFLOP/s.
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
+using common::kMaxThreads;
 
 // [W, 6] row columns: slot1, slot2, is_tip1, is_tip2, tip1, tip2
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4;
@@ -86,22 +85,6 @@ size_t stage_floats(int mode, int C, int S, int n_codes) {
   return (size_t)n_codes * S + (size_t)n_mats(mode) * C * S * S;
 }
 
-bool stages(int mode, int C, int S, int n_codes, int T) {
-  return 4 * ((size_t)C * T + stage_floats(mode, C, S, n_codes)) <= kSmemOptin;
-}
-
-// Row i of Pk times x, summed in order j = 0..S-1, rounding each product
-// and sum separately.
-template <int MAXS>
-__device__ __forceinline__ float row_dot(const float* Pk, int i, int S,
-                                         const float (&x)[MAXS]) {
-  float acc = __fmul_rn(Pk[i * S], x[0]);
-#pragma unroll
-  for (int j = 1; j < MAXS; ++j)
-    if (j < S) acc = __fadd_rn(acc, __fmul_rn(Pk[i * S + j], x[j]));
-  return acc;
-}
-
 // Child k of the row: its S values of category c at pattern p, and its
 // scaler (read by category 0 only, which alone writes scalers).
 template <int MAXS>
@@ -112,19 +95,14 @@ __device__ __forceinline__ void load_child(const LevelArgs& a,
   const int S = a.S;
   if (row[kIsTip + k] != 0) {
     const int tip = min(max(row[kTip + k], 0), a.n_tips - 1);
-    int code = a.codes[(size_t)tip * a.Ppad + p];
-    code = min(max(code, 0), a.n_codes - 1);
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j)
-      if (j < S) x[j] = tab[code * S + j];
+    common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
+                           S, x);
     sc = 0;
     return;
   }
   const int slot = min(max(row[kSlot + k], 0), a.n_slots - 1);
-  const float* src = a.clvs + ((size_t)slot * a.C * S + c * S) * a.Ppad + p;
-#pragma unroll
-  for (int j = 0; j < MAXS; ++j)
-    if (j < S) x[j] = src[(size_t)j * a.Ppad];
+  common::load_column<MAXS>(
+      a.clvs + ((size_t)slot * a.C * S + c * S) * a.Ppad + p, a.Ppad, S, x);
   sc = (c == 0) ? a.scalers[(size_t)slot * a.Ppad + p] : 0;
 }
 
@@ -157,9 +135,7 @@ level_kernel(LevelArgs a) {
   const float* Pa = (STAGE ? P_s : Pw1) + c * S * S;
   const float* Pb = (STAGE ? P_s + msz : Pw2) + c * S * S;
   const int* row = a.idx + 6 * w;
-  // up to 32 states every output row is unrolled and o[] stays in
-  // registers; the 64-state tile keeps o[] in local memory
-  constexpr int kUnrollRows = MAXS <= 32 ? MAXS : 1;
+  constexpr int kUnrollRows = common::unroll_rows<MAXS>();
   float x[MAXS];
   int sc;
 
@@ -168,11 +144,13 @@ level_kernel(LevelArgs a) {
     float* dst = a.out + ((size_t)w * CS + c * S) * a.Ppad + p;
 #pragma unroll kUnrollRows
     for (int i = 0; i < MAXS; ++i)
-      if (i < S) dst[(size_t)i * a.Ppad] = row_dot<MAXS>(Pa, i, S, x);
+      if (i < S) dst[(size_t)i * a.Ppad] = common::row_dot<MAXS>(Pa, i, S, x);
     if (c == 0) a.out_sc[(size_t)w * a.Ppad + p] = sc;
     return;
   }
 
+  // the products first, then their maximum in a loop of its own: one
+  // loop of both makes the 20-state second-child pass ~30 % slower
   float o[MAXS];
   int stot;
   if (MODE == kChild2) {
@@ -181,7 +159,8 @@ level_kernel(LevelArgs a) {
 #pragma unroll kUnrollRows
     for (int i = 0; i < MAXS; ++i)
       if (i < S)
-        o[i] = __fmul_rn(lw[(size_t)i * a.Ppad], row_dot<MAXS>(Pa, i, S, x));
+        o[i] = __fmul_rn(lw[(size_t)i * a.Ppad],
+                         common::row_dot<MAXS>(Pa, i, S, x));
     stot = (c == 0) ? a.s1[(size_t)w * a.Ppad + p] + sc : 0;
   } else {
     float x2[MAXS];
@@ -191,44 +170,30 @@ level_kernel(LevelArgs a) {
 #pragma unroll kUnrollRows
     for (int i = 0; i < MAXS; ++i)
       if (i < S)
-        o[i] = __fmul_rn(row_dot<MAXS>(Pa, i, S, x),
-                         row_dot<MAXS>(Pb, i, S, x2));
+        o[i] = __fmul_rn(common::row_dot<MAXS>(Pa, i, S, x),
+                         common::row_dot<MAXS>(Pb, i, S, x2));
     stot = sc + sc2;
   }
   float m = -INFINITY;
 #pragma unroll kUnrollRows
   for (int i = 0; i < MAXS; ++i)
     if (i < S) m = fmaxf(m, o[i]);
-  red[c * T + pl] = m;
-  __syncthreads();                          // category maxima visible
-  float mm = red[pl];
-  for (int k = 1; k < C; ++k) mm = fmaxf(mm, red[k * T + pl]);
-  int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
-  if (!(mm > 0.f)) e = 0;
-  e = min(max(e, -125), 127);
-  const float scale = __int_as_float((127 - e) << 23);
+  const int e = common::rescale_exponent(red, m, c, pl, C, T);
   const size_t slot = (size_t)a.off + w;
-  float* dst = a.clvs + (slot * CS + c * S) * a.Ppad + p;
-#pragma unroll kUnrollRows
-  for (int i = 0; i < MAXS; ++i)
-    if (i < S) dst[(size_t)i * a.Ppad] = __fmul_rn(o[i], scale);
+  common::store_scaled<MAXS>(a.clvs + (slot * CS + c * S) * a.Ppad + p,
+                             a.Ppad, S, o, e);
   if (c == 0) a.scalers[slot * a.Ppad + p] = stot + e;
 }
 
 template <int MAXS, int MODE>
 int launch_t(const LevelArgs& a, cudaStream_t stream) {
-  const bool stage = stages(MODE, a.C, a.S, a.n_codes, a.T);
-  const size_t smem =
-      4 * ((size_t)a.C * a.T +
-           (stage ? stage_floats(MODE, a.C, a.S, a.n_codes) : 0));
-  auto kern = stage ? level_kernel<MAXS, MODE, true>
-                    : level_kernel<MAXS, MODE, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Ppad / a.T, a.W), block(a.C * a.T);
-  kern<<<grid, block, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  const size_t stage = stage_floats(MODE, a.C, a.S, a.n_codes);
+  const bool staged = common::fits_smem((size_t)a.C * a.T + stage);
+  const size_t smem = 4 * ((size_t)a.C * a.T + (staged ? stage : 0));
+  return common::launch_kernel(staged ? level_kernel<MAXS, MODE, true>
+                                      : level_kernel<MAXS, MODE, false>,
+                               dim3(a.Ppad / a.T, a.W), dim3(a.C * a.T), smem,
+                               stream, a);
 }
 
 template <int MODE>
@@ -236,13 +201,9 @@ int launch(const LevelArgs& a, cudaStream_t stream) {
   if (a.C * a.T > kMaxThreads || a.T <= 0 || a.Ppad % a.T != 0 ||
       a.W <= 0 || a.W > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  if (a.S <= 4) return launch_t<4, MODE>(a, stream);
-  if (a.S <= 8) return launch_t<8, MODE>(a, stream);
-  if (a.S <= 16) return launch_t<16, MODE>(a, stream);
-  if (a.S <= 20) return launch_t<20, MODE>(a, stream);
-  if (a.S <= 32) return launch_t<32, MODE>(a, stream);
-  if (a.S <= 64) return launch_t<64, MODE>(a, stream);
-  return (int)cudaErrorInvalidValue;
+  return common::dispatch_states(a.S, [&](auto m) {
+    return launch_t<decltype(m)::value, MODE>(a, stream);
+  });
 }
 
 }  // namespace

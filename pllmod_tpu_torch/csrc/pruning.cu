@@ -35,9 +35,10 @@
 //
 // Exactness. Products and sums are rounded separately (__fmul_rn /
 // __fadd_rn, never contracted to FMA) in child-state order j = 0..S-1, and
-// the rescale is the bit formula of pallas_resident.py:469-477: the plain
-// PyTorch versions (ops/clv.py::walk_rows_plain) do the same operations
-// in the same order, so kernel and plain version agree bit for bit.
+// the rescale is the bit formula of pallas_resident.py:469-477, both in
+// csrc/common.cuh: the plain PyTorch versions (ops/clv.py::
+// walk_rows_plain) do the same operations in the same order, so kernel
+// and plain version agree bit for bit.
 //
 // Bound on the H100 at the flagship shape (128 taxa x 16384 patterns,
 // GTR+G4, C*S = 16; 127 rows incl. the root row; chip_smoke.py computes
@@ -56,13 +57,11 @@
 //    + scalers 8.4 MB = 151 MB = 45 us at 3.35 TB/s, bound by bytes. As
 //    designed each CLV is also read back once by its parent (~134 MB
 //    more, ~85 us in all).
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;
-constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
+using common::kMaxThreads;
 
 // [nW,8] idx8 columns
 constexpr int kSlot1 = 0, kSlot2 = 1, kIsTip1 = 2, kIsTip2 = 3,
@@ -92,8 +91,8 @@ size_t base_floats(int C, int S, int n_codes, int n_slots, int T,
 
 // The matrices of one row are staged when they fit beside the rest.
 bool stages_p(int C, int S, int n_codes, int n_slots, int T, bool resident) {
-  return 4 * (base_floats(C, S, n_codes, n_slots, T, resident) +
-              (size_t)2 * C * S * S) <= kSmemOptin;
+  return common::fits_smem(base_floats(C, S, n_codes, n_slots, T, resident) +
+                           (size_t)2 * C * S * S);
 }
 
 size_t smem_bytes(int C, int S, int n_codes, int n_slots, int T,
@@ -112,39 +111,18 @@ __device__ __forceinline__ void load_child(
     int& sc) {
   const int S = a.S, CS = a.C * a.S;
   if (is_tip) {
-    int code = a.codes[(size_t)tip * a.Ppad + p];
-    code = min(max(code, 0), a.n_codes - 1);
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j)
-      if (j < S) x[j] = tab[code * S + j];
+    common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
+                           S, x);
     sc = 0;
-    return;
-  }
-  if (RESIDENT) {
-    const float* src = slots + ((size_t)slot * CS + c * S) * a.T + pl;
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j)
-      if (j < S) x[j] = src[j * a.T];
+  } else if (RESIDENT) {
+    common::load_column<MAXS>(slots + ((size_t)slot * CS + c * S) * a.T + pl,
+                              a.T, S, x);
     sc = (c == 0) ? ssc[slot * a.T + pl] : 0;
   } else {
-    const float* src = a.clv_out + ((size_t)slot * CS + c * S) * a.Ppad + p;
-#pragma unroll
-    for (int j = 0; j < MAXS; ++j)
-      if (j < S) x[j] = src[(size_t)j * a.Ppad];
+    common::load_column<MAXS>(
+        a.clv_out + ((size_t)slot * CS + c * S) * a.Ppad + p, a.Ppad, S, x);
     sc = (c == 0) ? a.sc_out[(size_t)slot * a.Ppad + p] : 0;
   }
-}
-
-// Row i of Pk times x, summed in order j = 0..S-1, rounding each product
-// and sum separately.
-template <int MAXS>
-__device__ __forceinline__ float row_dot(const float* Pk, int i, int S,
-                                         const float (&x)[MAXS]) {
-  float acc = __fmul_rn(Pk[i * S], x[0]);
-#pragma unroll
-  for (int j = 1; j < MAXS; ++j)
-    if (j < S) acc = __fadd_rn(acc, __fmul_rn(Pk[i * S + j], x[j]));
-  return acc;
 }
 
 // STAGE: the row's matrices are staged in shared memory (a template
@@ -166,10 +144,6 @@ pruning_walk(WalkArgs a) {
   const int pl = tid - c * T;
   const int p = blockIdx.x * T + pl;
   const int nthr = blockDim.x;
-  // up to 32 states every output row is unrolled and o[] stays in
-  // registers; the 64-state tile keeps the child values there and o[] in
-  // local memory (fully unrolled it spills anyway and takes nvcc minutes)
-  constexpr int kUnrollRows = MAXS <= 32 ? MAXS : 1;
 
   for (int i = tid; i < a.n_codes * S; i += nthr) tab[i] = a.codetab[i];
 
@@ -194,42 +168,22 @@ pruning_walk(WalkArgs a) {
                                row[kTip2], s2, c, pl, p, x2, sc2);
     const float* Pa = Pw + c * S * S;
     const float* Pb = Pw + C * S * S + c * S * S;
-    float m = -INFINITY;
-#pragma unroll kUnrollRows
-    for (int i = 0; i < MAXS; ++i) {
-      if (i < S) {
-        o[i] = __fmul_rn(row_dot<MAXS>(Pa, i, S, x1),
-                         row_dot<MAXS>(Pb, i, S, x2));
-        m = fmaxf(m, o[i]);
-      }
-    }
-    red[c * T + pl] = m;
-    __syncthreads();                        // category maxima visible
-    float mm = red[pl];
-    for (int k = 1; k < C; ++k) mm = fmaxf(mm, red[k * T + pl]);
-    int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
-    if (!(mm > 0.f)) e = 0;
-    e = min(max(e, -125), 127);
-    const float scale = __int_as_float((127 - e) << 23);
+    const float m = common::child_product<MAXS>(Pa, Pb, S, x1, x2, o);
+    const int e = common::rescale_exponent(red, m, c, pl, C, T);
     const int stot = sc1 + sc2 + e;
 
     if (root) {
-      float* dst = a.clv_out + (size_t)(c * S) * a.Ppad + p;
-#pragma unroll
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S) dst[(size_t)i * a.Ppad] = __fmul_rn(o[i], scale);
+      common::store_scaled<MAXS, MAXS>(
+          a.clv_out + (size_t)(c * S) * a.Ppad + p, a.Ppad, S, o, e);
       if (c == 0) a.sc_out[p] = stot;
     } else if (RESIDENT) {
-      float* dst = slots + ((size_t)out * CS + c * S) * T + pl;
-#pragma unroll
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S) dst[i * T] = __fmul_rn(o[i], scale);
+      common::store_scaled<MAXS, MAXS>(
+          slots + ((size_t)out * CS + c * S) * T + pl, T, S, o, e);
       if (c == 0) ssc[out * T + pl] = stot;
     } else {
-      float* dst = a.clv_out + ((size_t)out * CS + c * S) * a.Ppad + p;
-#pragma unroll
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S) dst[(size_t)i * a.Ppad] = __fmul_rn(o[i], scale);
+      common::store_scaled<MAXS, MAXS>(
+          a.clv_out + ((size_t)out * CS + c * S) * a.Ppad + p, a.Ppad, S, o,
+          e);
       if (c == 0) a.sc_out[(size_t)out * a.Ppad + p] = stot;
     }
   }
@@ -238,29 +192,21 @@ pruning_walk(WalkArgs a) {
 template <int MAXS, bool RESIDENT>
 int launch_t(const WalkArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.C, a.S, a.n_codes, a.n_slots, a.T, RESIDENT);
-  if (smem > kSmemOptin) return (int)cudaErrorInvalidValue;
-  auto kern = stages_p(a.C, a.S, a.n_codes, a.n_slots, a.T, RESIDENT)
-                  ? pruning_walk<MAXS, RESIDENT, true>
-                  : pruning_walk<MAXS, RESIDENT, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Ppad / a.T), block(a.C * a.T);
-  kern<<<grid, block, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (smem > common::kSmemOptin) return (int)cudaErrorInvalidValue;
+  return common::launch_kernel(
+      stages_p(a.C, a.S, a.n_codes, a.n_slots, a.T, RESIDENT)
+          ? pruning_walk<MAXS, RESIDENT, true>
+          : pruning_walk<MAXS, RESIDENT, false>,
+      dim3(a.Ppad / a.T), dim3(a.C * a.T), smem, stream, a);
 }
 
 template <bool RESIDENT>
 int launch(const WalkArgs& a, cudaStream_t stream) {
   if (a.C * a.T > kMaxThreads || a.Ppad % a.T != 0)
     return (int)cudaErrorInvalidConfiguration;
-  if (a.S <= 4) return launch_t<4, RESIDENT>(a, stream);
-  if (a.S <= 8) return launch_t<8, RESIDENT>(a, stream);
-  if (a.S <= 16) return launch_t<16, RESIDENT>(a, stream);
-  if (a.S <= 20) return launch_t<20, RESIDENT>(a, stream);
-  if (a.S <= 32) return launch_t<32, RESIDENT>(a, stream);
-  if (a.S <= 64) return launch_t<64, RESIDENT>(a, stream);
-  return (int)cudaErrorInvalidValue;
+  return common::dispatch_states(a.S, [&](auto m) {
+    return launch_t<decltype(m)::value, RESIDENT>(a, stream);
+  });
 }
 
 }  // namespace

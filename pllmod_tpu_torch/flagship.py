@@ -49,6 +49,22 @@ def example(n_taxa=12, n_sites=256, seed=7, dtype=torch.float32,
     return partition, tree
 
 
+def partition_on_tree(tree, n_sites=4096, seed=5, states=20,
+                      dtype=torch.float32, device="cuda", n_rate_cats=4):
+    """A partition of :func:`example_data`'s alignment (``tree.n_tips``
+    taxa, ``n_sites`` sites, ``seed``, ``states``) laid on ``tree``: tip
+    ``i`` holds the sequence of taxon ``tree.labels[i]`` (``t<k>`` takes
+    row ``k``), with the model of :func:`example`. A second partition of
+    a partitioned analysis over the flagship tree."""
+    seqs, _, rates, freqs = example_data(tree.n_tips, n_sites, seed, states)
+    ordered = [seqs[int(label[1:])] for label in tree.labels]
+    cmap = None if states in _ALPHABETS else charmap.multistate(states)
+    return create_partition(
+        ordered, states=states, charmap=cmap, n_rate_cats=n_rate_cats,
+        alpha=0.75, subst_rates=rates, freqs=freqs, compress=False,
+        dtype=dtype, device=device)
+
+
 def random_newick(n_taxa, rng):
     """Random bifurcating topology by sequential random joins."""
     leaves = [f"t{i}" for i in range(n_taxa)]

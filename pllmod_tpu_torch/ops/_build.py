@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source into its own shared library with a plain
 C interface under ``build/`` at the repository root, named by a hash of
-the source and flags, on first use; the sources that lack a library are
+the source, the header they share (``csrc/common.cuh``) and the flags,
+on first use; the sources that lack a library are
 compiled all at once, one ``nvcc`` each. ctypes loads them. Nothing here
 runs at import time: the CPU-only tests import every module.
 """
@@ -19,7 +20,8 @@ import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("pruning", "deriv", "levels", "grouped")}
+           for name in ("pruning", "deriv", "levels", "grouped", "packed")}
+HEADER = os.path.join(_PKG, "csrc", "common.cuh")   # included by every source
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -36,9 +38,8 @@ ENTRY_POINTS = {
                                         _VP, _I, _VP, _VP, _I, _I, _I, _I,
                                         _VP], _I),
     "pllmod_edge_derivs": ("deriv", [_VP] * 7 + [_I] * 3 + [_VP], _I),
-    "pllmod_newton_edges": ("deriv", [_VP] * 6 + [_F, _F, _F, _I, _VP, _VP,
-                                                  _VP, _I, _I, _I, _VP],
-                            _I),
+    "pllmod_newton_edges": ("deriv", [_VP, _I, _I, _VP, _F, _F, _F, _I, _VP,
+                                      _VP, _VP, _I, _VP], _I),
     "pllmod_child_pass": ("levels", [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _I,
                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
                           _I),
@@ -50,6 +51,9 @@ ENTRY_POINTS = {
                               + [_I] * 6 + [_VP], _I),
     "pllmod_grouped_walk": ("grouped", [_VP, _VP, _I, _I, _VP, _VP, _I, _VP,
                                         _I, _VP, _VP] + [_I] * 4 + [_VP], _I),
+    "pllmod_packed_walk": ("packed", [_VP, _VP, _VP, _I, _VP, _I, _VP, _I,
+                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
+                           _I),
 }
 
 _lock = threading.Lock()
@@ -70,8 +74,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in (SOURCES[name], HEADER):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

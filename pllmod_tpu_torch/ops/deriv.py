@@ -10,10 +10,12 @@ torch version and a launch count in :data:`LAUNCHES`:
   ``[n_slots, C·S, Ppad]`` (the layout of :func:`fused.fused_walk`);
 - :func:`edge_derivatives_k` (kernel 9, ``pllmod_edge_derivs``):
   per-edge (logL, d/dt, d²/dt²) from the sumtables at lengths ``t``;
-- :func:`newton_edges` (kernel 10, ``pllmod_newton_edges``): a whole
-  bracketed Newton optimization per edge (the rules of
-  :func:`pllmod_tpu_torch.optimize.newton.minimize_newton_multi`), with
-  its logL at the start lengths and its iteration count.
+- :func:`newton_edges_multi` (kernel 10, ``pllmod_newton_edges``): a
+  whole bracketed Newton optimization per edge (the rules of
+  :func:`pllmod_tpu_torch.optimize.newton.minimize_newton_multi`) over K
+  partitions that share the edge lengths, with its logL at the start
+  lengths and its iteration count; :func:`newton_edges` is its
+  single-partition form (one kernel, one launch count per form).
 
 The float64 formulation (:mod:`pllmod_tpu_torch.ops.derivatives`) is the
 yardstick. On a CPU tensor a wrapper runs its plain version; on a CUDA
@@ -34,7 +36,8 @@ from pllmod_tpu_torch.ops.derivatives import invariant_term
 from pllmod_tpu_torch.optimize.newton import newton_step
 
 # launches of each kernel (counted by its wrapper where it launches)
-LAUNCHES = {"edge_sumtables": 0, "edge_derivatives": 0, "newton_edges": 0}
+LAUNCHES = {"edge_sumtables": 0, "edge_derivatives": 0, "newton_edges": 0,
+            "newton_edges_multi": 0}
 TINY = 1e-37             # float32 floor of a site likelihood
 LN_ZERO = -1e30          # log of a zero p-inv term
 
@@ -261,7 +264,9 @@ def edge_derivatives_plain(partition, st, sc, t, lw=None, lnB=None):
     return _derivs_plain(st, sc, t, lw, lnB, pw)
 
 
-def _derivs_plain(st, sc, t, lw, lnB, pw):
+def _derivs_sums(st, sc, t, lw, lnB, pw):
+    """The pattern-weighted (logL, d/dt, d²/dt²) sums per edge in
+    float64, before their rounding to float32."""
     coef = _coeff_rows(t, lw)                                 # [E,3,CS]
     rows = torch.bmm(coef, st)                                # [E,3,P]
     L, dL, ddL = rows[:, 0], rows[:, 1], rows[:, 2]
@@ -274,46 +279,48 @@ def _derivs_plain(st, sc, t, lw, lnB, pw):
     ddf = frac * ddL / Lsafe - r1s * r1s
 
     def wsum(v):
-        return (v * pw).to(torch.float64).sum(-1).to(torch.float32)
+        return (v * pw).to(torch.float64).sum(-1)
 
     return wsum(site), wsum(r1s), wsum(ddf)
 
 
+def _derivs_plain(st, sc, t, lw, lnB, pw):
+    return tuple(v.to(torch.float32)
+                 for v in _derivs_sums(st, sc, t, lw, lnB, pw))
+
+
 # ---------------------------------------------------------------------------
-# kernel 10: per-edge Newton
+# kernel 10: per-edge Newton over K partitions
 # ---------------------------------------------------------------------------
+NEWTON_RED_BYTES = 96 * 8   # the block reduction's doubles (csrc/deriv.cu)
+
+
+def newton_smem_bytes(cs) -> int:
+    """Shared memory of one kernel-10 CTA: three float32 coefficient rows
+    of C·S each for every partition (``cs``: their C·S values) and the
+    block reduction's 96 doubles."""
+    return 12 * sum(cs) + NEWTON_RED_BYTES
+
+
+def newton_fits(*partitions) -> bool:
+    """Whether kernel 10 takes these partitions at once: their
+    coefficient rows fit a block's shared memory (the port's rule; the
+    JAX package's ``newton_fits_vmem`` is a VMEM gate of the TPU)."""
+    return newton_smem_bytes([p.n_cats * p.states for p in partitions]) \
+        <= _build.SMEM_PER_BLOCK
+
+
 def newton_edges(partition, st, sc, t0, xmin, xmax, tol, max_iters=10,
                  lw=None, lnB=None):
     """Bracketed Newton optimization of every edge from its sumtable
-    (single partition).
+    (single partition): :func:`newton_edges_multi` with K = 1.
 
     Returns (t_opt [E] float32, lnl0 [E] float32 — each edge's logL at
     ``t0`` — and iters [E] int32, the derivative evaluations each edge
     took before it converged or hit ``max_iters``)."""
-    lw, lnB, pw = _deriv_inputs(partition, lw, lnB)
-    t0 = torch.as_tensor(t0).to(st.device, torch.float32).contiguous()
-    if st.device.type == "cpu":
-        return _newton_plain(st, sc, t0, xmin, xmax, tol, max_iters, lw,
-                             lnB, pw)
-    E, CS, Ppad = st.shape
-    _build.check_tensors("pllmod_newton_edges", [
-        (st, torch.float32, (E, CS, Ppad)), (sc, torch.int32, (E, 1, Ppad)),
-        (lw, torch.float32, (2, CS)), (lnB, torch.float32, (Ppad,)),
-        (pw, torch.float32, (Ppad,)), (t0, torch.float32, (E,))])
-    if max_iters < 1:
-        raise ValueError("newton_edges: max_iters must be at least 1")
-    t_opt = torch.empty(E, dtype=torch.float32, device=st.device)
-    lnl0 = torch.empty(E, dtype=torch.float32, device=st.device)
-    iters = torch.empty(E, dtype=torch.int32, device=st.device)
-    if E:
-        _build.launch("pllmod_newton_edges", st.device, st.data_ptr(),
-                      sc.data_ptr(), lw.data_ptr(), lnB.data_ptr(),
-                      pw.data_ptr(), t0.data_ptr(), float(xmin),
-                      float(xmax), float(tol), int(max_iters),
-                      t_opt.data_ptr(), lnl0.data_ptr(), iters.data_ptr(),
-                      E, CS, Ppad)
-        LAUNCHES["newton_edges"] += 1
-    return t_opt, lnl0, iters
+    return newton_edges_multi(
+        (partition,), (st,), (sc,), t0, (1.0,), xmin, xmax, tol, max_iters,
+        None if lw is None else (lw,), None if lnB is None else (lnB,))
 
 
 def newton_edges_plain(partition, st, sc, t0, xmin, xmax, tol, max_iters=10,
@@ -321,24 +328,122 @@ def newton_edges_plain(partition, st, sc, t0, xmin, xmax, tol, max_iters=10,
     """Plain torch version of :func:`newton_edges`: the masked
     ``minimize_newton_multi`` loop over :func:`edge_derivatives_plain`,
     recording each edge's logL at ``t0`` and its iteration count."""
-    lw, lnB, pw = _deriv_inputs(partition, lw, lnB)
-    t0 = torch.as_tensor(t0).to(st.device, torch.float32)
-    return _newton_plain(st, sc, t0, xmin, xmax, tol, max_iters, lw, lnB, pw)
+    return newton_edges_multi_plain(
+        (partition,), (st,), (sc,), t0, (1.0,), xmin, xmax, tol, max_iters,
+        None if lw is None else (lw,), None if lnB is None else (lnB,))
 
 
-def _newton_plain(st, sc, t0, xmin, xmax, tol, max_iters, lw, lnB, pw):
-    f32 = dict(dtype=torch.float32, device=st.device)
+def _multi_inputs(partitions, scalers, lws, lnBs):
+    """Per partition (lw with its scaler folded into λr, lnB, pw)."""
+    K = len(partitions)
+    lws = lws if lws is not None else [None] * K
+    lnBs = lnBs if lnBs is not None else [None] * K
+    out = []
+    for part, s, lw, lnB in zip(partitions, scalers, lws, lnBs):
+        if lw is None:
+            lw = _lam_weight_rows(part, scale=s)
+        out.append(_deriv_inputs(part, lw, lnB))
+    return out
+
+
+def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
+                       max_iters=10, lws=None, lnBs=None):
+    """Bracketed Newton optimization of every edge over K partitions that
+    share its length (``pallas_deriv.newton_edges_pallas_multi``): per
+    iteration the K partitions' (logL, d/dt, d²/dt²) are summed.
+
+    Args:
+      partitions: K partitions; sts / scs: their sumtables [E, C·S_k,
+        P_k] / [E, 1, P_k] (:func:`edge_sumtables`), built at
+        ``t0 · scalers[k]``
+      t0: [E] shared start lengths; scalers: K branch-length scalers
+        (SCALED linkage; 1.0 otherwise), folded into each partition's λr
+        row (:func:`_lam_weight_rows`), so the derivatives are in the
+        shared length
+      lws / lnBs: optional per-partition :func:`_lam_weight_rows` (with
+        the scaler already folded in) / :func:`invar_log_plane`
+    Returns:
+      (t_opt [E] float32, lnl0 [E] float32 — each edge's summed logL at
+      ``t0`` — and iters [E] int32)
+    CUDA tensors launch kernel 10 (counted as "newton_edges" for K = 1,
+    "newton_edges_multi" above); CPU tensors run the plain version.
+    """
+    inputs = _multi_inputs(partitions, scalers, lws, lnBs)
+    dev = sts[0].device
+    t0 = torch.as_tensor(t0).to(dev, torch.float32).contiguous()
+    if dev.type == "cpu":
+        return _newton_plain(sts, scs, inputs, t0, xmin, xmax, tol,
+                             max_iters)
+    name = "pllmod_newton_edges"
+    E = sts[0].shape[0]
+    rows, cs = [], []
+    for st, sc, (lw, lnB, pw) in zip(sts, scs, inputs):
+        _, CS, Ppad = st.shape
+        _build.check_tensors(name, [
+            (st, torch.float32, (E, CS, Ppad)),
+            (sc, torch.int32, (E, 1, Ppad)), (lw, torch.float32, (2, CS)),
+            (lnB, torch.float32, (Ppad,)), (pw, torch.float32, (Ppad,)),
+            (t0, torch.float32, (E,))])
+        rows.append([st.data_ptr(), sc.data_ptr(), lw.data_ptr(),
+                     lnB.data_ptr(), pw.data_ptr(), CS, Ppad])
+        cs.append(CS)
+    if max_iters < 1:
+        raise ValueError("newton_edges: max_iters must be at least 1")
+    smem = newton_smem_bytes(cs)
+    if smem > _build.SMEM_PER_BLOCK:
+        raise ValueError(f"{name}: the coefficient rows of C·S {cs} need "
+                         f"{smem} bytes of shared memory per block, more "
+                         f"than {_build.SMEM_PER_BLOCK}")
+    t_opt = torch.empty(E, dtype=torch.float32, device=dev)
+    lnl0 = torch.empty(E, dtype=torch.float32, device=dev)
+    iters = torch.empty(E, dtype=torch.int32, device=dev)
+    if E:
+        # the descriptors (csrc/deriv.cu PartDesc): pinned, so that the
+        # copy queues on the stream without waiting for it
+        desc = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+        _build.launch(name, dev, desc.data_ptr(), len(rows), sum(cs),
+                      t0.data_ptr(), float(xmin), float(xmax), float(tol),
+                      int(max_iters), t_opt.data_ptr(), lnl0.data_ptr(),
+                      iters.data_ptr(), E)
+        LAUNCHES["newton_edges" if len(rows) == 1
+                 else "newton_edges_multi"] += 1
+    return t_opt, lnl0, iters
+
+
+def newton_edges_multi_plain(partitions, sts, scs, t0, scalers, xmin, xmax,
+                             tol, max_iters=10, lws=None, lnBs=None):
+    """Plain torch version of :func:`newton_edges_multi`: the masked
+    ``minimize_newton_multi`` loop over the partitions' summed
+    derivatives (each partition's pattern sums in float64, added in
+    partition order and rounded once to float32, as the kernel does)."""
+    inputs = _multi_inputs(partitions, scalers, lws, lnBs)
+    t0 = torch.as_tensor(t0).to(sts[0].device, torch.float32)
+    return _newton_plain(sts, scs, inputs, t0, xmin, xmax, tol, max_iters)
+
+
+def _newton_plain(sts, scs, inputs, t0, xmin, xmax, tol, max_iters):
+    dev = sts[0].device
+
+    def derivs(x):
+        tot = None
+        for st, sc, (lw, lnB, pw) in zip(sts, scs, inputs):
+            sums = _derivs_sums(st, sc, x, lw, lnB, pw)
+            tot = sums if tot is None else tuple(
+                a + b for a, b in zip(tot, sums))
+        return tuple(v.to(torch.float32) for v in tot)
+
     xmin = torch.full_like(t0, float(xmin))
     xmax = torch.full_like(t0, float(xmax))
     max_step = (xmax - xmin) / max_iters
     x, xl, xh = t0, xmin, xmax
-    lnl0 = torch.zeros(t0.shape, **f32)
-    iters = torch.zeros(t0.shape, dtype=torch.int32, device=st.device)
-    conv = torch.zeros(t0.shape, dtype=torch.bool, device=st.device)
+    lnl0 = torch.zeros(t0.shape, dtype=torch.float32, device=dev)
+    iters = torch.zeros(t0.shape, dtype=torch.int32, device=dev)
+    conv = torch.zeros(t0.shape, dtype=torch.bool, device=dev)
     for it in range(max_iters):
         if conv.device.type == "cpu" and bool(conv.all()):
             break
-        lnl, df, ddf = _derivs_plain(st, sc, x, lw, lnB, pw)
+        lnl, df, ddf = derivs(x)
         if it == 0:
             lnl0 = lnl
         x_new, xl_n, xh_n = newton_step(x, df, ddf, xl, xh, xmin, xmax,

@@ -21,6 +21,12 @@ Schedules:
 
 The kernels' wrappers run their plain torch versions on CPU tensors, so
 every schedule also runs on ``device="cpu"``.
+
+For the partitioned layer (:mod:`pllmod_tpu_torch.tree.treeinfo`): the
+per-site and buffer-returning evaluations, the partial traversal on
+cached buffers (:func:`loglikelihood_update` on the serial engine,
+:func:`fused_update_eval` on the fused kernel) and the K-partition
+evaluation :func:`multi_eval`.
 """
 
 from __future__ import annotations
@@ -51,6 +57,85 @@ def loglikelihood(partition, ops, brlens, root_info):
     clvs, scalers = clv_mod.update_partials(partition, P, ops)
     u, v, e = (int(x) for x in root_info)
     return lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
+
+
+def loglikelihood_persite(partition, ops, brlens, root_info):
+    """(total, per-pattern logL [n_patterns_padded]) on the serial engine
+    — the reference's ``persite`` out-array of
+    pll_compute_edge_loglikelihood. The per-pattern entries are
+    unweighted; total = Σ lnl · pattern_weights."""
+    P = partition.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials(partition, P, ops)
+    u, v, e = (int(x) for x in root_info)
+    return lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e],
+                                     persite=True)
+
+
+def loglikelihood_persite_fast(partition, tree, brlens=None,
+                               root_edge=None):
+    """(total, per-pattern logL) through the fused kernel with the root
+    pseudo-node row: the site vector falls out of the fused-root epilogue
+    (``fused.root_from_prod_slot``), one launch as a plain fused
+    evaluation (float32 partitions)."""
+    if brlens is None:
+        brlens = tree.lengths
+    idx8, e1, e2, ri, n_slots = fused_mod.compile_fused(
+        partition, tree, root_edge, fuse_root=True)
+    return fused_mod.loglikelihood_fused(partition, idx8, brlens, e1, e2, ri,
+                                         n_slots, persite=True)
+
+
+def loglikelihood_with_buffers(partition, ops, brlens, root_info):
+    """As :func:`loglikelihood` but also returns (P, clvs, scalers) for
+    incremental reuse."""
+    P = partition.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials(partition, P, ops)
+    u, v, e = (int(x) for x in root_info)
+    lnl = lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
+    return lnl, (P, clvs, scalers)
+
+
+def loglikelihood_update(partition, ops, brlens, root_info, init_clvs,
+                         init_scalers):
+    """Partial-traversal evaluation on the serial engine: only the given
+    op rows, on top of cached buffers (the reference's CLV-validity
+    protocol, treeinfo.c:38-61, 872-944). The cached buffers are copied,
+    not modified. Returns (logL, clvs, scalers)."""
+    P = partition.prob_matrices(brlens)
+    clvs, scalers = clv_mod.update_partials(partition, P, ops, init_clvs,
+                                            init_scalers)
+    u, v, e = (int(x) for x in root_info)
+    lnl = lk_mod.edge_loglikelihood(partition, clvs, scalers, u, v, P[e])
+    return lnl, clvs, scalers
+
+
+def fused_update_eval(partition, table, brlens, root_info, clvs, scalers):
+    """Partial-traversal evaluation on the fused kernel: only the dirty
+    op rows on top of cached buffers (the CLV-validity protocol,
+    treeinfo.c:872-944).
+
+    ``table`` is a ``fused.compile_fused_ops`` table (idx8, e1, e2) of
+    the dirty rows as tensors on the partition's device, or None when no
+    row is dirty (then only the root-edge term is recomputed).
+    ``clvs [n_slots, C·S, Ppad]`` / ``scalers [n_slots, 1, Ppad]`` are
+    the prior buffers; the kernel writes the dirty slots into them in
+    place (``fused.fused_walk(out=...)``) and clean slots are never
+    touched. This is the port's counterpart of the JAX package's donated
+    buffers: the caller keeps only the returned ones. ``root_info`` =
+    (u, v, root_edge) in the table's slot numbering. Returns (logL, clvs,
+    scalers)."""
+    brlens = torch.as_tensor(brlens).to(partition.device, partition.dtype)
+    if table is not None:
+        idx8, e1, e2 = table
+        P5 = fused_mod.pair_pmats(partition, brlens, e1, e2, root_row=False)
+        clvs, scalers = fused_mod.fused_walk(
+            idx8, P5, partition.tip_states, fused_mod.code_table(partition),
+            clvs.shape[0], out=(clvs, scalers))
+    u, v, e = (int(x) for x in root_info)
+    P_root = partition.prob_matrices(brlens[e:e + 1])[0]
+    lnl = levels_mod.root_loglikelihood_csp(partition, clvs, scalers, u, v,
+                                            P_root)
+    return lnl, clvs, scalers
 
 
 def compile_schedule(partition, tree, root_edge=None):
@@ -171,6 +256,31 @@ def auto_schedule(partition, n_slots: int | None) -> str:
     if partition.dtype == torch.float32:
         return fast_eval_schedule(partition, n_slots)
     return "scan"
+
+
+def use_fast_kernel(partition) -> bool:
+    """True when the kernels are the partition's engine: float32 (the
+    kernels' rescale is float32-exponent based). They launch on CUDA
+    tensors and run their plain versions on CPU ones; float64 runs the
+    serial engine. The JAX package's ``cs % 8`` gate is a fact of the
+    TPU's tiling and does not apply here."""
+    return partition.dtype == torch.float32
+
+
+def multi_eval(parts, brls, evs):
+    """Evaluate K float32 partitions through their kernels: one
+    evaluation each, issued back to back on the stream, and the K logLs
+    stacked into one tensor [K] on the device, so that the caller syncs
+    once for all of them. The JAX package compiles the K lanes into one
+    program (``fast_lane_args`` / ``lane_ev`` build its lanes) because of
+    the TPU's dispatch cost; here the lanes are ``evs``, each partition's
+    :func:`compile_fast_eval` evaluator (the kernel of ``auto``).
+
+    Args:
+      parts: K partitions; brls: their branch lengths; evs: their
+        evaluators ``ev(part, brlens) -> logL``
+    """
+    return torch.stack([ev(p, brl) for p, brl, ev in zip(parts, brls, evs)])
 
 
 def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):

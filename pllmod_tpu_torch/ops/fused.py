@@ -231,21 +231,23 @@ def fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots: int,
                                    out)
 
 
-def root_from_prod_slot(partition, clvs, scalers, root_slot: int):
+def root_from_prod_slot(partition, clvs, scalers, root_slot: int,
+                        persite: bool = False):
     """Edge-logL epilogue of the fused-root path: ``root_slot`` holds the
     rescaled per-category site product and its scaler row the TOTAL
-    exponent."""
+    exponent. ``persite=True`` returns (total, per-pattern logL)."""
     C, S = partition.n_cats, partition.states
     prod = clvs[root_slot].to(partition.dtype)
     per_cat = prod.reshape(C, S, -1).sum(dim=1)                  # [C, P]
     lnl = lk_mod._site_lnl(partition, per_cat.T, scalers[root_slot, 0])
-    return torch.sum(lnl * partition.pattern_weights)
+    return lk_mod.weighted_total(partition, lnl, persite)
 
 
 def loglikelihood_fused(partition, idx8, brlens, e1, e2, root_info,
-                        n_slots: int):
+                        n_slots: int, persite: bool = False):
     """Full-tree logL through the fused kernel; the table must come from
-    :func:`compile_fused` with ``fuse_root=True``."""
+    :func:`compile_fused` with ``fuse_root=True``. ``persite=True``
+    returns (total, per-pattern logL)."""
     if partition.dtype != torch.float32:
         raise PllModError(ERROR_UNSUPPORTED,
                           "the fused kernel runs float32 partitions only "
@@ -255,4 +257,5 @@ def loglikelihood_fused(partition, idx8, brlens, e1, e2, root_info,
     P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
     clvs, scalers = fused_walk(idx8, P5, partition.tip_states,
                                code_table(partition), n_slots)
-    return root_from_prod_slot(partition, clvs, scalers, root_info[3])
+    return root_from_prod_slot(partition, clvs, scalers, root_info[3],
+                               persite)

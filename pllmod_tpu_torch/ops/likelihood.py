@@ -50,21 +50,31 @@ def edge_site_likelihood(partition, clv_p, clv_c, P_edge):
                         right)
 
 
+def weighted_total(partition, lnl, persite: bool = False):
+    """Σ lnl · pattern_weights; with ``persite`` also the per-pattern
+    entries (unweighted; padded patterns carry weight 0)."""
+    total = torch.sum(lnl * partition.pattern_weights)
+    return (total, lnl) if persite else total
+
+
 def edge_loglikelihood(partition, clvs, scalers, node_p: int, node_c: int,
-                       P_edge):
+                       P_edge, persite: bool = False):
     """Log-likelihood across the edge (node_p, node_c); either node may be
-    a tip (pll_compute_edge_loglikelihood)."""
+    a tip (pll_compute_edge_loglikelihood). ``persite=True`` returns
+    (total, per-pattern logL [n_patterns_padded])."""
     clv_p, s_p = get_node_clv(partition, clvs, scalers, node_p)
     clv_c, s_c = get_node_clv(partition, clvs, scalers, node_c)
     per_cat = edge_site_likelihood(partition, clv_p, clv_c, P_edge)
     lnl = _site_lnl(partition, per_cat, s_p + s_c)
-    return torch.sum(lnl * partition.pattern_weights)
+    return weighted_total(partition, lnl, persite)
 
 
-def root_loglikelihood(partition, clvs, scalers, node: int):
+def root_loglikelihood(partition, clvs, scalers, node: int,
+                       persite: bool = False):
     """Log-likelihood at a (root) CLV: L[p] = Σ_c w_c Σ_i π_i clv[p,c,i]
-    (pll_compute_root_loglikelihood)."""
+    (pll_compute_root_loglikelihood); ``persite`` as in
+    :func:`edge_loglikelihood`."""
     clv, s = get_node_clv(partition, clvs, scalers, node)
     per_cat = torch.einsum("pci,ci->pc", clv, partition.freqs_per_cat())
     lnl = _site_lnl(partition, per_cat, s)
-    return torch.sum(lnl * partition.pattern_weights)
+    return weighted_total(partition, lnl, persite)

@@ -1,5 +1,5 @@
 """Branch-length optimization of all edges at once from directed CLVs —
-PyTorch counterpart of ``pllmod_tpu.optimize.blo`` (single partition).
+PyTorch counterpart of ``pllmod_tpu.optimize.blo``.
 
 The reference's iterative BLO (``pllmod_opt_optimize_branch_lengths_
 local`` + ``recomp_iterative``, pll_optimize.c:1395-1951) walks the tree
@@ -35,6 +35,19 @@ package computes every edge and masks); the results of those edges are
 the same. The driver (:func:`optimize_branch_lengths`) is the JAX
 package's host loop; its one host sync a sweep is reading the sweep's
 start logL.
+
+Partitioned analyses (:func:`optimize_branch_lengths_treeinfo`, over a
+:class:`~pllmod_tpu_torch.tree.treeinfo.TreeInfo`): UNLINKED runs the
+single-partition driver per partition; LINKED and SCALED run Jacobi
+sweeps over the shared lengths (:func:`_blo_sweep_multi`), each
+partition's directed walk and sumtables at b·s_k, then one Newton over
+all partitions: kernel 10 for K partitions when they are all float32
+and their coefficient rows fit a block's shared memory
+(``deriv.newton_fits``), else :func:`minimize_newton_multi` over the
+summed per-partition derivatives with the chain rule df·s, ddf·s²
+(pll_optimize.c:1249-1267). The JAX package's device-program drivers
+(``_blo_run``, ``_blo_run_multi``) exist for the TPU's dispatch cost;
+the port runs their host loops.
 """
 
 from __future__ import annotations
@@ -44,7 +57,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
+from pllmod_tpu_torch.common import (BRLEN_SCALED, BRLEN_UNLINKED,
+                                     MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import deriv as kern
@@ -345,6 +359,67 @@ def _blo_sweep(partition, tabs, edges, brlens, min_brlen, max_brlen, tol,
     return new, lnl0_all[0].to(brlens.dtype)
 
 
+def _blo_sweep_multi(parts, scalers, tabs_list, lws, edges, brlens,
+                     min_brlen, max_brlen, tol, fused_newton: bool = True,
+                     safe: bool = False, stats=None):
+    """One Jacobi BLO sweep over branch lengths shared by the partitions
+    ``parts`` (``blo._blo_sweep_multi``), over the edge ids ``edges``.
+
+    Partition k sees lengths ``brlens · scalers[k]`` (SCALED linkage;
+    scalers are 1.0 otherwise); its sumtables come from its own directed
+    walk at those lengths (``tabs_list[k]``, :func:`_compile_tables`).
+    The per-edge Newton runs over the sum of the partitions' derivatives
+    in the shared length: kernel 10 for K partitions (``lws[k]``, the
+    λr rows with the scaler folded in) when ``fused_newton`` and every
+    partition is float32 and fits (``deriv.newton_fits``); else
+    :func:`minimize_newton_multi` over kernel 9 / the float64
+    formulation with the chain rule df·s, ddf·s². ``stats`` counts the
+    edges of each route (``newton_edges``, ``iterative_edges``). Returns
+    (new brlens, logL at the incoming brlens, summed over the
+    partitions)."""
+    t0 = brlens[edges]
+    evals = [_edge_evaluator(part, tabs, brlens * s, edges)
+             for part, s, tabs in zip(parts, scalers, tabs_list)]
+
+    def summed(t):
+        """Per edge, Σ_k (logL, s_k·d/dt, s_k²·d²/dt²) at t·s_k: the
+        tree logL with only that edge at t and its derivatives in the
+        shared length."""
+        tot = None
+        for (derivs, _), s in zip(evals, scalers):
+            lnl, df, ddf = (v.to(t.dtype) for v in derivs(t * s))
+            v = (lnl, df * s, ddf * (s * s))
+            tot = v if tot is None else tuple(a + b for a, b in zip(tot, v))
+        return tot
+
+    kernel10 = (fused_newton and all(tabs.kernel for tabs in tabs_list)
+                and kern.newton_fits(*parts))
+    if kernel10:
+        t_opt, lnl0_all, iters = kern.newton_edges_multi(
+            parts, [st for _, (st, _) in evals], [sc for _, (_, sc) in evals],
+            t0, scalers, min_brlen, max_brlen, tol, MAX_NEWTON_ITERS, lws,
+            [tabs.lnB for tabs in tabs_list])
+        t_opt = t_opt.to(t0.dtype)
+        if stats is not None:
+            stats["newton_iters"] += iters.sum()
+            stats["newton_edges"] += len(t0)
+    else:
+        def deriv_fn(t):
+            return summed(t)[1:]
+
+        t_opt = minimize_newton_multi(deriv_fn, t0, min_brlen, max_brlen,
+                                      tol=tol, max_iters=MAX_NEWTON_ITERS)
+        lnl0_all = summed(t0)[0]
+        if stats is not None:
+            stats["iterative_edges"] += len(t0)
+    if safe:
+        l_old = summed(t0)[0] if kernel10 else lnl0_all
+        t_opt = _safe_accept(t0, t_opt, l_old, summed(t_opt)[0])
+    new = brlens.clone()
+    new[edges] = t_opt.to(brlens.dtype)
+    return new, lnl0_all[0].to(brlens.dtype)
+
+
 def _lnl_at(partition, tabs, brlens, edge: int):
     """Tree logL at ``brlens`` (0-dim tensor) through the sumtable of the
     live edge ``edge`` (kernel 9 on the kernel path)."""
@@ -530,3 +605,104 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
     if write_back:
         tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
     return best_brlens, best_lnl
+
+
+def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
+                                     tolerance: float = 1e-4,
+                                     min_brlen: float = MIN_BRANCH_LEN,
+                                     max_brlen: float = MAX_BRANCH_LEN,
+                                     newton_tol: float = TOL_BRANCH_LEN,
+                                     safe: bool = False,
+                                     fused_newton: bool = True,
+                                     stats: dict | None = None):
+    """Multi-partition BLO across branch-length linkage modes
+    (``blo.optimize_branch_lengths_treeinfo``;
+    pllmod_opt_optimize_branch_lengths_local_multi, pll_optimize.c:
+    1739-1951):
+
+    - LINKED: one shared length set; per-edge derivatives summed over
+      the partitions;
+    - SCALED: shared lengths × per-partition scalers (held fixed here);
+    - UNLINKED: each partition optimizes its own lengths with
+      :func:`optimize_branch_lengths`.
+
+    LINKED and SCALED run the JAX package's host loop over
+    :func:`_blo_sweep_multi` (plain Jacobi sweeps, the best iterate
+    kept, a worsening sweep retried from a half step toward it).
+    ``stats``: optional dict, filled with ``sweeps`` and the Newton
+    routes' counts (``newton_edges`` / ``newton_iters`` for kernel 10,
+    ``iterative_edges`` for :func:`minimize_newton_multi`). Returns the
+    total logL; the treeinfo's lengths (the tree's, or ``brlens`` in
+    UNLINKED mode) are updated.
+    """
+    tree = treeinfo.tree
+    if treeinfo.brlen_linkage == BRLEN_UNLINKED:
+        total = 0.0
+        for i in treeinfo.local_indices():
+            t = tree.copy()
+            t.lengths = treeinfo.brlens[i].copy()
+            _, lnl = optimize_branch_lengths(
+                treeinfo.partitions[i], t, max_sweeps=max_sweeps,
+                tolerance=tolerance, min_brlen=min_brlen,
+                max_brlen=max_brlen, newton_tol=newton_tol, safe=safe,
+                fused_newton=fused_newton)
+            treeinfo.brlens[i] = t.lengths
+            treeinfo.partition_loglh[i] = lnl
+            total += lnl
+        return total
+
+    idxs = list(treeinfo.local_indices())
+    for i in idxs:
+        if treeinfo.partitions[i].eigen_lam is None:
+            treeinfo.partitions[i] = treeinfo.partitions[i].cache_eigen()
+    parts = tuple(treeinfo.partitions[i] for i in idxs)
+    if treeinfo.brlen_linkage == BRLEN_SCALED:
+        scalers = tuple(float(treeinfo.brlen_scalers[i]) for i in idxs)
+    else:
+        scalers = tuple(1.0 for _ in idxs)
+    dtype, dev = parts[0].dtype, parts[0].device
+    trav = DirectedTraversal(tree)
+    tabs_list = [_compile_tables(p, trav) for p in parts]
+    lws = [kern._lam_weight_rows(p, scale=s)
+           for p, s in zip(parts, scalers)]
+    edges = torch.as_tensor(np.nonzero(trav.edge_mask)[0], device=dev)
+    first_edge = int(edges[0])
+    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
+                             dtype=dtype, device=dev)
+    if stats is not None:
+        stats.update(sweeps=0, newton_edges=0, iterative_edges=0,
+                     newton_iters=torch.zeros((), dtype=torch.int64,
+                                              device=dev))
+
+    best_brlens, best_lnl = brlens, -np.inf
+    lnl_prev = None
+    for _ in range(max_sweeps):
+        if stats is not None:
+            stats["sweeps"] += 1
+        new_brlens, lnl_here = _blo_sweep_multi(
+            parts, scalers, tabs_list, lws, edges, brlens, min_brlen,
+            max_brlen, newton_tol, fused_newton=fused_newton, safe=safe,
+            stats=stats)
+        lnl_here = float(lnl_here)
+        if lnl_here > best_lnl:
+            best_lnl, best_brlens = lnl_here, brlens
+        if lnl_prev is not None:
+            if lnl_here < lnl_prev - 1e-9:
+                brlens = 0.5 * (best_brlens + new_brlens)
+                lnl_prev = None
+                continue
+            if abs(lnl_here - lnl_prev) < tolerance:
+                brlens = new_brlens
+                break
+        lnl_prev = lnl_here
+        brlens = new_brlens
+
+    # the final iterate's logL, summed over the partitions
+    final = sum(float(_lnl_at(part, tabs, brlens * s, first_edge))
+                for part, s, tabs in zip(parts, scalers, tabs_list))
+    if final >= best_lnl:
+        best_lnl, best_brlens = final, brlens
+    if stats is not None:
+        stats["newton_iters"] = int(stats["newton_iters"])
+    tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+    return best_lnl

@@ -173,7 +173,8 @@ def test_deriv_kernels_match_plain(cuda, states, cats):
     assert _rel(nk[0][live], npl[0][live], 1e-4) < 5e-4
     assert _rel(nk[1][live], npl[1][live], 1e-2) < 2e-6
     assert {k: deriv.LAUNCHES[k] - before[k] for k in before} == \
-        {"edge_sumtables": 1, "edge_derivatives": 1, "newton_edges": 1}
+        {"edge_sumtables": 1, "edge_derivatives": 1, "newton_edges": 1,
+         "newton_edges_multi": 0}
 
 
 @pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (5, 4)])
@@ -189,7 +190,9 @@ def test_blo_on_card_matches_float64(cuda, states, cats):
     want = float(engine.tree_loglikelihood(part.to(dtype=torch.float64),
                                            tree, schedule="scan"))
     assert abs(lnl - want) / abs(want) < 1e-6
-    assert all(deriv.LAUNCHES[k] > before[0][k] for k in before[0])
+    # kernels 8, 9 and 10 (one partition: its K = 1 form)
+    assert all(deriv.LAUNCHES[k] > before[0][k] for k in
+               ("edge_sumtables", "edge_derivatives", "newton_edges"))
     assert fused.LAUNCHES > before[1]
 
 
@@ -415,3 +418,167 @@ def test_level_and_grouped_wrappers_raise(cuda):
     for call in wide:
         with pytest.raises(ValueError, match="64 states"):
             call()
+
+
+# ---------------------------------------------------------------------------
+# the packed walk (kernel 6) and kernel 10 over K partitions
+# ---------------------------------------------------------------------------
+def _check_packed_kernel(part, tree, root_edge=None, group=0):
+    """Kernel 6 against its plain version on every slot, the dummy rows'
+    included, and the packed logL against the float64 serial engine."""
+    from pllmod_tpu_torch.ops import packed
+    sched = packed.PackedSchedule(part, tree, root_edge, group)
+    P = part.prob_matrices(_brl(tree, part)).contiguous()
+    args = (sched.idxm, sched.e1, sched.e2, P, part.tip_states,
+            fused.code_table(part), sched.G)
+    before = packed.LAUNCHES["packed_walk"]
+    clvs, sc = packed.packed_walk(*args)
+    assert packed.LAUNCHES["packed_walk"] == before + 1
+    want = packed.packed_walk_plain(*args)
+    assert torch.equal(clvs, want[0]) and torch.equal(sc, want[1])
+    got = float(packed.loglikelihood_packed(part, _brl(tree, part), sched))
+    l64 = float(engine.tree_loglikelihood(part.to(dtype=torch.float64), tree,
+                                          root_edge=root_edge,
+                                          schedule="scan"))
+    assert abs(got - l64) / abs(l64) < 1e-6
+    return sched
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (4, 1)])
+def test_packed_kernel_matches_plain(cuda, states, cats):
+    part, tree = _example(states, cats, cuda)
+    sched = _check_packed_kernel(part, tree)
+    assert sched.G == max(1, 128 // (states * cats))
+
+
+@pytest.mark.parametrize("case", ["caterpillar", "tip_root", "group"])
+def test_packed_kernel_edge_cases(cuda, case):
+    """A caterpillar tree (one row a level, so most rows are dummies), a
+    root on a tip edge and G = 3 given."""
+    part, tree = _example(4, 4, cuda, n_taxa=14)
+    if case == "caterpillar":
+        tree = _caterpillar(14)
+        tree.lengths[:] = np.linspace(0.02, 0.3, len(tree.lengths))
+        sched = _check_packed_kernel(part, tree)
+        assert sched.n_slots_pad == 8 * sched.n_slots
+    elif case == "tip_root":
+        _check_packed_kernel(part, tree, root_edge=_tip_edge(tree))
+    else:
+        assert _check_packed_kernel(part, tree, group=3).G == 3
+
+
+def test_packed_wrapper_raises(cuda):
+    """Kernel 6's wrapper refuses what the kernel does not take; it never
+    falls back to the plain version."""
+    from pllmod_tpu_torch.ops import packed
+    part, tree = _example(4, 4, cuda)
+    sched = packed.PackedSchedule(part, tree)
+    P = part.prob_matrices(_brl(tree, part)).contiguous()
+    tab, tc = fused.code_table(part), part.tip_states
+    with pytest.raises(ValueError, match="CUDA device"):
+        packed.packed_walk(sched.idxm, sched.e1, sched.e2, P, tc.cpu(), tab,
+                           sched.G)
+    with pytest.raises(ValueError, match="float32"):
+        packed.packed_walk(sched.idxm, sched.e1, sched.e2, P.double(), tc,
+                           tab, sched.G)
+    with pytest.raises(ValueError, match="multiple of G"):
+        packed.packed_walk(sched.idxm[:-1], sched.e1[:-1], sched.e2[:-1], P,
+                           tc, tab, sched.G)
+    S = 65
+    with pytest.raises(ValueError, match="64 states"):
+        packed.packed_walk(sched.idxm, sched.e1, sched.e2,
+                           torch.rand((P.shape[0], 4, S, S), device=cuda), tc,
+                           torch.rand((3, S), device=cuda), sched.G)
+    with pytest.raises(PllModError, match="float32"):
+        packed.loglikelihood_packed(part.to(dtype=torch.float64),
+                                    _brl(tree, part).double(), sched)
+
+
+@pytest.mark.parametrize("shapes", [((4, 4),), ((4, 4), (20, 4)),
+                                    ((4, 1), (20, 4), (5, 4))],
+                         ids=["K1", "K2", "K3"])
+def test_newton_kernel_over_partitions(cuda, shapes):
+    """Kernel 10 over K partitions of mixed C·S on one tree, with
+    branch-length scalers, against its plain version. The K = 1
+    partition given twice lands on the same lengths in as many
+    iterations with twice the logL, bit for bit (every sum doubles
+    exactly)."""
+    tree = None
+    parts, sts, scs = [], [], []
+    scalers = (1.0, 0.5, 1.7)[:len(shapes)]
+    for k, (states, cats) in enumerate(shapes):
+        part, t = _example(states, cats, cuda)
+        tree = tree or t
+        tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+        clvs, scalers_k = blo._directed_clvs(part, tabs,
+                                             _brl(tree, part) * scalers[k])
+        st, sc = deriv.edge_sumtables(part, clvs, scalers_k, tabs.eref6,
+                                      tabs.basis)
+        parts.append(part)
+        sts.append(st)
+        scs.append(sc)
+    live = torch.as_tensor(blo.DirectedTraversal(tree).edge_mask,
+                           device=cuda)
+    t0 = _brl(tree, parts[0])
+    args = (parts, sts, scs, t0, scalers, 1e-4, 100.0, 1e-4, 10)
+    key = "newton_edges" if len(parts) == 1 else "newton_edges_multi"
+    before = deriv.LAUNCHES[key]
+    got = deriv.newton_edges_multi(*args)
+    assert deriv.LAUNCHES[key] == before + 1
+    want = deriv.newton_edges_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(got[0][live], want[0][live], 1e-4) < 5e-4
+    assert _rel(got[1][live], want[1][live], 1e-2) < 2e-6
+    if len(parts) == 1:
+        twice = deriv.newton_edges_multi(parts * 2, sts * 2, scs * 2, t0,
+                                         scalers * 2, 1e-4, 100.0, 1e-4, 10)
+        assert torch.equal(twice[0], got[0])
+        assert torch.equal(twice[2], got[2])
+        assert torch.equal(twice[1], 2 * got[1])
+    with pytest.raises(ValueError, match="shared memory"):
+        deriv.newton_edges_multi([parts[0]] * 5000, [sts[0]] * 5000,
+                                 [scs[0]] * 5000, t0, [1.0] * 5000, 1e-4,
+                                 100.0, 1e-4, 10)
+
+
+@pytest.mark.parametrize("linkage", ["linked", "scaled", "unlinked"])
+def test_treeinfo_on_card(cuda, linkage):
+    """A two-partition TreeInfo (DNA + protein) on the card: compute_loglh
+    through multi_eval, the incremental path after one changed length,
+    and the multi-partition BLO, each against the float64 engine."""
+    from pllmod_tpu_torch.common import (BRLEN_LINKED, BRLEN_SCALED,
+                                         BRLEN_UNLINKED)
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    mode = {"linked": BRLEN_LINKED, "scaled": BRLEN_SCALED,
+            "unlinked": BRLEN_UNLINKED}[linkage]
+    dna, tree = _example(4, 4, cuda)
+    prot = flagship.partition_on_tree(tree, 256, seed=9, states=20,
+                                      device=cuda).cache_eigen()
+    ti = TreeInfo(tree.copy(), [dna, prot], brlen_linkage=mode)
+    if mode == BRLEN_SCALED:
+        ti.brlen_scalers[:] = [1.0, 0.5]
+
+    def f64_total():
+        return sum(float(engine.tree_loglikelihood(
+            p.to(dtype=torch.float64), ti.tree,
+            brlens=torch.as_tensor(ti.partition_brlens(i)),
+            schedule="scan")) for i, p in enumerate((dna, prot)))
+
+    before = resident.LAUNCHES + fused.LAUNCHES
+    lnl = ti.compute_loglh()
+    assert resident.LAUNCHES + fused.LAUNCHES == before + 2
+    assert abs(lnl - f64_total()) / abs(lnl) < 1e-6
+    ti.compute_loglh(incremental=True)
+    ti.set_branch_length(3, 0.123)
+    rows = ti.counters.clv_updates
+    inc = ti.compute_loglh(incremental=True)
+    assert ti.counters.clv_updates - rows < \
+        (tree.n_tips - 2) * (dna.n_patterns_padded + prot.n_patterns_padded)
+    assert abs(inc - ti.compute_loglh()) / abs(inc) < 1e-6
+    start = ti.compute_loglh()
+    before = deriv.LAUNCHES["newton_edges_multi"]
+    lnl = blo.optimize_branch_lengths_treeinfo(ti)
+    assert lnl >= start
+    assert abs(lnl - f64_total()) / abs(lnl) < 1e-6
+    if mode != BRLEN_UNLINKED:
+        assert deriv.LAUNCHES["newton_edges_multi"] > before

@@ -45,13 +45,26 @@ def _case(states, cats, pinv=0.0, seed=None, n_taxa=10, n_sites=96):
                      charmap=cmap)
 
 
+@pytest.fixture(scope="module")
+def f64_cases():
+    """(case, JAX float64 scan logL) per (states, cats), made once a
+    module: every schedule of a shape is held against the same numbers."""
+    cache = {}
+
+    def get(states, cats):
+        if (states, cats) not in cache:
+            case = _case(states, cats, pinv=0.1)
+            cache[states, cats] = (case, float(jax_engine.tree_loglikelihood(
+                case.jpart64, case.jtree, schedule="scan")))
+        return cache[states, cats]
+    return get
+
+
 @pytest.mark.parametrize("schedule", ["auto", "resident", "fused", "pallas",
                                       "levels", "scan"])
 @pytest.mark.parametrize("states,cats", SHAPES)
-def test_every_schedule_matches_jax_f64(states, cats, schedule):
-    case = _case(states, cats, pinv=0.1)
-    want = float(jax_engine.tree_loglikelihood(case.jpart64, case.jtree,
-                                               schedule="scan"))
+def test_every_schedule_matches_jax_f64(f64_cases, states, cats, schedule):
+    case, want = f64_cases(states, cats)
     got = engine.tree_loglikelihood(case.tpart, case.tree, schedule=schedule)
     assert got.dtype == torch.float32
     assert rel_err(got, want) < F32_RTOL

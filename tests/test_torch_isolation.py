@@ -47,6 +47,8 @@ def test_import_loads_no_jax():
             "import pllmod_tpu_torch.convert, pllmod_tpu_torch.ops.engine\n"
             "import pllmod_tpu_torch.ops.deriv, pllmod_tpu_torch.ops.grouped\n"
             "import pllmod_tpu_torch.ops.levels, pllmod_tpu_torch.ops.repeats\n"
+            "import pllmod_tpu_torch.ops.packed, pllmod_tpu_torch.profile\n"
+            "import pllmod_tpu_torch.tree.treeinfo\n"
             "import pllmod_tpu_torch.optimize.blo\n"
             "import pllmod_tpu_torch.optimize.blo_bounded\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"

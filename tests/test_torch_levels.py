@@ -180,7 +180,7 @@ def test_level_engines_share_buffers():
     equal scaler rows, CLVs within 1e-5 relative (sums in another
     order); ``csp_from_standard`` inverts the conversion."""
     from pllmod_tpu_torch.ops import clv as clv_mod
-    case = make_case(61, 20, 96, cats=4)
+    case = make_case(61, 20, 96, cats=4, jax_eigen=True)
     tp = case.tpart
     lvls, offsets, _, ns = engine.compile_schedule(tp, case.tree)
     P = tp.prob_matrices(lengths(case.tree))

@@ -6,6 +6,8 @@ evaluate the same numbers."""
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 
 import numpy as np
 import jax.numpy as jnp
@@ -27,11 +29,52 @@ def one_torch_thread():
     processes, and torch's default of one OpenMP thread a core in each
     oversubscribes the cores, so that every parallel op spins: six
     concurrent runs of ``test_blo_matches_jax`` took 215 s each, against
-    11 s each on one thread."""
+    11 s each on one thread.
+
+    It also keeps the garbage collector off the objects that exist when
+    the module starts (``gc.freeze``) and collects less often: tracing
+    the JAX package's interpret-mode kernels allocates millions of small
+    objects, and every full collection would walk the imported modules'
+    objects again."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
+    gc.collect()
+    gc.freeze()
+    threshold = gc.get_threshold()
+    gc.set_threshold(50_000, 20, 20)
     yield
+    gc.set_threshold(*threshold)
+    gc.unfreeze()
     torch.set_num_threads(n)
+
+
+def with_eigen(jpart):
+    """``jpart`` with its eigendecomposition cached: the JAX package's
+    recipe (``eigen.eigen_reversible``: Q symmetrized by √π, ``eigh``,
+    back-transformed) in numpy float64, cast to the partition's dtype.
+    Both packages then read the same numbers. The JAX package's eager
+    ``cache_eigen`` compiles some fifteen small programs for every shape
+    in every test module (JAX's caches are cleared between modules),
+    seconds each time."""
+    rates = np.asarray(jpart.subst_rates, np.float64)
+    freqs = np.asarray(jpart.freqs, np.float64)
+    S = freqs.shape[-1]
+    iu = np.triu_indices(S, k=1)
+    out = []
+    for r, f in zip(rates, freqs):
+        pi = np.maximum(f, 1e-16)
+        R = np.zeros((S, S))
+        R[iu] = r
+        Q = (R + R.T) * pi[None, :]
+        Q -= np.diag(Q.sum(axis=1))
+        Q /= max(-np.sum(pi * np.diag(Q)), 1e-16)
+        sp = np.sqrt(pi)
+        B = Q * (sp[:, None] / sp[None, :])
+        lam, U = np.linalg.eigh(0.5 * (B + B.T))
+        out.append((lam, U / sp[:, None], U.T * sp[None, :]))
+    dt = np.asarray(jpart.freqs).dtype
+    lam, V, Vinv = (jnp.asarray(np.stack(x).astype(dt)) for x in zip(*out))
+    return jpart.replace(eigen_lam=lam, eigen_V=V, eigen_Vinv=Vinv)
 
 
 def to_torch(jpart, device="cpu"):
@@ -51,13 +94,20 @@ def to_torch_tree(jtree):
 @dataclasses.dataclass
 class Case:
     jpart: object          # JAX Partition in ``dtype``
-    jpart64: object        # the same data and model in float64
+    build: object          # dtype -> JAX Partition of this data and model
     tpart: object          # the port's Partition (JAX arrays carried over)
     jtree: object
     tree: TorchTree
     seqs: list
     rates: np.ndarray
     freqs: np.ndarray
+
+    @functools.cached_property
+    def jpart64(self):
+        """The same data and model in float64, built on first use (a JAX
+        partition costs seconds of eager compiles, and many tests never
+        read this one)."""
+        return self.build(jnp.float64)
 
 
 def simulate(rng, tree, n_sites, rates, freqs, symbols, alpha=0.7, cats=4):
@@ -89,9 +139,12 @@ def simulate(rng, tree, n_sites, rates, freqs, symbols, alpha=0.7, cats=4):
 
 def make_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
               dtype=jnp.float32, cache=True, charmap=None,
-              symbols=None):
+              symbols=None, jax_eigen=False):
     """A case of random sequences, or with ``symbols`` (one character per
-    state) sequences simulated along the tree (:func:`simulate`)."""
+    state) sequences simulated along the tree (:func:`simulate`). With
+    ``cache`` the partitions carry their eigendecomposition from
+    :func:`with_eigen`; ``jax_eigen`` gives ``jpart`` (not ``jpart64``)
+    the JAX package's own ``cache_eigen`` instead."""
     rng = np.random.default_rng(seed)
     jtree = ref.random_binary_tree(rng, n_taxa)
     if symbols is not None:
@@ -110,14 +163,16 @@ def make_case(seed, n_taxa, n_sites, states=4, cats=4, pinv=0.0,
     if symbols is not None:
         seqs = simulate(rng, jtree, n_sites, rates, freqs, symbols)
 
-    def build(dt):
+    def build(dt, jax_eigen=False):
         p = jax_create(seqs, states=states, n_rate_cats=cats, alpha=0.7,
                        subst_rates=rates, freqs=freqs, prop_invar=pinv,
                        charmap=charmap, dtype=dt)
-        return p.cache_eigen() if cache else p
+        if not cache:
+            return p
+        return p.cache_eigen() if jax_eigen else with_eigen(p)
 
-    jpart = build(dtype)
-    return Case(jpart, build(jnp.float64), to_torch(jpart), jtree,
+    jpart = build(dtype, jax_eigen)
+    return Case(jpart, build, to_torch(jpart), jtree,
                 to_torch_tree(jtree), seqs, rates, freqs)
 
 
