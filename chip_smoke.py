@@ -6,9 +6,12 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile]
 
 It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
-(one ``nvcc`` a source, all five at once), holds each kernel against its
-plain torch version on the card, and drives five paths, each with the
-kernels' launch counts set to 0 just before it and read just after:
+(one ``nvcc`` a source, all six at once), holds each kernel against its
+plain torch version on the card (the fused walk at four shapes: the
+flagship's fuse_root and directed tables, protein, 64 states), and
+drives five paths, each run with every kernel's launch count set to 0
+just before it and read just after, the launches logged by cell and
+path (``counted``):
 
 1. the full-tree logL (``engine.tree_loglikelihood``, ``schedule=
    "auto"``) on every cell, checked against the float64 serial engine;
@@ -37,7 +40,8 @@ It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
 rule). It prints the flagship metric with every timed schedule's
 ms/eval, one ``{"blo": [...]}``, one ``{"routing": [...]}`` and one
-``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"kernels": [...]}`` line (each kernel's launches in all, by cell and
+by path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; without CUDA it exits 1 and prints no result.
 
@@ -45,7 +49,10 @@ script exits non-zero; without CUDA it exits 1 and prints no result.
 flagship's ``pallas`` and grouped loops and one flagship BLO call with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
-window.
+window. ``--parent DIR`` builds the kernels of another checkout at DIR
+(an earlier commit, unpacked with ``git archive``) and times its fused
+walk and child pass beside this tree's on the same inputs, outputs held
+equal, in turns (parent, this tree, this tree, parent), by device time.
 """
 
 from __future__ import annotations
@@ -152,21 +159,31 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def walk_flops(idx8, C: int, S: int, Ppad: int, n_codes: int) -> int:
+def walk_flops(idx8, C: int, S: int, Ppad: int, n_codes: int,
+               root_row: bool = True) -> int:
     """Operations a walk over this run's table needs: per pattern, C·S·S
     multiply-adds (2 flops each) for every child that is not a tip, C·S
-    multiplies for the root row's diag(freqs) child, and the product, max
-    and scale (C·S each) of every row. A tip child's P·x is a lookup of
+    multiplies for the root row's diag(freqs) child (``root_row``: the
+    table's last row is the root pseudo-node), and the product, max and
+    scale (C·S each) of every row. A tip child's P·x is a lookup of
     P·codetab, which costs its n_codes columns once per row, not per
     pattern."""
     rows = idx8.cpu().numpy()
     tip = rows[:, 2:4] != 0
     mat = 2 * C * S * S
-    per_pattern = (mat * int((~tip[:-1]).sum()) + C * S * int(~tip[-1, 0])
-                   + mat * int(~tip[-1, 1]) + 3 * C * S * len(rows))
-    tables = (mat * int(tip[:-1].sum()) + C * S * int(tip[-1, 0])
-              + mat * int(tip[-1, 1])) * n_codes
+    first = C * S if root_row else mat      # the last row's first child
+    body = tip[:-1] if root_row else tip
+    per_pattern = mat * int((~body).sum()) + 3 * C * S * len(rows)
+    tables = mat * int(body.sum()) * n_codes
+    if root_row:
+        per_pattern += first * int(~tip[-1, 0]) + mat * int(~tip[-1, 1])
+        tables += (first * int(tip[-1, 0]) + mat * int(tip[-1, 1])) * n_codes
     return Ppad * per_pattern + tables
+
+
+def written_bytes(idx8, C: int, S: int, Ppad: int) -> int:
+    """Bytes of the CLV and scaler rows a walk's table writes."""
+    return len(torch.unique(idx8[:, 6])) * (C * S + 1) * Ppad * 4
 
 
 def bound(in_out_bytes: int, flops: int):
@@ -193,6 +210,63 @@ def compare(name, got, want):
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version by {rel} > {PROD_RTOL}")
     return err, rel
+
+
+# ---------------------------------------------------------------------------
+# launch counts: every kernel's, by cell and path
+# ---------------------------------------------------------------------------
+LAUNCH_LOG: dict = {}     # kernel -> cell -> path -> launches
+
+
+def read_counts() -> dict:
+    """Every kernel wrapper's launch count (the fused walk's pre-pass as
+    ``fused_tables``)."""
+    return dict(resident_walk=resident.LAUNCHES, fused_walk=fused.LAUNCHES,
+                fused_tables=fused.TABLE_LAUNCHES, **deriv.LAUNCHES,
+                **levels.LAUNCHES, grouped_walk=grouped.LAUNCHES,
+                **packed.LAUNCHES)
+
+
+def zero_counts() -> None:
+    resident.LAUNCHES = fused.LAUNCHES = fused.TABLE_LAUNCHES = 0
+    grouped.LAUNCHES = 0
+    for d in (deriv.LAUNCHES, levels.LAUNCHES, packed.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def counted(cell: str, path: str, fn, must=()):
+    """``fn()`` with every launch count set to 0 just before and read
+    just after, the launches logged under (cell, path); raises if a
+    kernel of ``must`` was launched no time. Returns (fn's result, the
+    counts)."""
+    zero_counts()
+    out = fn()
+    got = read_counts()
+    for k, n in got.items():
+        if n:
+            paths = LAUNCH_LOG.setdefault(k, {}).setdefault(cell, {})
+            paths[path] = paths.get(path, 0) + n
+    missed = [k for k in must if got[k] == 0]
+    if missed:
+        raise AssertionError(f"{path} ({cell}) did not launch {missed}")
+    return out, got
+
+
+def with_launches(row: dict) -> dict:
+    """A kernel row with its launches from LAUNCH_LOG: in all, by cell and
+    by path."""
+    log = LAUNCH_LOG.get(row["name"], {})
+    by_path: dict = {}
+    for paths in log.values():
+        for path, n in paths.items():
+            by_path[path] = by_path.get(path, 0) + n
+    row["launches_by_cell"] = {cell: sum(p.values())
+                               for cell, p in log.items()}
+    row["launches_by_path"] = by_path
+    row["launches_by_cell_and_path"] = log
+    row["launches"] = sum(by_path.values())
+    return row
 
 
 def check_resident(part, tree, part64):
@@ -230,39 +304,69 @@ def check_resident(part, tree, part64):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def check_fused(part, tree, part64, label):
-    """Phase 4: the fused kernel against its plain version (every slot
-    and scaler row) and its logL against the float64 serial engine."""
-    idx8, e1, e2, ri, ns = fused.compile_fused(part, tree, fuse_root=True)
+def check_fused(part, tree, part64, label, directed=False):
+    """Phase 4: the fused kernel (its pre-pass and walk) against its plain
+    version (every slot and scaler row the table writes) and, on a
+    fuse_root table, its logL against the float64 serial engine;
+    ``directed``: the BLO's directed table written into the plain walk's
+    buffers (``out=``). Returns its kernel row for this shape."""
     brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
                           device=part.device)
-    P5 = fused.pair_pmats(part, brl, e1, e2, root_row=True)
     tab = fused.code_table(part)
+    if directed:
+        tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+        idx8, ns = tabs.idx8, tabs.n_slots
+        P5 = fused.pair_pmats(part, brl, tabs.e1, tabs.e2, root_row=False)
+    else:
+        idx8, e1, e2, ri, ns = fused.compile_fused(part, tree,
+                                                   fuse_root=True)
+        P5 = fused.pair_pmats(part, brl, e1, e2, root_row=True)
     args = (idx8, P5, part.tip_states, tab, ns)
     t0 = time.perf_counter()
     clv_p, sc_p = fused.fused_walk_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    clv_k, sc_k = fused.fused_walk(*args)
+    out = (torch.full_like(clv_p, float("nan")), torch.zeros_like(sc_p))
+    clv_k, sc_k = fused.fused_walk(*args, out=out)
     torch.cuda.synchronize()
-    err, rel = compare(f"fused CLVs ({label})", clv_k, clv_p)
-    if not torch.equal(sc_k, sc_p):
-        raise AssertionError(f"fused scaler rows ({label}) differ from "
-                             "the plain version")
-    ms = time_ms(lambda: fused.fused_walk(*args), 10)
-    l_k = float(fused.loglikelihood_fused(part, idx8, brl, e1, e2, ri, ns))
-    l64 = float(engine.tree_loglikelihood(part64, tree, schedule="scan"))
-    rel_close(l_k, l64, LOGL_RTOL, f"fused logL ({label}) vs float64 scan")
-    b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab, clv_k, sc_k),
-                       walk_flops(idx8, part.n_cats, part.states,
-                                  part.n_patterns_padded, tab.shape[0]))
-    print(f"fused ({label}): {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots")
+    w = torch.unique(idx8[:, 6].long())
+    err, rel = compare(f"fused CLVs ({label})", clv_k[w], clv_p[w])
+    if not (torch.equal(clv_k[w], clv_p[w]) and torch.equal(sc_k[w],
+                                                           sc_p[w])):
+        raise AssertionError(f"fused CLVs or scaler rows ({label}) differ "
+                             "from the plain version")
+    # device time (the host can issue a short walk slower than it runs),
+    # and CUDA events around the issued calls (the earlier measure)
+    ms = device_ms(lambda: fused.fused_walk(*args, out=out), 10)
+    events_ms = time_ms(lambda: fused.fused_walk(*args, out=out), 10)
+    if not directed:
+        l_k = float(fused.loglikelihood_fused(part, idx8, brl, e1, e2, ri,
+                                              ns))
+        l64 = float(engine.tree_loglikelihood(part64, tree,
+                                              schedule="scan"))
+        rel_close(l_k, l64, LOGL_RTOL,
+                  f"fused logL ({label}) vs float64 scan")
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab)
+                       + written_bytes(idx8, C, S, Ppad),
+                       walk_flops(idx8, C, S, Ppad, tab.shape[0],
+                                  root_row=not directed))
+    T = _build.fused_tile(C, S, tab.shape[0], Ppad)
+    cf = _build.fused_config(C, S, tab.shape[0], T)
+    fwd = int(fused.forwarded_children(idx8, ns, cf["depth"],
+                                       cf["lookback"]).sum())
+    print(f"fused ({label}): {ms:.4f} ms/launch ({events_ms:.4f} by events "
+          f"around the calls), plain {plain_ms:.1f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots, {len(idx8)} rows, "
+          f"tile {T} {cf}, {fwd} forwarded children, bit for bit")
     return dict(name="fused_walk", route="cuda",
-                source="pllmod_tpu_torch/csrc/pruning.cu",
+                source="pllmod_tpu_torch/csrc/fused.cu",
                 replaces="pllmod_tpu/ops/pallas_clv.py:582",
-                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                max_abs_err=err, max_rel_err=rel, ms=ms, events_ms=events_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, tile=T,
+                rows=len(idx8), forwarded=fwd, **{k: cf[k] for k in (
+                    "kind", "RI", "RP", "NB", "threads", "smem")})
 
 
 def _rel(got, want, floor):
@@ -575,19 +679,11 @@ LEVEL_PATHS = {"pallas": ("child_pass", "child2_pass"),
                "grouped": ("grouped_walk",), "levels": ()}
 
 
-def _level_counts():
-    return dict(levels.LAUNCHES, grouped_walk=grouped.LAUNCHES)
-
-
 def run_level_paths(cells):
     """Phase 3: every path of LEVEL_PATHS at each (label, part, tree,
-    part64) of ``cells``, its logL against the float64 serial engine, with
-    every count set to 0 just before and read just after. Returns
-    {kernel: {path: launches}}."""
-    for k in levels.LAUNCHES:
-        levels.LAUNCHES[k] = 0
-    grouped.LAUNCHES = 0
-    by_kernel = {k: {} for k in _level_counts()}
+    part64) of ``cells``, its logL against the float64 serial engine,
+    each run counted (``counted``: every count set to 0 just before and
+    read just after, logged by cell and path)."""
     for label, part, tr, part64 in cells:
         l64 = float(engine.tree_loglikelihood(part64, tr, schedule="scan"))
         lvls, offsets, ri, ns = engine.compile_schedule(part, tr)
@@ -605,23 +701,10 @@ def run_level_paths(cells):
             "levels": lambda: engine.tree_loglikelihood(part, tr,
                                                         schedule="levels")}
         for path, fn in runs.items():
-            before = _level_counts()
-            lnl = float(fn())
+            lnl, _ = counted(label, path, lambda: float(fn()),
+                             must=LEVEL_PATHS[path])
             rel_close(lnl, l64, LOGL_RTOL, f"{path} logL ({label}) vs "
                       "float64 scan")
-            delta = {k: n - before[k] for k, n in _level_counts().items()}
-            missed = [k for k in LEVEL_PATHS[path] if delta[k] == 0]
-            if missed:
-                raise AssertionError(f"{path} ({label}) did not launch "
-                                     f"{missed}")
-            for k, n in delta.items():
-                if n:
-                    by_kernel[k][path] = by_kernel[k].get(path, 0) + n
-    counts = _level_counts()
-    print(f"level paths launches: {counts}, by path {by_kernel}")
-    if not all(counts.values()):
-        raise AssertionError(f"the level paths missed kernels: {counts}")
-    return by_kernel
 
 
 # ---------------------------------------------------------------------------
@@ -682,26 +765,20 @@ def check_packed(part, tree, part64, label):
 def run_packed_path(cells):
     """Phase 4: ``loglikelihood_packed`` at each (label, part, tree,
     part64) of ``cells``, its logL against the float64 serial engine and
-    its ms/eval with the host issue time, with the count set to 0 just
-    before and read just after. Returns ({label: (ms, issue ms)},
-    launches)."""
-    packed.LAUNCHES["packed_walk"] = 0
+    its ms/eval with the host issue time, counted by cell. Returns
+    {label: (ms, issue ms)}."""
     ms = {}
     for label, part, tr, part64 in cells:
-        before = packed.LAUNCHES["packed_walk"]
-        lnl = float(packed.loglikelihood_packed(part, tr.lengths,
-                                                packed.PackedSchedule(part,
-                                                                      tr)))
+        def drive():
+            lnl = float(packed.loglikelihood_packed(
+                part, tr.lengths, packed.PackedSchedule(part, tr)))
+            return lnl, timed_main_path(part, tr, label, "packed")
+        (lnl, ms[label]), _ = counted(label, "packed", drive,
+                                      must=("packed_walk",))
         rel_close(lnl, float(engine.tree_loglikelihood(part64, tr,
                                                        schedule="scan")),
                   LOGL_RTOL, f"packed path logL ({label}) vs float64 scan")
-        ms[label] = timed_main_path(part, tr, label, "packed")
-        if packed.LAUNCHES["packed_walk"] == before:
-            raise AssertionError(f"the packed path ({label}) did not launch "
-                                 "kernel 6")
-    launches = packed.LAUNCHES["packed_walk"]
-    print(f"packed path launches: {launches}")
-    return ms, launches
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -790,12 +867,8 @@ def run_partitioned(parts, parts64, tree):
     engine, timed), the incremental path after one changed length, the
     per-site vectors, and optimize_branch_lengths_treeinfo in LINKED and
     SCALED modes (at or above the start, within LOGL_RTOL of the float64
-    engine). Every count is set to 0 just before and read after; returns
-    (summary row, {kernel: launches})."""
-    fused.LAUNCHES = 0
-    resident.LAUNCHES = 0
-    for k in deriv.LAUNCHES:
-        deriv.LAUNCHES[k] = 0
+    engine). The caller counts its launches (``counted``). Returns the
+    summary row."""
     out = {}
     ti = TreeInfo(tree.copy(), list(parts))
     lnl, ms, host_ms = _events_ms(ti.compute_loglh, TIMED_LOGLH)
@@ -853,15 +926,8 @@ def run_partitioned(parts, parts64, tree):
         print(f"TreeInfo BLO: {row}")
         blo_rows.append(row)
     out["blo"] = blo_rows
-    launches = dict(fused_walk=fused.LAUNCHES, resident_walk=resident.LAUNCHES,
-                    **deriv.LAUNCHES)
-    print(f"partitioned path launches: {launches}")
-    missed = [k for k in ("fused_walk", "resident_walk", "edge_sumtables",
-                          "newton_edges_multi") if launches[k] == 0]
-    if missed:
-        raise AssertionError(f"the partitioned path missed kernels: {missed}")
     print(f"partitioned cell: {out}")
-    return out, launches
+    return out
 
 
 def run_blo(part, tree, part64, label, **kw):
@@ -1031,8 +1097,8 @@ def routing_sweep():
                      part.tip_states, tab, fns)
             fused_ms = time_ms(lambda: fused.fused_walk(*fargs), 10)
             ri8, re1, re2, rns = resident.compile_resident(part, tree)
-            smem = _build.walk_smem_bytes(cats, states, tab.shape[0], rns,
-                                          resident=True)
+            smem = _build.resident_smem_bytes(cats, states, tab.shape[0],
+                                              rns)
             res_ms = None
             if smem <= _build.SMEM_PER_BLOCK:
                 rargs = (ri8, fused.pair_pmats(part, brl, re1, re2,
@@ -1054,10 +1120,134 @@ def routing_sweep():
     return out
 
 
+# ---------------------------------------------------------------------------
+# --parent: kernels 2 and 3 against another checkout's, by device time
+# ---------------------------------------------------------------------------
+def parent_libs(parent: str) -> dict:
+    """Build another checkout's kernels (its own ``_build``, in its own
+    ``build/``) and load its pruning and levels libraries: {name: CDLL}."""
+    import ctypes
+    out = subprocess.run(
+        [sys.executable, "-c", "import json; from pllmod_tpu_torch.ops "
+         "import _build; print(json.dumps(_build.build()))"],
+        cwd=parent, capture_output=True, text=True, timeout=900, check=True)
+    paths = json.loads(out.stdout.strip().splitlines()[-1])
+    libs = {name: ctypes.CDLL(paths[name]) for name in ("pruning", "levels")}
+    args = _build.ENTRY_POINTS
+    walk = libs["pruning"].pllmod_fused_walk
+    walk.argtypes = args["pllmod_resident_walk"][1]
+    walk.restype = ctypes.c_int
+    child = libs["levels"].pllmod_child_pass
+    child.argtypes = args["pllmod_child_pass"][1]
+    child.restype = ctypes.c_int
+    return dict(fused_walk=walk, child_pass=child)
+
+
+def parent_compare(parent: str, cells) -> list:
+    """Kernels 2 and 3 of the checkout at ``parent`` (its C entry points,
+    at its own pattern tile, ``_build.pattern_tile``) beside this tree's
+    on the same inputs: outputs equal, device ms a launch timed in turns
+    (parent, this tree, this tree, parent). ``cells``: (label, part, tree)
+    of the flagship DNA, protein and 64-state cells."""
+    libs = parent_libs(parent)
+    rows = []
+
+    def ab(label, mine, theirs, got_mine, got_theirs, iters, per=1):
+        for a, b in zip(got_mine(), got_theirs()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: this tree's kernel and the "
+                                     "parent's differ")
+        t = [device_ms(f, iters) / per for f in (theirs, mine, mine,
+                                                 theirs)]
+        row = dict(kernel=label, parent_ms=[t[0], t[3]], ms=[t[1], t[2]],
+                   speedup=(t[0] + t[3]) / (t[1] + t[2]))
+        print(f"parent compare: {row}")
+        rows.append(row)
+
+    for label, part, tree in cells:
+        brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                              device=part.device)
+        tab = fused.code_table(part)
+        C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+        tables = [(label, *fused.compile_fused(part, tree,
+                                               fuse_root=True)[:3], True)]
+        if label == "flagship DNA":
+            tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+            tables.append((f"{label}, directed", tabs.idx8, tabs.e1,
+                           tabs.e2, False))
+        for name, idx8, e1, e2, root in tables:
+            P5 = fused.pair_pmats(part, brl, e1, e2, root_row=root)
+            ns = int(idx8[:, 6].max()) + 1
+            w = torch.unique(idx8[:, 6].long())
+            mine_out = fused.fused_walk(idx8, P5, part.tip_states, tab, ns)
+            theirs_out = (torch.empty_like(mine_out[0]),
+                          torch.empty_like(mine_out[1]))
+
+            def theirs():
+                with torch.cuda.device(part.device):
+                    err = libs["fused_walk"](
+                        idx8.data_ptr(), len(idx8), P5.data_ptr(),
+                        part.tip_states.data_ptr(), tab.data_ptr(),
+                        tab.shape[0], theirs_out[0].data_ptr(),
+                        theirs_out[1].data_ptr(), Ppad, C, S, ns,
+                        _build.pattern_tile(C),
+                        torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"parent fused walk: error {err}")
+
+            def mine():
+                fused.fused_walk(idx8, P5, part.tip_states, tab, ns,
+                                 out=mine_out)
+            theirs()
+            ab(f"fused_walk ({name})", mine, theirs,
+               lambda: (mine_out[0][w], mine_out[1][w]),
+               lambda: (theirs_out[0][w], theirs_out[1][w]), 10)
+        if label == "64-state":
+            continue
+        lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+        idx, e1, _ = levels.level_tables(part, lvls)
+        P1 = part.prob_matrices(brl)[e1].contiguous()
+        sl = [slice(o, o + len(lv)) for lv, o in zip(lvls, offsets)]
+        # the children's slots hold random CLVs and scalers: both kernels
+        # read the same
+        bufs = (torch.rand((ns, C * S, Ppad), device=part.device),
+                torch.randint(-3, 3, (ns, 1, Ppad), dtype=torch.int32,
+                              device=part.device))
+        outs = [(torch.empty((len(lv), C * S, Ppad), device=part.device),
+                 torch.empty((len(lv), 1, Ppad), dtype=torch.int32,
+                             device=part.device)) for lv in lvls]
+
+        def theirs3():
+            for s, (o, so) in zip(sl, outs):
+                with torch.cuda.device(part.device):
+                    err = libs["child_pass"](
+                        idx[s].data_ptr(), s.stop - s.start, 0,
+                        P1[s].data_ptr(), bufs[0].data_ptr(),
+                        bufs[1].data_ptr(), ns, part.tip_states.data_ptr(),
+                        part.tip_states.shape[0], tab.data_ptr(),
+                        tab.shape[0], o.data_ptr(), so.data_ptr(), Ppad, C,
+                        S, _build.pattern_tile(C),
+                        torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"parent child pass: error {err}")
+
+        def mine3():
+            return [levels.child_pass(idx[s], 0, *bufs, part.tip_states,
+                                      tab, P1[s]) for s in sl]
+        theirs3()
+        ab(f"child_pass ({label})", mine3, theirs3,
+           lambda: [t for pair in mine3() for t in pair],
+           lambda: [t for pair in outs for t in pair], 10, per=len(sl))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path's timed loops")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time kernels 2 and 3 of the checkout at DIR "
+                         "beside this tree's, by device time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1088,72 +1278,72 @@ def main(argv=None) -> int:
 
     res_row = check_resident(dna, tree, dna64)
     check_resident(prot, ptree, prot64)
-    check_fused(dna, tree, dna64, "flagship DNA")
-    check_fused(prot, ptree, prot64, "protein")
-    fused_row = check_fused(wide, wtree, wide64, "64-state")
+    # kernel 2 at its four shapes: the flagship's fuse_root and directed
+    # (BLO) tables, protein and 64 states
+    fused_shapes = {
+        "flagship DNA": check_fused(dna, tree, dna64, "flagship DNA"),
+        "flagship DNA, directed": check_fused(dna, tree, dna64,
+                                              "flagship DNA, directed",
+                                              directed=True),
+        "protein": check_fused(prot, ptree, prot64, "protein"),
+        "64-state": check_fused(wide, wtree, wide64, "64-state")}
+    fused_row = dict(fused_shapes["64-state"], shapes={
+        k: {f: v[f] for f in ("ms", "events_ms", "plain_ms", "bound_ms",
+                               "bound_by", "max_abs_err", "tile", "rows",
+                               "forwarded", "kind", "NB", "threads")}
+        for k, v in fused_shapes.items()})
 
     # ---- main path: schedule="auto" on every cell; every launch from
-    # here to the reading of the counts is counted
-    resident.LAUNCHES = 0
-    fused.LAUNCHES = 0
+    # the counts' reset to their reading is counted
     ms = {}
     for label, (part, tr, part64, want) in cells.items():
         got = engine.compile_fast_eval(part, tr).schedule
         if got != want:
             raise AssertionError(f"auto routed {label} to {got}, not "
                                  f"{want}")
-        kernel = resident if want == "resident" else fused
-        before = kernel.LAUNCHES
-        logl = float(engine.tree_loglikelihood(part, tr))
-        ms[label], _ = timed_main_path(part, tr, label)
-        if kernel.LAUNCHES == before:
-            raise AssertionError(f"{label}: the {want} kernel was not "
-                                 "launched")
+
+        def drive():
+            logl = float(engine.tree_loglikelihood(part, tr))
+            ms[label], _ = timed_main_path(part, tr, label)
+            return logl
+        must = ("resident_walk",) if want == "resident" else (
+            "fused_walk", "fused_tables")
+        logl, _ = counted(label, "loglikelihood", drive, must=must)
         rel_close(logl, float(engine.tree_loglikelihood(part64, tr)),
                   LOGL_RTOL, f"main path logL ({label})")
-    res_row["launches"] = resident.LAUNCHES
-    fused_row["launches"] = fused.LAUNCHES
-    fused_row["launches_by_path"] = {"loglikelihood": fused.LAUNCHES}
-    if resident.LAUNCHES == 0 or fused.LAUNCHES == 0:
-        raise AssertionError(f"main path missed a kernel: resident "
-                             f"{resident.LAUNCHES}, fused {fused.LAUNCHES}")
 
     # ---- branch-length optimization: the derivative kernels against
-    # their plain versions, then the BLO path with every count set to 0
+    # their plain versions, then the BLO calls, each counted
     deriv_rows = check_deriv(dna, tree, "flagship DNA")
     check_deriv(prot, ptree, "protein")
-    fused.LAUNCHES = 0
-    for k in deriv.LAUNCHES:
-        deriv.LAUNCHES[k] = 0
-    blo_rows = [run_blo(dna, tree, dna64, "flagship DNA")[0]]
-    # one partition: kernel 10 in its K = 1 form
-    blo_launches = {k: n for k, n in deriv.LAUNCHES.items()
-                    if k != "newton_edges_multi"}
-    blo_launches["fused_walk"] = fused.LAUNCHES
-    print(f"BLO path launches: {blo_launches}")
-    missed = [k for k, n in blo_launches.items() if n == 0]
-    if missed:
-        raise AssertionError(f"the BLO path missed kernels: {missed}")
-    for row in deriv_rows:
-        row["launches"] = blo_launches[row["name"]]
-    fused_row["launches_by_path"]["blo"] = blo_launches["fused_walk"]
-    fused_row["launches"] += blo_launches["fused_walk"]
-    full = blo_rows[0]
-    row, opt_tree = run_blo(dna, tree, dna64, "flagship DNA",
-                            fused_newton=False)
+    blo_kernels = ("fused_walk", "fused_tables", "edge_sumtables",
+                   "edge_derivatives", "newton_edges")
+    full, _ = counted("flagship DNA", "blo", lambda: run_blo(
+        dna, tree, dna64, "flagship DNA")[0], must=blo_kernels)
+    blo_rows = [full]
+    (row, opt_tree), _ = counted(
+        "flagship DNA", "blo_fused_newton_false", lambda: run_blo(
+            dna, tree, dna64, "flagship DNA", fused_newton=False),
+        must=("fused_walk",))
     if row["lnl"] < full["lnl"] - 1e-4 * abs(full["lnl"]):
         raise AssertionError(f"fused_newton=False reached {row['lnl']}, "
                              f"below {full['lnl']}")
     blo_rows.append(row)
-    blo_rows.append(run_blo(prot, ptree, prot64, "protein")[0])
+    blo_rows.append(counted("protein", "blo", lambda: run_blo(
+        prot, ptree, prot64, "protein")[0], must=(
+            "fused_walk", "edge_sumtables", "newton_edges"))[0])
     split = [sub_sweep_split(dna, tree, "flagship DNA, start lengths"),
              sub_sweep_split(dna, opt_tree, "flagship DNA, optimized")]
     tr = tree.copy()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, l_b = blo_bounded.optimize_branch_lengths_bounded(dna, tr)
-    torch.cuda.synchronize()
-    bounded_ms = (time.perf_counter() - t0) * 1e3
+
+    def bounded():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, lnl = blo_bounded.optimize_branch_lengths_bounded(dna, tr)
+        torch.cuda.synchronize()
+        return lnl, (time.perf_counter() - t0) * 1e3
+    (l_b, bounded_ms), _ = counted("flagship DNA", "blo_bounded", bounded,
+                                   must=("fused_walk",))
     gap = abs(l_b - full["lnl"])
     print(f"bounded BLO (flagship DNA): {l_b!r} in {bounded_ms:.1f} ms, "
           f"|Δl| {gap!r} against the full driver")
@@ -1164,29 +1354,25 @@ def main(argv=None) -> int:
 
     # ---- the level and grouped schedules at the flagship and protein
     # cells: kernels 3, 4, 5 and 7 against their plain versions, then
-    # their paths with every count set to 0
+    # their paths, each counted
     level_rows = {}
     for label, (part, tr) in (("flagship DNA", (dna, tree)),
                               ("protein", (prot, ptree))):
         level_rows[label] = check_levels(part, tr, label) + [
             check_grouped(part, tr, label)]
-    by_kernel = run_level_paths([("flagship DNA", dna, tree, dna64),
-                                 ("protein", prot, ptree, prot64)])
+    run_level_paths([("flagship DNA", dna, tree, dna64),
+                     ("protein", prot, ptree, prot64)])
     for row, prow in zip(*level_rows.values()):
-        row["launches"] = sum(by_kernel[row["name"]].values())
-        row["launches_by_path"] = by_kernel[row["name"]]
         row["protein"] = {k: prow[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms",
                                                "max_abs_err")}
 
     # ---- the packed walk (kernel 6) at the flagship and protein cells:
-    # the kernel against its plain version, then its path with the count
-    # set to 0
+    # the kernel against its plain version, then its path, counted
     packed_row = check_packed(dna, tree, dna64, "flagship DNA")
     prow = check_packed(prot, ptree, prot64, "protein")
-    packed_ms, packed_row["launches"] = run_packed_path(
-        [("flagship DNA", dna, tree, dna64),
-         ("protein", prot, ptree, prot64)])
+    packed_ms = run_packed_path([("flagship DNA", dna, tree, dna64),
+                                 ("protein", prot, ptree, prot64)])
     packed_row["protein"] = {k: prow[k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
         "G", "groups", "n_slots_pad", "n_slots")}
@@ -1198,20 +1384,18 @@ def main(argv=None) -> int:
                                           dtype=torch.float64, device="cuda")
     multi_row = check_newton_multi((dna, prot2), tree, SCALED_SCALERS,
                                    "flagship DNA + protein")
-    partitioned, part_launches = run_partitioned((dna, prot2),
-                                                 (dna64, prot2_64), tree)
-    multi_row["launches"] = part_launches["newton_edges_multi"]
-    fused_row["launches_by_path"]["partitioned"] = part_launches["fused_walk"]
-    fused_row["launches"] += part_launches["fused_walk"]
-    res_row["launches_by_path"] = {"loglikelihood": res_row["launches"],
-                                   "partitioned":
-                                       part_launches["resident_walk"]}
-    res_row["launches"] += part_launches["resident_walk"]
-    for row in deriv_rows:
-        row["launches_by_path"] = {"blo": row["launches"],
-                                   "partitioned": part_launches[row["name"]]}
-        row["launches"] += part_launches[row["name"]]
+    partitioned, _ = counted(
+        "partitioned", "treeinfo",
+        lambda: run_partitioned((dna, prot2), (dna64, prot2_64), tree),
+        must=("fused_walk", "fused_tables", "resident_walk",
+              "edge_sumtables", "newton_edges_multi"))
     del prot2_64
+    kernel_rows = [with_launches(r) for r in (
+        res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
+        packed_row, multi_row)]
+    fused_row["table_launches"] = with_launches(
+        dict(name="fused_tables"))["launches_by_cell_and_path"]
+    print(f"launches: {json.dumps(LAUNCH_LOG)}")
 
     # ---- the other schedules of each cell, forced, end to end (the
     # 64-state cell's resident slots do not fit)
@@ -1231,6 +1415,11 @@ def main(argv=None) -> int:
         profile_window("BLO, flagship DNA",
                        lambda: blo.optimize_branch_lengths(dna, tree.copy()),
                        1)
+    if args.parent:
+        print(json.dumps({"parent_compare": parent_compare(
+            args.parent, [("flagship DNA", dna, tree),
+                          ("protein", prot, ptree),
+                          ("64-state", wide, wtree)])}))
     del cells, dna64, prot64, wide64
     torch.cuda.empty_cache()
     routing = routing_sweep()
@@ -1247,9 +1436,7 @@ def main(argv=None) -> int:
                                  for k, v in packed_ms.items()},
                       "partitioned": partitioned}))
     print(json.dumps({"routing": routing}))
-    print(json.dumps({"kernels": [res_row, fused_row, *deriv_rows,
-                                  *level_rows["flagship DNA"], packed_row,
-                                  multi_row]}))
+    print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source into its own shared library with a plain
 C interface under ``build/`` at the repository root, named by a hash of
-the source, the header they share (``csrc/common.cuh``) and the flags,
+the source, the headers they share (``csrc/common.cuh``,
+``csrc/tile.cuh``) and the flags,
 on first use; the sources that lack a library are
 compiled all at once, one ``nvcc`` each. ctypes loads them. Nothing here
 runs at import time: the CPU-only tests import every module.
@@ -20,8 +21,12 @@ import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("pruning", "deriv", "levels", "grouped", "packed")}
-HEADER = os.path.join(_PKG, "csrc", "common.cuh")   # included by every source
+           for name in ("pruning", "fused", "deriv", "levels", "grouped",
+                        "packed")}
+# the shared headers (common.cuh is included by every source, tile.cuh by
+# fused.cu and levels.cu); every library's hash covers both
+HEADERS = tuple(os.path.join(_PKG, "csrc", h)
+                for h in ("common.cuh", "tile.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -29,11 +34,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the C entry points: name -> (source, argument types, result type); the
 # launches return the CUDA error code of their launch
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_WALK_ARGS = [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _VP]
+_WALK_ARGS = [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I]
 ENTRY_POINTS = {
-    "pllmod_resident_walk": ("pruning", _WALK_ARGS, _I),
-    "pllmod_fused_walk": ("pruning", _WALK_ARGS, _I),
-    "pllmod_walk_smem_bytes": ("pruning", [_I] * 6, ctypes.c_longlong),
+    "pllmod_resident_walk": ("pruning", _WALK_ARGS + [_VP], _I),
+    "pllmod_resident_smem_bytes": ("pruning", [_I] * 5, ctypes.c_longlong),
+    # the fused walk: its arguments, then the scratch of its pre-pass
+    "pllmod_fused_walk": ("fused", _WALK_ARGS + [_VP, _VP], _I),
+    "pllmod_fused_tables": ("fused", [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I,
+                                      _VP], _I),
+    "pllmod_fused_config": ("fused", [_I] * 4 + [_VP], _I),
+    "pllmod_child_config": ("levels", [_I] * 4 + [_VP], _I),
     "pllmod_edge_sumtables": ("deriv", [_VP, _I, _VP, _VP, _I, _VP, _I, _VP,
                                         _VP, _I, _VP, _VP, _I, _I, _I, _I,
                                         _VP], _I),
@@ -75,7 +85,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for path in (SOURCES[name], HEADER):
+    for path in (SOURCES[name], *HEADERS):
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
@@ -129,18 +139,36 @@ def load() -> types.SimpleNamespace:
 
 
 # ---------------------------------------------------------------------------
-# Launch checks, and the row-walk launch shared by the two walk wrappers
-# (ops/resident.py, ops/fused.py). The numbers below are those of
-# csrc/pruning.cu; the card tests hold walk_smem_bytes against the
-# library's pllmod_walk_smem_bytes.
+# Launch checks, the kernels' launch configurations and the row-walk
+# launch shared by the two walk wrappers (ops/resident.py, ops/fused.py).
+# The numbers below are those of csrc/pruning.cu, csrc/fused.cu and
+# csrc/levels.cu; the card tests hold resident_smem_bytes, fused_config and
+# child_config against the libraries' own.
 # ---------------------------------------------------------------------------
 MAX_STATES = 64            # widest register tile the kernels instantiate
 MAX_THREADS = 256          # __launch_bounds__ of the kernels
 SMEM_PER_BLOCK = 232_448   # H100: shared memory one block may opt into
+SMS = 132                  # H100 SXM streaming multiprocessors
+SMEM_PER_SM = 233_472      # shared memory of one SM (228 KB)
+LEVEL_CTAS = 0.95 * SMS    # a child pass's grid: about one CTA an SM
+TILES = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _ladder(S: int) -> int:
+    """The register tile MAXS that holds S states (common::dispatch_states)."""
+    for m in (4, 8, 16, 20, 32, 64):
+        if S <= m:
+            return m
+    raise ValueError(f"the kernels take at most {MAX_STATES} states, got {S}")
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
 
 
 def pattern_tile(n_cats: int) -> int:
-    """Pattern columns per CTA: C·T threads per CTA, at most 256."""
+    """Pattern columns per CTA of the resident, level (4, 5), grouped and
+    packed kernels: C·T threads per CTA, at most 256."""
     for T in (64, 32, 16, 8, 4, 2, 1):
         if n_cats * T <= MAX_THREADS:
             return T
@@ -148,18 +176,137 @@ def pattern_tile(n_cats: int) -> int:
                      f"categories, got {n_cats}")
 
 
-def walk_smem_bytes(C: int, S: int, n_codes: int, n_slots: int,
-                    resident: bool) -> int:
-    """Dynamic shared memory of one CTA: the code table, the category
-    maxima, (resident) the live slots with their scaler rows and, when
+def resident_smem_bytes(C: int, S: int, n_codes: int, n_slots: int) -> int:
+    """Dynamic shared memory of one resident CTA: the code table, the
+    category maxima, the live slots with their scaler rows and, when
     they fit beside those, one row's two staged child matrices."""
     T = pattern_tile(C)
-    floats = n_codes * S + C * T
-    if resident:
-        floats += n_slots * C * S * T + n_slots * T
+    floats = n_codes * S + C * T + n_slots * C * S * T + n_slots * T
     if 4 * (floats + 2 * C * S * S) <= SMEM_PER_BLOCK:
         floats += 2 * C * S * S
     return 4 * floats
+
+
+FUSED_META_BYTES = 128     # the fused walk's ring of 4 idx8 rows
+FUSED_KINDS = ("thread", "tile", "fallback")
+
+
+def fused_config(C: int, S: int, n_codes: int, T: int):
+    """The fused walk's launch configuration at pattern tile T
+    (csrc/fused.cu walk_config), or None where none fits: a dict of kind,
+    RI, RP, IG, SP, NB, threads, Q (floats of one row side's matrix or tip
+    table in the pre-pass scratch), smem (bytes), depth (the sides of a
+    row fetched before an earlier row ends, which the kernel forwards)
+    and lookback (how many rows back such a writer may be). Up to 8
+    states the thread walk ("thread": one thread a category and pattern,
+    children fetched two rows ahead; NB = 3 row buffers of tables in
+    shared memory, or 0 where they do not fit); beyond, the staged tile
+    walk ("tile": RI × RP = 8 × 4 register tiles, 4 × 4 at 20 states, a
+    ring of NB stage buffers) where its threads and one stage buffer fit,
+    else the fallback ("fallback": one thread a category and pattern,
+    matrices read from device memory)."""
+    if C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 1:
+        return None
+    maxs = _ladder(S)
+    rows = max(S, n_codes)
+    if maxs <= 8:
+        rpt = 2 if maxs <= 4 else 1       # patterns a thread
+        if T % rpt or C * (T // rpt) > MAX_THREADS:
+            return None
+        sp = _round_up(S, 4)
+        q, red = C * rows * sp, _round_up(2 * C * T, 4) + 8 * 8  # + idx8
+        nb = 3 if 4 * (6 * q + red) <= SMEM_PER_BLOCK else 0
+        return dict(kind="thread", RI=maxs, RP=rpt, IG=1, SP=sp, NB=nb,
+                    threads=C * (T // rpt), Q=q,
+                    smem=4 * (6 * q + red if nb else red), depth=2,
+                    lookback=2)
+    for kind in ("tile", "fallback"):
+        ri, rp = ((4 if maxs == 20 else 8), 4) if kind == "tile" else (maxs, 1)
+        ig = -(-S // ri)
+        sp = ig * ri
+        threads = C * ig * (T // rp)
+        if T % rp or threads > MAX_THREADS:
+            continue
+        q = C * rows * sp
+        sb = _round_up((q if kind == "tile" else 0) + C * S * T + 2 * T, 4)
+        for nb in (3, 2, 1):
+            smem = 4 * (nb * sb + _round_up(C * ig * T, 4)) + FUSED_META_BYTES
+            if smem <= SMEM_PER_BLOCK:
+                return dict(kind=kind, RI=ri, RP=rp, IG=ig, SP=sp, NB=nb,
+                            threads=threads, Q=q, smem=smem, depth=nb - 1,
+                            lookback=1)
+    return None
+
+
+def ctas_per_sm(threads: int, smem: int) -> int:
+    """CTAs of ``threads`` threads and ``smem`` bytes of shared memory
+    that one SM holds at once (threads, shared memory with the 1 KB each
+    CTA reserves, and the 32-CTA limit)."""
+    return min(32, 2048 // threads, SMEM_PER_SM // (smem + 1024))
+
+
+def fused_tile(C: int, S: int, n_codes: int, Ppad: int) -> int:
+    """The fused walk's pattern tile: the largest tile of TILES (thread or
+    staged tile walk) whose grid fills the card at up to two CTAs an SM
+    (at least 95 % of 132 × min(2, the CTAs an SM holds): 64 states at
+    4096 patterns take T = 32, 128 CTAs of 256 threads, one an SM), else
+    the smallest such; where none but the fallback fits, the largest
+    fallback tile."""
+    staged = [(T, cf) for T in TILES
+              if (cf := fused_config(C, S, n_codes, T))
+              and cf["kind"] != "fallback"]
+    for T, cf in staged:
+        k = min(2, ctas_per_sm(cf["threads"], cf["smem"]))
+        if -(-Ppad // T) >= 0.95 * SMS * k:
+            return T
+    if staged:
+        return staged[-1][0]
+    for T in TILES:
+        if fused_config(C, S, n_codes, T):
+            return T
+    raise ValueError(f"the fused walk takes no tile at {C} categories, "
+                     f"{S} states and {n_codes} codes")
+
+
+def child_config(C: int, S: int, n_codes: int, T: int):
+    """The child pass's launch configuration at pattern tile T
+    (csrc/levels.cu child_config), or None: a dict of RI, IG, SP, CB
+    (categories a CTA), lookup (tip children from a table, where
+    n_codes <= T), threads, mrows (rows of SP floats a category: the
+    transposed matrix, and the tip table with the lookup) and smem
+    (bytes)."""
+    if C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 4 or T % 4:
+        return None
+    ri = 4 if _ladder(S) in (4, 20) else 8
+    ig = -(-S // ri)
+    sp = ig * ri
+    per_c = ig * (T // 4)
+    if per_c > MAX_THREADS:
+        return None
+    for lookup in ((1, 0) if n_codes <= T else (0,)):
+        mrows = S + (n_codes if lookup else 0)
+        unit = mrows * sp + S * T
+        cb = min(MAX_THREADS // per_c, C,
+                 (SMEM_PER_BLOCK // 4 - 2 * T) // unit)
+        if cb >= 1:
+            return dict(RI=ri, IG=ig, SP=sp, CB=cb, lookup=lookup,
+                        threads=cb * per_c, mrows=mrows,
+                        smem=4 * (cb * unit + 2 * T))
+    return None
+
+
+def child_tile(C: int, S: int, n_codes: int, Ppad: int, W: int) -> int:
+    """The child pass's pattern tile for a level of W rows: the largest of
+    TILES whose grid (tiles × W × category blocks) has at least
+    LEVEL_CTAS CTAs, else the smallest that fits."""
+    fits = [(T, cf) for T in TILES if (cf := child_config(C, S, n_codes, T))]
+    if not fits:
+        raise ValueError(f"the child pass takes no tile at {C} categories, "
+                         f"{S} states and {n_codes} codes")
+    for T, cf in fits:
+        if -(-Ppad // T) * W * -(-C // cf["CB"]) >= LEVEL_CTAS:
+            return T
+    return fits[-1][0]
 
 
 def check_tensors(name: str, specs) -> None:
@@ -192,30 +339,44 @@ def launch(name: str, device, *args) -> None:
 
 
 def launch_walk(name, idx8, P5, tip_codes, codetab, clv_out, sc_out,
-                n_slots: int) -> None:
+                n_slots: int, tile: int | None = None) -> None:
     """Check the inputs of a row-walk kernel and launch it on the current
-    stream. Raises on anything the kernel does not take."""
+    stream (the fused walk at pattern tile ``tile``, by default
+    :func:`fused_tile`'s, with the scratch of its pre-pass). Raises on
+    anything the kernel does not take."""
     import torch
     nW = idx8.shape[0]
     _, _, C, S, _ = P5.shape
     n_tips, Ppad = tip_codes.shape
-    T = pattern_tile(C)
+    n_codes = codetab.shape[0]
     check_tensors(name, [(idx8, torch.int32, (nW, 8)),
                          (P5, torch.float32, (nW, 2, C, S, S)),
                          (tip_codes, torch.int32, (n_tips, Ppad)),
-                         (codetab, torch.float32, (codetab.shape[0], S)),
+                         (codetab, torch.float32, (n_codes, S)),
                          (clv_out, torch.float32, None),
                          (sc_out, torch.int32, None)])
     if S > MAX_STATES:
         raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
-    if Ppad % T:
-        raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple "
-                         f"of the tile ({T})")
-    resident = name == "pllmod_resident_walk"
-    smem = walk_smem_bytes(C, S, codetab.shape[0], n_slots, resident)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"{name}: needs {smem} bytes of shared memory per "
-                         f"block, more than {SMEM_PER_BLOCK}")
+    if name == "pllmod_resident_walk":
+        T = pattern_tile(C)
+        if Ppad % T:
+            raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple "
+                             f"of the tile ({T})")
+        smem = resident_smem_bytes(C, S, n_codes, n_slots)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"{name}: needs {smem} bytes of shared memory "
+                             f"per block, more than {SMEM_PER_BLOCK}")
+        launch(name, P5.device, idx8.data_ptr(), nW, P5.data_ptr(),
+               tip_codes.data_ptr(), codetab.data_ptr(), n_codes,
+               clv_out.data_ptr(), sc_out.data_ptr(), Ppad, C, S, n_slots, T)
+        return
+    T = fused_tile(C, S, n_codes, Ppad) if tile is None else tile
+    cf = fused_config(C, S, n_codes, T)
+    if cf is None:
+        raise ValueError(f"{name}: no launch configuration at tile {T}")
+    mats = torch.empty((nW, 2, cf["Q"]), dtype=torch.float32,
+                       device=P5.device)
     launch(name, P5.device, idx8.data_ptr(), nW, P5.data_ptr(),
-           tip_codes.data_ptr(), codetab.data_ptr(), codetab.shape[0],
-           clv_out.data_ptr(), sc_out.data_ptr(), Ppad, C, S, n_slots, T)
+           tip_codes.data_ptr(), codetab.data_ptr(), n_codes,
+           clv_out.data_ptr(), sc_out.data_ptr(), Ppad, C, S, n_slots, T,
+           mats.data_ptr())

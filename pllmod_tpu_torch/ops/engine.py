@@ -239,9 +239,8 @@ def fast_eval_schedule(partition, n_slots: int) -> str:
     trees run resident; 64-state alphabets (+Γ4), whose slots do not
     fit, run fused. The TPU's CS % 8 gate and its VMEM crossover are
     facts of Mosaic and do not apply here."""
-    smem = _build.walk_smem_bytes(partition.n_cats, partition.states,
-                                  partition.code_clv.shape[0], n_slots,
-                                  resident=True)
+    smem = _build.resident_smem_bytes(partition.n_cats, partition.states,
+                                      partition.code_clv.shape[0], n_slots)
     return "resident" if smem <= _build.SMEM_PER_BLOCK else "fused"
 
 

@@ -3,17 +3,20 @@ counterpart of the evaluation part of ``pllmod_tpu.ops.pallas_clv``
 (the fused megakernel, ``_make_fused_kernel``).
 
 :func:`fused_walk` runs an idx8 op table (slot1, slot2, is_tip1,
-is_tip2, tip1, tip2, out_slot, level fence) in one launch of the CUDA
-kernel ``pllmod_fused_walk`` (``csrc/pruning.cu``) and returns every
+is_tip2, tip1, tip2, out_slot, level fence) through the CUDA entry point
+``pllmod_fused_walk`` (``csrc/fused.cu``: a pre-pass that builds each
+row's transposed matrices and tip tables, then one walk launch) and
+returns every
 CLV ``[n_slots, C·S, Ppad]`` float32 with its cumulative scaler row
 ``[n_slots, 1, Ppad]`` int32. The branch-length optimization (directed
 tables, and the bounded sweep's serial slot-recycled tables) builds on
 these buffers, as SPR scoring and incremental evaluation will. The
 kernel needs no level fences: a CTA walks its own pattern columns in
-row order and a thread reads only values it wrote itself, so serial
-and slot-recycled tables run as they are (``csrc/pruning.cu``'s header
-says why); the tables keep the column for layout parity with the JAX
-package. The JAX kernel's ``init=`` aliasing is ``fused_walk(out=
+row order, so serial and slot-recycled tables run as they are
+(``csrc/fused.cu``'s header says why, and how a child that the row
+before writes is forwarded through shared memory,
+:func:`forwarded_children`); the tables keep the column for layout
+parity with the JAX package. The JAX kernel's ``init=`` aliasing is ``fused_walk(out=
 (clvs, scalers))`` here: the wrapper passes the prior buffers to the
 kernel as its outputs, so the slots the table does not write keep
 their values.
@@ -33,7 +36,8 @@ from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
 
-LAUNCHES = 0            # launches of the fused kernel (counted by fused_walk)
+LAUNCHES = 0            # launches of the fused walk (counted by fused_walk)
+TABLE_LAUNCHES = 0      # launches of its pre-pass, one a walk
 
 
 def compile_fused_ops(partition, ops, pad_to: int | None = None,
@@ -191,15 +195,17 @@ def code_table(partition):
     return partition.code_clv.to(torch.float32).contiguous()
 
 
-def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None):
+def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None,
+               tile: int | None = None):
     """Run a fused op table: (clvs [n_slots, C·S, Ppad] float32, scalers
     [n_slots, 1, Ppad] int32). Without ``out`` the slots no row writes
     are left unset; ``out=(clvs, scalers)`` (prior buffers of those
     shapes) is written in place, so the slots the table does not write
     keep their values — the ``init=`` aliasing of
     ``pallas_clv.update_partials_fused``. CUDA tensors launch the
-    kernel; CPU tensors run the plain version."""
-    global LAUNCHES
+    kernel (at pattern tile ``tile``, by default ``_build.fused_tile``'s);
+    CPU tensors run the plain version."""
+    global LAUNCHES, TABLE_LAUNCHES
     if P5.device.type == "cpu":
         return fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots, out)
     _, _, C, S, _ = P5.shape
@@ -217,8 +223,9 @@ def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None):
                              f"[{n_slots}, {C * S}, {Ppad}] and "
                              f"[{n_slots}, 1, {Ppad}]")
     _build.launch_walk("pllmod_fused_walk", idx8, P5, tip_codes, codetab,
-                       clvs, scalers, n_slots)
+                       clvs, scalers, n_slots, tile)
     LAUNCHES += 1
+    TABLE_LAUNCHES += 1
     return clvs, scalers
 
 
@@ -229,6 +236,91 @@ def fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots: int,
     unwritten slots are zero, or keep their values in ``out``."""
     return clv_mod.walk_rows_plain(idx8, P5, tip_codes, codetab, n_slots,
                                    out)
+
+
+def tip_tables_plain(P, codetab):
+    """Tip tables PT [..., C, n_codes, S] of matrices P [..., C, S, S]:
+    PT[..., c, code, i] = Σ_j P[..., c, i, j] · codetab[code, j], summed
+    in j order with separately rounded products and sums
+    (:func:`~pllmod_tpu_torch.ops.clv.apply_pmat` on the code table), so
+    a lookup gives the bits of the per-pattern product on the expanded
+    tip."""
+    S = codetab.shape[1]
+    x = codetab.T.to(P.dtype).expand(*P.shape[:-2], S, codetab.shape[0])
+    return clv_mod.apply_pmat(P, x).transpose(-1, -2)
+
+
+def tip_lookup_plain(PT, codes):
+    """A tip child's [C, S, Ppad] values from its table PT [C, n_codes, S]
+    and its codes [Ppad] (clamped to the table, as the kernels do)."""
+    idx = codes.long().clamp(0, PT.shape[-2] - 1)
+    return PT[:, idx, :].transpose(-1, -2)
+
+
+def walk_tables_plain(idx8, P5, codetab, T: int):
+    """Plain torch version of the fused walk's pre-pass at pattern tile T:
+    [nW, 2, Q] float32, each row side's matrices transposed and padded,
+    M[c, j, i] = P[c, i, j] (0 for i ≥ S), or for a tip child its table
+    :func:`tip_tables_plain` padded the same way, [C, n_codes, SP]; the
+    rest of the Q floats zero (``_build.fused_config`` gives SP and Q)."""
+    nW, _, C, S, _ = P5.shape
+    n_codes = codetab.shape[0]
+    cf = _build.fused_config(C, S, n_codes, T)
+    SP, Q = cf["SP"], cf["Q"]
+    mats = torch.zeros((nW, 2, Q), dtype=torch.float32, device=P5.device)
+    pad = torch.zeros((nW, 2, C, max(S, n_codes), SP), dtype=torch.float32,
+                      device=P5.device)
+    tip = torch.as_tensor(idx8[:, 2:4] != 0, device=P5.device)
+    mt = pad.clone()
+    mt[..., :S, :S] = P5.transpose(-1, -2)
+    pad[..., :n_codes, :S] = tip_tables_plain(P5, codetab)
+    n_mat, n_tab = C * S * SP, C * n_codes * SP
+    mats[..., :n_mat] = mt[..., :S, :].reshape(nW, 2, n_mat)
+    mats[tip, :n_tab] = pad[..., :n_codes, :].reshape(nW, 2, n_tab)[tip]
+    mats[tip, n_tab:] = 0
+    return mats
+
+
+def walk_tables(idx8, P5, codetab, T: int):
+    """The fused walk's pre-pass alone (``pllmod_fused_tables``; the walk
+    launches it itself): [nW, 2, Q] float32 at pattern tile T. CUDA
+    tensors launch the kernel; CPU tensors run
+    :func:`walk_tables_plain`."""
+    if P5.device.type == "cpu":
+        return walk_tables_plain(idx8, P5, codetab, T)
+    nW, _, C, S, _ = P5.shape
+    n_codes = codetab.shape[0]
+    _build.check_tensors("pllmod_fused_tables", [
+        (idx8, torch.int32, (nW, 8)), (P5, torch.float32, (nW, 2, C, S, S)),
+        (codetab, torch.float32, (n_codes, S))])
+    cf = _build.fused_config(C, S, n_codes, T)
+    if cf is None:
+        raise ValueError(f"pllmod_fused_tables: no configuration at tile {T}")
+    mats = torch.zeros((nW, 2, cf["Q"]), dtype=torch.float32,
+                       device=P5.device)
+    _build.launch("pllmod_fused_tables", P5.device, idx8.data_ptr(), nW,
+                  P5.data_ptr(), codetab.data_ptr(), n_codes,
+                  mats.data_ptr(), C, S, T)
+    return mats
+
+
+def forwarded_children(idx8, n_slots: int, depth: int, lookback: int = 1):
+    """bool [nW, 2]: the children the fused walk takes from an earlier
+    row's output on the chip instead of device memory — an inner child
+    whose (clamped) slot is the out slot of one of the ``lookback`` rows
+    before, on a side fetched before that row ends (side < depth).
+    ``_build.fused_config`` gives both: the thread walk fetches both
+    children two rows ahead (depth 2, lookback 2), the tile walk the
+    first NB − 1 children of the next row (lookback 1). The kernel
+    computes the same from the table as it walks."""
+    rows = torch.as_tensor(idx8).cpu().long()
+    slots = rows[:, [0, 1, 6]].clamp(0, n_slots - 1)
+    fwd = torch.zeros((rows.shape[0], 2), dtype=torch.bool)
+    for back in range(1, lookback + 1):
+        fwd[back:] |= ((rows[back:, 2:4] == 0)
+                       & (slots[back:, :2] == slots[:-back, 2:3]))
+    fwd[:, depth:] = False
+    return fwd
 
 
 def root_from_prod_slot(partition, clvs, scalers, root_slot: int,

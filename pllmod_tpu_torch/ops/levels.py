@@ -16,7 +16,8 @@ torch version and a launch count in :data:`LAUNCHES`:
 
 - :func:`child_pass` (kernel 3, ``pllmod_child_pass``): ``P·child`` for
   one child (side 0 or 1) of every row of a level, ``[W, C·S, Ppad]``,
-  with the child's scaler row (0 for tips);
+  with the child's scaler row (0 for tips); its pattern tile follows the
+  level's width (``_build.child_tile``);
 - :func:`child2_pass` (kernel 4, ``pllmod_child2_pass``): the second
   child times its matrix, times ``left``, the exact power-of-two rescale
   (bit formula) and the cumulative scaler, written into the level's
@@ -162,10 +163,12 @@ def level_combined_plain(idx, clvs, scalers, tip_codes, codetab, P1, P2,
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
-def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=()):
+def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=(),
+           ragged: bool = False):
     """Check a level kernel's inputs (CUDA tensors of the kernel's types
-    and shapes, at most MAX_STATES states); returns (W, n_slots, Ppad, C,
-    S, T)."""
+    and shapes, at most MAX_STATES states; patterns a multiple of
+    ``_build.pattern_tile`` unless the kernel takes a ragged last tile);
+    returns (W, n_slots, Ppad, C, S, T)."""
     W = idx.shape[0]
     n_slots, _, Ppad = clvs.shape
     _, C, S, _ = mats[0].shape
@@ -180,7 +183,7 @@ def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=()):
         raise ValueError(f"{name}: at most {_build.MAX_STATES} states, "
                          f"got {S}")
     T = _build.pattern_tile(C)
-    if Ppad % T or W > 65535:
+    if (Ppad % T and not ragged) or W > 65535:
         raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple of "
                          f"the tile ({T}) and rows ({W}) at most 65535")
     return W, n_slots, Ppad, C, S, T
@@ -192,9 +195,11 @@ def _check_offset(name, offset: int, W: int, n_slots: int) -> None:
                          f"the buffer's {n_slots}")
 
 
-def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P):
+def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P,
+               tile: int | None = None):
     """``P[w]·child`` for child ``side`` (0 or 1) of every row of a level
-    (``pallas_clv._child_pass``).
+    (``pallas_clv._child_pass``), on the card at pattern tile ``tile``
+    (by default ``_build.child_tile``'s for the level's width).
 
     Args:
       idx: int32 [W, 6] :func:`level_idx` rows
@@ -210,8 +215,14 @@ def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P):
     if clvs.device.type == "cpu":
         return child_pass_plain(idx, side, clvs, scalers, tip_codes, codetab,
                                 P)
-    W, n_slots, Ppad, C, S, T = _check("pllmod_child_pass", idx, clvs,
-                                       scalers, tip_codes, codetab, [P])
+    W, n_slots, Ppad, C, S, _ = _check("pllmod_child_pass", idx, clvs,
+                                       scalers, tip_codes, codetab, [P],
+                                       ragged=True)
+    n_codes = codetab.shape[0]
+    T = _build.child_tile(C, S, n_codes, Ppad, W) if tile is None else tile
+    if _build.child_config(C, S, n_codes, T) is None:
+        raise ValueError(f"pllmod_child_pass: no launch configuration at "
+                         f"tile {T}")
     out = torch.empty((W, C * S, Ppad), dtype=torch.float32,
                       device=clvs.device)
     sc = torch.empty((W, 1, Ppad), dtype=torch.int32, device=clvs.device)

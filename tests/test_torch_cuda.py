@@ -13,6 +13,8 @@ package's dependencies:
 Without a card every test here skips (the check runs in a fixture,
 never at import)."""
 
+import ctypes
+
 import pytest
 import torch
 
@@ -20,8 +22,8 @@ import numpy as np
 
 from pllmod_tpu_torch import flagship
 from pllmod_tpu_torch.common import PllModError
-from pllmod_tpu_torch.ops import (_build, deriv, engine, fused, grouped,
-                                  levels, resident)
+from pllmod_tpu_torch.ops import (_build, clv, deriv, engine, fused,
+                                  grouped, levels, resident)
 from pllmod_tpu_torch.optimize import blo, blo_bounded
 from pllmod_tpu_torch.tree.topology import Tree
 
@@ -103,13 +105,39 @@ def test_auto_schedule_matches_float64_scan(cuda, states, cats):
 def test_smem_formula_matches_library(cuda, states, cats, n_slots,
                                       resident_walk):
     """The shared memory the routing rule counts is what a launch
-    requests."""
-    T = _build.pattern_tile(cats)
+    requests: the resident walk's, and the fused walk's whole launch
+    configuration at its default tile (4096 patterns)."""
     n_codes = 16
-    want = _build.load().pllmod_walk_smem_bytes(
-        cats, states, n_codes, n_slots, T, int(resident_walk))
-    assert _build.walk_smem_bytes(cats, states, n_codes, n_slots,
-                                  resident_walk) == want
+    lib = _build.load()
+    if resident_walk:
+        want = lib.pllmod_resident_smem_bytes(
+            cats, states, n_codes, n_slots, _build.pattern_tile(cats))
+        assert _build.resident_smem_bytes(cats, states, n_codes,
+                                          n_slots) == want
+        return
+    T = _build.fused_tile(cats, states, n_codes, 4096)
+    assert _fused_config_lib(cats, states, n_codes, T) == \
+        _build.fused_config(cats, states, n_codes, T)
+
+
+def _fused_config_lib(C, S, n_codes, T):
+    out = (ctypes.c_longlong * 10)()
+    if not _build.load().pllmod_fused_config(C, S, n_codes, T, out):
+        return None
+    keys = ("kind", "RI", "RP", "IG", "SP", "NB", "threads", "Q", "smem",
+            "depth")
+    got = dict(zip(keys, list(out)))
+    got["kind"] = _build.FUSED_KINDS[got["kind"]]
+    got["lookback"] = 2 if got["kind"] == "thread" else 1
+    return got
+
+
+def _child_config_lib(C, S, n_codes, T):
+    out = (ctypes.c_longlong * 8)()
+    if not _build.load().pllmod_child_config(C, S, n_codes, T, out):
+        return None
+    keys = ("RI", "IG", "SP", "CB", "lookup", "threads", "mrows", "smem")
+    return dict(zip(keys, list(out)))
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -582,3 +610,249 @@ def test_treeinfo_on_card(cuda, linkage):
     assert abs(lnl - f64_total()) / abs(lnl) < 1e-6
     if mode != BRLEN_UNLINKED:
         assert deriv.LAUNCHES["newton_edges_multi"] > before
+
+
+# ---------------------------------------------------------------------------
+# the redesigned fused walk (kernel 2, csrc/fused.cu) and child pass
+# (kernel 3): every table kind, the forwarding hazard, all-tip rows,
+# ragged and unaligned pattern counts, and the launch configurations
+# ---------------------------------------------------------------------------
+FUSED_STATES = (4, 20, 32, 64)
+FUSED_CATS = (1, 4, 8)
+TABLES = ("dense", "fuse_root", "directed", "incremental")
+
+
+def _walk_equal(idx8, P5, tc, tab, ns, out=None, tile=None):
+    """The fused walk against its plain version, CLVs and scalers bit for
+    bit (``out``: prior buffers, written in place by both)."""
+    got_out = None if out is None else [t.clone() for t in out]
+    want_out = None if out is None else [t.clone() for t in out]
+    before = fused.LAUNCHES, fused.TABLE_LAUNCHES
+    clv_k, sc_k = fused.fused_walk(idx8, P5, tc, tab, ns, out=got_out,
+                                   tile=tile)
+    assert (fused.LAUNCHES, fused.TABLE_LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    clv_p, sc_p = fused.fused_walk_plain(idx8, P5, tc, tab, ns, out=want_out)
+    written = torch.unique(idx8[:, 6].long())
+    if out is None:     # slots no row writes are unset in the kernel's
+        clv_k, clv_p = clv_k[written], clv_p[written]
+        sc_k, sc_p = sc_k[written], sc_p[written]
+    assert torch.equal(clv_k, clv_p)
+    assert torch.equal(sc_k, sc_p)
+
+
+def _fused_table(part, tree, kind):
+    """(idx8, P5, n_slots, prior buffers or None) of a table kind: the
+    dense level-ordered table, with the root pseudo-node row, the
+    directed (BLO) table written into prior buffers, or three dirty rows
+    on a leaf-to-root path written into a full walk's buffers."""
+    brl = _brl(tree, part)
+    if kind in ("dense", "fuse_root"):
+        idx8, e1, e2, _, ns = fused.compile_fused(
+            part, tree, fuse_root=kind == "fuse_root")
+        P5 = fused.pair_pmats(part, brl, e1, e2,
+                              root_row=kind == "fuse_root")
+        return idx8, P5, ns, None
+    tab = fused.code_table(part)
+    if kind == "directed":
+        tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+        P5 = fused.pair_pmats(part, brl, tabs.e1, tabs.e2, root_row=False)
+        prior = fused.fused_walk_plain(tabs.idx8, P5, part.tip_states, tab,
+                                       tabs.n_slots)
+        return tabs.idx8, P5, tabs.n_slots, prior
+    ops, _ = tree.traversal_ops(None)
+    ops = np.asarray(ops)
+    full, e1, e2, ns = fused.compile_fused_ops(part, ops)
+    prior = fused.fused_walk_plain(
+        torch.as_tensor(full, device=part.device),
+        _pmats(part, brl, e1, e2), part.tip_states, tab, ns)
+    # a row and its next two ancestors (each reads the last): the rows a
+    # changed length below them dirties
+    parent = {int(c): k for k, r in enumerate(ops) if r[0] >= 0
+              for c in (r[1], r[3])}
+    chain = next(
+        [k, parent[ref], parent[int(ops[parent[ref], 0]) + part.n_tips]]
+        for k, r in enumerate(ops)
+        if r[0] >= 0 and (ref := int(r[0]) + part.n_tips) in parent
+        and int(ops[parent[ref], 0]) + part.n_tips in parent)
+    idx8, e1, e2, _ = fused.compile_fused_ops(part, ops[chain],
+                                              n_slots_min=ns)
+    return (torch.as_tensor(idx8, device=part.device),
+            _pmats(part, brl, e1, e2), ns, prior)
+
+
+def _pmats(part, brl, e1, e2):
+    """pair_pmats of a numpy table's edge columns (no root row)."""
+    return fused.pair_pmats(part, brl, torch.as_tensor(e1).to(part.device),
+                            torch.as_tensor(e2).to(part.device),
+                            root_row=False)
+
+
+def _swapped(idx8, P5):
+    """The same table with each row's two children swapped (a row's
+    product commutes, so the plain walk gives the same CLVs)."""
+    return (idx8[:, [1, 0, 3, 2, 5, 4, 6, 7]].contiguous(),
+            P5[:, [1, 0]].contiguous())
+
+
+@pytest.mark.parametrize("kind", TABLES)
+@pytest.mark.parametrize("cats", FUSED_CATS)
+@pytest.mark.parametrize("states", FUSED_STATES)
+def test_fused_walk_tables_match_plain(cuda, states, cats, kind):
+    """Kernel 2 bit for bit on every table kind at S in {4, 20, 32, 64}
+    and C in {1, 4, 8}; the pre-pass bit for bit with its plain form."""
+    part, tree = _example(states, cats, cuda, n_taxa=16, n_sites=256)
+    idx8, P5, ns, prior = _fused_table(part, tree, kind)
+    tab = fused.code_table(part)
+    _walk_equal(idx8, P5, part.tip_states, tab, ns, out=prior)
+    T = _build.fused_tile(cats, states, tab.shape[0],
+                          part.n_patterns_padded)
+    assert torch.equal(fused.walk_tables(idx8, P5, tab, T),
+                       fused.walk_tables_plain(idx8, P5, tab, T))
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (4, 1)])
+@pytest.mark.parametrize("case", ["serial", "caterpillar", "incremental"])
+def test_fused_walk_forwards_the_previous_rows_child(cuda, states, cats,
+                                                     case):
+    """Tables where a row's child is the row before's output (the
+    prefetch hazard): the slot-recycled serial table of the bounded
+    evaluation, a caterpillar tree's dense table, three dirty rows; each
+    has such children at the kernel's pipeline depth."""
+    part, tree = _example(states, cats, cuda, n_taxa=14, n_sites=256)
+    tab = fused.code_table(part)
+    prior = None
+    if case == "serial":
+        ops, root_info = tree.traversal_ops(None)
+        u, v, _ = (int(x) for x in root_info)
+        ops_b, _, _ = clv.bounded_slot_ops(ops, part.n_tips,
+                                           root_refs=(u, v))
+        idx8, e1, e2, ns = fused.compile_fused_ops(part, ops_b, serial=True)
+        idx8 = torch.as_tensor(idx8, device=cuda)
+        P5 = _pmats(part, _brl(tree, part), e1, e2)
+    elif case == "caterpillar":
+        tree = _caterpillar(14)
+        tree.lengths[:] = np.linspace(0.02, 0.3, len(tree.lengths))
+        idx8, P5, ns, prior = _fused_table(part, tree, "fuse_root")
+    else:
+        idx8, P5, ns, prior = _fused_table(part, tree, "incremental")
+    cf = _build.fused_config(cats, states, tab.shape[0], _build.fused_tile(
+        cats, states, tab.shape[0], part.n_patterns_padded))
+    assert cf["depth"] >= 1
+    flagged = 0
+    for i8, p5 in ((idx8, P5), _swapped(idx8, P5)):
+        flagged += int(fused.forwarded_children(i8, ns, cf["depth"],
+                                                cf["lookback"]).sum())
+        _walk_equal(i8, p5, part.tip_states, tab, ns, out=prior)
+    assert flagged
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4)])
+def test_fused_walk_all_tip_rows_and_ragged_tiles(cuda, states, cats):
+    """All-tip rows (a table of the cherries, and dummy rows padding a
+    table), then the dense table at other tiles and at pattern counts
+    that no tile divides (100, a multiple of 4: 16-byte copies with a
+    ragged last tile; 101: 4-byte copies)."""
+    part, tree = _example(states, cats, cuda, n_taxa=16, n_sites=256)
+    tab = fused.code_table(part)
+    brl = _brl(tree, part)
+    ops, _ = tree.traversal_ops(None)
+    ops = np.asarray(ops)
+    cherries = ops[(ops[:, 0] >= 0) & (ops[:, 1] < part.n_tips)
+                   & (ops[:, 3] < part.n_tips)]
+    for table in (fused.compile_fused_ops(part, cherries),
+                  fused.compile_fused_ops(part, ops, pad_to=len(ops) + 5)):
+        idx8, e1, e2, ns = table
+        _walk_equal(torch.as_tensor(idx8, device=cuda),
+                    _pmats(part, brl, e1, e2), part.tip_states, tab, ns)
+    idx8, P5, ns, _ = _fused_table(part, tree, "fuse_root")
+    for Ppad in (256, 100, 101):
+        tc = part.tip_states[:, :Ppad].contiguous()
+        tiles = {_build.fused_tile(cats, states, tab.shape[0], Ppad)} | {
+            T for T in (4, 8, 16, 32, 64)
+            if (cf := _build.fused_config(cats, states, tab.shape[0], T))
+            and cf["kind"] != "fallback"}
+        for T in sorted(tiles):
+            _walk_equal(idx8, P5, tc, tab, ns, tile=T)
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (64, 8),
+                                         (4, 64), (20, 64), (64, 64),
+                                         (8, 256)])
+def test_fused_walk_fallback_and_deep_configs(cuda, states, cats):
+    """Every walk kind and pipeline depth where the shape takes them, bit
+    for bit: the thread walk with its tables in shared memory or (8
+    states, 256 categories) in device memory, the tile walk's rings of
+    1-3 stage buffers and the fallback tile (matrices in device memory,
+    one thread a category and pattern)."""
+    part, tree = _example(states, cats, cuda, n_taxa=10, n_sites=128)
+    tab = fused.code_table(part)
+    idx8, P5, ns, _ = _fused_table(part, tree, "fuse_root")
+    seen = set()
+    for T in _build.TILES:
+        cf = _build.fused_config(cats, states, tab.shape[0], T)
+        if cf and (cf["kind"], cf["NB"]) not in seen:
+            seen.add((cf["kind"], cf["NB"]))
+            _walk_equal(idx8, P5, part.tip_states, tab, ns, tile=T)
+    assert seen
+
+
+@pytest.mark.parametrize("states", FUSED_STATES + (5, 16))
+@pytest.mark.parametrize("cats", FUSED_CATS + (32,))
+def test_fused_and_child_configs_match_library(cuda, states, cats):
+    """The Python mirrors of the two launch configurations are what the
+    libraries compute, at every tile."""
+    for n_codes in (states + 1, 16, 200):
+        for T in _build.TILES:
+            assert _fused_config_lib(cats, states, n_codes, T) == \
+                _build.fused_config(cats, states, n_codes, T)
+            assert _child_config_lib(cats, states, n_codes, T) == \
+                _build.child_config(cats, states, n_codes, T)
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (5, 1),
+                                         (16, 8), (4, 32)])
+def test_child_pass_every_level_tile_and_ragged(cuda, states, cats):
+    """Kernel 3 on both sides of every level (W = 1 levels included, on a
+    caterpillar), at its default tile and forced ones, with tip children
+    looked up or multiplied, and at 100 and 101 patterns."""
+    part, tree = _example(states, cats, cuda, n_taxa=14, n_sites=256)
+    tab = fused.code_table(part)
+    for tr in (tree, _caterpillar(14)):
+        lvls, offsets, _, ns = engine.compile_schedule(part, tr)
+        idx, e1, e2 = levels.level_tables(part, lvls)
+        P = part.prob_matrices(_brl(tr, part))
+        P1, P2 = P[e1], P[e2]
+        C, S = part.n_cats, part.states
+        want = _level_walk_plain(idx, P1, P2, part.tip_states, tab, lvls,
+                                 offsets, ns, C, S)
+        for Ppad in (part.n_patterns_padded, 100, 101):
+            tc = part.tip_states[:, :Ppad].contiguous()
+            bufs = [want[0][..., :Ppad].contiguous(),
+                    want[1][..., :Ppad].contiguous()]
+            for lv, off in zip(lvls, offsets):
+                s = slice(off, off + len(lv))
+                for side, Pm in ((0, P1[s]), (1, P2[s])):
+                    ref = levels.child_pass_plain(idx[s], side, *bufs, tc,
+                                                  tab, Pm)
+                    for T in (None, 4, 32, 128):
+                        if T and not _build.child_config(C, S, tab.shape[0],
+                                                         T):
+                            continue
+                        got = levels.child_pass(idx[s], side, *bufs, tc,
+                                                tab, Pm, tile=T)
+                        assert torch.equal(got[0], ref[0])
+                        assert torch.equal(got[1], ref[1])
+
+
+def test_tip_lookup_on_card_matches_expanded_tips(cuda):
+    """The tip tables the kernels build equal their plain form, and a
+    lookup the product on expanded tips (20 states, 4 categories)."""
+    part, _ = _example(20, 4, cuda)
+    P = part.prob_matrices(torch.tensor([0.1, 0.3], device=cuda))
+    tab = fused.code_table(part)
+    PT = fused.tip_tables_plain(P, tab)
+    codes = part.tip_states[0]
+    x = tab[codes.long()].T[None].expand(4, 20, codes.shape[0])
+    assert torch.equal(fused.tip_lookup_plain(PT[1], codes),
+                       clv.apply_pmat(P[1], x))

@@ -200,9 +200,9 @@ def test_auto_routing_rule():
     wide = _alignment(64, 8, charmap.multistate(64))
     assert engine.auto_schedule(wide, n_slots=4) == "fused"
     for part, ns in ((prot, 6), (prot, 12), (wide, 2), (wide, 4)):
-        fits = _build.walk_smem_bytes(
-            part.n_cats, part.states, part.code_clv.shape[0], ns,
-            resident=True) <= _build.SMEM_PER_BLOCK
+        fits = _build.resident_smem_bytes(
+            part.n_cats, part.states, part.code_clv.shape[0],
+            ns) <= _build.SMEM_PER_BLOCK
         assert fits == (engine.auto_schedule(part, ns) == "resident")
 
 

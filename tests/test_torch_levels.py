@@ -20,7 +20,7 @@ import torch
 from pllmod_tpu.ops import engine as jax_engine
 from pllmod_tpu.ops import pallas_clv
 from pllmod_tpu_torch.common import PllModError
-from pllmod_tpu_torch.ops import engine, fused, levels
+from pllmod_tpu_torch.ops import _build, engine, fused, levels
 from tests.torch_cases import level_case, lengths, make_case, rel_err, to_torch
 from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
@@ -224,3 +224,59 @@ def test_level_schedules_reject_bad_input():
     with pytest.raises(ValueError, match="side"):
         levels.child_pass(torch.zeros((1, 6), dtype=torch.int32), 2,
                           None, None, None, None, None)
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4)])
+def test_child_pass_tip_lookup_matches_jax_levels(states, cats):
+    """Kernel 3's tip lookup in plain form: on every level of the JAX
+    package's schedule, the tip children's rows of the plain child pass
+    equal their lookup in the row's tip table (``fused.tip_tables_plain``)
+    bit for bit, both sides."""
+    case = make_case(240 + states, 20, 128, states=states, cats=cats)
+    tp = case.tpart
+    lvls, offsets, _, ns = jax_engine.compile_schedule(case.jpart,
+                                                       case.jtree)
+    idx, e1, e2 = levels.level_tables(tp, [np.asarray(lv) for lv in lvls])
+    P = tp.prob_matrices(lengths(case.tree)).float()
+    tab = fused.code_table(tp)
+    Ppad = tp.n_patterns_padded
+    clvs = torch.zeros((ns, cats * states, Ppad))
+    sc = torch.zeros((ns, 1, Ppad), dtype=torch.int32)
+    n_tips = 0
+    for lv, off in zip(lvls, offsets):
+        s = slice(off, off + len(lv))
+        for side, e in ((0, e1), (1, e2)):
+            out, _ = levels.child_pass_plain(idx[s], side, clvs, sc,
+                                             tp.tip_states, tab, P[e[s]])
+            for w, row in enumerate(idx[s].tolist()):
+                if row[2 + side]:
+                    PT = fused.tip_tables_plain(P[e[s]][w], tab)
+                    got = fused.tip_lookup_plain(
+                        PT, tp.tip_states[row[4 + side]])
+                    assert torch.equal(got.reshape(-1, Ppad), out[w])
+                    n_tips += 1
+    assert n_tips >= tp.n_tips - 2     # the root's children are no row's
+
+
+@pytest.mark.parametrize("C,S,n_codes,Ppad,W,T,lookup", [
+    (4, 20, 24, 4096, 24, 128, 1),   # protein, a wide level
+    (4, 20, 24, 4096, 1, 128, 1),    # W = 1: one category a CTA
+    (4, 20, 24, 512, 1, 4, 0),       # few patterns: small tiles
+    (4, 4, 16, 16384, 7, 128, 1),    # flagship
+    (4, 4, 16, 16384, 1, 128, 1),
+    (4, 4, 16, 1024, 2, 16, 1),
+    (4, 64, 65, 4096, 4, 128, 1),    # one category a CTA
+])
+def test_child_tile_follows_level_width(C, S, n_codes, Ppad, W, T, lookup):
+    """Kernel 3's tile fills the card at every width (a CTA an SM or
+    more), looks tips up where the tile has as many patterns as the table
+    has codes, and every configuration fits a block."""
+    assert _build.child_tile(C, S, n_codes, Ppad, W) == T
+    cf = _build.child_config(C, S, n_codes, T)
+    assert cf["lookup"] == lookup
+    for T in _build.TILES:
+        cf = _build.child_config(C, S, n_codes, T)
+        if cf:
+            assert cf["threads"] <= _build.MAX_THREADS
+            assert cf["smem"] <= _build.SMEM_PER_BLOCK
+            assert 1 <= cf["CB"] <= C and cf["SP"] >= S
