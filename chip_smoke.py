@@ -46,18 +46,29 @@ by path), the card's name and power limit, and last
 script exits non-zero; without CUDA it exits 1 and prints no result.
 
 ``--profile`` also traces the main path's timed loop of each cell, the
-flagship's ``pallas`` and grouped loops and one flagship BLO call with
+flagship's ``pallas`` and grouped loops and one BLO call each at the
+flagship and protein cells and on the partitioned cell (LINKED) with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
-window. ``--parent DIR`` builds the kernels of another checkout at DIR
-(an earlier commit, unpacked with ``git archive``) and times its fused
-walk and child pass beside this tree's on the same inputs, outputs held
-equal, in turns (parent, this tree, this tree, parent), by device time.
+window; and it builds ``csrc/pruning.cu`` and ``csrc/deriv.cu`` once
+more with their phase marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``)
+and prints the mean cycles of each phase of a row of kernel 1 (flagship,
+protein) and of a Newton iteration of kernel 10 (its all-edge shapes),
+with the marked build's ms a launch beside the library's. ``--parent DIR`` builds the kernels of another checkout at DIR
+(an earlier commit, unpacked with ``git archive`` into a directory that
+``.gitignore`` lists) beside this tree's and times its kernels 1, 2, 3
+and 10 (each entry point from the library that defines it there, with
+its own signature) beside this tree's on the same inputs, outputs held
+equal (kernel 10 within DERIV_RTOL), in turns (parent, this tree, this
+tree, parent), by device time; kernel 10 at every shape the BLO
+launches: all edges and each edge-color class of the flagship and
+protein cells, and the two-partition sweep.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -92,9 +103,9 @@ PROTEIN = dict(n_taxa=512, n_sites=4096, seed=5, states=20)
 PARTITION2 = dict(n_sites=4096, seed=5, states=20)
 SCALED_SCALERS = (1.0, 0.5)
 TIMED_LOGLH = 20          # compute_loglh calls timed on the partitioned cell
-# the widest alphabet of the registries (MULTI64) +G4: the resident
-# kernel's live slots do not fit a block's shared memory, so auto routes
-# it to the fused kernel
+# the widest alphabet of the registries (MULTI64) +G4: no ring of the
+# resident kernel's tables fits beside its live slots at any tile, so
+# auto routes it to the fused kernel
 WIDE = dict(n_taxa=128, n_sites=4096, seed=7, states=64)
 # (label, cell, the kernel auto must pick)
 CELLS = [("flagship DNA", FLAGSHIP, "resident"),
@@ -106,6 +117,16 @@ SPIN_HZ = 1.98e9          # H100 SXM boost clock: cycles a second of a spin
 SWEEP_SHAPES = [(4, 1), (4, 4), (5, 4), (10, 4), (16, 4), (20, 4), (32, 4),
                 (64, 4)]
 SWEEP_SIZES = [(128, 16384), (64, 4096)]
+# the routing sweep at the slot counts that change the resident walk's
+# tile: (taxa, patterns, states, categories, over the slot ladder or at
+# the tree's own slots only); a 512-taxon tree needs at most 12 slots
+# (resident.resident_slot_bound), a random 2048-taxon tree 7; and a
+# 16-taxon 64-state tree, whose few slots fit the resident walk's global
+# kind only
+SLOT_SWEEP = [(512, 4096, 16, 4, True), (512, 4096, 20, 4, True),
+              (512, 4096, 32, 4, True), (512, 4096, 64, 1, True),
+              (2048, 4096, 20, 4, False), (2048, 4096, 32, 4, False),
+              (16, 4096, 64, 4, False)]
 
 
 def gpu_line() -> str:
@@ -219,16 +240,19 @@ LAUNCH_LOG: dict = {}     # kernel -> cell -> path -> launches
 
 
 def read_counts() -> dict:
-    """Every kernel wrapper's launch count (the fused walk's pre-pass as
-    ``fused_tables``)."""
-    return dict(resident_walk=resident.LAUNCHES, fused_walk=fused.LAUNCHES,
+    """Every kernel wrapper's launch count (the walks' pre-passes as
+    ``resident_tables`` and ``fused_tables``)."""
+    return dict(resident_walk=resident.LAUNCHES,
+                resident_tables=resident.TABLE_LAUNCHES,
+                fused_walk=fused.LAUNCHES,
                 fused_tables=fused.TABLE_LAUNCHES, **deriv.LAUNCHES,
                 **levels.LAUNCHES, grouped_walk=grouped.LAUNCHES,
                 **packed.LAUNCHES)
 
 
 def zero_counts() -> None:
-    resident.LAUNCHES = fused.LAUNCHES = fused.TABLE_LAUNCHES = 0
+    resident.LAUNCHES = resident.TABLE_LAUNCHES = 0
+    fused.LAUNCHES = fused.TABLE_LAUNCHES = 0
     grouped.LAUNCHES = 0
     for d in (deriv.LAUNCHES, levels.LAUNCHES, packed.LAUNCHES):
         for k in d:
@@ -284,9 +308,9 @@ def check_resident(part, tree, part64):
     prod_k, sc_k = resident.resident_walk(*args)
     torch.cuda.synchronize()
     err, rel = compare("resident prod", prod_k, prod_p)
-    if not torch.equal(sc_k, sc_p):
-        raise AssertionError("resident scaler rows differ from the plain "
-                             "version")
+    if not (torch.equal(prod_k, prod_p) and torch.equal(sc_k, sc_p)):
+        raise AssertionError("resident root product or scaler row differs "
+                             "from the plain version")
     ms = time_ms(lambda: resident.resident_walk(*args), 20)
     l_k = float(resident.loglikelihood_resident(part, idx8, brl, (e1, e2),
                                                 ns))
@@ -295,13 +319,18 @@ def check_resident(part, tree, part64):
     b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab, prod_k, sc_k),
                        walk_flops(idx8, part.n_cats, part.states,
                                   part.n_patterns_padded, tab.shape[0]))
+    C, S, n_codes = part.n_cats, part.states, tab.shape[0]
+    T = _build.resident_tile(C, S, n_codes, ns, part.n_patterns_padded)
+    cf = _build.resident_config(C, S, n_codes, ns, T)
     print(f"resident: {ms:.4f} ms/launch, plain {plain_ms:.1f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots")
+          f"bound {b_ms:.4f} ms ({b_by}), {ns} slots, tile {T} {cf}, bit "
+          f"for bit")
     return dict(name="resident_walk", route="cuda",
                 source="pllmod_tpu_torch/csrc/pruning.cu",
                 replaces="pllmod_tpu/ops/pallas_resident.py:325",
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, tile=T,
+                slots=ns, **{k: cf[k] for k in ("RP", "threads", "smem")})
 
 
 def check_fused(part, tree, part64, label, directed=False):
@@ -462,13 +491,65 @@ def check_deriv(part, tree, label):
     print(f"newton_edges ({label}): {ms:.4f} ms/launch, plain "
           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), mean "
           f"{iters / E:.2f} iterations an edge")
+    design = newton_design([part])
+    NEWTON_SHAPES.append((f"{label}, all {E} edges", [part], [st], [sc], t,
+                          (1.0,), [tabs.lw], [tabs.lnB]))
+    # the colored BLO's launch shapes: kernels 8 and 10 on each color
+    # class of edges (blo._edge_colors)
+    classes = []
+    for k, mask in enumerate(blo._edge_colors(tree)):
+        sel = torch.as_tensor(np.nonzero(mask)[0], device=part.device)
+        cargs = (part, clvs, scalers, tabs.eref6[sel], tabs.basis)
+        st_c, sc_c = deriv.edge_sumtables(*cargs)
+        cn = (part, st_c, sc_c, brl[sel], MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+              TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS)
+        c_iters = int(deriv.newton_edges(*cn, **kw)[2].sum())
+        row = dict(color=k, edges=len(sel),
+                   edge_sumtables_ms=time_ms(
+                       lambda: deriv.edge_sumtables(*cargs), 10),
+                   newton_edges_ms=time_ms(
+                       lambda: deriv.newton_edges(*cn, **kw), 10),
+                   mean_iters=c_iters / len(sel))
+        print(f"class shape ({label}): {row}")
+        classes.append(row)
+        NEWTON_SHAPES.append((f"{label}, color {k} ({len(sel)} edges)",
+                              [part], [st_c], [sc_c], brl[sel], (1.0,),
+                              [tabs.lw], [tabs.lnB]))
+    print(f"newton_edges ({label}): design {design}")
     rows.append(dict(name="newton_edges", route="cuda",
                      source="pllmod_tpu_torch/csrc/deriv.cu",
                      replaces="pllmod_tpu/ops/pallas_deriv.py:400",
                      max_abs_err=err, max_rel_err=errs, ms=ms,
                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, mean_iters=iters / E))
+                     library_ms=None, mean_iters=iters / E, design=design,
+                     class_shapes=classes))
     return rows
+
+
+# kernel 10's launch shapes, for --parent: (label, parts, sts, scs, t0,
+# scalers, lws, lnBs)
+NEWTON_SHAPES: list = []
+
+
+def newton_design(parts) -> dict:
+    """Kernel 10's design for these partitions (``deriv.newton_config``)
+    with the occupancy the card reports for it (the library's
+    ``pllmod_newton_config``: clusters resident at once, or CTAs an SM for
+    the streaming kernel)."""
+    import ctypes
+    cs = [p.n_cats * p.states for p in parts]
+    ppads = [p.n_patterns_padded for p in parts]
+    dims = (ctypes.c_longlong * (2 * len(cs)))(
+        *[v for c, q in zip(cs, ppads) for v in (c, q)])
+    out = (ctypes.c_longlong * 4)()
+    if not _build.load().pllmod_newton_config(len(cs), dims, 0, out):
+        raise AssertionError(f"kernel 10 takes no design at C·S {cs}")
+    want = deriv.newton_config(cs, ppads)
+    got = dict(kind=deriv.NEWTON_KINDS[out[0]], N=out[1], smem=out[2])
+    if got != want:
+        raise AssertionError(f"kernel 10's design {got} is not its mirror's "
+                             f"{want}")
+    return dict(got, occupancy=out[3])
 
 
 # ---------------------------------------------------------------------------
@@ -834,15 +915,18 @@ def check_newton_multi(parts, tree, scalers, label):
                         * (6 * p.n_cats * p.states + SITE_OPS)
                         for p in parts)
     b_ms, b_by = bound(in_bytes + 3 * E * 4, flops)
+    design = newton_design(parts)
+    NEWTON_SHAPES.append((f"{label}, all {E} edges", list(parts), sts, scs,
+                          t, tuple(scalers), lws, lnbs))
     print(f"newton_edges_multi ({label}): {ms:.4f} ms/launch, plain "
           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), mean "
-          f"{iters / E:.2f} iterations an edge")
+          f"{iters / E:.2f} iterations an edge, design {design}")
     return dict(name="newton_edges_multi", route="cuda",
                 source="pllmod_tpu_torch/csrc/deriv.cu",
                 replaces="pllmod_tpu/ops/pallas_deriv.py:400",
                 max_abs_err=err, max_rel_err=errs, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                mean_iters=iters / E, partitions=len(parts))
+                mean_iters=iters / E, partitions=len(parts), design=design)
 
 
 def _events_ms(fn, calls: int = 1):
@@ -1075,88 +1159,247 @@ def profile_window(label, fn, calls: int) -> None:
                     for k, (us, n) in rows[:12]]}))
 
 
-def routing_sweep():
-    """Both kernels, forced, at every (states, categories) of SWEEP_SHAPES
-    and size of SWEEP_SIZES: ms per launch of each (the resident one
-    where its live slots fit a block's shared memory), what ``auto``
-    picks, and the resident root product held against the fused one's."""
+PHASE_DEFINES = ("PLLMOD_PHASES",)    # csrc/common.cuh PHASE_MARK
+RESIDENT_PHASES = ("wait", "issue", "children", "product_max", "barrier",
+                   "rescale_store")
+NEWTON_PHASES = ("coefficients", "sums", "reduce_push", "cluster_sync",
+                 "newton_step")
+
+
+def start_phase_build():
+    """Start building pruning.cu and deriv.cu with their phase marks in a
+    thread, beside the default build; returns the build's future."""
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(_build.build, ("pruning", "deriv"), PHASE_DEFINES)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
+                  names) -> None:
+    """Where a row of kernel 1 or a Newton iteration of kernel 10 spends
+    its cycles: ``fn`` (one launch through the port's wrapper) run
+    through ``marked``, the build with phase marks, records CTA 0's
+    thread 0's clock64() at each phase boundary of its first ``rows``
+    rows or iterations; prints the mean cycles of each phase over the
+    inner ones (the first and last two dropped where there are eight or
+    more, else one), and ms a launch of the marked build against the
+    port's own library, timed in turns (library, marked, marked,
+    library) with the marks recording."""
+    clk = torch.zeros(128 * 8, dtype=torch.int64, device="cuda")
+    set_buffer(clk.data_ptr())
+    t = []
+    for use in (False, True, True, False):
+        with _build.using(marked) if use else contextlib.nullcontext():
+            t.append(device_ms(fn, 20))
+    clk.zero_()
+    with _build.using(marked):
+        fn()
+    torch.cuda.synchronize()
+    set_buffer(None)
+    c = clk.view(-1, 8).cpu().numpy()[:min(rows, 128)]
+    cut = 2 if len(c) >= 8 else 1
+    c = c[cut:len(c) - cut] if len(c) > 2 * cut else c
+    d = np.diff(c[:, :len(names) + 1], axis=1).mean(axis=0)
+    print(json.dumps(dict(
+        phases=label, kernel=kernel, rows=rows, library_ms=[t[0], t[3]],
+        marked_ms=[t[1], t[2]],
+        cycles=float((c[:, len(names)] - c[:, 0]).mean()),
+        **{n: float(v) for n, v in zip(names, d)})))
+
+
+def run_phase_profiles(build, cells) -> None:
+    """:func:`phase_profile` of kernel 1 at the flagship and protein
+    cells and of kernel 10 at NEWTON_SHAPES' all-edge shapes, with the
+    build that :func:`start_phase_build` started."""
+    import ctypes
+    paths = build.result()
+    marked = _build.entry_points(paths)
+    setters = [ctypes.CDLL(p).pllmod_phase_buffer for p in paths.values()]
+
+    def set_buffer(ptr):
+        for f in setters:
+            if f(ctypes.c_void_p(ptr)):
+                raise RuntimeError("pllmod_phase_buffer failed")
+    for label, part, tree in cells:
+        idx8, e1, e2, ns = resident.compile_resident(part, tree)
+        brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                              device=part.device)
+        args = (idx8, fused.pair_pmats(part, brl, e1, e2, root_row=True),
+                part.tip_states, fused.code_table(part), ns)
+        phase_profile(marked, set_buffer, label, "resident_walk",
+                      lambda: resident.resident_walk(*args), len(idx8),
+                      RESIDENT_PHASES)
+    for label, parts, sts, scs, t0, scalers, lws, lnbs in NEWTON_SHAPES:
+        if "all" not in label:
+            continue
+        nargs = (parts, sts, scs, t0, scalers, MIN_BRANCH_LEN,
+                 MAX_BRANCH_LEN, TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS, lws,
+                 lnbs)
+        iters0 = int(deriv.newton_edges_multi(*nargs)[2][0])
+        phase_profile(marked, set_buffer, label, "newton_edges",
+                      lambda: deriv.newton_edges_multi(*nargs), iters0,
+                      NEWTON_PHASES)
+
+
+def sweep_rows(part, tree, n_taxa, slot_counts=(None,)):
+    """Both walk kernels, forced, on ``part`` / ``tree``: the fused walk
+    once, the resident walk at each of ``slot_counts`` (None: the tree's
+    own live slots; a larger count reserves that many slots, the shape of
+    a tree that needs them) where its slots fit a block at some tile,
+    held bit for bit against its plain version and its root product
+    against the fused walk's. Returns a row a slot count: device ms a
+    launch of each, which was faster and what ``auto`` picks."""
+    states, cats = part.states, part.n_cats
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32, device="cuda")
+    tab = fused.code_table(part)
+    fi, fe1, fe2, ri, fns = fused.compile_fused(part, tree, fuse_root=True)
+    fargs = (fi, fused.pair_pmats(part, brl, fe1, fe2, root_row=True),
+             part.tip_states, tab, fns)
+    fused_ms = device_ms(lambda: fused.fused_walk(*fargs), 10)
+    fused_root = fused.fused_walk(*fargs)[0][ri[3]]
     out = []
-    for n_taxa, n_sites in SWEEP_SIZES:
-        for states, cats in SWEEP_SHAPES:
-            part, tree = flagship.example(n_taxa, n_sites, seed=11 + states,
-                                          states=states, n_rate_cats=cats,
-                                          device="cuda")
-            part = part.cache_eigen()
-            brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
-                                  device="cuda")
-            tab = fused.code_table(part)
-            fi, fe1, fe2, ri, fns = fused.compile_fused(part, tree,
-                                                        fuse_root=True)
-            fargs = (fi, fused.pair_pmats(part, brl, fe1, fe2,
-                                          root_row=True),
-                     part.tip_states, tab, fns)
-            fused_ms = time_ms(lambda: fused.fused_walk(*fargs), 10)
-            ri8, re1, re2, rns = resident.compile_resident(part, tree)
-            smem = _build.resident_smem_bytes(cats, states, tab.shape[0],
-                                              rns)
-            res_ms = None
-            if smem <= _build.SMEM_PER_BLOCK:
-                rargs = (ri8, fused.pair_pmats(part, brl, re1, re2,
-                                                      root_row=True),
-                         part.tip_states, tab, rns)
-                res_ms = time_ms(lambda: resident.resident_walk(*rargs), 10)
-                compare(f"resident vs fused root product (S={states}, "
-                        f"C={cats})", resident.resident_walk(*rargs)[0],
-                        fused.fused_walk(*fargs)[0][ri[3]])
-            row = dict(taxa=n_taxa, patterns=part.n_patterns_padded,
-                       states=states, cats=cats, cs=states * cats,
-                       resident_slots=rns, resident_smem_bytes=smem,
-                       resident_ms=res_ms, fused_ms=fused_ms,
-                       auto=engine.auto_schedule(part, rns))
-            print(f"sweep: {row}")
-            out.append(row)
-            del part, fargs
-            torch.cuda.empty_cache()
+    for want_ns in slot_counts:
+        ri8, re1, re2, rns = resident.compile_resident(part, tree,
+                                                       n_slots_min=want_ns)
+        T = _build.resident_tile(cats, states, tab.shape[0], rns,
+                                 part.n_patterns_padded)
+        res_ms, cf = None, None
+        if T is not None:
+            cf = _build.resident_config(cats, states, tab.shape[0], rns, T)
+            rargs = (ri8, fused.pair_pmats(part, brl, re1, re2,
+                                           root_row=True),
+                     part.tip_states, tab, rns)
+            res_ms = device_ms(lambda: resident.resident_walk(*rargs), 10)
+            got = resident.resident_walk(*rargs)
+            want = resident.resident_walk_plain(*rargs)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"resident walk (S={states}, C={cats}, "
+                                     f"{rns} slots) differs from its plain "
+                                     "version")
+            compare(f"resident vs fused root product (S={states}, "
+                    f"C={cats}, {rns} slots)", got[0], fused_root)
+        faster = ("fused" if res_ms is None or fused_ms < res_ms
+                  else "resident")
+        row = dict(taxa=n_taxa, patterns=part.n_patterns_padded,
+                   states=states, cats=cats, cs=states * cats,
+                   resident_slots=rns, forced_slots=want_ns is not None,
+                   resident_tile=T, resident_kind=cf and cf["kind"],
+                   resident_threads=cf and cf["threads"],
+                   resident_smem=cf and cf["smem"],
+                   resident_ctas_per_sm=cf and _build.ctas_per_sm(
+                       cf["threads"], cf["smem"]),
+                   resident_ms=res_ms, fused_ms=fused_ms, faster=faster,
+                   auto=engine.auto_schedule(part, rns))
+        row["auto_is_faster"] = row["auto"] == faster
+        print(f"sweep: {row}")
+        out.append(row)
+    return out
+
+
+def slot_ladder(part, n_taxa, own: int) -> list:
+    """The tree's own slot count (None), then, up to the slot bound of
+    ``n_taxa`` tips (resident.resident_slot_bound), the first and last
+    slot count of each pattern tile that the resident walk takes there."""
+    C, S, nc, P = (part.n_cats, part.states, part.code_clv.shape[0],
+                   part.n_patterns_padded)
+    by_tile: dict = {}
+    for ns in range(own + 1, resident.resident_slot_bound(n_taxa) + 1):
+        by_tile.setdefault(_build.resident_tile(C, S, nc, ns, P),
+                           []).append(ns)
+    return [None] + sorted({x for v in by_tile.values()
+                            for x in (v[0], v[-1])})
+
+
+def routing_sweep():
+    """The routing sweep: :func:`sweep_rows` at every (states,
+    categories) of SWEEP_SHAPES and size of SWEEP_SIZES (the trees' own
+    slots), and at SLOT_SWEEP's larger trees, there over
+    :func:`slot_ladder` as well."""
+    out = []
+    runs = [(n, p, s, c, False) for n, p in SWEEP_SIZES
+            for s, c in SWEEP_SHAPES] + list(SLOT_SWEEP)
+    for n_taxa, n_sites, states, cats, ladder in runs:
+        part, tree = flagship.example(n_taxa, n_sites, seed=11 + states,
+                                      states=states, n_rate_cats=cats,
+                                      device="cuda")
+        part = part.cache_eigen()
+        counts = (None,)
+        if ladder:
+            own = resident.compile_resident(part, tree)[3]
+            counts = slot_ladder(part, n_taxa, own)
+        out += sweep_rows(part, tree, n_taxa, counts)
+        del part
+        torch.cuda.empty_cache()
     return out
 
 
 # ---------------------------------------------------------------------------
-# --parent: kernels 2 and 3 against another checkout's, by device time
+# --parent: kernels 1, 2, 3 and 10 against another checkout's, by device
+# time
 # ---------------------------------------------------------------------------
-def parent_libs(parent: str) -> dict:
-    """Build another checkout's kernels (its own ``_build``, in its own
-    ``build/``) and load its pruning and levels libraries: {name: CDLL}."""
+PARENT_KERNELS = ("pllmod_resident_walk", "pllmod_fused_walk",
+                  "pllmod_child_pass", "pllmod_newton_edges")
+
+
+def start_parent_build(parent: str):
+    """Start building another checkout's kernels (its own ``_build``, in
+    its own ``build/``) in a process of its own; returns the process,
+    whose last output line is JSON: each entry point of PARENT_KERNELS
+    with its library's path and its C argument and result types, from
+    that checkout's own ``ENTRY_POINTS``."""
+    code = (
+        "import json; from pllmod_tpu_torch.ops import _build; "
+        "paths = _build.build(); "
+        f"names = {PARENT_KERNELS!r}; "
+        "print(json.dumps({n: [paths[_build.ENTRY_POINTS[n][0]], "
+        "[t.__name__ for t in _build.ENTRY_POINTS[n][1]], "
+        "_build.ENTRY_POINTS[n][2].__name__] for n in names}))")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def parent_libs(proc) -> dict:
+    """The entry points of PARENT_KERNELS of the checkout that ``proc``
+    (:func:`start_parent_build`) built, each from the library that
+    defines it there and with its own C signature: {name: function}."""
     import ctypes
-    out = subprocess.run(
-        [sys.executable, "-c", "import json; from pllmod_tpu_torch.ops "
-         "import _build; print(json.dumps(_build.build()))"],
-        cwd=parent, capture_output=True, text=True, timeout=900, check=True)
-    paths = json.loads(out.stdout.strip().splitlines()[-1])
-    libs = {name: ctypes.CDLL(paths[name]) for name in ("pruning", "levels")}
-    args = _build.ENTRY_POINTS
-    walk = libs["pruning"].pllmod_fused_walk
-    walk.argtypes = args["pllmod_resident_walk"][1]
-    walk.restype = ctypes.c_int
-    child = libs["levels"].pllmod_child_pass
-    child.argtypes = args["pllmod_child_pass"][1]
-    child.restype = ctypes.c_int
-    return dict(fused_walk=walk, child_pass=child)
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the parent's build failed:\n{err[-4000:]}")
+    fns = {}
+    for name, (path, args, res) in json.loads(
+            out.strip().splitlines()[-1]).items():
+        fn = getattr(ctypes.CDLL(path), name)
+        fn.argtypes = [getattr(ctypes, t) for t in args]
+        fn.restype = getattr(ctypes, res)
+        fns[name] = fn
+    return fns
 
 
-def parent_compare(parent: str, cells) -> list:
-    """Kernels 2 and 3 of the checkout at ``parent`` (its C entry points,
-    at its own pattern tile, ``_build.pattern_tile``) beside this tree's
-    on the same inputs: outputs equal, device ms a launch timed in turns
-    (parent, this tree, this tree, parent). ``cells``: (label, part, tree)
-    of the flagship DNA, protein and 64-state cells."""
-    libs = parent_libs(parent)
+def _call(fn, label, *args):
+    with torch.cuda.device(0):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"parent {label}: error {err}")
+
+
+def parent_compare(proc, cells, newton_shapes) -> list:
+    """Kernels 1, 2, 3 and 10 of another checkout (its C entry points,
+    :func:`parent_libs`) beside this tree's on the same inputs: kernels
+    1-3 bit for bit, kernel 10 within DERIV_RTOL; device ms a launch
+    timed in turns (parent, this tree, this tree, parent). ``cells``:
+    (label, part, tree) of the flagship DNA, protein and 64-state cells;
+    ``newton_shapes``: (label, parts, sts, scs, t0, scalers, lws, lnBs)
+    of kernel 10's launches (all edges and each color class)."""
+    libs = parent_libs(proc)
     rows = []
 
-    def ab(label, mine, theirs, got_mine, got_theirs, iters, per=1):
-        for a, b in zip(got_mine(), got_theirs()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{label}: this tree's kernel and the "
-                                     "parent's differ")
+    def ab(label, mine, theirs, check, iters, per=1):
+        check()
         t = [device_ms(f, iters) / per for f in (theirs, mine, mine,
                                                  theirs)]
         row = dict(kernel=label, parent_ms=[t[0], t[3]], ms=[t[1], t[2]],
@@ -1164,11 +1407,47 @@ def parent_compare(parent: str, cells) -> list:
         print(f"parent compare: {row}")
         rows.append(row)
 
+    def equal(a, b, label):
+        def check():
+            for x, y in zip(a(), b()):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{label}: this tree's kernel and "
+                                         "the parent's differ")
+        return check
+
     for label, part, tree in cells:
         brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
                               device=part.device)
         tab = fused.code_table(part)
         C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+        n_codes = tab.shape[0]
+        # kernel 1, where the slots fit both (the parent's tile is
+        # pattern_tile, its shared memory the code table, the category
+        # maxima, the slots and their scaler rows)
+        ri8, re1, re2, rns = resident.compile_resident(part, tree)
+        Tp = _build.pattern_tile(C)
+        parent_fits = 4 * (n_codes * S + C * Tp + rns * (C * S + 1) * Tp) \
+            <= _build.SMEM_PER_BLOCK
+        if parent_fits and _build.resident_tile(C, S, n_codes, rns,
+                                                Ppad) is not None:
+            rP5 = fused.pair_pmats(part, brl, re1, re2, root_row=True)
+            rargs = (ri8, rP5, part.tip_states, tab, rns)
+            theirs_r = (torch.empty((C * S, Ppad), device=part.device),
+                        torch.empty((1, Ppad), dtype=torch.int32,
+                                    device=part.device))
+
+            def theirs1():
+                _call(libs["pllmod_resident_walk"], "resident walk",
+                      ri8.data_ptr(), len(ri8), rP5.data_ptr(),
+                      part.tip_states.data_ptr(), tab.data_ptr(), n_codes,
+                      theirs_r[0].data_ptr(), theirs_r[1].data_ptr(), Ppad,
+                      C, S, rns, Tp)
+            theirs1()
+            ab(f"resident_walk ({label})",
+               lambda: resident.resident_walk(*rargs), theirs1,
+               equal(lambda: resident.resident_walk(*rargs),
+                     lambda: theirs_r, f"resident_walk ({label})"), 10)
+        # kernel 2
         tables = [(label, *fused.compile_fused(part, tree,
                                                fuse_root=True)[:3], True)]
         if label == "flagship DNA":
@@ -1182,28 +1461,28 @@ def parent_compare(parent: str, cells) -> list:
             mine_out = fused.fused_walk(idx8, P5, part.tip_states, tab, ns)
             theirs_out = (torch.empty_like(mine_out[0]),
                           torch.empty_like(mine_out[1]))
+            T = _build.fused_tile(C, S, n_codes, Ppad)
+            mats = torch.empty((len(idx8), 2, _build.fused_config(
+                C, S, n_codes, T)["Q"]), device=part.device)
 
-            def theirs():
-                with torch.cuda.device(part.device):
-                    err = libs["fused_walk"](
-                        idx8.data_ptr(), len(idx8), P5.data_ptr(),
-                        part.tip_states.data_ptr(), tab.data_ptr(),
-                        tab.shape[0], theirs_out[0].data_ptr(),
-                        theirs_out[1].data_ptr(), Ppad, C, S, ns,
-                        _build.pattern_tile(C),
-                        torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"parent fused walk: error {err}")
+            def theirs2():
+                _call(libs["pllmod_fused_walk"], "fused walk",
+                      idx8.data_ptr(), len(idx8), P5.data_ptr(),
+                      part.tip_states.data_ptr(), tab.data_ptr(), n_codes,
+                      theirs_out[0].data_ptr(), theirs_out[1].data_ptr(),
+                      Ppad, C, S, ns, T, mats.data_ptr())
 
-            def mine():
+            def mine2():
                 fused.fused_walk(idx8, P5, part.tip_states, tab, ns,
                                  out=mine_out)
-            theirs()
-            ab(f"fused_walk ({name})", mine, theirs,
-               lambda: (mine_out[0][w], mine_out[1][w]),
-               lambda: (theirs_out[0][w], theirs_out[1][w]), 10)
+            theirs2()
+            ab(f"fused_walk ({name})", mine2, theirs2,
+               equal(lambda: (mine_out[0][w], mine_out[1][w]),
+                     lambda: (theirs_out[0][w], theirs_out[1][w]),
+                     f"fused_walk ({name})"), 10)
         if label == "64-state":
             continue
+        # kernel 3 on every level's side 0
         lvls, offsets, _, ns = engine.compile_schedule(part, tree)
         idx, e1, _ = levels.level_tables(part, lvls)
         P1 = part.prob_matrices(brl)[e1].contiguous()
@@ -1219,25 +1498,55 @@ def parent_compare(parent: str, cells) -> list:
 
         def theirs3():
             for s, (o, so) in zip(sl, outs):
-                with torch.cuda.device(part.device):
-                    err = libs["child_pass"](
-                        idx[s].data_ptr(), s.stop - s.start, 0,
-                        P1[s].data_ptr(), bufs[0].data_ptr(),
-                        bufs[1].data_ptr(), ns, part.tip_states.data_ptr(),
-                        part.tip_states.shape[0], tab.data_ptr(),
-                        tab.shape[0], o.data_ptr(), so.data_ptr(), Ppad, C,
-                        S, _build.pattern_tile(C),
-                        torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"parent child pass: error {err}")
+                W = s.stop - s.start
+                _call(libs["pllmod_child_pass"], "child pass",
+                      idx[s].data_ptr(), W, 0, P1[s].data_ptr(),
+                      bufs[0].data_ptr(), bufs[1].data_ptr(), ns,
+                      part.tip_states.data_ptr(), part.tip_states.shape[0],
+                      tab.data_ptr(), n_codes, o.data_ptr(), so.data_ptr(),
+                      Ppad, C, S, _build.child_tile(C, S, n_codes, Ppad, W))
 
         def mine3():
             return [levels.child_pass(idx[s], 0, *bufs, part.tip_states,
                                       tab, P1[s]) for s in sl]
         theirs3()
         ab(f"child_pass ({label})", mine3, theirs3,
-           lambda: [t for pair in mine3() for t in pair],
-           lambda: [t for pair in outs for t in pair], 10, per=len(sl))
+           equal(lambda: [t for pair in mine3() for t in pair],
+                 lambda: [t for pair in outs for t in pair],
+                 f"child_pass ({label})"), 10, per=len(sl))
+    # kernel 10 at every BLO launch shape
+    for label, parts, sts, scs, t0, scalers, lws, lnbs in newton_shapes:
+        nargs = (parts, sts, scs, t0, scalers, MIN_BRANCH_LEN,
+                 MAX_BRANCH_LEN, TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS, lws,
+                 lnbs)
+        E = len(t0)
+        got_t = [torch.empty(E, device=t0.device) for _ in range(2)] + [
+            torch.empty(E, dtype=torch.int32, device=t0.device)]
+        inputs = deriv._multi_inputs(parts, scalers, lws, lnbs)
+        desc = torch.tensor([[st.data_ptr(), sc.data_ptr(), lw.data_ptr(),
+                              lnB.data_ptr(), pw.data_ptr(), st.shape[1],
+                              st.shape[2]] for st, sc, (lw, lnB, pw)
+                             in zip(sts, scs, inputs)], dtype=torch.int64,
+                            device=t0.device)
+
+        def theirs10():
+            _call(libs["pllmod_newton_edges"], "newton", desc.data_ptr(),
+                  len(parts), sum(st.shape[1] for st in sts),
+                  t0.data_ptr(), MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+                  TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS,
+                  got_t[0].data_ptr(), got_t[1].data_ptr(),
+                  got_t[2].data_ptr(), E)
+
+        def check10():
+            mine = deriv.newton_edges_multi(*nargs)
+            theirs10()
+            errs = [_rel(mine[0], got_t[0], 1e-4),
+                    _rel(mine[1], got_t[1], 1e-2)]
+            if errs[0] > DERIV_RTOL["t"] or errs[1] > DERIV_RTOL["lnl0"]:
+                raise AssertionError(f"newton ({label}): this tree's kernel "
+                                     f"and the parent's differ: {errs}")
+        ab(f"newton_edges ({label})", lambda: deriv.newton_edges_multi(
+            *nargs), theirs10, check10, 10)
     return rows
 
 
@@ -1246,14 +1555,18 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path's timed loops")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time kernels 2 and 3 of the checkout at DIR "
-                         "beside this tree's, by device time")
+                    help="also time kernels 1, 2, 3 and 10 of the checkout "
+                         "at DIR beside this tree's, by device time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # the parent's build runs beside this tree's
+    parent_build = start_parent_build(args.parent) if args.parent else None
+    # and the build with kernels 1 and 10's phase marks, for --profile
+    phase_build = start_phase_build() if args.profile else None
     gpu = gpu_line()
     print(gpu)
     name, power = (s.strip() for s in gpu.split(",", 1))
@@ -1277,7 +1590,10 @@ def main(argv=None) -> int:
     wide, wtree, wide64, _ = cells["64-state"]
 
     res_row = check_resident(dna, tree, dna64)
-    check_resident(prot, ptree, prot64)
+    res_prot = check_resident(prot, ptree, prot64)
+    res_row["protein"] = {k: res_prot[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "tile",
+        "slots", "RP", "threads", "smem")}
     # kernel 2 at its four shapes: the flagship's fuse_root and directed
     # (BLO) tables, protein and 64 states
     fused_shapes = {
@@ -1306,8 +1622,8 @@ def main(argv=None) -> int:
             logl = float(engine.tree_loglikelihood(part, tr))
             ms[label], _ = timed_main_path(part, tr, label)
             return logl
-        must = ("resident_walk",) if want == "resident" else (
-            "fused_walk", "fused_tables")
+        must = (("resident_walk", "resident_tables") if want == "resident"
+                else ("fused_walk", "fused_tables"))
         logl, _ = counted(label, "loglikelihood", drive, must=must)
         rel_close(logl, float(engine.tree_loglikelihood(part64, tr)),
                   LOGL_RTOL, f"main path logL ({label})")
@@ -1315,7 +1631,9 @@ def main(argv=None) -> int:
     # ---- branch-length optimization: the derivative kernels against
     # their plain versions, then the BLO calls, each counted
     deriv_rows = check_deriv(dna, tree, "flagship DNA")
-    check_deriv(prot, ptree, "protein")
+    for row, prow in zip(deriv_rows, check_deriv(prot, ptree, "protein")):
+        row["protein"] = {k: v for k, v in prow.items() if k not in (
+            "name", "route", "source", "replaces")}
     blo_kernels = ("fused_walk", "fused_tables", "edge_sumtables",
                    "edge_derivatives", "newton_edges")
     full, _ = counted("flagship DNA", "blo", lambda: run_blo(
@@ -1388,13 +1706,15 @@ def main(argv=None) -> int:
         "partitioned", "treeinfo",
         lambda: run_partitioned((dna, prot2), (dna64, prot2_64), tree),
         must=("fused_walk", "fused_tables", "resident_walk",
-              "edge_sumtables", "newton_edges_multi"))
+              "resident_tables", "edge_sumtables", "newton_edges_multi"))
     del prot2_64
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
-    fused_row["table_launches"] = with_launches(
-        dict(name="fused_tables"))["launches_by_cell_and_path"]
+    for row, tables in ((res_row, "resident_tables"),
+                        (fused_row, "fused_tables")):
+        row["table_launches"] = with_launches(
+            dict(name=tables))["launches_by_cell_and_path"]
     print(f"launches: {json.dumps(LAUNCH_LOG)}")
 
     # ---- the other schedules of each cell, forced, end to end (the
@@ -1415,11 +1735,20 @@ def main(argv=None) -> int:
         profile_window("BLO, flagship DNA",
                        lambda: blo.optimize_branch_lengths(dna, tree.copy()),
                        1)
-    if args.parent:
+        profile_window("BLO, protein",
+                       lambda: blo.optimize_branch_lengths(prot,
+                                                           ptree.copy()), 1)
+        profile_window("BLO LINKED, partitioned",
+                       lambda: blo.optimize_branch_lengths_treeinfo(
+                           TreeInfo(tree.copy(), [dna, prot2])), 1)
+        run_phase_profiles(phase_build, [("flagship DNA", dna, tree),
+                                         ("protein", prot, ptree)])
+    if parent_build is not None:
         print(json.dumps({"parent_compare": parent_compare(
-            args.parent, [("flagship DNA", dna, tree),
-                          ("protein", prot, ptree),
-                          ("64-state", wide, wtree)])}))
+            parent_build, [("flagship DNA", dna, tree),
+                           ("protein", prot, ptree),
+                           ("64-state", wide, wtree)], NEWTON_SHAPES)}))
+    NEWTON_SHAPES.clear()
     del cells, dna64, prot64, wide64
     torch.cuda.empty_cache()
     routing = routing_sweep()

@@ -144,3 +144,25 @@ __device__ __forceinline__ void store_scaled(float* dst, size_t stride,
 }
 
 }  // namespace common
+
+// Phase marks of a kernel's main loop. Built with -DPLLMOD_PHASES
+// (chip_smoke.py --profile builds pruning.cu and deriv.cu so, beside the
+// libraries the port loads), PHASE_INIT reads the buffer that
+// pllmod_phase_buffer set once, for CTA 0's thread 0 (a null pointer for
+// every other thread), and PHASE_MARK(w, i) stores that thread's
+// clock64() as mark i (< 8) of iteration w (< 128) there. Without the
+// define both are empty and the kernels are those the port runs.
+#ifdef PLLMOD_PHASES
+__device__ long long* g_phase_clk;
+extern "C" int pllmod_phase_buffer(long long* clk) {
+  return (int)cudaMemcpyToSymbol(g_phase_clk, &clk, sizeof(clk));
+}
+#define PHASE_INIT                              \
+  long long* const phase_clk_ =                 \
+      blockIdx.x == 0 && threadIdx.x == 0 ? g_phase_clk : nullptr;
+#define PHASE_MARK(w, i) \
+  if (phase_clk_ && (w) < 128) phase_clk_[8 * (w) + (i)] = clock64();
+#else
+#define PHASE_INIT
+#define PHASE_MARK(w, i)
+#endif

@@ -49,10 +49,20 @@
 //    caller (lr' = s lr, sumtables built at b s), so the sums are the
 //    derivatives in the shared length b (pallas_deriv.py:512-520). With
 //    K = 1 every operation is the single-partition kernel's. Bound: one
-//    read of every st and sc (the inputs' bytes); each iteration streams
-//    the edge's rows again from L2 / device memory, since a flagship row
-//    (1 MB) does not fit in shared memory (227 KB).
+//    read of every st and sc (the inputs' bytes). One CTA streams the
+//    edge's rows again from L2 / device memory every iteration (6-9 an
+//    edge), since a flagship edge (1.2 MB) does not fit one CTA's shared
+//    memory (227 KB), so that design moves 6-9x its bytes. Where a
+//    thread-block cluster of 2-16 CTAs holds the edge's inputs in shared
+//    memory (newton_config: the smallest such cluster; 8 at the flagship
+//    and protein cells, 16 for both partitions at once),
+//    newton_cluster_kernel loads them once and iterates on chip; the
+//    streaming kernel stays for edges that not even 16 CTAs hold. The
+//    choice is a rule of the shapes, never a reaction to a failed launch.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -225,6 +235,25 @@ __device__ __forceinline__ void block_sum3(double& x, double& y, double& z,
   __syncthreads();
 }
 
+// One pattern's site math (pallas_deriv.py:303-316: tiny floor, LN2 * sc
+// shift, log1p mixture with lnB, frac / r1 / ddf) from its products with
+// the rows, L, dL and ddL, added to the thread's sums weighted by w.
+__device__ __forceinline__ void site_math(float L, float dL, float ddL,
+                                          int sc, float ln_b, float w,
+                                          double& s_l, double& s_d,
+                                          double& s_dd) {
+  const float Lsafe = fmaxf(L, kTiny);
+  const float ln_a = logf(Lsafe) + (float)sc * kLn2;
+  const float mx = fmaxf(ln_a, ln_b);
+  const float site = mx + log1pf(expf(-fabsf(ln_a - ln_b)));
+  const float frac = expf(ln_a - site);
+  const float r1 = frac * dL / Lsafe;
+  const float ddf = frac * ddL / Lsafe - r1 * r1;
+  s_l += (double)(site * w);
+  s_d += (double)(r1 * w);
+  s_dd += (double)(ddf * w);
+}
+
 // Pattern-weighted (logL, d/dt, d2/dt2) of edge e from its rows coef
 // (shared memory); the block's sums end in thread 0.
 __device__ __forceinline__ void edge_sums(const DerivArgs& a, int e,
@@ -242,18 +271,7 @@ __device__ __forceinline__ void edge_sums(const DerivArgs& a, int e,
       dL = fmaf(coef[a.CS + k], v, dL);
       ddL = fmaf(coef[2 * a.CS + k], v, ddL);
     }
-    const float Lsafe = fmaxf(L, kTiny);
-    const float ln_a = logf(Lsafe) + (float)sc[p] * kLn2;
-    const float ln_b = a.lnB[p];
-    const float mx = fmaxf(ln_a, ln_b);
-    const float site = mx + log1pf(expf(-fabsf(ln_a - ln_b)));
-    const float frac = expf(ln_a - site);
-    const float r1 = frac * dL / Lsafe;
-    const float ddf = frac * ddL / Lsafe - r1 * r1;
-    const float w = a.pw[p];
-    s_l += (double)(site * w);
-    s_d += (double)(r1 * w);
-    s_dd += (double)(ddf * w);
+    site_math(L, dL, ddL, sc[p], a.lnB[p], a.pw[p], s_l, s_d, s_dd);
   }
   block_sum3(s_l, s_d, s_dd, red);
 }
@@ -292,6 +310,36 @@ __device__ __forceinline__ DerivArgs part_args(const PartDesc& d, int nE) {
                    reinterpret_cast<const float*>(d.lnB),
                    reinterpret_cast<const float*>(d.pw), nE, (int)d.CS,
                    (int)d.Ppad};
+}
+
+// One step of the bracketed Newton of optimize/newton.py::
+// minimize_newton_multi from the summed (logL, d/dt, d2/dt2) of
+// iteration it, in float32: bracket, step clamp, Newton or bisection,
+// freeze. Updates x, the bracket, lnl0 (the logL of iteration 0) and the
+// iteration count; returns whether the edge has converged.
+__device__ __forceinline__ bool newton_update(double t_l, double t_d,
+                                              double t_dd, int it,
+                                              float xmin, float xmax,
+                                              float tol, float max_step,
+                                              float& x, float& xl,
+                                              float& xh, float& lnl0,
+                                              int& iters) {
+  const float lnl = (float)t_l, df = (float)t_d, ddf = (float)t_dd;
+  if (it == 0) lnl0 = lnl;
+  if (df > 0.f) xl = x;
+  if (df < 0.f) xh = x;
+  float ndx = ddf < 0.f ? -df / ddf : 0.f;
+  ndx = fminf(fmaxf(ndx, -max_step), max_step);
+  const float xn = x + ndx;
+  const float xb = df > 0.f ? 0.5f * (x + xh) : 0.5f * (x + xl);
+  // a step that rounds to nothing stays (optimize/newton.py)
+  const bool use_newton =
+      (ddf < 0.f) && (((xn > xl) && (xn < xh)) || (xn == x));
+  const float xnew = fminf(fmaxf(use_newton ? xn : xb, xmin), xmax);
+  const bool conv = (fabsf(xnew - x) < tol) || (df == 0.f);
+  x = xnew;
+  iters = it + 1;
+  return conv;
 }
 
 __global__ void __launch_bounds__(kDerivThreads)
@@ -333,21 +381,8 @@ newton_edge_kernel(const PartDesc* parts, int K, int nE, const float* t0,
       off += 3 * a.CS;
     }
     if (threadIdx.x == 0) {
-      const float lnl = (float)t_l, df = (float)t_d, ddf = (float)t_dd;
-      if (it == 0) lnl0 = lnl;
-      if (df > 0.f) xl = x;
-      if (df < 0.f) xh = x;
-      float ndx = ddf < 0.f ? -df / ddf : 0.f;
-      ndx = fminf(fmaxf(ndx, -max_step), max_step);
-      const float xn = x + ndx;
-      const float xb = df > 0.f ? 0.5f * (x + xh) : 0.5f * (x + xl);
-      // a step that rounds to nothing stays (optimize/newton.py)
-      const bool use_newton =
-          (ddf < 0.f) && (((xn > xl) && (xn < xh)) || (xn == x));
-      const float xnew = fminf(fmaxf(use_newton ? xn : xb, xmin), xmax);
-      const bool conv = (fabsf(xnew - x) < tol) || (df == 0.f);
-      x = xnew;
-      iters = it + 1;
+      const bool conv = newton_update(t_l, t_d, t_dd, it, xmin, xmax, tol,
+                                      max_step, x, xl, xh, lnl0, iters);
       s_x = x;
       s_stop = conv ? 1 : 0;
     }
@@ -359,6 +394,272 @@ newton_edge_kernel(const PartDesc* parts, int K, int nE, const float* t0,
     lnl0_out[e] = lnl0;
     iters_out[e] = iters;
   }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 10, one thread-block cluster an edge
+// ---------------------------------------------------------------------------
+// Where a cluster of N CTAs holds an edge's inputs in shared memory, CTA
+// rank r of edge e's cluster loads pattern slice r (slice_len patterns,
+// a multiple of 4) of every partition's st, sc, lnB and pw, and the lw
+// rows, once, by cp.async, and the Newton iterations run on chip: each
+// thread sums its patterns of every partition in order (slice_sums: the
+// products and site math of edge_sums), the CTA reduces its threads'
+// sums in a fixed order (block_sum3) and writes them into slot r of
+// every CTA's partials over DSMEM (lanes 0..N-1 of warp 0, one CTA each;
+// two buffers by iteration parity, so no CTA reads another's shared
+// memory and none waits for a remote load); after one cluster.sync() an
+// iteration, thread 0 of every CTA adds the N partials in rank order and
+// applies the same Newton step, so that every CTA holds the same x and
+// stop flag without a broadcast.
+constexpr int kClusterMax = 16;
+constexpr int kClusterSizes[4] = {2, 4, 8, 16};
+constexpr int kRedDoubles = 96;                    // block_sum3's scratch
+// every CTA's partials: [2 parities][16 ranks][3]
+constexpr int kPartDoubles = 2 * kClusterMax * 3;
+
+__host__ __device__ inline long long slice_len(long long Ppad, int N) {
+  return ((Ppad + N - 1) / N + 3) / 4 * 4;
+}
+
+__host__ __device__ inline long long round4ll(long long n) {
+  return (n + 3) / 4 * 4;
+}
+
+// A kernel-10 launch: kind 0 the streaming kernel above (one CTA an edge,
+// rows re-read every iteration), 1 a cluster of n CTAs an edge;
+// ops/deriv.py::newton_config mirrors it.
+struct NewtonConfig {
+  int kind, n;
+  long long smem;
+};
+
+// dims: (C*S, Ppad) of each of the K partitions. force: 0 the rule (the
+// smallest cluster whose slices fit, else streaming), 1 streaming, or a
+// cluster size. False where nothing fits.
+bool newton_config(int K, const long long* dims, int force,
+                   NewtonConfig* cf) {
+  if (K < 1) return false;
+  long long total_cs = 0;
+  for (int k = 0; k < K; ++k) total_cs += dims[2 * k];
+  const long long fixed = 8LL * (kRedDoubles + kPartDoubles) +
+                          16 * total_cs + 4 * round4ll(2 * total_cs);
+  for (int n : kClusterSizes) {
+    if (force != 0 && force != n) continue;
+    long long smem = fixed;
+    for (int k = 0; k < K; ++k)
+      smem += 4 * (dims[2 * k] + 3) * slice_len(dims[2 * k + 1], n);
+    if (smem <= (long long)kSmemOptin) {
+      *cf = NewtonConfig{1, n, smem};
+      return true;
+    }
+  }
+  const long long smem = (long long)deriv_smem_bytes((int)total_cs);
+  if ((force == 0 || force == 1) && smem <= (long long)kSmemOptin) {
+    *cf = NewtonConfig{0, 1, smem};
+    return true;
+  }
+  return false;
+}
+
+// A thread's sums over its patterns of one CTA's slice of one partition:
+// st [CS][sl], the first n patterns valid, coef4[k] = (w e^{lr t}, . lr,
+// . lr^2, 0) (edge_coeffs' arithmetic); RPAT adjacent patterns a thread
+// at once (one 16-byte load of each row for RPAT = 4), each pattern's
+// products in k order (fmaf, as edge_sums) and its site math, the
+// pattern terms added to the thread's sums in pattern order.
+template <int RPAT>
+__device__ __forceinline__ void slice_sums(const float4* coef4, int CS,
+                                           const float* st, int sl,
+                                           const int* sc, const float* lnB,
+                                           const float* pw, int n,
+                                           double& s_l, double& s_d,
+                                           double& s_dd) {
+  for (int p0 = RPAT * threadIdx.x; p0 < n; p0 += RPAT * blockDim.x) {
+    float L[RPAT], dL[RPAT], ddL[RPAT];
+#pragma unroll
+    for (int q = 0; q < RPAT; ++q) L[q] = dL[q] = ddL[q] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < CS; ++k) {
+      const float4 c = coef4[k];
+      float v[RPAT];
+      tile::load_vec<RPAT>(v, st + (size_t)k * sl + p0);
+#pragma unroll
+      for (int q = 0; q < RPAT; ++q) {
+        L[q] = fmaf(c.x, v[q], L[q]);
+        dL[q] = fmaf(c.y, v[q], dL[q]);
+        ddL[q] = fmaf(c.z, v[q], ddL[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < RPAT; ++q)
+      if (p0 + q < n)
+        site_math(L[q], dL[q], ddL[q], sc[p0 + q], lnB[p0 + q], pw[p0 + q],
+                  s_l, s_d, s_dd);
+  }
+}
+
+__global__ void __launch_bounds__(kDerivThreads)
+newton_cluster_kernel(const PartDesc* parts, int K, int total_cs, int nE,
+                      const float* t0, float xmin, float xmax, float tol,
+                      int max_iters, float* t_out, float* lnl0_out,
+                      int* iters_out) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int e = blockIdx.x / N, tid = threadIdx.x, nthr = blockDim.x;
+  extern __shared__ double dsmem[];
+  double* red = dsmem;                            // [96]
+  double* part = dsmem + kRedDoubles;             // [2][16][3]
+  float4* coef = reinterpret_cast<float4*>(part + kPartDoubles);  // [sum CS]
+  float* lws = reinterpret_cast<float*>(coef + total_cs);  // lw rows
+  float* data = lws + round4ll(2 * total_cs);   // per partition: st [CS]
+                                                // [slice], sc, lnB, pw
+  __shared__ float s_x;
+  __shared__ int s_stop;
+
+  float* d = data;
+  float* lwk = lws;
+  for (int k = 0; k < K; ++k) {
+    const PartDesc pd = parts[k];
+    for (int i = tid; i < 2 * (int)pd.CS; i += nthr)
+      tile::cp4(lwk + i, reinterpret_cast<const float*>(pd.lw) + i, 4);
+    lwk += 2 * pd.CS;
+    const int CS = (int)pd.CS, Ppad = (int)pd.Ppad;
+    const int sl = (int)slice_len(Ppad, N), p0 = rank * sl;
+    const bool vec = Ppad % 4 == 0;
+    tile::copy_tile(d, reinterpret_cast<const float*>(pd.st) +
+                           (size_t)e * CS * Ppad,
+                    Ppad, CS, sl, p0, Ppad, vec, tid, nthr);
+    tile::copy_tile(d + (size_t)CS * sl,
+                    reinterpret_cast<const int*>(pd.sc) + (size_t)e * Ppad,
+                    0, 1, sl, p0, Ppad, vec, tid, nthr);
+    tile::copy_tile(d + (size_t)(CS + 1) * sl,
+                    reinterpret_cast<const float*>(pd.lnB), 0, 1, sl, p0,
+                    Ppad, vec, tid, nthr);
+    tile::copy_tile(d + (size_t)(CS + 2) * sl,
+                    reinterpret_cast<const float*>(pd.pw), 0, 1, sl, p0,
+                    Ppad, vec, tid, nthr);
+    d += (size_t)(CS + 3) * sl;
+  }
+  tile::cp_commit();
+  tile::cp_wait(0);
+
+  const float max_step = (xmax - xmin) / (float)max_iters;
+  // thread 0's Newton state (the same in every CTA of the cluster)
+  float x = t0[e], xl = xmin, xh = xmax, lnl0 = 0.f;
+  int iters = 0;
+  __syncthreads();
+  const int lane = tid & 31, warp = tid >> 5;
+  PHASE_INIT
+  for (int it = 0; it < max_iters; ++it) {
+    PHASE_MARK(it, 0)
+    // every partition's rows at x, one flat pass over the sum of C*S
+    for (int f = tid; f < total_cs; f += nthr) {
+      int k = 0, base = 0;
+      while (f >= base + (int)parts[k].CS) base += (int)parts[k++].CS;
+      const int CS = (int)parts[k].CS, i = f - base;
+      const double lr = lws[2 * base + i];
+      const double r0 = (double)lws[2 * base + CS + i] * exp((double)x * lr);
+      const double r1 = r0 * lr;
+      coef[f] = make_float4((float)r0, (float)r1, (float)(r1 * lr), 0.f);
+    }
+    __syncthreads();
+    PHASE_MARK(it, 1)
+    // the thread's sums over its patterns of each partition, added in
+    // partition order
+    double t_l = 0.0, t_d = 0.0, t_dd = 0.0;
+    int off = 0;
+    d = data;
+    for (int k = 0; k < K; ++k) {
+      const int CS = (int)parts[k].CS, Ppad = (int)parts[k].Ppad;
+      const int sl = (int)slice_len(Ppad, N);
+      const int n = min(sl, Ppad - rank * sl);
+      const int* sc = reinterpret_cast<const int*>(d + (size_t)CS * sl);
+      const float* lnB = d + (size_t)(CS + 1) * sl;
+      const float* pw = d + (size_t)(CS + 2) * sl;
+      double s_l = 0.0, s_d = 0.0, s_dd = 0.0;
+      if (sl >= 4 * nthr)
+        slice_sums<4>(coef + off, CS, d, sl, sc, lnB, pw, n, s_l, s_d, s_dd);
+      else if (sl >= 2 * nthr)
+        slice_sums<2>(coef + off, CS, d, sl, sc, lnB, pw, n, s_l, s_d, s_dd);
+      else
+        slice_sums<1>(coef + off, CS, d, sl, sc, lnB, pw, n, s_l, s_d, s_dd);
+      t_l += s_l;  // partition by partition, as edge_sums' callers add
+      t_d += s_d;
+      t_dd += s_dd;
+      off += CS;
+      d += (size_t)(CS + 3) * sl;
+    }
+    PHASE_MARK(it, 2)
+    // the CTA's sums (a fixed-order block reduction) to slot `rank` of
+    // every CTA of the cluster, lane j of warp 0 to rank j
+    block_sum3(t_l, t_d, t_dd, red);
+    double* buf = part + (it & 1) * kClusterMax * 3;
+    if (warp == 0) {
+      t_l = __shfl_sync(0xffffffffu, t_l, 0);
+      t_d = __shfl_sync(0xffffffffu, t_d, 0);
+      t_dd = __shfl_sync(0xffffffffu, t_dd, 0);
+      if (lane < N) {
+        double* dst = cluster.map_shared_rank(buf, lane) + 3 * rank;
+        dst[0] = t_l;
+        dst[1] = t_d;
+        dst[2] = t_dd;
+      }
+    }
+    PHASE_MARK(it, 3)
+    cluster.sync();
+    PHASE_MARK(it, 4)
+    if (tid == 0) {  // the N partials, added in rank order
+      double a_l = 0.0, a_d = 0.0, a_dd = 0.0;
+#pragma unroll
+      for (int r = 0; r < kClusterMax; ++r)
+        if (r < N) {
+          a_l += buf[3 * r];
+          a_d += buf[3 * r + 1];
+          a_dd += buf[3 * r + 2];
+        }
+      const bool conv = newton_update(a_l, a_d, a_dd, it, xmin, xmax, tol,
+                                      max_step, x, xl, xh, lnl0, iters);
+      s_x = x;
+      s_stop = conv ? 1 : 0;
+    }
+    __syncthreads();
+    PHASE_MARK(it, 5)
+    x = s_x;
+    if (s_stop) break;
+  }
+  // no CTA touches another's shared memory after the last cluster.sync()
+  if (rank == 0 && tid == 0) {
+    t_out[e] = x;
+    lnl0_out[e] = lnl0;
+    iters_out[e] = iters;
+  }
+}
+
+// Prepare and describe a cluster launch of n CTAs an edge (cfg and attr
+// filled for cudaLaunchKernelEx and the occupancy query).
+int prepare_cluster(int nE, const NewtonConfig& nc, cudaStream_t stream,
+                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const void* kern = (const void*)newton_cluster_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)nc.smem);
+  if (err == cudaSuccess && nc.n > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(nE * nc.n);
+  cfg->blockDim = dim3(kDerivThreads);
+  cfg->dynamicSmemBytes = (size_t)nc.smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = nc.n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
 }
 
 int prepare_deriv(const void* kern, int CS, size_t& smem) {
@@ -398,19 +699,73 @@ extern "C" int pllmod_edge_derivs(
   return (int)cudaGetLastError();
 }
 
-// parts: a device array of K descriptors (PartDesc); total_cs = the sum
-// of their C*S, which sets the shared memory of the coefficient rows.
+// kernel 10's configuration for K partitions of dims (C*S, Ppad) [2K]
+// (host) and force (0 the rule, 1 streaming, else a cluster size):
+// out[0..3] = kind (0 streaming, 1 cluster), CTAs an edge, shared memory
+// bytes, and the occupancy the card reports (clusters resident at once
+// for the cluster kind, cudaOccupancyMaxActiveClusters; CTAs an SM for
+// the streaming kind). Returns 1, or 0 where nothing fits (out[3] = -1
+// where the query failed). ops/deriv.py::newton_config mirrors out[0..2].
+extern "C" int pllmod_newton_config(int K, const long long* dims, int force,
+                                    long long* out) {
+  NewtonConfig nc;
+  if (!newton_config(K, dims, force, &nc)) return 0;
+  out[0] = nc.kind;
+  out[1] = nc.n;
+  out[2] = nc.smem;
+  out[3] = -1;
+  int occ = 0;
+  if (nc.kind == 1) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    if (prepare_cluster(1, nc, nullptr, &cfg, &attr) == 0 &&
+        cudaOccupancyMaxActiveClusters(
+            &occ, (const void*)newton_cluster_kernel, &cfg) == cudaSuccess)
+      out[3] = occ;
+  } else {
+    int total_cs = 0;
+    for (int k = 0; k < K; ++k) total_cs += (int)dims[2 * k];
+    size_t smem;
+    if (prepare_deriv((const void*)newton_edge_kernel, total_cs, smem) ==
+            0 &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, (const void*)newton_edge_kernel, kDerivThreads,
+            (size_t)nc.smem) == cudaSuccess)
+      out[3] = occ;
+  }
+  cudaGetLastError();
+  return 1;
+}
+
+// parts: a device array of K descriptors (PartDesc); dims: their (C*S,
+// Ppad) on the host, which set the launch (newton_config; force as
+// there).
 extern "C" int pllmod_newton_edges(
-    const void* parts, int K, int total_cs, const float* t0, float xmin,
-    float xmax, float tol, int max_iters, float* t_out, float* lnl0_out,
-    int* iters_out, int nE, void* stream) {
-  if (max_iters < 1 || K < 1) return (int)cudaErrorInvalidValue;
+    const void* parts, int K, const long long* dims, const float* t0,
+    float xmin, float xmax, float tol, int max_iters, float* t_out,
+    float* lnl0_out, int* iters_out, int nE, int force, void* stream) {
+  NewtonConfig nc;
+  if (max_iters < 1 || nE < 1 || !newton_config(K, dims, force, &nc))
+    return (int)cudaErrorInvalidValue;
+  int total_cs = 0;
+  for (int k = 0; k < K; ++k) total_cs += (int)dims[2 * k];
+  const PartDesc* pd = static_cast<const PartDesc*>(parts);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nc.kind == 1) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const int err = prepare_cluster(nE, nc, st, &cfg, &attr);
+    if (err) return err;
+    return (int)cudaLaunchKernelEx(&cfg, newton_cluster_kernel, pd, K,
+                                   total_cs, nE, t0, xmin, xmax, tol,
+                                   max_iters, t_out, lnl0_out, iters_out);
+  }
   size_t smem;
-  int err = prepare_deriv((const void*)newton_edge_kernel, total_cs, smem);
+  const int err =
+      prepare_deriv((const void*)newton_edge_kernel, total_cs, smem);
   if (err != 0) return err;
-  newton_edge_kernel<<<nE, kDerivThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const PartDesc*>(parts), K, nE, t0, xmin, xmax, tol,
-      max_iters, t_out, lnl0_out, iters_out);
+  newton_edge_kernel<<<nE, kDerivThreads, smem, st>>>(
+      pd, K, nE, t0, xmin, xmax, tol, max_iters, t_out, lnl0_out,
+      iters_out);
   return (int)cudaGetLastError();
 }

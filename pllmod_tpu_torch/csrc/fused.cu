@@ -8,7 +8,8 @@
 // tip2, out, fence) over clvs [n_slots, C*S, Ppad] / scalers [n_slots,
 // Ppad]; the fence column is not read. One call launches two kernels:
 //
-//  * tables_kernel (the pre-pass): for every row side, the matrix
+//  * tables_kernel (the pre-pass, csrc/tables.cuh, shared with the
+//    resident walk): for every row side, the matrix
 //    transposed and padded, M[c][j][i] = P[c][i][j], or, for a tip child,
 //    its table PT[c][code][i] = row_dot(P_c, i, codetab[code]), into the
 //    caller's scratch mats [nW, 2, Q] (csrc/tile.cuh has the layouts). A
@@ -62,6 +63,7 @@
 // at all, a thread owns one category of one pattern and reads them from
 // the scratch in device memory (the fallback tile, up to 256 categories).
 #include "common.cuh"
+#include "tables.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -141,45 +143,6 @@ bool walk_config(int C, int S, int n_codes, int T, Config* cf) {
     }
   }
   return false;
-}
-
-// ---------------------------------------------------------------------------
-// the pre-pass: a row side's transposed matrix or tip table
-// ---------------------------------------------------------------------------
-struct TableArgs {
-  const int* idx8;
-  const float* P5;       // [nW, 2, C, S, S]
-  const float* codetab;  // [n_codes, S]
-  float* mats;           // [nW, 2, Q]
-  int n_codes, C, S, SP;
-  long long Q;
-};
-
-// One block a row side and category: the category's matrix staged
-// transposed (row stride S + 1: conflict-free both ways), then written
-// out padded to SP, or its tip table computed from it.
-__global__ void __launch_bounds__(kThreads) tables_kernel(TableArgs a) {
-  __shared__ float Pt[64 * 65];
-  const int s = blockIdx.x, c = blockIdx.y;  // row s / 2, side s % 2
-  const int S = a.S, SP = a.SP, ld = S + 1;
-  const float* P = a.P5 + ((size_t)s * a.C + c) * S * S;
-  for (int e = threadIdx.x; e < S * S; e += blockDim.x)
-    Pt[(e % S) * ld + e / S] = P[e];
-  __syncthreads();
-  if (a.idx8[8 * (s >> 1) + kIsTip + (s & 1)] != 0) {
-    float* PT = a.mats + (size_t)s * a.Q + (size_t)c * a.n_codes * SP;
-    for (int e = threadIdx.x; e < a.n_codes * SP; e += blockDim.x) {
-      const int code = e / SP, i = e - code * SP;
-      PT[e] = i < S ? tile::tip_entry(Pt, ld, a.codetab + code * S, S, i)
-                    : 0.f;
-    }
-  } else {
-    float* M = a.mats + (size_t)s * a.Q + (size_t)c * S * SP;
-    for (int e = threadIdx.x; e < S * SP; e += blockDim.x) {
-      const int j = e / SP, i = e - j * SP;
-      M[e] = i < S ? Pt[j * ld + i] : 0.f;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -645,9 +608,8 @@ int launch_walk(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
 int launch_tables(const int* idx8, int nW, const float* P5,
                   const float* codetab, int n_codes, float* mats, int C,
                   int S, const Config& cf, cudaStream_t stream) {
-  TableArgs t{idx8, P5, codetab, mats, n_codes, C, S, cf.sp, cf.q};
-  tables_kernel<<<dim3(2 * nW, C), kThreads, 0, stream>>>(t);
-  return (int)cudaGetLastError();
+  return tables::launch_tables<2>(idx8, nW, P5, codetab, n_codes, mats, C,
+                                  S, cf.sp, cf.q, stream);
 }
 
 }  // namespace

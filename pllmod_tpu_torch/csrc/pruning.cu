@@ -11,195 +11,372 @@
 // prod [C*S, Ppad] and the total scaler [Ppad]. (The fused walk, which
 // leaves every CLV in device memory, is csrc/fused.cu.)
 //
-// Design. One CTA owns a tile of T pattern columns and walks every idx8
-// row in order; pattern columns are independent, so no CTA waits on
-// another (the TPU kernel's level fences and DMA lookahead have no
-// counterpart). Thread (c, p) owns category c of pattern p: it reads its
-// S child values of each child into registers, applies the category's
-// S x S matrices, multiplies the two results and rescales by an exact
-// power of two. The only exchange between threads is the per-pattern
-// maximum over categories (shared memory) and the row's matrices, which
-// the CTA stages into shared memory when they fit beside the rest (else
-// every thread reads them from device memory, where they stay in L1/L2).
-// A thread only ever reads CLV and scaler values that it wrote itself, so
-// an out slot may alias a child slot (slot recycling) without hazard. Two
-// barriers a row suffice: the next row's matrices are staged only after
-// every thread has passed the barrier that follows its last read of this
-// row's. Tip children are expanded from int32 tip codes through the
-// code->CLV table held in shared memory (no expanded tip planes).
+// Design. One call launches the fused walk's pre-pass (csrc/tables.cuh:
+// every row side's matrix transposed, M[c][j][i] = P[c][i][j], or for a
+// tip child its table PT[c][code][i] = row_dot(P_c, i, codetab[code]),
+// into the caller's scratch mats [nW, 2, Q]) and then the walk. One CTA
+// owns a tile of T pattern columns and walks every idx8 row in order;
+// pattern columns are independent, so no CTA waits on another. Thread
+// (c, pg) owns category c of RP adjacent patterns and all S states of
+// them (RP = 2 up to 4 states, else 1): it reads only slot values and
+// scaler rows that it wrote itself, so an out slot may alias a child slot
+// (slot recycling) and the slots need no barrier. A row's inputs that do
+// not depend on the walk come through a ring of NB = 4 entries in shared
+// memory, each filled NB - 1 rows ahead by TMA bulk copies that one
+// thread issues and an mbarrier counts: the row's two tables and the
+// tile's tip codes, and with them the idx8 row 2 (NB - 1) rows ahead (a
+// ring of 16 rows). A tip child is then one lookup a pattern, an inner
+// child a register-tiled product of its slot column (tile::product), and
+// a row costs one barrier, the one its category maximum needs (the maxima
+// alternate between two buffers by row parity). Where no ring of tables
+// fits beside the slots (64 states +G4), the "global" kind reads the
+// tables from mats and the ring holds the codes only, at the widest tile
+// alone (wide_tile: every CTA reads every row's tables, so the fewest
+// CTAs); it keeps small 64-state trees resident, and is the slower walk
+// there (chip_smoke.py's routing sweep), so ops/engine.py's rule routes
+// such trees to the fused walk. The pattern tile is
+// chosen per shape (ops/_build.py resident_tile, walk_config mirrored by
+// resident_config) so that the grid fills the card where the slots allow:
+// at protein (512 taxa, 4096 patterns, C*S = 80) T = 32, 128 CTAs.
+//
+// Measured on the H100 (chip_smoke.py; PERF.md): building a row's tip
+// tables inside the CTA, which saves the pre-pass's launch, put ~1000
+// cycles of table arithmetic on every row's chain at DNA; the pre-pass
+// costs microseconds once a launch, so every state count takes it.
 //
 // Exactness. Products and sums are rounded separately (__fmul_rn /
-// __fadd_rn, never contracted to FMA) in child-state order j = 0..S-1, and
-// the rescale is the bit formula of pallas_resident.py:469-477, both in
-// csrc/common.cuh: the plain PyTorch version (ops/clv.py::
-// walk_rows_plain) does the same operations in the same order, so kernel
-// and plain version agree bit for bit.
+// __fadd_rn, never contracted to FMA) in child-state order j = 0..S-1, a
+// lookup is the same row_dot, and the rescale is the bit formula of
+// pallas_resident.py:469-477 (csrc/common.cuh): the plain PyTorch version
+// (ops/clv.py::walk_rows_plain) does the same operations in the same
+// order, so kernel and plain version agree bit for bit.
 //
-// Bound on the H100 at the flagship shape (128 taxa x 16384 patterns,
-// GTR+G4, C*S = 16; 127 rows incl. the root row; chip_smoke.py computes
-// the exact figure from the run's table): per pattern, C*S*S
-// multiply-adds (2 flops each) = 128 flops for each child that is not a
-// tip (~125 of the 254 children; a tip child's P x is a lookup of P x
-// codetab, pattern-independent), C*S = 16 multiplies for the root row's
-// diag(freqs) child, and the product, max and scale (3 C*S = 48 flops) of
-// every row: ~22 kflop a pattern, 0.36 GFLOP = 5.4 us at the 67 TFLOP/s
-// float32 non-tensor peak (which counts an FMA as 2 flops; without FMA the
-// issue rate halves that peak). Bytes: tip codes 8.4 MB + matrices 65 KB
-// + prod 1 MB = 9.5 MB = 2.8 us at 3.35 TB/s: bound by operations.
+// Bound on the H100 (chip_smoke.py computes the exact figure from the
+// run's table): operations. At the flagship (128 taxa x 16384 patterns,
+// GTR+G4, C*S = 16) ~0.36 GFLOP = 5.4 us at the 67 TFLOP/s float32
+// non-tensor peak, against ~9.5 MB of codes, matrices and prod (2.8 us);
+// at protein (512 x 4096, C*S = 80) ~7.2 GFLOP = 0.108 ms, and ~0.22 ms
+// at the issue rate of separately rounded products and sums. At DNA the
+// walk is a chain of 127 short rows, each bound by its latency.
 #include "common.cuh"
+#include "tables.cuh"
+#include "tile.cuh"
 
 namespace {
 
-using common::kMaxThreads;
+constexpr int kThreads = 256;      // __launch_bounds__ of the walk
+// [nW, 8] idx8 columns
+constexpr int kSlot = 0, kIsTip = 2, kTip = 4, kOut = 6;
+constexpr int kMetaRows = 16;      // the ring of idx8 rows
+constexpr int kNB = 4;             // ring entries (a power of two)
 
-// [nW,8] idx8 columns
-constexpr int kSlot1 = 0, kSlot2 = 1, kIsTip1 = 2, kIsTip2 = 3,
-              kTip1 = 4, kTip2 = 5, kOut = 6;
+int ladder(int S) {
+  return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
+       : S <= 32 ? 32 : 64;
+}
+
+__host__ __device__ constexpr long long round4(long long n) {
+  return (n + 3) / 4 * 4;
+}
+
+// A launch configuration; ops/_build.py::resident_config mirrors it.
+enum Kind { kTile = 0, kGlobal = 1 };
+struct Config {
+  int kind, rp, sp, threads;
+  long long q;      // floats of one row side's table
+  long long ring;   // floats of one ring entry
+  long long smem;   // dynamic shared memory (bytes)
+};
+
+// The widest pattern tile of C categories: C * T <= kThreads.
+int wide_tile(int C) {
+  int T = 64;
+  while (T > 1 && C * T > kThreads) T /= 2;
+  return T;
+}
+
+// The configuration at pattern tile T, or false where none fits: the tile
+// kind where a ring of 4 entries of tables fits beside the slots, else,
+// at the widest tile, the global kind (tables read from mats, a ring of
+// codes).
+bool walk_config(int C, int S, int n_codes, int n_slots, int T,
+                 Config* cf) {
+  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || n_slots < 1 || T < 1)
+    return false;
+  const int maxs = ladder(S), rp = maxs <= 4 ? 2 : 1, sp = maxs;
+  if (T % rp) return false;
+  const long long threads = (long long)C * (T / rp);
+  if (threads > kThreads) return false;
+  const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
+  const long long fixed = 2 * kNB + 8 * kMetaRows + round4(2LL * C * T) +
+                          (long long)n_slots * C * S * T +
+                          (long long)n_slots * T;
+  const long long codes = round4(2LL * T);
+  long long smem = 4 * (fixed + kNB * (2 * q + codes));
+  if (smem <= (long long)common::kSmemOptin) {
+    *cf = Config{kTile, rp, sp, (int)threads, q, 2 * q + codes, smem};
+    return true;
+  }
+  smem = 4 * (fixed + kNB * codes);
+  if (T != wide_tile(C) || smem > (long long)common::kSmemOptin)
+    return false;
+  *cf = Config{kGlobal, rp, sp, (int)threads, q, codes, smem};
+  return true;
+}
 
 struct WalkArgs {
   const int* idx8;       // [nW, 8]
   int nW;
-  const float* P5;       // [nW, 2, C, S, S]
+  const float* mats;     // [nW, 2, Q]: the pre-pass's tables
   const int* codes;      // [n_tips, Ppad]
-  const float* codetab;  // [n_codes, S]
   int n_codes;
   float* clv_out;        // prod [C*S, Ppad]
   int* sc_out;           // [Ppad]
-  int Ppad, C, S, n_slots, T;
+  int Ppad, C, S, n_slots, T, SP;
+  long long Q, ring;
 };
 
-// Shared memory of one CTA, in floats, without the staged matrices: the
-// code table, the category maxima and the live slots with their scaler
-// rows.
-size_t base_floats(int C, int S, int n_codes, int n_slots, int T) {
-  return (size_t)n_codes * S + (size_t)C * T +
-         (size_t)n_slots * C * S * T + (size_t)n_slots * T;
-}
+// EXACT: S == MAXS, so that the state loops need no guard.
+template <int MAXS, int RP, int KIND, bool EXACT>
+__global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, C = a.C, S = EXACT ? MAXS : a.S, CS = C * S,
+            nW = a.nW, SP = a.SP;
+  // entry of row r issued at row r - D; the idx8 row r + F with it
+  constexpr int D = kNB - 1, F = 2 * D;
+  const int Q = (int)a.Q, R = (int)a.ring, n_codes = a.n_codes;
+  const int tid = threadIdx.x, npg = T / RP;
+  const int c = tid / npg, pl = (tid - c * npg) * RP;
+  const int p0 = blockIdx.x * T, p = p0 + pl;
+  // the tip codes come by bulk copy where their rows are 16-byte aligned,
+  // else by the issuing threads' own loads
+  const bool vec = (T % 4 == 0) && (a.Ppad % 4 == 0);
+  const int PR = KIND == kTile ? 2 * Q : 0;  // codes' offset in an entry
+  auto* bars = reinterpret_cast<unsigned long long*>(smem);  // [kNB]
+  int* meta = reinterpret_cast<int*>(smem + 2 * kNB);  // [16][8] rows
+  float* ring = smem + 2 * kNB + 8 * kMetaRows;        // [kNB][R]
+  float* red = ring + kNB * R;                         // [2][C][T]
+  float* slots = red + (int)round4(2 * C * T);         // [NS][CS][T]
+  int* ssc = reinterpret_cast<int*>(slots + (size_t)a.n_slots * CS * T);
 
-// The matrices of one row are staged when they fit beside the rest.
-bool stages_p(int C, int S, int n_codes, int n_slots, int T) {
-  return common::fits_smem(base_floats(C, S, n_codes, n_slots, T) +
-                           (size_t)2 * C * S * S);
-}
-
-size_t smem_bytes(int C, int S, int n_codes, int n_slots, int T) {
-  size_t f = base_floats(C, S, n_codes, n_slots, T);
-  if (stages_p(C, S, n_codes, n_slots, T)) f += (size_t)2 * C * S * S;
-  return 4 * f;
-}
-
-// Child of the row: its S values of category c at (global) pattern p, and
-// its cumulative scaler (only category 0 tracks scalers).
-template <int MAXS>
-__device__ __forceinline__ void load_child(
-    const WalkArgs& a, const float* tab, const float* slots, const int* ssc,
-    bool is_tip, int tip, int slot, int c, int pl, int p, float (&x)[MAXS],
-    int& sc) {
-  const int S = a.S, CS = a.C * a.S;
-  if (is_tip) {
-    common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
-                           S, x);
-    sc = 0;
-  } else {
-    common::load_column<MAXS>(slots + ((size_t)slot * CS + c * S) * a.T + pl,
-                              a.T, S, x);
-    sc = (c == 0) ? ssc[slot * a.T + pl] : 0;
-  }
-}
-
-// STAGE: the row's matrices are staged in shared memory (a template
-// argument, so that their reads compile to shared-memory loads).
-template <int MAXS, bool STAGE>
-__global__ void __launch_bounds__(kMaxThreads)
-pruning_walk(WalkArgs a) {
-  extern __shared__ float smem[];
-  const int T = a.T, C = a.C, S = a.S, CS = C * S;
-  const int psz = 2 * C * S * S;            // one row's two child matrices
-  float* tab = smem;                        // [n_codes * S]
-  float* red = tab + a.n_codes * S;         // [C][T]
-  float* slots = red + C * T;               // [NS][CS][T]
-  int* ssc = reinterpret_cast<int*>(slots + a.n_slots * CS * T);
-  float* Pbuf = reinterpret_cast<float*>(ssc + a.n_slots * T);
-
-  const int tid = threadIdx.x;
-  const int c = tid / T;
-  const int pl = tid - c * T;
-  const int p = blockIdx.x * T + pl;
-  const int nthr = blockDim.x;
-
-  for (int i = tid; i < a.n_codes * S; i += nthr) tab[i] = a.codetab[i];
-
-  for (int w = 0; w < a.nW; ++w) {
-    const float* Pw = a.P5 + (size_t)w * psz;
-    if (STAGE) {
-      for (int i = tid; i < psz; i += nthr) Pbuf[i] = Pw[i];
-      Pw = Pbuf;
+  auto row_of = [&](int r) { return meta + 8 * (r & (kMetaRows - 1)); };
+  auto slot = [&](int v) { return min(max(v, 0), a.n_slots - 1); };
+  auto entry = [&](int r) { return ring + (r & (kNB - 1)) * R; };
+  auto codes_of = [&](int r, int k) {
+    return reinterpret_cast<int*>(entry(r) + PR) + k * T;
+  };
+  auto table = [&](int r, int k) -> const float* {
+    return KIND == kTile ? entry(r) + k * Q
+                         : a.mats + ((size_t)2 * r + k) * a.Q;
+  };
+  // row r's ring entry (its tables, its tip codes) and the idx8 row r + D
+  // (= the row issued at r - D, plus F): bulk copies on the entry's
+  // mbarrier, issued by thread 0; without 16-byte alignment the codes
+  // are loaded by the threads of the CTA, visible after the barrier of
+  // the row that issues them
+  auto issue = [&](int r) {
+    if (r >= nW) return;
+    const int* row = row_of(r);
+    float* e = entry(r);
+    unsigned long long* bar = bars + (r & (kNB - 1));
+    const int valid = min(T, a.Ppad - p0);
+    if (tid == 0) {
+      unsigned bytes = 0;
+      const int m = r + D;  // rows before F are loaded up front
+      const bool fetch_meta = m >= F && m < nW;
+      if (KIND == kTile)
+        for (int k = 0; k < 2; ++k)
+          bytes += 4u * C * (row[kIsTip + k] ? n_codes : S) * SP;
+      if (vec)
+        for (int k = 0; k < 2; ++k)
+          if (row[kIsTip + k]) bytes += 4u * valid;
+      if (fetch_meta) bytes += 32;
+      tile::mbar_expect(bar, bytes);
+      if (KIND == kTile)
+        for (int k = 0; k < 2; ++k)
+          tile::bulk_copy(e + k * Q, a.mats + ((size_t)2 * r + k) * a.Q,
+                          4u * C * (row[kIsTip + k] ? n_codes : S) * SP,
+                          bar);
+      if (vec)
+        for (int k = 0; k < 2; ++k)
+          if (row[kIsTip + k])
+            tile::bulk_copy(codes_of(r, k),
+                            a.codes + (size_t)row[kTip + k] * a.Ppad + p0,
+                            4u * valid, bar);
+      if (fetch_meta) tile::bulk_copy(row_of(m), a.idx8 + 8 * m, 32, bar);
     }
-    const int* row = a.idx8 + 8 * w;
-    const int s1 = min(max(row[kSlot1], 0), a.n_slots - 1);
-    const int s2 = min(max(row[kSlot2], 0), a.n_slots - 1);
-    const int out = min(max(row[kOut], 0), a.n_slots - 1);
-    const bool root = w == a.nW - 1;
-    __syncthreads();                        // matrices (and tab) staged
+    if (!vec)
+      for (int k = 0; k < 2; ++k)
+        if (row[kIsTip + k]) {
+          const int* src = a.codes + (size_t)row[kTip + k] * a.Ppad + p0;
+          for (int x = tid; x < valid; x += blockDim.x)
+            codes_of(r, k)[x] = src[x];
+        }
+  };
+  // wait for row r's ring entry (use r / kNB of its mbarrier)
+  auto arrive = [&](int r) {
+    tile::mbar_wait(bars + (r & (kNB - 1)), (unsigned)(r / kNB) & 1u);
+  };
 
-    float x1[MAXS], x2[MAXS], o[MAXS];
-    int sc1, sc2;
-    load_child<MAXS>(a, tab, slots, ssc, row[kIsTip1] != 0, row[kTip1], s1,
-                     c, pl, p, x1, sc1);
-    load_child<MAXS>(a, tab, slots, ssc, row[kIsTip2] != 0, row[kTip2], s2,
-                     c, pl, p, x2, sc2);
-    const float* Pa = Pw + c * S * S;
-    const float* Pb = Pw + C * S * S + c * S * S;
-    const float m = common::child_product<MAXS>(Pa, Pb, S, x1, x2, o);
-    const int e = common::rescale_exponent(red, m, c, pl, C, T);
-    const int stot = sc1 + sc2 + e;
+  if (tid == 0) {
+    for (int i = 0; i < kNB; ++i) tile::mbar_init(bars + i, 1);
+    tile::mbar_fence_init();
+  }
+  for (int i = tid; i < 8 * min(nW, F); i += blockDim.x) meta[i] = a.idx8[i];
+  __syncthreads();
+  for (int d = 0; d < D; ++d) issue(d);
+  __syncthreads();  // the codes the threads loaded
 
-    if (root) {
-      common::store_scaled<MAXS, MAXS>(
-          a.clv_out + (size_t)(c * S) * a.Ppad + p, a.Ppad, S, o, e);
-      if (c == 0) a.sc_out[p] = stot;
+  PHASE_INIT
+  for (int w = 0; w < nW; ++w) {
+    PHASE_MARK(w, 0)
+    arrive(w);
+    PHASE_MARK(w, 1)
+    issue(w + D);
+    PHASE_MARK(w, 2)
+    const int* row = row_of(w);
+    float o[MAXS][RP], o2[MAXS][RP];
+    int sc[2][RP];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float(&acc)[MAXS][RP] = k ? o2 : o;
+      const float* tb = table(w, k);
+      if (row[kIsTip + k]) {
+        tile::lookup<MAXS, RP>(tb + c * n_codes * SP, codes_of(w, k),
+                               n_codes, SP, 0, pl, acc);
+#pragma unroll
+        for (int q = 0; q < RP; ++q) sc[k][q] = 0;
+      } else {
+        const int s = slot(row[kSlot + k]);
+        tile::product<MAXS, RP, MAXS, EXACT>(tb + c * S * SP,
+                                      slots + ((size_t)s * CS + c * S) * T,
+                                      S, SP, T, 0, pl, acc);
+#pragma unroll
+        for (int q = 0; q < RP; ++q)
+          sc[k][q] = c == 0 ? ssc[s * T + pl + q] : 0;
+      }
+    }
+    PHASE_MARK(w, 3)
+    float m[RP];
+#pragma unroll
+    for (int q = 0; q < RP; ++q) m[q] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < MAXS; ++i)
+#pragma unroll
+      for (int q = 0; q < RP; ++q) {
+        o[i][q] = __fmul_rn(o[i][q], o2[i][q]);
+        if (i < S) m[q] = fmaxf(m[q], o[i][q]);
+      }
+    float* rd = red + (w & 1) * C * T;
+#pragma unroll
+    for (int q = 0; q < RP; ++q) rd[c * T + pl + q] = m[q];
+    PHASE_MARK(w, 4)
+    __syncthreads();
+    PHASE_MARK(w, 5)
+    float mm[RP];
+    tile::load_vec<RP>(mm, rd + pl);
+#pragma unroll 4
+    for (int k = 1; k < C; ++k) {
+      float v[RP];
+      tile::load_vec<RP>(v, rd + k * T + pl);
+#pragma unroll
+      for (int q = 0; q < RP; ++q) mm[q] = fmaxf(mm[q], v[q]);
+    }
+    int st[RP];
+    float scale[RP];
+#pragma unroll
+    for (int q = 0; q < RP; ++q) {
+      int e = ((__float_as_int(mm[q]) >> 23) & 0xFF) - 126;
+      if (!(mm[q] > 0.f)) e = 0;
+      e = min(max(e, -125), 127);
+      scale[q] = __int_as_float((127 - e) << 23);
+      st[q] = sc[0][q] + sc[1][q] + e;
+    }
+    if (w == nW - 1) {
+      float* dst = a.clv_out + (size_t)(c * S) * a.Ppad + p;
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i)
+        if (i < S)
+#pragma unroll
+          for (int q = 0; q < RP; ++q)
+            if (p + q < a.Ppad)
+              dst[(size_t)i * a.Ppad + q] = __fmul_rn(o[i][q], scale[q]);
+      if (c == 0)
+#pragma unroll
+        for (int q = 0; q < RP; ++q)
+          if (p + q < a.Ppad) a.sc_out[p + q] = st[q];
     } else {
-      common::store_scaled<MAXS, MAXS>(
-          slots + ((size_t)out * CS + c * S) * T + pl, T, S, o, e);
-      if (c == 0) ssc[out * T + pl] = stot;
+      const int out = slot(row[kOut]);
+      float* dst = slots + ((size_t)out * CS + c * S) * T + pl;
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i)
+        if (i < S) {
+          if constexpr (RP == 2) {
+            *reinterpret_cast<float2*>(dst + i * T) =
+                make_float2(__fmul_rn(o[i][0], scale[0]),
+                            __fmul_rn(o[i][1], scale[1]));
+          } else {
+            dst[i * T] = __fmul_rn(o[i][0], scale[0]);
+          }
+        }
+      if (c == 0)
+#pragma unroll
+        for (int q = 0; q < RP; ++q) ssc[out * T + pl + q] = st[q];
     }
+    PHASE_MARK(w, 6)
   }
+  // the ring's last copies (issued past the end: none) have all landed
+}
+
+template <int MAXS, bool EXACT>
+int launch_x(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
+  constexpr int RP = MAXS <= 4 ? 2 : 1;
+  const dim3 grid((a.Ppad + a.T - 1) / a.T), block(cf.threads);
+  if (cf.kind == kTile)
+    return common::launch_kernel(resident_kernel<MAXS, RP, kTile, EXACT>,
+                                 grid, block, (size_t)cf.smem, stream, a);
+  return common::launch_kernel(resident_kernel<MAXS, RP, kGlobal, EXACT>,
+                               grid, block, (size_t)cf.smem, stream, a);
 }
 
 template <int MAXS>
-int launch_t(const WalkArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.C, a.S, a.n_codes, a.n_slots, a.T);
-  if (smem > common::kSmemOptin) return (int)cudaErrorInvalidValue;
-  return common::launch_kernel(
-      stages_p(a.C, a.S, a.n_codes, a.n_slots, a.T)
-          ? pruning_walk<MAXS, true>
-          : pruning_walk<MAXS, false>,
-      dim3(a.Ppad / a.T), dim3(a.C * a.T), smem, stream, a);
-}
-
-int launch(const WalkArgs& a, cudaStream_t stream) {
-  if (a.C * a.T > kMaxThreads || a.Ppad % a.T != 0)
-    return (int)cudaErrorInvalidConfiguration;
-  return common::dispatch_states(a.S, [&](auto m) {
-    return launch_t<decltype(m)::value>(a, stream);
-  });
+int launch_t(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
+  return a.S == MAXS ? launch_x<MAXS, true>(a, cf, stream)
+                     : launch_x<MAXS, false>(a, cf, stream);
 }
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = queued).
+// The walk's configuration at pattern tile T: out[0..6] = kind (0 tile,
+// 1 global), RP, SP, threads, Q, ring, shared memory bytes; returns 1, or
+// 0 where none fits. ops/_build.py computes the same without the library.
+extern "C" int pllmod_resident_config(int C, int S, int n_codes,
+                                      int n_slots, int T, long long* out) {
+  Config cf;
+  if (!walk_config(C, S, n_codes, n_slots, T, &cf)) return 0;
+  const long long v[7] = {cf.kind, cf.rp, cf.sp, cf.threads, cf.q, cf.ring,
+                          cf.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 1;
+}
+
+// The resident walk at pattern tile T: the pre-pass into mats [nW, 2, Q]
+// (scratch of the caller), then the walk. Returns the CUDA error code of
+// the launches (0 = queued).
 extern "C" int pllmod_resident_walk(
     const int* idx8, int nW, const float* P5, const int* codes,
     const float* codetab, int n_codes, float* prod, int* scaler, int Ppad,
-    int C, int S, int n_slots, int T, void* stream) {
-  WalkArgs a{idx8, nW, P5, codes, codetab, n_codes, prod, scaler,
-             Ppad, C, S, n_slots, T};
-  return launch(a, static_cast<cudaStream_t>(stream));
-}
-
-// The dynamic shared memory a resident launch requests (bytes);
-// ops/_build.py computes the same without the library.
-extern "C" long long pllmod_resident_smem_bytes(int C, int S, int n_codes,
-                                                int n_slots, int T) {
-  return (long long)smem_bytes(C, S, n_codes, n_slots, T);
+    int C, int S, int n_slots, int T, float* mats, void* stream) {
+  Config cf;
+  if (nW <= 0 || Ppad <= 0 || mats == nullptr ||
+      !walk_config(C, S, n_codes, n_slots, T, &cf))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = tables::launch_tables<1>(idx8, nW, P5, codetab, n_codes,
+                                           mats, C, S, cf.sp, cf.q, st);
+  if (err) return err;
+  WalkArgs a{idx8, nW, mats, codes, n_codes, prod, scaler,
+             Ppad, C, S, n_slots, T, cf.sp, cf.q, cf.ring};
+  return common::dispatch_states(
+      S, [&](auto m) { return launch_t<decltype(m)::value>(a, cf, st); });
 }

@@ -62,6 +62,57 @@ __device__ __forceinline__ void cp_wait(int n) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// mbarriers and TMA bulk copies (global -> shared, completion counted in
+// bytes on an mbarrier in shared memory)
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_ptr(bar)),
+               "r"(n)
+               : "memory");
+}
+
+// make initialized mbarriers visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on bar, expecting `bytes` more of bulk copies in this phase
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_ptr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_ptr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) global -> shared
+// by one bulk copy, its completion counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_ptr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_ptr(bar))
+      : "memory");
+}
+
 // n contiguous 4-byte words (n a multiple of 4, both ends 16-byte aligned)
 __device__ __forceinline__ void copy_run(void* dst, const void* src, int n,
                                          int tid, int nthr) {
@@ -127,8 +178,9 @@ __device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
 // acc[r][x] = sum_j M[j][i0 + r] * X[j][pl0 + x], j = 0..S-1 in order,
 // for one category: Mc = M + c * S * SP (row stride SP), Xc = its first
 // line (row stride T). S <= MAXS; the j loop is unrolled fully up to 20
-// states.
-template <int RI, int RP, int MAXS>
+// states. EXACT: S == MAXS, so that the steps need no guard and their
+// loads can be issued ahead.
+template <int RI, int RP, int MAXS, bool EXACT = false>
 __device__ __forceinline__ void product(const float* Mc, const float* Xc,
                                         int S, int SP, int T, int i0,
                                         int pl0, float (&acc)[RI][RP]) {
@@ -142,7 +194,7 @@ __device__ __forceinline__ void product(const float* Mc, const float* Xc,
     for (int x = 0; x < RP; ++x) acc[r][x] = __fmul_rn(pv[r], xv[x]);
 #pragma unroll kUnroll
   for (int j = 1; j < MAXS; ++j) {
-    if (j < S) {
+    if (EXACT || j < S) {
       load_vec<RI>(pv, Mc + j * SP + i0);
       load_vec<RP>(xv, Xc + j * T + pl0);
 #pragma unroll

@@ -3,7 +3,7 @@
 ``nvcc`` compiles each source into its own shared library with a plain
 C interface under ``build/`` at the repository root, named by a hash of
 the source, the headers they share (``csrc/common.cuh``,
-``csrc/tile.cuh``) and the flags,
+``csrc/tile.cuh``, ``csrc/tables.cuh``) and the flags,
 on first use; the sources that lack a library are
 compiled all at once, one ``nvcc`` each. ctypes loads them. Nothing here
 runs at import time: the CPU-only tests import every module.
@@ -11,7 +11,9 @@ runs at import time: the CPU-only tests import every module.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,9 +26,10 @@ SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("pruning", "fused", "deriv", "levels", "grouped",
                         "packed")}
 # the shared headers (common.cuh is included by every source, tile.cuh by
-# fused.cu and levels.cu); every library's hash covers both
+# pruning.cu, fused.cu and levels.cu, tables.cuh, the walks' pre-pass, by
+# pruning.cu and fused.cu); every library's hash covers all three
 HEADERS = tuple(os.path.join(_PKG, "csrc", h)
-                for h in ("common.cuh", "tile.cuh"))
+                for h in ("common.cuh", "tile.cuh", "tables.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -36,8 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _WALK_ARGS = [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I]
 ENTRY_POINTS = {
-    "pllmod_resident_walk": ("pruning", _WALK_ARGS + [_VP], _I),
-    "pllmod_resident_smem_bytes": ("pruning", [_I] * 5, ctypes.c_longlong),
+    # the resident walk: its arguments, then the scratch of its pre-pass
+    "pllmod_resident_walk": ("pruning", _WALK_ARGS + [_VP, _VP], _I),
+    "pllmod_resident_config": ("pruning", [_I] * 5 + [_VP], _I),
     # the fused walk: its arguments, then the scratch of its pre-pass
     "pllmod_fused_walk": ("fused", _WALK_ARGS + [_VP, _VP], _I),
     "pllmod_fused_tables": ("fused", [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I,
@@ -48,8 +52,11 @@ ENTRY_POINTS = {
                                         _VP, _I, _VP, _VP, _I, _I, _I, _I,
                                         _VP], _I),
     "pllmod_edge_derivs": ("deriv", [_VP] * 7 + [_I] * 3 + [_VP], _I),
-    "pllmod_newton_edges": ("deriv", [_VP, _I, _I, _VP, _F, _F, _F, _I, _VP,
-                                      _VP, _VP, _I, _VP], _I),
+    # kernel 10: descriptors (device), K, their (C·S, Ppad) on the host,
+    # ..., the forced design (0: the rule)
+    "pllmod_newton_edges": ("deriv", [_VP, _I, _VP, _VP, _F, _F, _F, _I, _VP,
+                                      _VP, _VP, _I, _I, _VP], _I),
+    "pllmod_newton_config": ("deriv", [_I, _VP, _I, _VP], _I),
     "pllmod_child_pass": ("levels", [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _I,
                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
                           _I),
@@ -83,20 +90,24 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, flags=NVCC_FLAGS) -> str:
+    digest = hashlib.sha1(" ".join(flags).encode())
     for path in (SOURCES[name], *HEADERS):
         with open(path, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build() -> dict:
-    """Compile every source that has no library yet, one ``nvcc`` each,
-    all started together; returns {source name: library path}. Raises
-    with nvcc's output when a build fails."""
+def build(names=tuple(SOURCES), defines=()) -> dict:
+    """Compile every source of ``names`` that has no library yet, one
+    ``nvcc`` each, all started together, with ``-D`` of each of
+    ``defines`` (a build with defines gets libraries of its own);
+    returns {source name: library path}. Raises with nvcc's output when
+    a build fails. The output of the default build is kept in
+    BUILD_LOG."""
     global BUILD_LOG
-    paths = {name: library_path(name) for name in SOURCES}
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    paths = {name: library_path(name, flags) for name in names}
     todo = {name: p for name, p in paths.items() if not os.path.exists(p)}
     if not todo:
         return paths
@@ -106,20 +117,36 @@ def build() -> dict:
     for name, path in todo.items():
         tmp = f"{path}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+            [nvcc, *flags, "-o", tmp, SOURCES[name]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, path)
-    failed = []
+    failed, log = [], ""
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate(timeout=900)
-        BUILD_LOG += f"== {name}.cu ==\n{out}"
+        log += f"== {name}.cu ==\n{out}"
         if proc.returncode != 0:
             failed.append(f"{name}.cu ({proc.returncode})")
         else:
             os.replace(tmp, path)
+    if not defines:
+        BUILD_LOG += log
     if failed:
-        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
     return paths
+
+
+def entry_points(paths: dict) -> types.SimpleNamespace:
+    """The C entry points of ENTRY_POINTS that the libraries at ``paths``
+    ({source name: library path}) define, typed, as attributes."""
+    libs = {name: ctypes.CDLL(path) for name, path in paths.items()}
+    fns = {}
+    for name, (src, argtypes, restype) in ENTRY_POINTS.items():
+        if src in libs:
+            fn = getattr(libs[src], name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def load() -> types.SimpleNamespace:
@@ -127,22 +154,32 @@ def load() -> types.SimpleNamespace:
     global _lib
     with _lock:
         if _lib is None:
-            libs = {name: ctypes.CDLL(path) for name, path in build().items()}
-            fns = {}
-            for name, (src, argtypes, restype) in ENTRY_POINTS.items():
-                fn = getattr(libs[src], name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-                fns[name] = fn
-            _lib = types.SimpleNamespace(**fns)
+            _lib = entry_points(build())
         return _lib
+
+
+@contextlib.contextmanager
+def using(lib: types.SimpleNamespace):
+    """Launch ``lib``'s entry points (:func:`entry_points` of another
+    build of some sources) in place of the default build's inside the
+    block, through the same wrappers: ``chip_smoke.py --profile`` runs
+    the build with phase marks so."""
+    global _lib
+    default = load()
+    with _lock:
+        _lib = types.SimpleNamespace(**{**vars(default), **vars(lib)})
+    try:
+        yield
+    finally:
+        with _lock:
+            _lib = default
 
 
 # ---------------------------------------------------------------------------
 # Launch checks, the kernels' launch configurations and the row-walk
 # launch shared by the two walk wrappers (ops/resident.py, ops/fused.py).
 # The numbers below are those of csrc/pruning.cu, csrc/fused.cu and
-# csrc/levels.cu; the card tests hold resident_smem_bytes, fused_config and
+# csrc/levels.cu; the card tests hold resident_config, fused_config and
 # child_config against the libraries' own.
 # ---------------------------------------------------------------------------
 MAX_STATES = 64            # widest register tile the kernels instantiate
@@ -167,8 +204,8 @@ def _round_up(n: int, k: int) -> int:
 
 
 def pattern_tile(n_cats: int) -> int:
-    """Pattern columns per CTA of the resident, level (4, 5), grouped and
-    packed kernels: C·T threads per CTA, at most 256."""
+    """Pattern columns per CTA of the level (4, 5), grouped, packed and
+    sumtable kernels: C·T threads per CTA, at most 256."""
     for T in (64, 32, 16, 8, 4, 2, 1):
         if n_cats * T <= MAX_THREADS:
             return T
@@ -176,15 +213,63 @@ def pattern_tile(n_cats: int) -> int:
                      f"categories, got {n_cats}")
 
 
-def resident_smem_bytes(C: int, S: int, n_codes: int, n_slots: int) -> int:
-    """Dynamic shared memory of one resident CTA: the code table, the
-    category maxima, the live slots with their scaler rows and, when
-    they fit beside those, one row's two staged child matrices."""
+RESIDENT_META_ROWS = 16    # the resident walk's ring of idx8 rows
+RESIDENT_NB = 4            # its ring entries
+RESIDENT_KINDS = ("tile", "global")
+
+
+def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
+    """The resident walk's launch configuration at pattern tile T
+    (csrc/pruning.cu walk_config), or None where none fits: a dict of
+    kind, RP (patterns a thread: 2 up to 4 states, else 1), SP (a table
+    row's stride), threads, Q (floats of one row side's table from the
+    pre-pass), ring (floats of a ring entry) and smem (bytes). The tile
+    kind where a ring of 4 entries (a row's two tables and its tip codes)
+    fits beside the live slots, ``n_slots × C·S × T`` floats and their
+    scaler rows; else, at the widest tile (:func:`pattern_tile`) alone,
+    the global kind (tables read from the pre-pass's scratch in device
+    memory, a ring of tip codes), which keeps small 64-state trees
+    resident."""
+    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1
+            or n_slots < 1 or T < 1):
+        return None
+    maxs = _ladder(S)
+    rp = 2 if maxs <= 4 else 1
+    if T % rp or C * (T // rp) > MAX_THREADS:
+        return None
+    sp = maxs
+    q = C * max(S, n_codes) * sp
+    fixed = (2 * RESIDENT_NB + 8 * RESIDENT_META_ROWS
+             + _round_up(2 * C * T, 4) + n_slots * C * S * T + n_slots * T)
+    codes = _round_up(2 * T, 4)
+    base = dict(RP=rp, SP=sp, threads=C * (T // rp), Q=q)
+    smem = 4 * (fixed + RESIDENT_NB * (2 * q + codes))
+    if smem <= SMEM_PER_BLOCK:
+        return dict(kind="tile", ring=2 * q + codes, smem=smem, **base)
+    smem = 4 * (fixed + RESIDENT_NB * codes)
+    if T != pattern_tile(C) or smem > SMEM_PER_BLOCK:
+        return None
+    return dict(kind="global", ring=codes, smem=smem, **base)
+
+
+def resident_tile(C: int, S: int, n_codes: int, n_slots: int, Ppad: int):
+    """The resident walk's pattern tile: among the tiles of TILES where
+    the tile kind fits, the largest whose grid fills the card at up to
+    two CTAs an SM (at least 95 % of 132 × min(2, the CTAs an SM holds):
+    protein at 4096 patterns takes T = 32, 128 CTAs, one an SM), else the
+    smallest; where the tile kind fits at no tile, the widest tile if the
+    global kind fits there; None where the live slots fit at no tile."""
+    staged = [(T, cf) for T in TILES
+              if (cf := resident_config(C, S, n_codes, n_slots, T))
+              and cf["kind"] == "tile"]
+    for T, cf in staged:
+        k = min(2, ctas_per_sm(cf["threads"], cf["smem"]))
+        if -(-Ppad // T) >= 0.95 * SMS * k:
+            return T
+    if staged:
+        return staged[-1][0]
     T = pattern_tile(C)
-    floats = n_codes * S + C * T + n_slots * C * S * T + n_slots * T
-    if 4 * (floats + 2 * C * S * S) <= SMEM_PER_BLOCK:
-        floats += 2 * C * S * S
-    return 4 * floats
+    return T if resident_config(C, S, n_codes, n_slots, T) else None
 
 
 FUSED_META_BYTES = 128     # the fused walk's ring of 4 idx8 rows
@@ -338,12 +423,40 @@ def launch(name: str, device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def walk_launch_config(name: str, C: int, S: int, n_codes: int,
+                       n_slots: int, Ppad: int, tile: int | None = None):
+    """(pattern tile, launch configuration) of a row walk at one shape,
+    computed once a shape (the bounded sweep issues hundreds of short
+    walks a call): the resident walk at :func:`resident_tile`'s tile, the
+    fused walk at :func:`fused_tile`'s, or each at ``tile``. Raises where
+    the walk takes no configuration."""
+    if S > MAX_STATES:
+        raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
+    if name == "pllmod_resident_walk":
+        T = resident_tile(C, S, n_codes, n_slots, Ppad) if tile is None \
+            else tile
+        cf = None if T is None else resident_config(C, S, n_codes, n_slots,
+                                                    T)
+        if cf is None:
+            raise ValueError(
+                f"{name}: {n_slots} live slots of {C} categories × {S} "
+                f"states fit a block's shared memory at no pattern tile "
+                f"(tile {T})")
+        return T, cf
+    T = fused_tile(C, S, n_codes, Ppad) if tile is None else tile
+    cf = fused_config(C, S, n_codes, T)
+    if cf is None:
+        raise ValueError(f"{name}: no launch configuration at tile {T}")
+    return T, cf
+
+
 def launch_walk(name, idx8, P5, tip_codes, codetab, clv_out, sc_out,
                 n_slots: int, tile: int | None = None) -> None:
     """Check the inputs of a row-walk kernel and launch it on the current
-    stream (the fused walk at pattern tile ``tile``, by default
-    :func:`fused_tile`'s, with the scratch of its pre-pass). Raises on
-    anything the kernel does not take."""
+    stream at pattern tile ``tile`` (by default the walk's own choice,
+    :func:`walk_launch_config`), with the scratch of its pre-pass. Raises
+    on anything the kernel does not take."""
     import torch
     nW = idx8.shape[0]
     _, _, C, S, _ = P5.shape
@@ -355,25 +468,7 @@ def launch_walk(name, idx8, P5, tip_codes, codetab, clv_out, sc_out,
                          (codetab, torch.float32, (n_codes, S)),
                          (clv_out, torch.float32, None),
                          (sc_out, torch.int32, None)])
-    if S > MAX_STATES:
-        raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
-    if name == "pllmod_resident_walk":
-        T = pattern_tile(C)
-        if Ppad % T:
-            raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple "
-                             f"of the tile ({T})")
-        smem = resident_smem_bytes(C, S, n_codes, n_slots)
-        if smem > SMEM_PER_BLOCK:
-            raise ValueError(f"{name}: needs {smem} bytes of shared memory "
-                             f"per block, more than {SMEM_PER_BLOCK}")
-        launch(name, P5.device, idx8.data_ptr(), nW, P5.data_ptr(),
-               tip_codes.data_ptr(), codetab.data_ptr(), n_codes,
-               clv_out.data_ptr(), sc_out.data_ptr(), Ppad, C, S, n_slots, T)
-        return
-    T = fused_tile(C, S, n_codes, Ppad) if tile is None else tile
-    cf = fused_config(C, S, n_codes, T)
-    if cf is None:
-        raise ValueError(f"{name}: no launch configuration at tile {T}")
+    T, cf = walk_launch_config(name, C, S, n_codes, n_slots, Ppad, tile)
     mats = torch.empty((nW, 2, cf["Q"]), dtype=torch.float32,
                        device=P5.device)
     launch(name, P5.device, idx8.data_ptr(), nW, P5.data_ptr(),

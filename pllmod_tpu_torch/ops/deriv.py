@@ -26,6 +26,8 @@ is plain torch shared by both.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -293,13 +295,51 @@ def _derivs_plain(st, sc, t, lw, lnB, pw):
 # kernel 10: per-edge Newton over K partitions
 # ---------------------------------------------------------------------------
 NEWTON_RED_BYTES = 96 * 8   # the block reduction's doubles (csrc/deriv.cu)
+NEWTON_PART_BYTES = 2 * 16 * 3 * 8   # the cluster form's partials
+NEWTON_CLUSTERS = (2, 4, 8, 16)      # CTAs an edge of the cluster form
+NEWTON_KINDS = ("stream", "cluster")
 
 
 def newton_smem_bytes(cs) -> int:
-    """Shared memory of one kernel-10 CTA: three float32 coefficient rows
-    of C·S each for every partition (``cs``: their C·S values) and the
-    block reduction's 96 doubles."""
+    """Shared memory of one streaming kernel-10 CTA: three float32
+    coefficient rows of C·S each for every partition (``cs``: their C·S
+    values) and the block reduction's 96 doubles."""
     return 12 * sum(cs) + NEWTON_RED_BYTES
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def newton_slice(Ppad: int, N: int) -> int:
+    """Patterns of one CTA's slice of a partition in a cluster of N
+    (a multiple of 4)."""
+    return _round4(-(-Ppad // N))
+
+
+def newton_config(cs, ppads, force: int = 0):
+    """Kernel 10's design for K partitions of C·S ``cs`` and patterns
+    ``ppads`` (csrc/deriv.cu newton_config), or None: a dict of kind,
+    N (CTAs an edge) and smem (bytes a CTA). The rule: the smallest
+    cluster of NEWTON_CLUSTERS whose CTAs each hold their pattern slice
+    of every partition's sumtable, scaler, p-inv and weight rows beside
+    the coefficient and λr / weight rows ("cluster": the edge's inputs are loaded once
+    and the iterations run on chip), else one CTA an edge that streams
+    them every iteration ("stream"). ``force``: 1 the streaming design,
+    a cluster size that cluster, 0 the rule."""
+    fixed = (NEWTON_RED_BYTES + NEWTON_PART_BYTES + 16 * sum(cs)
+             + 4 * _round4(2 * sum(cs)))
+    for n in NEWTON_CLUSTERS:
+        if force not in (0, n):
+            continue
+        smem = fixed + 4 * sum((c + 3) * newton_slice(p, n)
+                               for c, p in zip(cs, ppads))
+        if smem <= _build.SMEM_PER_BLOCK:
+            return dict(kind="cluster", N=n, smem=smem)
+    smem = newton_smem_bytes(cs)
+    if force in (0, 1) and smem <= _build.SMEM_PER_BLOCK:
+        return dict(kind="stream", N=1, smem=smem)
+    return None
 
 
 def newton_fits(*partitions) -> bool:
@@ -347,7 +387,7 @@ def _multi_inputs(partitions, scalers, lws, lnBs):
 
 
 def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
-                       max_iters=10, lws=None, lnBs=None):
+                       max_iters=10, lws=None, lnBs=None, force: int = 0):
     """Bracketed Newton optimization of every edge over K partitions that
     share its length (``pallas_deriv.newton_edges_pallas_multi``): per
     iteration the K partitions' (logL, d/dt, d²/dt²) are summed.
@@ -366,7 +406,8 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
       (t_opt [E] float32, lnl0 [E] float32 — each edge's summed logL at
       ``t0`` — and iters [E] int32)
     CUDA tensors launch kernel 10 (counted as "newton_edges" for K = 1,
-    "newton_edges_multi" above); CPU tensors run the plain version.
+    "newton_edges_multi" above) in the design of :func:`newton_config`
+    (``force`` as there); CPU tensors run the plain version.
     """
     inputs = _multi_inputs(partitions, scalers, lws, lnBs)
     dev = sts[0].device
@@ -389,11 +430,15 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
         cs.append(CS)
     if max_iters < 1:
         raise ValueError("newton_edges: max_iters must be at least 1")
-    smem = newton_smem_bytes(cs)
-    if smem > _build.SMEM_PER_BLOCK:
+    ppads = [r[6] for r in rows]
+    if newton_config(cs, ppads, force) is None:
         raise ValueError(f"{name}: the coefficient rows of C·S {cs} need "
-                         f"{smem} bytes of shared memory per block, more "
-                         f"than {_build.SMEM_PER_BLOCK}")
+                         f"{newton_smem_bytes(cs)} bytes of shared memory "
+                         f"per block, more than {_build.SMEM_PER_BLOCK}"
+                         if force in (0, 1) else
+                         f"{name}: a cluster of {force} CTAs an edge does "
+                         f"not hold C·S {cs} × patterns {ppads} in shared "
+                         f"memory")
     t_opt = torch.empty(E, dtype=torch.float32, device=dev)
     lnl0 = torch.empty(E, dtype=torch.float32, device=dev)
     iters = torch.empty(E, dtype=torch.int32, device=dev)
@@ -402,10 +447,13 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
         # copy queues on the stream without waiting for it
         desc = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
-        _build.launch(name, dev, desc.data_ptr(), len(rows), sum(cs),
-                      t0.data_ptr(), float(xmin), float(xmax), float(tol),
-                      int(max_iters), t_opt.data_ptr(), lnl0.data_ptr(),
-                      iters.data_ptr(), E)
+        dims = (ctypes.c_longlong * (2 * len(rows)))(
+            *[v for c, p in zip(cs, ppads) for v in (c, p)])
+        _build.launch(name, dev, desc.data_ptr(), len(rows),
+                      ctypes.addressof(dims), t0.data_ptr(), float(xmin),
+                      float(xmax), float(tol), int(max_iters),
+                      t_opt.data_ptr(), lnl0.data_ptr(), iters.data_ptr(),
+                      E, int(force))
         LAUNCHES["newton_edges" if len(rows) == 1
                  else "newton_edges_multi"] += 1
     return t_opt, lnl0, iters

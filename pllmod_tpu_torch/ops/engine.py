@@ -225,23 +225,51 @@ def loglikelihood_bounded_fused(partition, tree, brlens=None,
     return lnl, n_slots
 
 
+RESIDENT_MIN_WARPS = 4     # an SM's warp schedulers
+
+
 def fast_eval_schedule(partition, n_slots: int) -> str:
     """The evaluation kernel for this partition's shape on the H100.
 
-    Rule: ``"resident"`` when the resident kernel's ``n_slots`` live
+    Rule: ``"resident"`` where the resident kernel's ``n_slots`` live
     slots (the compiled tree's own count,
-    :func:`resident.compile_resident`) fit in a block's shared memory at
-    its pattern tile, ``"fused"`` otherwise. Measured with both kernels
-    forced (``chip_smoke.py``'s routing sweep, PERF.md): wherever its
-    slots fit, the resident kernel was the faster, at C·S from 4 to 128,
-    at 64 × 4096 and 128 × 16384 — the fused kernel's CLV traffic costs
-    more than the occupancy the resident slots take. DNA and protein
-    trees run resident; 64-state alphabets (+Γ4), whose slots do not
-    fit, run fused. The TPU's CS % 8 gate and its VMEM crossover are
-    facts of Mosaic and do not apply here."""
-    smem = _build.resident_smem_bytes(partition.n_cats, partition.states,
-                                      partition.code_clv.shape[0], n_slots)
-    return "resident" if smem <= _build.SMEM_PER_BLOCK else "fused"
+    :func:`resident.compile_resident`) and a ring of four rows' tables
+    fit a block's shared memory at its pattern tile (the tile kind of
+    ``_build.resident_config`` at ``_build.resident_tile``) and its grid
+    either runs in one wave (every CTA resident at once) or keeps at
+    least RESIDENT_MIN_WARPS warps on each SM; ``"fused"`` otherwise.
+    Each resident thread carries one pattern column through every row,
+    a chain of dependent rows: in one wave the walk takes one chain,
+    whatever its warps; over several waves an SM runs one chain a wave,
+    and with fewer warps than its four schedulers nothing hides the
+    chain's latency. Measured with both kernels forced
+    (``chip_smoke.py``'s routing sweep, device ms a launch, NVIDIA H100
+    80GB HBM3 at 700 W; PERF.md), the rule picks the faster walk at
+    every swept shape: resident at C·S 4 to 128 at 128 × 16384 and 64 ×
+    4096 (DNA 0.115 against 0.181 ms; 32 states at 128 × 16384, four
+    waves of 4 warps, 1.81 against 1.92) and at 512 × 4096 for 16 and 20
+    states up to the 12-slot bound of 512 taxa (20 states 1.07 against
+    2.27), fused for 32 states +Γ4 beyond 5 slots (tile 16: two waves of
+    2 warps, 3.41 against 3.22; tile 8: 7.23 against 3.22; 2048 taxa,
+    7 slots, 13.61 against 12.86), resident for 64 states +Γ1 in one
+    wave of 1 warp (4.25 against 4.95), fused beyond (8.03 against
+    4.95), and fused where only the global kind fits (64 states +Γ4, a
+    few slots, tables read from device memory). The rule depends on the
+    shape and ``n_slots`` only; the TPU's CS % 8 gate and its VMEM
+    crossover are facts of Mosaic and do not apply here."""
+    C, S, n_codes = (partition.n_cats, partition.states,
+                     partition.code_clv.shape[0])
+    Ppad = partition.n_patterns_padded
+    T = _build.resident_tile(C, S, n_codes, n_slots, Ppad)
+    cf = None if T is None else _build.resident_config(C, S, n_codes,
+                                                       n_slots, T)
+    if cf is None or cf["kind"] != "tile":
+        return "fused"
+    k = _build.ctas_per_sm(cf["threads"], cf["smem"])
+    one_wave = -(-Ppad // T) <= _build.SMS * k
+    warps = -(-cf["threads"] // 32) * k
+    return ("resident" if one_wave or warps >= RESIDENT_MIN_WARPS
+            else "fused")
 
 
 def auto_schedule(partition, n_slots: int | None) -> str:

@@ -6,7 +6,10 @@ Sethi-Ullman evaluation order with slot recycling
 (:func:`pllmod_tpu_torch.ops.clv.bounded_slot_ops`; pll_tree.c:1509-1573)
 at most ~⌈log2 n_tips⌉+3 CLVs are live at any step. The CUDA kernel
 ``pllmod_resident_walk`` (``csrc/pruning.cu``) keeps that live set in
-shared memory, one CTA per pattern tile, and writes only the root
+shared memory, one CTA per pattern tile (``_build.resident_tile``, chosen
+per shape to fill the card; beyond 8 states after the fused walk's
+pre-pass, which builds every row's tip tables into a scratch array), and
+writes only the root
 pseudo-node's per-category site product ``[C·S, Ppad]`` and total scaler
 ``[1, Ppad]`` to device memory. No CLV buffer ever exists there, so this
 path returns the logL only.
@@ -28,6 +31,7 @@ from pllmod_tpu_torch.ops import likelihood as lk_mod
 from pllmod_tpu_torch.ops.fused import code_table, pair_pmats
 
 LAUNCHES = 0        # launches of the resident kernel (counted by resident_walk)
+TABLE_LAUNCHES = 0  # launches of its pre-pass, one a walk
 
 
 def resident_slot_bound(n_tips: int) -> int:
@@ -81,12 +85,14 @@ def compile_resident(partition, tree, root_edge=None,
             n_slots)
 
 
-def resident_walk(idx8, P5, tip_codes, codetab, n_slots: int):
+def resident_walk(idx8, P5, tip_codes, codetab, n_slots: int,
+                  tile: int | None = None):
     """Run a resident table: the root row's rescaled per-category site
     product (prod [C·S, Ppad] float32) and total scaler ([1, Ppad]
-    int32). CUDA tensors launch the kernel; CPU tensors run the plain
+    int32). CUDA tensors launch the kernel (at pattern tile ``tile``, by
+    default ``_build.resident_tile``'s); CPU tensors run the plain
     version."""
-    global LAUNCHES
+    global LAUNCHES, TABLE_LAUNCHES
     if P5.device.type == "cpu":
         return resident_walk_plain(idx8, P5, tip_codes, codetab, n_slots)
     _, _, C, S, _ = P5.shape
@@ -94,8 +100,9 @@ def resident_walk(idx8, P5, tip_codes, codetab, n_slots: int):
     prod = torch.empty((C * S, Ppad), dtype=torch.float32, device=P5.device)
     scaler = torch.empty((1, Ppad), dtype=torch.int32, device=P5.device)
     _build.launch_walk("pllmod_resident_walk", idx8, P5, tip_codes, codetab,
-                       prod, scaler, n_slots)
+                       prod, scaler, n_slots, tile)
     LAUNCHES += 1
+    TABLE_LAUNCHES += 1
     return prod, scaler
 
 

@@ -105,15 +105,14 @@ def test_auto_schedule_matches_float64_scan(cuda, states, cats):
 def test_smem_formula_matches_library(cuda, states, cats, n_slots,
                                       resident_walk):
     """The shared memory the routing rule counts is what a launch
-    requests: the resident walk's, and the fused walk's whole launch
-    configuration at its default tile (4096 patterns)."""
+    requests: the resident walk's whole launch configuration at every
+    tile, and the fused walk's at its default tile (4096 patterns)."""
     n_codes = 16
-    lib = _build.load()
     if resident_walk:
-        want = lib.pllmod_resident_smem_bytes(
-            cats, states, n_codes, n_slots, _build.pattern_tile(cats))
-        assert _build.resident_smem_bytes(cats, states, n_codes,
-                                          n_slots) == want
+        for T in _build.TILES:
+            assert _resident_config_lib(cats, states, n_codes, n_slots,
+                                        T) == _build.resident_config(
+                cats, states, n_codes, n_slots, T)
         return
     T = _build.fused_tile(cats, states, n_codes, 4096)
     assert _fused_config_lib(cats, states, n_codes, T) == \
@@ -856,3 +855,164 @@ def test_tip_lookup_on_card_matches_expanded_tips(cuda):
     x = tab[codes.long()].T[None].expand(4, 20, codes.shape[0])
     assert torch.equal(fused.tip_lookup_plain(PT[1], codes),
                        clv.apply_pmat(P[1], x))
+
+
+# ---------------------------------------------------------------------------
+# the resident walk's shapes and tiles (kernel 1), kernel 10's designs
+# ---------------------------------------------------------------------------
+RESIDENT_STATES = (4, 5, 10, 16, 20, 32)
+
+
+def _balanced(n):
+    """A balanced tree on t0..t{n-1} (n a power of two), three subtrees
+    at the root."""
+    def sub(lo, hi):
+        if hi - lo == 1:
+            return f"t{lo}:0.1"
+        mid = (lo + hi) // 2
+        return f"({sub(lo, mid)},{sub(mid, hi)}):0.05"
+    q = n // 4
+    return Tree.from_newick(f"({sub(0, 2 * q)},{sub(2 * q, 3 * q)},"
+                            f"{sub(3 * q, n)});")
+
+
+def _resident_equal(idx8, P5, tc, tab, ns, tile=None):
+    """Kernel 1 against its plain version: the root product and the
+    scaler row bit for bit."""
+    before = resident.LAUNCHES
+    prod_k, sc_k = resident.resident_walk(idx8, P5, tc, tab, ns, tile=tile)
+    assert resident.LAUNCHES == before + 1
+    prod_p, sc_p = resident.resident_walk_plain(idx8, P5, tc, tab, ns)
+    assert torch.equal(prod_k, prod_p)
+    assert torch.equal(sc_k, sc_p)
+
+
+@pytest.mark.parametrize("cats", (1, 4, 8))
+@pytest.mark.parametrize("states", RESIDENT_STATES)
+def test_resident_walk_trees_tiles_and_ragged(cuda, states, cats):
+    """Kernel 1 bit for bit on a caterpillar (the most live slots) and a
+    balanced tree, at its own tile and every other tile where the slots
+    fit, and at 100 and 101 patterns (bulk copies of the tip codes with a
+    ragged last tile, and the threads' own loads)."""
+    part, _ = _example(states, cats, cuda, n_taxa=16, n_sites=256)
+    tab = fused.code_table(part)
+    n_codes = tab.shape[0]
+    for tree in (_caterpillar(16), _balanced(16)):
+        tree.lengths[:] = np.linspace(0.02, 0.4, len(tree.lengths))
+        idx8, e1, e2, ns = resident.compile_resident(part, tree)
+        P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
+        for Ppad in (part.n_patterns_padded, 100, 101):
+            tc = part.tip_states[:, :Ppad].contiguous()
+            T0 = _build.resident_tile(cats, states, n_codes, ns, Ppad)
+            tiles = {T for T in _build.TILES
+                     if _build.resident_config(cats, states, n_codes, ns, T)}
+            assert (T0 is None) == (not tiles)
+            for T in ([None] + sorted(tiles)) if tiles else ():
+                _resident_equal(idx8, P5, tc, tab, ns, tile=T)
+
+
+def _resident_config_lib(C, S, n_codes, n_slots, T):
+    out = (ctypes.c_longlong * 7)()
+    if not _build.load().pllmod_resident_config(C, S, n_codes, n_slots, T,
+                                                out):
+        return None
+    keys = ("kind", "RP", "SP", "threads", "Q", "ring", "smem")
+    got = dict(zip(keys, list(out)))
+    got["kind"] = _build.RESIDENT_KINDS[got["kind"]]
+    return got
+
+
+@pytest.mark.parametrize("states", RESIDENT_STATES + (2, 8, 64))
+@pytest.mark.parametrize("cats", (1, 4, 8, 32))
+def test_resident_config_matches_library(cuda, states, cats):
+    """The Python mirror of the resident walk's launch configuration is
+    what the library computes, at every tile and slot count."""
+    for n_codes in (states + 1, 200):
+        for n_slots in (3, 9, 12, 17):
+            for T in _build.TILES:
+                assert _resident_config_lib(cats, states, n_codes, n_slots,
+                                            T) == _build.resident_config(
+                    cats, states, n_codes, n_slots, T)
+
+
+def _newton_config_lib(cs, ppads, force=0):
+    dims = (ctypes.c_longlong * (2 * len(cs)))(
+        *[v for c, p in zip(cs, ppads) for v in (c, p)])
+    out = (ctypes.c_longlong * 4)()
+    if not _build.load().pllmod_newton_config(len(cs), dims, force, out):
+        return None, None
+    got = dict(kind=deriv.NEWTON_KINDS[out[0]], N=out[1], smem=out[2])
+    return got, out[3]
+
+
+@pytest.mark.parametrize("cs,ppads", [
+    ((16,), (16384,)), ((80,), (4096,)), ((16, 80), (16384, 4096)),
+    ((16,), (512,)), ((16,), (131072,)), ((256,), (4096,)),
+    ((16, 16), (512, 512))])
+def test_newton_config_matches_library(cuda, cs, ppads):
+    """Kernel 10's design rule in Python is the library's, forced or not;
+    every cluster the rule picks can be resident on the card."""
+    for force in (0, 1, 2, 4, 8, 16):
+        got, occ = _newton_config_lib(cs, ppads, force)
+        assert got == deriv.newton_config(cs, ppads, force)
+        if got is not None and force == 0:
+            assert occ >= 1
+
+
+def _newton_case(shapes, cuda, n_sites=512):
+    """(parts, sts, scs, t0, scalers, live) of ``shapes`` on one tree."""
+    tree = None
+    parts, sts, scs = [], [], []
+    scalers = (1.0, 0.5, 1.7)[:len(shapes)]
+    for k, (states, cats) in enumerate(shapes):
+        part, t = _example(states, cats, cuda, n_sites=n_sites)
+        tree = tree or t
+        tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+        clvs, sc_k = blo._directed_clvs(part, tabs,
+                                        _brl(tree, part) * scalers[k])
+        st, sc = deriv.edge_sumtables(part, clvs, sc_k, tabs.eref6,
+                                      tabs.basis)
+        parts.append(part)
+        sts.append(st)
+        scs.append(sc)
+    live = torch.as_tensor(blo.DirectedTraversal(tree).edge_mask,
+                           device=cuda)
+    return parts, sts, scs, _brl(tree, parts[0]), scalers, live
+
+
+@pytest.mark.parametrize("shapes,n_sites", [
+    (((4, 4),), 512), (((4, 4), (20, 4)), 512), (((4, 4),), 8192)],
+    ids=["K1", "K2", "K1-wide"])
+def test_newton_every_design_matches_plain(cuda, shapes, n_sites):
+    """Kernel 10 in every design that holds the shape (the streaming CTA
+    and clusters of 2, 4, 8 and 16 CTAs an edge) within the derivative
+    tolerance of its plain version (at 8192 sites a thread sums 1, 2 or
+    4 patterns at once, by the cluster size); the one partition given
+    twice lands on the same lengths with twice the logL, bit for bit, in
+    every design."""
+    parts, sts, scs, t0, scalers, live = _newton_case(shapes, cuda, n_sites)
+    args = (parts, sts, scs, t0, scalers, 1e-4, 100.0, 1e-4, 10)
+    want = deriv.newton_edges_multi_plain(*args)
+    cs = [p.n_cats * p.states for p in parts]
+    ppads = [p.n_patterns_padded for p in parts]
+    seen = []
+    for force in (1,) + deriv.NEWTON_CLUSTERS:
+        if deriv.newton_config(cs, ppads, force) is None:
+            continue
+        got = deriv.newton_edges_multi(*args, force=force)
+        torch.cuda.synchronize()
+        assert _rel(got[0][live], want[0][live], 1e-4) < 5e-4
+        assert _rel(got[1][live], want[1][live], 1e-2) < 2e-6
+        if len(parts) == 1 and deriv.newton_config(cs * 2, ppads * 2,
+                                                    force):
+            twice = deriv.newton_edges_multi(
+                parts * 2, sts * 2, scs * 2, t0, scalers * 2, 1e-4, 100.0,
+                1e-4, 10, force=force)
+            assert torch.equal(twice[0], got[0])
+            assert torch.equal(twice[2], got[2])
+            assert torch.equal(twice[1], 2 * got[1])
+        seen.append(force)
+    # every design at 512 sites; at 8192 the edge needs 4 CTAs or more
+    assert seen == ([1, 2, 4, 8, 16] if n_sites == 512 else [1, 4, 8, 16])
+    with pytest.raises(ValueError, match="cluster of 3"):
+        deriv.newton_edges_multi(*args, force=3)

@@ -22,7 +22,7 @@ from pllmod_tpu.optimize import blo as jax_blo
 from pllmod_tpu.optimize import newton as jax_newton
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
-from pllmod_tpu_torch.ops import deriv, derivatives
+from pllmod_tpu_torch.ops import _build, deriv, derivatives
 from pllmod_tpu_torch.optimize import blo, newton
 from tests.test_torch_partition import ODD5
 from tests.torch_cases import make_case, to_torch
@@ -272,3 +272,29 @@ def test_blo_sweep_kernel_pipeline_matches_plain_path():
     assert abs(float(l32) - float(l64)) / abs(float(l64)) < 2e-6
     assert _rel(b32.numpy()[trav.edge_mask], b64.numpy()[trav.edge_mask],
                 1e-4) < 5e-4
+
+
+@pytest.mark.parametrize("cs,ppads,want", [
+    ((16,), (16384,), ("cluster", 8)),           # flagship DNA +G4
+    ((80,), (4096,), ("cluster", 8)),            # protein +G4
+    ((16, 80), (16384, 4096), ("cluster", 16)),  # both at once (K = 2)
+    ((16,), (512,), ("cluster", 2)),
+    ((16,), (131072,), ("stream", 1)),           # no cluster holds it
+])
+def test_newton_config_cluster_size(cs, ppads, want):
+    """Kernel 10's design: the smallest cluster whose CTAs hold their
+    slices of the edge's rows beside the coefficient rows, else the
+    streaming CTA; forced designs that do not hold the edge are refused
+    (None), never swapped."""
+    cf = deriv.newton_config(cs, ppads)
+    assert (cf["kind"], cf["N"]) == want
+    assert cf["smem"] <= _build.SMEM_PER_BLOCK
+    if cf["kind"] == "cluster":
+        slices = [deriv.newton_slice(p, cf["N"]) for p in ppads]
+        assert all(s % 4 == 0 and s * cf["N"] >= p
+                   for s, p in zip(slices, ppads))
+        smaller = [n for n in deriv.NEWTON_CLUSTERS if n < cf["N"]]
+        assert all(deriv.newton_config(cs, ppads, n) is None
+                   for n in smaller)
+    assert deriv.newton_config(cs, ppads, 1)["kind"] == "stream"
+    assert deriv.newton_config([16] * 5000, [512] * 5000) is None

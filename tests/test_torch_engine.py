@@ -184,9 +184,10 @@ def _alignment(states, n_taxa, cmap=None):
 
 
 def test_auto_routing_rule():
-    """Resident while the tree's live slots fit a block's shared memory,
-    fused beyond them, the serial engine for float64; never the serial
-    engine for a float32 partition, however wide."""
+    """Resident while the tree's live slots and a ring of its row tables
+    fit a block's shared memory at some pattern tile, fused beyond them,
+    the serial engine for float64; never the serial engine for a float32
+    partition, however wide."""
     for states in (4, 5, 20):
         case = _case(states, 4)
         ev = engine.compile_fast_eval(case.tpart, case.tree)
@@ -200,10 +201,65 @@ def test_auto_routing_rule():
     wide = _alignment(64, 8, charmap.multistate(64))
     assert engine.auto_schedule(wide, n_slots=4) == "fused"
     for part, ns in ((prot, 6), (prot, 12), (wide, 2), (wide, 4)):
-        fits = _build.resident_smem_bytes(
-            part.n_cats, part.states, part.code_clv.shape[0],
-            ns) <= _build.SMEM_PER_BLOCK
+        shape = (part.n_cats, part.states, part.code_clv.shape[0], ns)
+        T = _build.resident_tile(*shape, part.n_patterns_padded)
+        fits = T is not None and \
+            _build.resident_config(*shape, T)["kind"] == "tile"
         assert fits == (engine.auto_schedule(part, ns) == "resident")
+
+
+@pytest.mark.parametrize("cell,want", [
+    (dict(n_taxa=128, n_sites=16384, seed=3), "resident"),     # flagship
+    (dict(n_taxa=512, n_sites=4096, seed=5, states=20), "resident"),
+    (dict(n_taxa=128, n_sites=4096, seed=7, states=64), "fused"),
+], ids=["flagship", "protein", "64-state"])
+def test_routing_rule_at_the_cells(cell, want):
+    """``auto`` at the shapes of the three cells (their trees' own live
+    slot counts, +G4, patterns padded to 128): the walk that the routing
+    sweep measured faster there (PERF.md)."""
+    from types import SimpleNamespace
+    from pllmod_tpu_torch.ops import resident
+    states = cell.get("states", 4)
+    _, newick, _, _ = flagship.example_data(**cell)
+    tree = Tree.from_newick(newick)
+    part = SimpleNamespace(
+        n_tips=cell["n_taxa"], device="cpu", n_cats=4, states=states,
+        code_clv=torch.zeros(states + 1, states), dtype=torch.float32,
+        n_patterns_padded=-(-cell["n_sites"] // 128) * 128)
+    n_slots = resident.compile_resident(part, tree)[3]
+    assert engine.fast_eval_schedule(part, n_slots) == want
+    assert engine.auto_schedule(part, n_slots) == want
+
+
+# the routing sweep's shapes (chip_smoke.py, PERF.md): (states,
+# categories, live slots, padded patterns) and the walk measured faster
+SWEEP_ROUTES = [
+    (4, 4, 4, 16384, "resident"), (20, 4, 4, 16384, "resident"),
+    (32, 4, 4, 16384, "resident"), (64, 4, 4, 16384, "fused"),
+    (4, 1, 3, 4096, "resident"), (32, 4, 3, 4096, "resident"),
+    (16, 4, 6, 4096, "resident"), (16, 4, 9, 4096, "resident"),
+    (16, 4, 10, 4096, "resident"), (16, 4, 12, 4096, "resident"),
+    (20, 4, 6, 4096, "resident"), (20, 4, 12, 4096, "resident"),
+    (32, 4, 5, 4096, "resident"), (32, 4, 6, 4096, "fused"),
+    (32, 4, 7, 4096, "fused"), (32, 4, 11, 4096, "fused"),
+    (32, 4, 12, 4096, "fused"), (64, 1, 6, 4096, "resident"),
+    (64, 1, 11, 4096, "resident"), (64, 1, 12, 4096, "fused"),
+    (64, 4, 3, 4096, "fused"),
+]
+
+
+@pytest.mark.parametrize("states,cats,n_slots,ppad,want", SWEEP_ROUTES)
+def test_routing_rule_at_the_sweep_shapes(states, cats, n_slots, ppad,
+                                          want):
+    """``auto`` at the routing sweep's shapes, the slot counts that
+    change the resident walk's tile included: resident where its ring
+    fits and its grid is one wave or keeps 4 warps an SM, else fused."""
+    from types import SimpleNamespace
+    part = SimpleNamespace(n_cats=cats, states=states,
+                           code_clv=torch.zeros(states + 1, states),
+                           dtype=torch.float32, n_patterns_padded=ppad)
+    assert engine.fast_eval_schedule(part, n_slots) == want
+    assert engine.auto_schedule(part, n_slots) == want
 
 
 @pytest.mark.parametrize("schedule", ["resident", "fused"])

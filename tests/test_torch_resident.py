@@ -12,7 +12,7 @@ import torch
 from pllmod_tpu.ops import engine as jax_engine
 from pllmod_tpu.ops import pallas_resident
 from pllmod_tpu_torch.common import PllModError
-from pllmod_tpu_torch.ops import fused, resident
+from pllmod_tpu_torch.ops import _build, fused, resident
 from tests.torch_cases import lengths, make_case, rel_err
 from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
 
@@ -92,3 +92,72 @@ def test_resident_rejects_float64():
         resident.loglikelihood_resident(case.tpart, idx8,
                                         lengths(case.tree), (e1, e2), ns)
 
+
+
+# the resident walk's launch configuration (pure Python, the mirror of
+# csrc/pruning.cu walk_config that the card tests hold to the library)
+def test_resident_tile_fills_the_card_at_protein():
+    """At the protein cell's shape (512 taxa: up to 12 live slots, 4096
+    patterns, 20 states +G4) the tile gives at least 95 % of 132 SMs a
+    CTA and its slots fit; at the flagship's (128 taxa, 16384 patterns,
+    DNA +G4) two CTAs an SM."""
+    for ns in range(6, resident.resident_slot_bound(512) + 1):
+        T = _build.resident_tile(4, 20, 21, ns, 4096)
+        cf = _build.resident_config(4, 20, 21, ns, T)
+        assert T in (32, 16) and cf["kind"] == "tile"
+        k = min(2, _build.ctas_per_sm(cf["threads"], cf["smem"]))
+        assert -(-4096 // T) >= 0.95 * _build.SMS * k
+    ns = resident.resident_slot_bound(128)
+    T = _build.resident_tile(4, 4, 5, ns, 16384)
+    cf = _build.resident_config(4, 4, 5, ns, T)
+    assert cf["kind"] == "tile" and cf["RP"] == 2
+    assert 16384 // T >= 0.95 * _build.SMS * 2
+
+
+@pytest.mark.parametrize("states", [2, 4, 5, 8, 10, 16, 20, 32, 64])
+def test_resident_config_across_the_state_ladder(states):
+    """Every configuration fits a block (threads and shared memory), and
+    its shared memory is the sum of its parts: the ring's mbarriers and
+    idx8 rows, four ring entries, the category maxima and the slots with
+    their scaler rows; a ring entry holds the row's two tables and its tip
+    codes (the tile kind) or the codes alone (the global kind)."""
+    seen = set()
+    for cats in (1, 4, 8, 32):
+        for ns in (3, 9, 12):
+            for T in _build.TILES:
+                cf = _build.resident_config(cats, states, states + 1, ns, T)
+                if cf is None:
+                    continue
+                seen.add(cf["kind"])
+                # the global kind at the widest tile only
+                assert cf["kind"] == "tile" or T == _build.pattern_tile(cats)
+                assert cf["threads"] <= _build.MAX_THREADS
+                assert cf["smem"] <= _build.SMEM_PER_BLOCK
+                assert cf["threads"] == cats * T // cf["RP"]
+                codes = -(-2 * T // 4) * 4
+                assert cf["ring"] == codes + (2 * cf["Q"]
+                                              if cf["kind"] == "tile" else 0)
+                fixed = (8 + 128 + -(-2 * cats * T // 4) * 4
+                         + ns * (cats * states + 1) * T)
+                assert cf["smem"] == 4 * (fixed + 4 * cf["ring"])
+    assert "tile" in seen and seen <= {"tile", "global"}
+    # a slot set that fits no tile is refused, not rerouted
+    assert _build.resident_tile(4, states, states + 1, 4000, 4096) is None
+
+
+def test_walk_launch_config_is_cached_per_shape():
+    """The wrappers' tile and configuration come from one cached call a
+    shape (the bounded sweep issues hundreds of short walks a call)."""
+    _build.walk_launch_config.cache_clear()
+    for _ in range(3):
+        T, cf = _build.walk_launch_config("pllmod_resident_walk", 4, 4, 5, 9,
+                                          16384)
+        Tf, cff = _build.walk_launch_config("pllmod_fused_walk", 4, 4, 5, 9,
+                                            16384)
+    info = _build.walk_launch_config.cache_info()
+    assert (info.hits, info.misses) == (4, 2)
+    assert T == _build.resident_tile(4, 4, 5, 9, 16384)
+    assert Tf == _build.fused_tile(4, 4, 5, 16384)
+    with pytest.raises(ValueError, match="shared memory"):
+        _build.walk_launch_config("pllmod_resident_walk", 4, 64, 65, 4000,
+                                  4096)
