@@ -38,8 +38,11 @@ path (``counted``):
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
-rule). It prints the flagship metric with every timed schedule's
-ms/eval, one ``{"blo": [...]}``, one ``{"routing": [...]}`` and one
+rule), and kernel 8's simple kernel and tiled configurations at the
+BLO's launch shapes over a sweep of cells (the measurements behind
+``_build.sumtable_config``'s rule). It prints the flagship metric with
+every timed schedule's ms/eval, one ``{"blo": [...]}``, one
+``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
 ``{"kernels": [...]}`` line (each kernel's launches in all, by cell and
 by path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -53,21 +56,24 @@ or call goes (device kernels only) and the device's busy share of the
 window; and it builds ``csrc/pruning.cu`` and ``csrc/deriv.cu`` once
 more with their phase marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``)
 and prints the mean cycles of each phase of a row of kernel 1 (flagship,
-protein) and of a Newton iteration of kernel 10 (its all-edge shapes),
-with the marked build's ms a launch beside the library's. ``--parent DIR`` builds the kernels of another checkout at DIR
-(an earlier commit, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists) beside this tree's and times its kernels 1, 2, 3
-and 10 (each entry point from the library that defines it there, with
-its own signature) beside this tree's on the same inputs, outputs held
-equal (kernel 10 within DERIV_RTOL), in turns (parent, this tree, this
-tree, parent), by device time; kernel 10 at every shape the BLO
-launches: all edges and each edge-color class of the flagship and
-protein cells, and the two-partition sweep.
+protein), of a work item of kernel 8 and of a Newton iteration of
+kernel 10 (their all-edge shapes), with the marked build's ms a launch
+beside the library's. ``--parent DIR`` builds the kernels of another
+checkout at DIR (an earlier commit, unpacked with ``git archive`` into a
+directory that ``.gitignore`` lists) beside this tree's and times its
+kernels 1, 2, 3, 8 and 10 (each entry point from the library that
+defines it there, with its own signature) beside this tree's on the same
+inputs, outputs held equal (kernel 10 within DERIV_RTOL), in turns
+(parent, this tree, this tree, parent), by device time; kernels 8 and
+10 at every shape the BLO launches: all edges and each edge-color class
+of the flagship and protein cells, and kernel 10 on the two-partition
+sweep.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import subprocess
@@ -428,22 +434,21 @@ def check_deriv(part, tree, label):
         raise AssertionError(f"edge_sumtables ({label}) differs from its "
                              "plain version")
     err = float((st - st_p).abs().max())
-    ms = time_ms(lambda: deriv.edge_sumtables(*args), 10)
-    ref = eref.cpu().numpy()
-    n_inner = int((ref[:, 2:4] == 0).sum())
-    in_bytes = (n_inner * (CS + 1) * Ppad * 4            # CLV + scaler rows
-                + int((ref[:, 2:4] != 0).sum()) * Ppad * 4   # tip codes
-                + nbytes(eref, tabs.basis))
-    b_ms, b_by = bound(in_bytes + nbytes(st, sc),
-                       Ppad * (n_inner * 2 * C * S * S + E * CS))
+    ms = device_ms(lambda: deriv.edge_sumtables(*args), 10)
+    b_ms, b_by = sumtable_bound(part, eref, tabs.basis)
+    cf = sumtable_design(part, E)
+    composite = sumtable_composite_ms(part, clvs, eref, tabs.basis)
     print(f"edge_sumtables ({label}): {ms:.4f} ms/launch, plain "
           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), {E} edges, "
-          f"bit for bit")
+          f"bit for bit; design {cf}; two matmuls and a mul "
+          f"{composite:.4f} ms")
     rows.append(dict(name="edge_sumtables", route="cuda",
                      source="pllmod_tpu_torch/csrc/deriv.cu",
                      replaces="pllmod_tpu/ops/pallas_deriv.py:109",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     design=cf, composite_matmul_ms=composite))
+    SUMTABLE_SHAPES.append((f"{label}, all {E} edges", args))
 
     # kernel 9
     t = brl[live]
@@ -505,13 +510,17 @@ def check_deriv(part, tree, label):
               TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS)
         c_iters = int(deriv.newton_edges(*cn, **kw)[2].sum())
         row = dict(color=k, edges=len(sel),
-                   edge_sumtables_ms=time_ms(
+                   edge_sumtables_ms=device_ms(
                        lambda: deriv.edge_sumtables(*cargs), 10),
-                   newton_edges_ms=time_ms(
+                   edge_sumtables_bound_ms=sumtable_bound(
+                       part, cargs[3], tabs.basis)[0],
+                   newton_edges_ms=device_ms(
                        lambda: deriv.newton_edges(*cn, **kw), 10),
                    mean_iters=c_iters / len(sel))
         print(f"class shape ({label}): {row}")
         classes.append(row)
+        SUMTABLE_SHAPES.append((f"{label}, color {k} ({len(sel)} edges)",
+                                cargs))
         NEWTON_SHAPES.append((f"{label}, color {k} ({len(sel)} edges)",
                               [part], [st_c], [sc_c], brl[sel], (1.0,),
                               [tabs.lw], [tabs.lnB]))
@@ -529,6 +538,65 @@ def check_deriv(part, tree, label):
 # kernel 10's launch shapes, for --parent: (label, parts, sts, scs, t0,
 # scalers, lws, lnBs)
 NEWTON_SHAPES: list = []
+# kernel 8's, for --parent: (label, edge_sumtables' arguments)
+SUMTABLE_SHAPES: list = []
+
+
+def sumtable_bound(part, eref, basis):
+    """Kernel 8's bound at these edge rows: each inner side's CLV and
+    scaler rows and each tip side's codes read once, st and sc written
+    once, against 2 C·S·S flops a pattern for every inner side and the
+    C·S products."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    ref = eref.cpu().numpy()
+    n_inner = int((ref[:, 2:4] == 0).sum())
+    E = len(ref)
+    in_bytes = (n_inner * (C * S + 1) * Ppad * 4          # CLV + scaler rows
+                + int((ref[:, 2:4] != 0).sum()) * Ppad * 4   # tip codes
+                + nbytes(eref, basis))
+    out_bytes = E * (C * S + 1) * Ppad * 4
+    return bound(in_bytes + out_bytes,
+                 Ppad * (n_inner * 2 * C * S * S + E * C * S))
+
+
+def sumtable_design(part, E: int) -> dict:
+    """Kernel 8's configuration for E edges at this partition's shape
+    (``_build.sumtable_config``), held equal to the library's
+    ``pllmod_sumtable_config``, with the CTAs an SM the card reports."""
+    import ctypes
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    n_codes = part.code_clv.shape[0]
+    out = (ctypes.c_longlong * 7)()
+    ok = _build.load().pllmod_sumtable_config(C, S, n_codes, Ppad, E, 0, out)
+    want = _build.sumtable_config(C, S, n_codes, Ppad, E)
+    keys = ("T", "RI", "IG", "SP", "threads", "smem")
+    got = dict(zip(keys, list(out)[:6])) if ok else None
+    if got != want:
+        raise AssertionError(f"kernel 8's configuration {got} is not its "
+                             f"mirror's {want}")
+    return dict(got, ctas_per_sm=out[6]) if got else dict(kind="simple")
+
+
+def sumtable_composite_ms(part, clvs, eref, basis) -> float:
+    """For information only, never called by the port: device ms of two
+    ``torch.matmul`` calls and a ``mul`` that compute the sumtables of
+    these edges from both sides' [E, C, S, Ppad] values, gathered
+    beforehand (tip sides expanded from their codes), untimed."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    ref = eref.long()
+    tab = part.code_clv.to(torch.float32)
+
+    def side(k):
+        x = clvs[ref[:, k]].view(-1, C, S, Ppad)
+        codes = part.tip_states[ref[:, 4 + k]].long()
+        tip = tab[codes].permute(0, 2, 1)[:, None].expand(-1, C, -1, -1)
+        return torch.where(ref[:, 2 + k].bool()[:, None, None, None], tip,
+                           x).contiguous()
+    x1, x2 = side(0), side(1)
+    ms = device_ms(lambda: torch.matmul(basis[0], x1) * torch.matmul(
+        basis[1], x2), 10)
+    del x1, x2
+    return ms
 
 
 def newton_design(parts) -> dict:
@@ -1164,6 +1232,7 @@ RESIDENT_PHASES = ("wait", "issue", "children", "product_max", "barrier",
                    "rescale_store")
 NEWTON_PHASES = ("coefficients", "sums", "reduce_push", "cluster_sync",
                  "newton_step")
+SUMTABLE_PHASES = ("barrier", "loads", "products", "stores")  # + staging
 
 
 def start_phase_build():
@@ -1177,7 +1246,7 @@ def start_phase_build():
 
 
 def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
-                  names) -> None:
+                  names, once=None) -> None:
     """Where a row of kernel 1 or a Newton iteration of kernel 10 spends
     its cycles: ``fn`` (one launch through the port's wrapper) run
     through ``marked``, the build with phase marks, records CTA 0's
@@ -1186,7 +1255,9 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
     inner ones (the first and last two dropped where there are eight or
     more, else one), and ms a launch of the marked build against the
     port's own library, timed in turns (library, marked, marked,
-    library) with the marks recording."""
+    library) with the marks recording. ``once``: the name of a phase
+    the kernel runs once, before its loop, marked in row 127 (kernel
+    8's staging)."""
     clk = torch.zeros(128 * 8, dtype=torch.int64, device="cuda")
     set_buffer(clk.data_ptr())
     t = []
@@ -1198,21 +1269,24 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
         fn()
     torch.cuda.synchronize()
     set_buffer(None)
-    c = clk.view(-1, 8).cpu().numpy()[:min(rows, 128)]
+    c_all = clk.view(-1, 8).cpu().numpy()
+    c = c_all[:min(rows, 128)]
     cut = 2 if len(c) >= 8 else 1
     c = c[cut:len(c) - cut] if len(c) > 2 * cut else c
     d = np.diff(c[:, :len(names) + 1], axis=1).mean(axis=0)
+    extra = {once: float(c_all[127, 1] - c_all[127, 0])} if once else {}
     print(json.dumps(dict(
         phases=label, kernel=kernel, rows=rows, library_ms=[t[0], t[3]],
         marked_ms=[t[1], t[2]],
         cycles=float((c[:, len(names)] - c[:, 0]).mean()),
-        **{n: float(v) for n, v in zip(names, d)})))
+        **{n: float(v) for n, v in zip(names, d)}, **extra)))
 
 
 def run_phase_profiles(build, cells) -> None:
     """:func:`phase_profile` of kernel 1 at the flagship and protein
-    cells and of kernel 10 at NEWTON_SHAPES' all-edge shapes, with the
-    build that :func:`start_phase_build` started."""
+    cells and of kernels 8 and 10 at SUMTABLE_SHAPES' and NEWTON_SHAPES'
+    all-edge shapes, with the build that :func:`start_phase_build`
+    started."""
     import ctypes
     paths = build.result()
     marked = _build.entry_points(paths)
@@ -1231,6 +1305,16 @@ def run_phase_profiles(build, cells) -> None:
         phase_profile(marked, set_buffer, label, "resident_walk",
                       lambda: resident.resident_walk(*args), len(idx8),
                       RESIDENT_PHASES)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, args in SUMTABLE_SHAPES:
+        cf = sumtable_design(args[0], len(args[3]))
+        if "all" not in label or "T" not in cf:
+            continue
+        items = len(args[3]) * (args[0].n_patterns_padded // cf["T"])
+        phase_profile(marked, set_buffer, label, "edge_sumtables",
+                      lambda: deriv.edge_sumtables(*args),
+                      min(127, -(-items // (n_sm * cf["ctas_per_sm"]))),
+                      SUMTABLE_PHASES, once="staging")
     for label, parts, sts, scs, t0, scalers, lws, lnbs in NEWTON_SHAPES:
         if "all" not in label:
             continue
@@ -1313,6 +1397,61 @@ def slot_ladder(part, n_taxa, own: int) -> list:
                             for x in (v[0], v[-1])})
 
 
+# kernel 8's rule: (taxa, patterns, states, categories) of the cells
+# whose BLO launches it (flagship DNA, protein) and of other state
+# counts on a 128-taxon tree
+SUMTABLE_SWEEP = [(128, 16384, 4, 4), (512, 4096, 20, 4), (128, 4096, 4, 1),
+                  (128, 4096, 5, 4), (128, 4096, 8, 4), (128, 4096, 16, 4),
+                  (128, 4096, 20, 4), (128, 4096, 32, 4)]
+
+
+def sumtable_routing_sweep() -> list:
+    """Kernel 8 at the BLO's launch shapes (every live edge, and each
+    edge-color class) of SUMTABLE_SWEEP's trees: the simple kernel and
+    the tiled kernel at every tile and ring depth it takes, device ms a
+    launch, each held bit for bit to the simple kernel (the measurements
+    behind ``_build.sumtable_config``'s rule)."""
+    rows = []
+    for taxa, sites, S, C in SUMTABLE_SWEEP:
+        part, tree = flagship.example(taxa, sites, seed=11, states=S,
+                                      n_rate_cats=C, device="cuda")
+        part = part.cache_eigen()
+        trav = blo.DirectedTraversal(tree)
+        tabs = blo._compile_tables(part, trav)
+        brl = torch.as_tensor(np.clip(tree.lengths, MIN_BRANCH_LEN,
+                                      MAX_BRANCH_LEN), dtype=torch.float32,
+                              device=part.device)
+        clvs, scalers = blo._directed_clvs(part, tabs, brl)
+        n_codes, Ppad = part.code_clv.shape[0], part.n_patterns_padded
+        tiles = [T for T in _build.SUMTABLE_TILES
+                 if _build.sumtable_config(C, S, n_codes, Ppad, 1, T)]
+        sets = [("all", trav.edge_mask)] + [
+            (f"color {k}", m) for k, m in enumerate(blo._edge_colors(tree))]
+        for name, mask in sets:
+            sel = torch.as_tensor(np.nonzero(mask)[0], device=part.device)
+            args = (part, clvs, scalers, tabs.eref6[sel], tabs.basis)
+            want = deriv.edge_sumtables(*args, simple=True)
+            ms = {"simple": device_ms(
+                lambda: deriv.edge_sumtables(*args, simple=True), 10)}
+            for T in tiles:
+                got = deriv.edge_sumtables(*args, tile=T)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"edge_sumtables at tile {T} "
+                                         "differs from the simple kernel")
+                ms[f"tile {T}"] = device_ms(lambda: deriv.edge_sumtables(
+                    *args, tile=T), 10)
+            rule = _build.sumtable_config(C, S, n_codes, Ppad, len(sel))
+            pick = f"tile {rule['T']}" if rule else "simple"
+            best = min(ms, key=ms.get)
+            rows.append(dict(taxa=taxa, patterns=sites, states=S, cats=C,
+                             edges=len(sel), set=name, rule=pick,
+                             rule_ms=ms[pick], best=best, best_ms=ms[best],
+                             simple_ms=ms["simple"], ms=ms))
+            print(f"kernel 8 sweep: {rows[-1]}")
+        del clvs, scalers
+    return rows
+
+
 def routing_sweep():
     """The routing sweep: :func:`sweep_rows` at every (states,
     categories) of SWEEP_SHAPES and size of SWEEP_SIZES (the trees' own
@@ -1341,7 +1480,8 @@ def routing_sweep():
 # time
 # ---------------------------------------------------------------------------
 PARENT_KERNELS = ("pllmod_resident_walk", "pllmod_fused_walk",
-                  "pllmod_child_pass", "pllmod_newton_edges")
+                  "pllmod_child_pass", "pllmod_edge_sumtables",
+                  "pllmod_newton_edges")
 
 
 def start_parent_build(parent: str):
@@ -1387,14 +1527,17 @@ def _call(fn, label, *args):
         raise RuntimeError(f"parent {label}: error {err}")
 
 
-def parent_compare(proc, cells, newton_shapes) -> list:
-    """Kernels 1, 2, 3 and 10 of another checkout (its C entry points,
+def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
+    """Kernels 1, 2, 3, 8 and 10 of another checkout (its C entry points,
     :func:`parent_libs`) beside this tree's on the same inputs: kernels
-    1-3 bit for bit, kernel 10 within DERIV_RTOL; device ms a launch
-    timed in turns (parent, this tree, this tree, parent). ``cells``:
-    (label, part, tree) of the flagship DNA, protein and 64-state cells;
-    ``newton_shapes``: (label, parts, sts, scs, t0, scalers, lws, lnBs)
-    of kernel 10's launches (all edges and each color class)."""
+    1-3 and 8 bit for bit, kernel 10 within DERIV_RTOL; device ms a
+    launch timed in turns (parent, this tree, this tree, parent).
+    ``cells``: (label, part, tree) of the flagship DNA, protein and
+    64-state cells; ``newton_shapes``: (label, parts, sts, scs, t0,
+    scalers, lws, lnBs) of kernel 10's launches, ``sumtable_shapes``:
+    (label, edge_sumtables' arguments) of kernel 8's (all edges and each
+    color class)."""
+    import ctypes
     libs = parent_libs(proc)
     rows = []
 
@@ -1421,15 +1564,29 @@ def parent_compare(proc, cells, newton_shapes) -> list:
         tab = fused.code_table(part)
         C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
         n_codes = tab.shape[0]
-        # kernel 1, where the slots fit both (the parent's tile is
-        # pattern_tile, its shared memory the code table, the category
-        # maxima, the slots and their scaler rows)
+        # kernel 1, where the slots fit both. A parent from before the
+        # walk's pre-pass (14 arguments) runs at pattern_tile, its shared
+        # memory the code table, the category maxima, the slots and their
+        # scaler rows; a later one takes this tree's tile and the
+        # pre-pass's scratch
         ri8, re1, re2, rns = resident.compile_resident(part, tree)
-        Tp = _build.pattern_tile(C)
-        parent_fits = 4 * (n_codes * S + C * Tp + rns * (C * S + 1) * Tp) \
-            <= _build.SMEM_PER_BLOCK
+        fn1 = libs["pllmod_resident_walk"]
+        if len(fn1.argtypes) == 14:
+            Tp = _build.pattern_tile(C)
+            parent_fits = 4 * (n_codes * S + C * Tp
+                               + rns * (C * S + 1) * Tp) \
+                <= _build.SMEM_PER_BLOCK
+            scratch = ()
+        else:
+            parent_fits = True
         if parent_fits and _build.resident_tile(C, S, n_codes, rns,
                                                 Ppad) is not None:
+            if len(fn1.argtypes) != 14:
+                Tp, rcf = _build.walk_launch_config(
+                    "pllmod_resident_walk", C, S, n_codes, rns, Ppad)
+                mats1 = torch.empty((len(ri8), 2, rcf["Q"]),
+                                    device=part.device)
+                scratch = (mats1.data_ptr(),)
             rP5 = fused.pair_pmats(part, brl, re1, re2, root_row=True)
             rargs = (ri8, rP5, part.tip_states, tab, rns)
             theirs_r = (torch.empty((C * S, Ppad), device=part.device),
@@ -1437,11 +1594,11 @@ def parent_compare(proc, cells, newton_shapes) -> list:
                                     device=part.device))
 
             def theirs1():
-                _call(libs["pllmod_resident_walk"], "resident walk",
+                _call(fn1, "resident walk",
                       ri8.data_ptr(), len(ri8), rP5.data_ptr(),
                       part.tip_states.data_ptr(), tab.data_ptr(), n_codes,
                       theirs_r[0].data_ptr(), theirs_r[1].data_ptr(), Ppad,
-                      C, S, rns, Tp)
+                      C, S, rns, Tp, *scratch)
             theirs1()
             ab(f"resident_walk ({label})",
                lambda: resident.resident_walk(*rargs), theirs1,
@@ -1514,6 +1671,49 @@ def parent_compare(proc, cells, newton_shapes) -> list:
            equal(lambda: [t for pair in mine3() for t in pair],
                  lambda: [t for pair in outs for t in pair],
                  f"child_pass ({label})"), 10, per=len(sl))
+    # kernel 8 at every BLO launch shape; a parent from before its tiled
+    # kernel takes the simple kernel's tile as its last argument, a later
+    # one the forced tile and ring depth (0, 0: its rule)
+    fn8 = libs["pllmod_edge_sumtables"]
+    mine_fn8 = _build.load().pllmod_edge_sumtables
+    for label, args in sumtable_shapes:
+        part, clvs, scalers, eref, basis = args
+        C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+        tabs = deriv.sumtable_tip_tables(part, basis)
+        outs = {}
+
+        def call8(fn, tail, out):
+            # the C entry point alone on the same inputs: no tip tables
+            # rebuilt, no output allocated (the wrapper does both)
+            _call(fn, "sumtables", eref.data_ptr(), len(eref),
+                  clvs.data_ptr(), scalers.data_ptr(), clvs.shape[0],
+                  part.tip_states.data_ptr(), part.n_tips, basis.data_ptr(),
+                  tabs.data_ptr(), tabs.shape[1], out[0].data_ptr(),
+                  out[1].data_ptr(), Ppad, C, S, *tail)
+        for who in ("mine", "theirs"):
+            outs[who] = (torch.empty((len(eref), C * S, Ppad),
+                                     device=clvs.device),
+                         torch.empty((len(eref), 1, Ppad), dtype=torch.int32,
+                                     device=clvs.device))
+        tail = ((_build.pattern_tile(C),) if len(fn8.argtypes) == 17
+                else (0, 0))
+
+        def theirs8():
+            call8(fn8, tail, outs["theirs"])
+
+        def mine8():
+            call8(mine_fn8, (0, 0), outs["mine"])
+        def mine8_out():
+            mine8()
+            return outs["mine"]
+        theirs8()
+        ab(f"edge_sumtables ({label})", mine8, theirs8,
+           equal(mine8_out, lambda: outs["theirs"],
+                 f"edge_sumtables ({label})"), 10)
+        if not all(torch.equal(g, w) for g, w in zip(
+                outs["mine"], deriv.edge_sumtables(*args))):
+            raise AssertionError(f"edge_sumtables ({label}): the C entry "
+                                 "point and the wrapper differ")
     # kernel 10 at every BLO launch shape
     for label, parts, sts, scs, t0, scalers, lws, lnbs in newton_shapes:
         nargs = (parts, sts, scs, t0, scalers, MIN_BRANCH_LEN,
@@ -1529,13 +1729,23 @@ def parent_compare(proc, cells, newton_shapes) -> list:
                              in zip(sts, scs, inputs)], dtype=torch.int64,
                             device=t0.device)
 
+        # a parent from before kernel 10's cluster design (13 arguments)
+        # takes the summed C·S; a later one each partition's (C·S, Ppad)
+        # on the host and a forced design (0: its rule)
+        fn10 = libs["pllmod_newton_edges"]
+        if len(fn10.argtypes) == 13:
+            shape_args, tail = (sum(st.shape[1] for st in sts),), ()
+        else:
+            dims = (ctypes.c_longlong * (2 * len(sts)))(
+                *[v for st in sts for v in st.shape[1:]])
+            shape_args, tail = (ctypes.addressof(dims),), (0,)
+
         def theirs10():
-            _call(libs["pllmod_newton_edges"], "newton", desc.data_ptr(),
-                  len(parts), sum(st.shape[1] for st in sts),
+            _call(fn10, "newton", desc.data_ptr(), len(parts), *shape_args,
                   t0.data_ptr(), MIN_BRANCH_LEN, MAX_BRANCH_LEN,
                   TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS,
                   got_t[0].data_ptr(), got_t[1].data_ptr(),
-                  got_t[2].data_ptr(), E)
+                  got_t[2].data_ptr(), E, *tail)
 
         def check10():
             mine = deriv.newton_edges_multi(*nargs)
@@ -1555,16 +1765,20 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path's timed loops")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time kernels 1, 2, 3 and 10 of the checkout "
-                         "at DIR beside this tree's, by device time")
+                    help="also time kernels 1, 2, 3, 8 and 10 of the "
+                         "checkout at DIR beside this tree's, by device "
+                         "time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    # the parent's build runs beside this tree's
+    # the parent's build runs beside this tree's (and is ended at exit,
+    # should a check fail before it is read)
     parent_build = start_parent_build(args.parent) if args.parent else None
+    if parent_build is not None:
+        atexit.register(parent_build.kill)
     # and the build with kernels 1 and 10's phase marks, for --profile
     phase_build = start_phase_build() if args.profile else None
     gpu = gpu_line()
@@ -1747,11 +1961,14 @@ def main(argv=None) -> int:
         print(json.dumps({"parent_compare": parent_compare(
             parent_build, [("flagship DNA", dna, tree),
                            ("protein", prot, ptree),
-                           ("64-state", wide, wtree)], NEWTON_SHAPES)}))
+                           ("64-state", wide, wtree)], NEWTON_SHAPES,
+            SUMTABLE_SHAPES)}))
     NEWTON_SHAPES.clear()
+    SUMTABLE_SHAPES.clear()
     del cells, dna64, prot64, wide64
     torch.cuda.empty_cache()
     routing = routing_sweep()
+    sumtable_routing = sumtable_routing_sweep()
 
     n_inner = FLAGSHIP["n_taxa"] - 2
     rate = n_inner * dna.n_patterns_padded / (ms["flagship DNA"] * 1e-3)
@@ -1765,6 +1982,7 @@ def main(argv=None) -> int:
                                  for k, v in packed_ms.items()},
                       "partitioned": partitioned}))
     print(json.dumps({"routing": routing}))
+    print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_line())

@@ -7,21 +7,51 @@
 //    pllmod_tpu/ops/pallas_deriv.py::_make_sumtable_kernel. For edge e
 //    and pattern p: left = A_c x1, right = Vinv_c x2 with
 //    A_c[k, i] = pi_c[i] V_c[i, k], st = left * right [E, C*S, Ppad] and
-//    sc = s1 + s2 [E, Ppad]. Bound: bytes. It reads each inner side's
-//    CLV column once and writes st once; at the flagship (128 x 16384
-//    GTR+G4, all 253 edges) ~378 MB of CLVs + ~265 MB of st + codes and
-//    scalers, ~0.2 ms at 3.35 TB/s, against ~60 MFLOP of products.
-//    Design: grid (edge, pattern tile); thread (c, p) as in pruning.cu
-//    reads its S values of an inner side into registers (coalesced
-//    across p) and applies its category's S x S matrix row by row; a
-//    tip side is one lookup in a code table of A_c codetab / Vinv_c
-//    codetab ([2, n_codes, C, S], made once per call by the wrapper),
-//    never an expanded tip plane. The matrices and tables are staged in
-//    shared memory when they fit (a template flag), else read from
-//    device memory, where they stay in L1/L2. Exactness: every product
-//    and sum is rounded separately in state order (__fmul_rn /
-//    __fadd_rn), as the plain version (ops/deriv.py) does, so st and sc
-//    equal it bit for bit.
+//    sc = s1 + s2 [E, Ppad]. Bound on the H100: bytes. It reads each
+//    inner side's CLV column and scaler once and writes st and sc once:
+//    all 1021 edges of the protein cell (512 taxa x 4096 patterns,
+//    C*S = 80) move ~3.4 GB, 1.0131 ms at 3.35 TB/s; the flagship's 253
+//    edges (128 x 16384, C*S = 16) 0.2124 ms. The operations have a
+//    ceiling of their own below it: every product and sum is rounded
+//    separately, so a product costs two instructions where an FMA would
+//    cost one, and the protein cell's ~1.0e10 products (~1530 inner
+//    sides x 4096 x 4 x 20 x 20) take ~0.6 ms at half the 67 TFLOP/s
+//    float32 peak; at DNA ~0.03 ms.
+//    Design (sumtable_tile_kernel). Persistent CTAs, as many as the card
+//    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), each
+//    stage the two bases transposed and padded, M[k][c][j][i] =
+//    basis[k][c][i][j], and the tip tables re-laid as PT[k][c][code][i]
+//    (the wrapper's sumtable_tip_tables, the same bits) once, then loop
+//    over work items (edge, tile of T patterns). A ring of two stages in
+//    shared memory holds the items' inputs: one thread issues the next
+//    item's while this one computes, on the stage's mbarrier: one 2-D
+//    TMA tensor copy an inner side (its CLV tile X[C*S][T]) and 1-D bulk
+//    copies of its scaler row or a tip side's codes; one barrier an
+//    item. Thread (c, ig, pg) owns RI states x RP = 4 patterns of
+//    category c on both sides (csrc/tile.cuh's register tiles, as
+//    kernel 3's child pass): tile::product for an inner side, each
+//    16-byte load of M serving 4 patterns, tile::lookup for a tip side;
+//    the sides meet in registers (one __fmul_rn an output) and leave as
+//    16-byte streaming stores. The tile is a rule of the shapes
+//    (sumtable_config, mirrored by ops/_build.py::sumtable_config; the
+//    rule is chip_smoke.py's kernel-8 sweep). Where the rule takes no
+//    tile (C*S beyond one copy's 256 rows, tables beyond a block's
+//    shared memory as at 64 states x 4 categories, CTAs of under 4
+//    warps, fewer items than SMs), the simple kernel runs
+//    (edge_sumtable_kernel: grid (edge, pattern tile), thread (c, p),
+//    its S values in registers, the matrices row by row), chosen by
+//    that rule alone.
+//    Measured on the H100 (chip_smoke.py, PERF.md): issuing the items'
+//    CLV tiles as 16-byte cp.async by every thread took 43 % of a
+//    protein item's cycles (the copies queue behind the products'
+//    shared-memory loads); one tensor copy a side took that away. The
+//    widest tile with two stages was the fastest tiled configuration at
+//    every swept shape or within 2.1 % of it; more resident threads
+//    (narrower tiles) or a third stage did not pay.
+//    Exactness: every output is summed over j = 0..S-1 in order, every
+//    product and sum rounded separately (__fmul_rn / __fadd_rn, no FMA
+//    contraction, no tensor cores), as the plain version (ops/deriv.py)
+//    does, so st and sc equal it bit for bit in both kernels.
 //  * pllmod_edge_derivs replaces pallas_deriv.py::_make_deriv_kernel.
 //    Bound: bytes, one read of st and sc (~0.085 ms at the flagship for
 //    all edges). Design: one CTA per edge forms the rows
@@ -60,6 +90,7 @@
 //    streaming kernel stays for edges that not even 16 CTAs hold. The
 //    choice is a rule of the shapes, never a reaction to a failed launch.
 #include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "common.cuh"
 #include "tile.cuh"
@@ -92,6 +123,7 @@ struct SumtableArgs {
   float* st;             // [nE, C*S, Ppad]
   int* sc;               // [nE, Ppad]
   int Ppad, C, S, T;
+  int SP, IG;            // the tiled kernel's (sumtable_config)
 };
 
 size_t sumtable_stage_floats(int C, int S, int n_codes) {
@@ -173,6 +205,298 @@ int launch_sumtable_t(const SumtableArgs& a, cudaStream_t stream) {
                                      : edge_sumtable_kernel<MAXS, false>,
                                dim3(a.nE, a.Ppad / a.T), dim3(a.C * a.T),
                                smem, stream, a);
+}
+
+// The tiled kernel. Its launch configuration (ops/_build.py::
+// sumtable_config mirrors it): pattern tile T, states a thread RI (4 where
+// the register tile is 4 or 20 states, else 8), i-groups IG = ceil(S /
+// RI), padded states SP = IG * RI and threads C * IG * T / 4. Shared
+// memory, in floats from a 128-byte aligned base (128 bytes of slack
+// align it): the ring's two mbarriers in the first 32, the two bases M
+// [2][C][S][SP] and tables PT [2][C][n_codes][SP], then from a multiple
+// of 32 two stages of 2 xs + 4 T floats, rounded up to 32: the CLV tiles X
+// [C*S][T] at 0 and xs = C*S*T rounded up to 32 (128-byte aligned, as a
+// tensor copy's destination must be), codes [2][T], scalers [2][T].
+constexpr int kSumRP = 4;                          // patterns a thread
+constexpr int kSumNB = 2;                          // ring stages
+constexpr int kSumTiles[7] = {256, 128, 64, 32, 16, 8, 4};
+constexpr int kSumBoxRows = 256;    // a tensor copy's box: C*S at most
+constexpr int kSumMinThreads = 128; // the rule's least CTA (4 warps)
+constexpr int kSumMinItems = 132;   // the rule's least grid: H100's SMs
+
+struct SumConfig {
+  int T, ri, ig, sp, threads;
+  long long smem;
+};
+
+template <int MAXS>
+__host__ __device__ constexpr int sum_ri() {
+  return (MAXS == 4 || MAXS == 20) ? 4 : 8;
+}
+
+// floats before the ring; floats of one side's CLV tile; of a stage
+__host__ __device__ inline int sum_ring_offset(int C, int S, int n_codes,
+                                               int SP) {
+  return tile::round_up(32 + 2 * C * S * SP + 2 * C * n_codes * SP, 32);
+}
+__host__ __device__ inline int sum_side_floats(int C, int S, int T) {
+  return tile::round_up(C * S * T, 32);
+}
+__host__ __device__ inline int sum_stage_floats(int C, int S, int T) {
+  return tile::round_up(2 * sum_side_floats(C, S, T) + 4 * T, 32);
+}
+
+// The configuration for nE edges, or false where the tiled kernel takes
+// none (the simple kernel then runs). T: 0 for the rule, else forced.
+// The rule (chip_smoke.py's kernel-8 sweep measured it): where C*S fits
+// one tensor copy's box (256 rows), the widest tile T that divides Ppad
+// with at most 256 threads and whose two stages fit a block's shared
+// memory; the simple kernel instead where that CTA has fewer than 4
+// warps or the launch fewer items than the card has SMs, as there the
+// persistent CTAs' staging and first copies are not paid back.
+bool sumtable_config(int C, int S, int n_codes, int Ppad, int nE,
+                     int T_force, SumConfig* cf) {
+  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || Ppad < 1 ||
+      C * S > kSumBoxRows)
+    return false;
+  int ri = 0;
+  common::dispatch_states(S, [&](auto m) {
+    ri = sum_ri<decltype(m)::value>();
+    return 0;
+  });
+  const int ig = (S + ri - 1) / ri, sp = ig * ri;
+  const long long fixed = sum_ring_offset(C, S, n_codes, sp);
+  for (int T : kSumTiles) {
+    if ((T_force && T != T_force) || Ppad % T) continue;
+    const long long threads = (long long)C * ig * (T / kSumRP);
+    const long long smem =
+        4 * (fixed + kSumNB * (long long)sum_stage_floats(C, S, T)) + 128;
+    if (threads > kMaxThreads || smem > (long long)kSmemOptin) continue;
+    if (!T_force && (threads < kSumMinThreads ||
+                     (long long)nE * (Ppad / T) < kSumMinItems))
+      return false;
+    *cf = SumConfig{T, ri, ig, sp, (int)threads, smem};
+    return true;
+  }
+  return false;
+}
+
+// A 2-D tensor copy (global -> shared) of the box at column x, row y of
+// `map`, its completion counted in bytes on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y,
+                                            unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(tile::smem_ptr(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y),
+      "r"(tile::smem_ptr(bar))
+      : "memory");
+}
+
+// EXACT: S == MAXS, so that the state loops need no guard. clv_map: the
+// CLVs as a 2-D tensor [n_slots * C*S rows, Ppad columns] of floats,
+// boxes of C*S rows x T columns.
+template <int MAXS, bool EXACT>
+__global__ void __launch_bounds__(kMaxThreads)
+sumtable_tile_kernel(SumtableArgs a, const __grid_constant__ CUtensorMap
+                                         clv_map) {
+  extern __shared__ __align__(128) float sum_smem[];
+  constexpr int RI = sum_ri<MAXS>(), RP = kSumRP;
+  const int T = a.T, C = a.C, S = EXACT ? MAXS : a.S, CS = C * S;
+  const int SP = a.SP, IG = a.IG, Ppad = a.Ppad;
+  const int n_codes = a.n_codes, tid = threadIdx.x, nthr = blockDim.x;
+  const int npg = T / RP;
+  const int pg = tid % npg, rest = tid / npg, ig = rest % IG, c = rest / IG;
+  const int i0 = ig * RI, pl0 = pg * RP;
+  const int ntiles = Ppad / T;
+  const long long n_items = (long long)a.nE * ntiles;
+  const int xs = sum_side_floats(C, S, T);
+  const int stage = sum_stage_floats(C, S, T);
+  // 128-byte alignment by pointer arithmetic on the shared array, so that
+  // the compiler keeps every access a shared-memory one (a cast through
+  // an integer turns them into generic loads)
+  float* base =
+      sum_smem + ((128 - (tile::smem_ptr(sum_smem) & 127)) & 127) / 4;
+  auto* bars = reinterpret_cast<unsigned long long*>(base);  // [2]
+  float* M = base + 32;                       // [2][C][S][SP]
+  float* PT = M + 2 * CS * SP;                // [2][C][n_codes][SP]
+  float* ring = base + sum_ring_offset(C, S, n_codes, SP);  // [2][stage]
+
+  // thread 0: item `it`'s inputs into ring stage `slot` on the stage's
+  // mbarrier: an inner side's CLV tile (one tensor copy) and scaler row, a
+  // tip side's codes (bulk copies)
+  auto issue = [&](long long it, int slot) {
+    if (it >= n_items) return;
+    const int e = (int)(it / ntiles);
+    const int p0 = (int)(it - (long long)e * ntiles) * T;
+    const int* row = a.eref6 + 6 * e;
+    float* X = ring + (size_t)slot * stage;
+    int* cd = reinterpret_cast<int*>(X + 2 * xs);
+    int* scl = cd + 2 * T;
+    unsigned long long* bar = bars + slot;
+    unsigned bytes = 0;
+    for (int k = 0; k < 2; ++k)
+      bytes += row[kIsTip1 + k] != 0 ? 4u * T : 4u * (CS + 1) * T;
+    tile::mbar_expect(bar, bytes);
+    for (int k = 0; k < 2; ++k) {
+      if (row[kIsTip1 + k] != 0) {
+        const int tip = min(max(row[kTip1 + k], 0), a.n_tips - 1);
+        tile::bulk_copy(cd + k * T, a.codes + (size_t)tip * Ppad + p0,
+                        4u * T, bar);
+      } else {
+        const int s = min(max(row[kSlot1 + k], 0), a.n_slots - 1);
+        tma_load_2d(X + k * xs, &clv_map, p0, s * CS, bar);
+        tile::bulk_copy(scl + k * T, a.scalers + (size_t)s * Ppad + p0,
+                        4u * T, bar);
+      }
+    }
+  };
+
+  PHASE_INIT
+  PHASE_MARK(127, 0)
+  // the first item's copies fly while the CTA stages its tables
+  if (tid == 0) {
+    for (int i = 0; i < kSumNB; ++i) tile::mbar_init(bars + i, 1);
+    tile::mbar_fence_init();
+    issue(blockIdx.x, 0);
+  }
+  // the bases transposed, M[k][c][j][i] = basis[k][c][i][j] (read in the
+  // basis' order), the padding states zero; the tables re-laid
+  for (int e = tid; e < 2 * CS * S; e += nthr) {
+    const int kc = e / (S * S), r = e - kc * S * S, i = r / S, j = r - i * S;
+    M[(kc * S + j) * SP + i] = a.basis[e];
+  }
+  const int pad = SP - S;
+  for (int e = tid; e < 2 * CS * pad; e += nthr)
+    M[(e / pad) * SP + S + e % pad] = 0.f;
+  for (int e = tid; e < 2 * C * n_codes * SP; e += nthr) {
+    const int i = e % SP, r = e / SP, code = r % n_codes, kc = r / n_codes;
+    const int k = kc / C, cc = kc - k * C;
+    PT[e] = i < S ? a.tiptab[(((size_t)k * n_codes + code) * C + cc) * S + i]
+                  : 0.f;
+  }
+  __syncthreads();  // the mbarriers and the staged tables
+  PHASE_MARK(127, 1)
+
+  int n = 0;
+  for (long long it = blockIdx.x; it < n_items; it += gridDim.x, ++n) {
+    [[maybe_unused]] const int w = n < 127 ? n : 128;  // phase rows 0..126
+    PHASE_MARK(w, 0)
+    // every thread is done with the stage the next item's copies refill
+    // (the previous item's); they fly while this item computes
+    __syncthreads();
+    PHASE_MARK(w, 1)
+    if (tid == 0) issue(it + gridDim.x, (n + 1) % kSumNB);
+    tile::mbar_wait(bars + n % kSumNB, (unsigned)(n / kSumNB) & 1u);
+    PHASE_MARK(w, 2)
+    const int e = (int)(it / ntiles);
+    const int p = (int)(it - (long long)e * ntiles) * T + pl0;
+    const int* row = a.eref6 + 6 * e;
+    const float* X = ring + (size_t)(n % kSumNB) * stage;
+    const int* cd = reinterpret_cast<const int*>(X + 2 * xs);
+    float acc[2][RI][RP];
+    bool tip[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      tip[k] = row[kIsTip1 + k] != 0;
+      if (tip[k])
+        tile::lookup<RI, RP>(PT + (size_t)(k * C + c) * n_codes * SP,
+                             cd + k * T, n_codes, SP, i0, pl0, acc[k]);
+      else
+        tile::product<RI, RP, MAXS, EXACT>(
+            M + (size_t)(k * C + c) * S * SP,
+            X + (size_t)k * xs + (size_t)c * S * T, S, SP, T, i0, pl0,
+            acc[k]);
+    }
+    PHASE_MARK(w, 3)
+    float* dst = a.st + ((size_t)e * CS + c * S + i0) * Ppad + p;
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+      if (EXACT || i0 + r < S) {
+        float v[RP];
+#pragma unroll
+        for (int x = 0; x < RP; ++x)
+          v[x] = __fmul_rn(acc[0][r][x], acc[1][r][x]);
+        tile::store_run<RP, true>(dst + (size_t)r * Ppad, v, p, Ppad, true);
+      }
+    if (c == 0 && ig == 0) {
+      const int* scl = cd + 2 * T;
+      int v[RP];
+#pragma unroll
+      for (int x = 0; x < RP; ++x)
+        v[x] = (tip[0] ? 0 : scl[pl0 + x]) + (tip[1] ? 0 : scl[T + pl0 + x]);
+      tile::store_run<RP, true>(a.sc + (size_t)e * Ppad + p, v, p, Ppad,
+                                true);
+    }
+    PHASE_MARK(w, 4)
+  }
+}
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query (no link to libcuda), looked up once; null where missing.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The persistent grid: as many CTAs as the card holds at once, at most
+// one an item.
+template <int MAXS, bool EXACT>
+int launch_sum_tile(const SumtableArgs& a, const SumConfig& cf,
+                    cudaStream_t stream) {
+  auto kern = sumtable_tile_kernel<MAXS, EXACT>;
+  const size_t smem = (size_t)cf.smem;
+  const int CS = a.C * a.S;
+  // the copies' sources must be 16-byte aligned
+  for (const void* ptr : {(const void*)a.clvs, (const void*)a.scalers,
+                          (const void*)a.codes})
+    if (reinterpret_cast<size_t>(ptr) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {(cuuint64_t)a.Ppad,
+                              (cuuint64_t)a.n_slots * CS};
+  const cuuint64_t strides[1] = {(cuuint64_t)a.Ppad * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)a.T, (cuuint32_t)CS};
+  const cuuint32_t estrides[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(a.clvs), dims, strides, box, estrides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, n_sm = 0, occ = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern,
+                                                        cf.threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)a.nE * (a.Ppad / a.T);
+  const long long grid = items < (long long)n_sm * occ
+                             ? items : (long long)n_sm * occ;
+  kern<<<(unsigned)grid, cf.threads, smem, stream>>>(a, map);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -672,16 +996,65 @@ int prepare_deriv(const void* kern, int CS, size_t& smem) {
 }  // namespace
 
 // Every entry point returns the CUDA error code of its launch (0 = queued).
+
+// Kernel 8's tiled configuration for nE edges at these shapes (T: 0 for
+// the rule, else forced): out[0..6] = T, RI, IG, SP, threads, shared
+// memory bytes, and the CTAs an SM the card reports for it
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 where the query
+// failed). Returns 1, or 0 where the tiled kernel takes none (the simple
+// kernel runs). ops/_build.py::sumtable_config mirrors out[0..5].
+extern "C" int pllmod_sumtable_config(int C, int S, int n_codes, int Ppad,
+                                      int nE, int T, long long* out) {
+  SumConfig cf;
+  if (!sumtable_config(C, S, n_codes, Ppad, nE, T, &cf)) return 0;
+  const long long v[6] = {cf.T, cf.ri, cf.ig, cf.sp, cf.threads, cf.smem};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  out[6] = -1;
+  int occ = 0;
+  common::dispatch_states(S, [&](auto m) {
+    constexpr int MAXS = decltype(m)::value;
+    auto kern = S == MAXS ? sumtable_tile_kernel<MAXS, true>
+                          : sumtable_tile_kernel<MAXS, false>;
+    if (cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)cf.smem) == cudaSuccess &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, kern, cf.threads, (size_t)cf.smem) == cudaSuccess)
+      out[6] = occ;
+    return 0;
+  });
+  cudaGetLastError();
+  return 1;
+}
+
+// tile: 0 for the rule (sumtable_config, else the simple kernel), else
+// the tiled kernel at that tile, or cudaErrorInvalidConfiguration where it
+// takes none; simple: 1 forces the simple kernel (at the widest pattern
+// tile, C * T <= 256).
 extern "C" int pllmod_edge_sumtables(
     const int* eref6, int nE, const float* clvs, const int* scalers,
     int n_slots, const int* codes, int n_tips, const float* basis,
     const float* tiptab, int n_codes, float* st, int* sc, int Ppad, int C,
-    int S, int T, void* stream) {
+    int S, int tile, int simple, void* stream) {
   SumtableArgs a{eref6, nE, clvs, scalers, n_slots, codes, n_tips, basis,
-                 tiptab, n_codes, st, sc, Ppad, C, S, T};
-  if (C * T > kMaxThreads || Ppad % T != 0 || Ppad / T > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+                 tiptab, n_codes, st, sc, Ppad, C, S, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SumConfig cf;
+  if (!simple && sumtable_config(C, S, n_codes, Ppad, nE, tile, &cf)) {
+    a.T = cf.T;
+    a.SP = cf.sp;
+    a.IG = cf.ig;
+    return common::dispatch_states(S, [&](auto m) {
+      constexpr int MAXS = decltype(m)::value;
+      return S == MAXS ? launch_sum_tile<MAXS, true>(a, cf, s)
+                       : launch_sum_tile<MAXS, false>(a, cf, s);
+    });
+  }
+  if (!simple && tile != 0) return (int)cudaErrorInvalidConfiguration;
+  a.T = 64;
+  while (a.T > 1 && C * a.T > kMaxThreads) a.T /= 2;
+  if (Ppad % a.T != 0 || Ppad / a.T > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   return common::dispatch_states(
       S, [&](auto m) { return launch_sumtable_t<decltype(m)::value>(a, s); });
 }

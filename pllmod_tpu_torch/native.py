@@ -1,9 +1,16 @@
 """ctypes bindings for the native C++ host-runtime kernels.
 
-The same library as ``pllmod_tpu.native``: builds
-``native/libpllmod_native.so`` from ``native/pllmod_native.cpp`` on first
-use (g++ -O3 -march=native) and exposes the entry points this package
-uses so far:
+The port's own build of ``native/pllmod_native.cpp``, the source the JAX
+package compiles too: g++ -O3 -march=native into the gitignored
+``build/`` at the repository root, as ``pllmod_native-<hash>.so`` (a
+hash of the source and the flags, as ``ops/_build.library_path`` names
+the CUDA libraries). The port never writes ``native/libpllmod_native.so``,
+the file the JAX package builds and loads. The compiler writes a
+temporary file in the same directory, which ``os.replace`` moves into
+place, and an ``fcntl.flock`` on ``build/pllmod_native.lock`` is held
+from the freshness check to the load: processes that start together
+build the library once, and none loads a half-written file. Entry points
+this package uses so far:
 
 - :func:`compress_patterns` — site-pattern dedup (pll_compress_site_patterns)
 - :func:`parse_newick` — one-pass Newick -> flat arrays
@@ -11,13 +18,19 @@ uses so far:
   branch-length optimizer
 
 Every entry point has a pure-python fallback in the calling module;
-callers use :func:`available` to pick the fast path.
+callers use :func:`available` to pick the fast path. The fallback is
+taken only where there is no source or no ``g++``, or the source does
+not compile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
 import threading
 
@@ -25,44 +38,65 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_HERE, "native", "pllmod_native.cpp")
-_LIB = os.path.join(_HERE, "native", "libpllmod_native.so")
+BUILD_DIR = os.path.join(_HERE, "build")
+_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-shared"]
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def library_path(build_dir: str = BUILD_DIR) -> str:
+    """Where the library of this source and these flags lives."""
+    digest = hashlib.sha1(" ".join(_FLAGS).encode())
+    with open(_SRC, "rb") as f:
+        digest.update(f.read())
+    return os.path.join(build_dir,
+                        f"pllmod_native-{digest.hexdigest()[:12]}.so")
+
+
+def _compile(path: str) -> bool:
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
-             "-o", _LIB, _SRC],
-            check=True, capture_output=True, timeout=120)
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, path)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
         return False
+
+
+def load_library(build_dir: str = BUILD_DIR):
+    """The library built into ``build_dir`` (compiled there first if it
+    is missing), loaded and typed; None where there is no source or no
+    ``g++``, or the source does not compile."""
+    if not os.path.exists(_SRC) or shutil.which("g++") is None:
+        return None
+    os.makedirs(build_dir, exist_ok=True)
+    path = library_path(build_dir)
+    with open(os.path.join(build_dir, "pllmod_native.lock"), "a") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path) and not _compile(path):
+                return None
+            lib = ctypes.CDLL(path)
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+    lib.pllmod_compress_patterns.restype = ctypes.c_int64
+    lib.pllmod_newick_parse.restype = ctypes.c_int
+    lib.pllmod_newick_extract.restype = ctypes.c_int
+    lib.pllmod_directed_traversal.restype = ctypes.c_int64
+    return lib
 
 
 def _load():
     global _lib, _tried
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        if not os.path.exists(_LIB) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_SRC) > os.path.getmtime(_LIB)):
-            if not os.path.exists(_SRC) or not _build():
-                return None
-        try:
-            lib = ctypes.CDLL(_LIB)
-        except OSError:
-            return None
-        lib.pllmod_compress_patterns.restype = ctypes.c_int64
-        lib.pllmod_newick_parse.restype = ctypes.c_int
-        lib.pllmod_newick_extract.restype = ctypes.c_int
-        lib.pllmod_directed_traversal.restype = ctypes.c_int64
-        _lib = lib
+        if _lib is None and not _tried:
+            _tried = True
+            _lib = load_library()
         return _lib
 
 

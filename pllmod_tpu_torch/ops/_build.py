@@ -48,9 +48,13 @@ ENTRY_POINTS = {
                                       _VP], _I),
     "pllmod_fused_config": ("fused", [_I] * 4 + [_VP], _I),
     "pllmod_child_config": ("levels", [_I] * 4 + [_VP], _I),
+    # kernel 8: ..., Ppad, C, S, the forced tile (0: the rule), whether to
+    # force the simple kernel
     "pllmod_edge_sumtables": ("deriv", [_VP, _I, _VP, _VP, _I, _VP, _I, _VP,
-                                        _VP, _I, _VP, _VP, _I, _I, _I, _I,
-                                        _VP], _I),
+                                        _VP, _I, _VP, _VP] + [_I] * 5
+                              + [_VP], _I),
+    # kernel 8's tiled configuration: C, S, n_codes, Ppad, E, forced tile
+    "pllmod_sumtable_config": ("deriv", [_I] * 6 + [_VP], _I),
     "pllmod_edge_derivs": ("deriv", [_VP] * 7 + [_I] * 3 + [_VP], _I),
     # kernel 10: descriptors (device), K, their (C·S, Ppad) on the host,
     # ..., the forced design (0: the rule)
@@ -392,6 +396,51 @@ def child_tile(C: int, S: int, n_codes: int, Ppad: int, W: int) -> int:
         if -(-Ppad // T) * W * -(-C // cf["CB"]) >= LEVEL_CTAS:
             return T
     return fits[-1][0]
+
+
+SUMTABLE_TILES = (256, 128, 64, 32, 16, 8, 4)
+SUMTABLE_BOX_ROWS = 256        # rows of one tensor copy's box
+SUMTABLE_MIN_THREADS = 128     # the rule's least CTA (4 warps)
+
+
+@functools.lru_cache(maxsize=None)
+def sumtable_config(C: int, S: int, n_codes: int, Ppad: int, E: int,
+                    tile: int | None = None):
+    """Kernel 8's tiled launch configuration for E edges (csrc/deriv.cu
+    sumtable_config), or None where the tiled kernel takes none and the
+    simple kernel runs: a dict of T (pattern tile), RI (states a thread),
+    IG, SP (states padded to whole i-groups), threads (C · IG · T / 4)
+    and smem (bytes: 128 of alignment slack; the ring's two mbarriers,
+    the two bases and the tip tables; two stages of both sides' CLV
+    tiles, codes and scalers, each 128-byte aligned). The rule, from
+    ``chip_smoke.py``'s kernel-8 sweep: where C·S fits one tensor copy's
+    box (SUMTABLE_BOX_ROWS), the widest tile of SUMTABLE_TILES that
+    divides Ppad with at most 256 threads and whose stages fit a block's
+    shared memory; None instead where that CTA has fewer than
+    SUMTABLE_MIN_THREADS threads or the launch fewer items (E · Ppad / T)
+    than the card has SMs. ``tile`` forces a tile (then only the fit
+    counts). Cached per shape: the BLO launches kernel 8 a hundred times
+    a call."""
+    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or Ppad < 1
+            or C * S > SUMTABLE_BOX_ROWS):
+        return None
+    ri = 4 if _ladder(S) in (4, 20) else 8
+    ig = -(-S // ri)
+    sp = ig * ri
+    fixed = _round_up(32 + 2 * C * S * sp + 2 * C * n_codes * sp, 32)
+    for T in SUMTABLE_TILES:
+        if tile not in (None, T) or Ppad % T:
+            continue
+        threads = C * ig * (T // 4)
+        stage = _round_up(2 * _round_up(C * S * T, 32) + 4 * T, 32)
+        smem = 4 * (fixed + 2 * stage) + 128
+        if threads > MAX_THREADS or smem > SMEM_PER_BLOCK:
+            continue
+        if tile is None and (threads < SUMTABLE_MIN_THREADS
+                             or E * (Ppad // T) < SMS):
+            return None
+        return dict(T=T, RI=ri, IG=ig, SP=sp, threads=threads, smem=smem)
+    return None
 
 
 def check_tensors(name: str, specs) -> None:

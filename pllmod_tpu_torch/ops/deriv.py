@@ -152,7 +152,8 @@ def _deriv_inputs(partition, lw, lnB):
 # ---------------------------------------------------------------------------
 # kernel 8: per-edge sumtables
 # ---------------------------------------------------------------------------
-def edge_sumtables(partition, clvs, scalers, eref6, basis=None):
+def edge_sumtables(partition, clvs, scalers, eref6, basis=None, *,
+                   tile: int | None = None, simple: bool = False):
     """Per-edge sumtables from directed CLVs.
 
     Args:
@@ -160,6 +161,9 @@ def edge_sumtables(partition, clvs, scalers, eref6, basis=None):
         Ppad] (the fused walk's buffers)
       eref6: int32 [E, 6] (:func:`compile_edge_refs`)
       basis: optional :func:`sumtable_basis`
+      tile: force kernel 8's tiled kernel at this pattern tile
+        (:func:`_build.sumtable_config`); simple: force its simple
+        kernel; by default the rule picks
     Returns:
       (st [E, C·S, Ppad] float32, sc [E, 1, Ppad] int32)
     """
@@ -168,33 +172,41 @@ def edge_sumtables(partition, clvs, scalers, eref6, basis=None):
     tabs = sumtable_tip_tables(partition, basis)
     if clvs.device.type == "cpu":
         return _sumtables_plain(partition, clvs, scalers, eref6, basis, tabs)
+    name = "pllmod_edge_sumtables"
     C, S = partition.n_cats, partition.states
     n_slots, _, Ppad = clvs.shape
-    E = eref6.shape[0]
-    T = _build.pattern_tile(C)
+    E, n_codes = eref6.shape[0], tabs.shape[1]
     codes = partition.tip_states
-    _build.check_tensors("pllmod_edge_sumtables", [
+    _build.check_tensors(name, [
         (clvs, torch.float32, (n_slots, C * S, Ppad)),
         (scalers, torch.int32, (n_slots, 1, Ppad)),
         (eref6, torch.int32, (E, 6)),
         (codes, torch.int32, (partition.n_tips, Ppad)),
         (basis, torch.float32, (2, C, S, S)),
-        (tabs, torch.float32, (2, tabs.shape[1], C, S))])
-    if S > _build.MAX_STATES or Ppad % T or Ppad // T > 65535:
-        raise ValueError(f"pllmod_edge_sumtables: takes at most "
-                         f"{_build.MAX_STATES} states and a multiple of "
-                         f"{T} patterns (at most {65535 * T}); got S={S}, "
-                         f"Ppad={Ppad}")
+        (tabs, torch.float32, (2, n_codes, C, S))])
+    if S > _build.MAX_STATES:
+        raise ValueError(f"{name}: takes at most {_build.MAX_STATES} "
+                         f"states, got S={S}")
+    if simple or _build.sumtable_config(C, S, n_codes, Ppad, E,
+                                        tile) is None:
+        if tile and not simple:
+            raise ValueError(f"{name}: the tiled kernel takes no "
+                             f"configuration at tile {tile} (C={C}, S={S}, "
+                             f"Ppad={Ppad})")
+        T = _build.pattern_tile(C)
+        if Ppad % T or Ppad // T > 65535:
+            raise ValueError(f"{name}: the simple kernel takes a multiple "
+                             f"of {T} patterns (at most {65535 * T}); "
+                             f"got Ppad={Ppad}")
     st = torch.empty((E, C * S, Ppad), dtype=torch.float32,
                      device=clvs.device)
     sc = torch.empty((E, 1, Ppad), dtype=torch.int32, device=clvs.device)
     if E:
-        _build.launch("pllmod_edge_sumtables", clvs.device,
-                      eref6.data_ptr(), E, clvs.data_ptr(),
-                      scalers.data_ptr(), n_slots, codes.data_ptr(),
-                      partition.n_tips, basis.data_ptr(), tabs.data_ptr(),
-                      tabs.shape[1], st.data_ptr(), sc.data_ptr(), Ppad, C,
-                      S, T)
+        _build.launch(name, clvs.device, eref6.data_ptr(), E,
+                      clvs.data_ptr(), scalers.data_ptr(), n_slots,
+                      codes.data_ptr(), partition.n_tips, basis.data_ptr(),
+                      tabs.data_ptr(), n_codes, st.data_ptr(), sc.data_ptr(),
+                      Ppad, C, S, tile or 0, int(simple))
         LAUNCHES["edge_sumtables"] += 1
     return st, sc
 

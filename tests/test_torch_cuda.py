@@ -22,8 +22,9 @@ import numpy as np
 
 from pllmod_tpu_torch import flagship
 from pllmod_tpu_torch.common import PllModError
-from pllmod_tpu_torch.ops import (_build, clv, deriv, engine, fused,
-                                  grouped, levels, resident)
+from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine,
+                                  fused, grouped, levels, resident)
+from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded
 from pllmod_tpu_torch.tree.topology import Tree
 
@@ -1016,3 +1017,157 @@ def test_newton_every_design_matches_plain(cuda, shapes, n_sites):
     assert seen == ([1, 2, 4, 8, 16] if n_sites == 512 else [1, 4, 8, 16])
     with pytest.raises(ValueError, match="cluster of 3"):
         deriv.newton_edges_multi(*args, force=3)
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: the tiled sumtable kernel's shapes, tiles and rings, and the
+# simple kernel the rule keeps for the shapes it does not take
+# ---------------------------------------------------------------------------
+SUMTABLE_STATES = (4, 5, 8, 16, 20, 32, 61, 64)
+
+
+def _sumtable_config_lib(C, S, n_codes, Ppad, E, T=0):
+    """(pllmod_sumtable_config's configuration, the CTAs an SM the card
+    reports for it), or (None, None)."""
+    out = (ctypes.c_longlong * 7)()
+    if not _build.load().pllmod_sumtable_config(C, S, n_codes, Ppad, E, T,
+                                                out):
+        return None, None
+    keys = ("T", "RI", "IG", "SP", "threads", "smem")
+    return dict(zip(keys, list(out)[:6])), out[6]
+
+
+def _sumtables_equal(part, clvs, scalers, eref, basis, **force):
+    before = deriv.LAUNCHES["edge_sumtables"]
+    st, sc = deriv.edge_sumtables(part, clvs, scalers, eref, basis, **force)
+    st_p, sc_p = deriv.edge_sumtables_plain(part, clvs, scalers, eref, basis)
+    torch.cuda.synchronize()
+    assert torch.equal(st, st_p), force
+    assert torch.equal(sc, sc_p), force
+    assert deriv.LAUNCHES["edge_sumtables"] == before + 1
+
+
+def _n_codes(part):
+    return part.code_clv.shape[0]
+
+
+@pytest.mark.parametrize("cats", [1, 4, 8])
+@pytest.mark.parametrize("states", SUMTABLE_STATES)
+def test_sumtable_kernel_state_ladder(cuda, states, cats):
+    """Kernel 8 bit for bit on every edge row (dead rows are tip/tip
+    dummies) at the state ladder's shapes: by the rule, the simple kernel
+    forced, and the tiled kernel at every tile it takes (none at 61 and
+    64 states of 4 and 8 categories, whose tables exceed a block)."""
+    part, tree = _example(states, cats, cuda, n_taxa=10, n_sites=512)
+    tabs, clvs, scalers = _directed(part, tree)
+    args = (part, clvs, scalers, tabs.eref6, tabs.basis)
+    _sumtables_equal(*args)
+    _sumtables_equal(*args, simple=True)
+    Ppad, E = part.n_patterns_padded, tabs.eref6.shape[0]
+    tiles = [T for T in _build.SUMTABLE_TILES if _build.sumtable_config(
+        cats, states, _n_codes(part), Ppad, E, T)]
+    assert (not tiles) == (states > 32 and cats > 1)
+    for T in tiles:
+        _sumtables_equal(*args, tile=T)
+
+
+def test_sumtable_kernel_tip_tip_rows(cuda):
+    """A 3-taxon tree (every edge joins a tip to the inner node) and rows
+    that join two tips, in the tiled and the simple kernel."""
+    part, tree = _example(20, 4, cuda, n_taxa=3, n_sites=512)
+    tabs, clvs, scalers = _directed(part, tree)
+    tiptip = torch.tensor([[0, 0, 1, 1, 0, 1], [0, 0, 1, 1, 2, 2]],
+                          dtype=torch.int32, device=cuda)
+    eref = torch.cat([tabs.eref6, tiptip])
+    for force in ({}, {"simple": True}, {"tile": 4}, {"tile": 32}):
+        _sumtables_equal(part, clvs, scalers, eref, tabs.basis, **force)
+
+
+@pytest.mark.parametrize("states,cats", [(20, 4), (4, 4)])
+def test_sumtable_kernel_more_items_than_the_grid(cuda, states, cats):
+    """Persistent CTAs that loop: E = grid + 1 rows (the live edges over
+    and over, so that neither E nor the work items are a multiple of the
+    persistent grid) at the rule's tile and at the smallest pattern tile
+    (4 patterns)."""
+    part, tree = _example(states, cats, cuda, n_taxa=24, n_sites=512)
+    tabs, clvs, scalers = _directed(part, tree)
+    live = torch.nonzero(torch.as_tensor(
+        blo.DirectedTraversal(tree).edge_mask)).flatten().to(cuda)
+    n_codes, Ppad = _n_codes(part), part.n_patterns_padded
+    cf, occ = _sumtable_config_lib(cats, states, n_codes, Ppad, 10 ** 4)
+    assert occ >= 1
+    grid = occ * torch.cuda.get_device_properties(cuda).multi_processor_count
+    E = grid + 1
+    eref = tabs.eref6[live[torch.arange(E, device=cuda) % len(live)]]
+    assert (E * (Ppad // cf["T"])) % grid != 0
+    assert _build.sumtable_config(cats, states, n_codes, Ppad, E) == cf
+    for force in ({}, {"tile": 4}):
+        _sumtables_equal(part, clvs, scalers, eref, tabs.basis, **force)
+
+
+def test_sumtable_kernel_table_beyond_shared_memory(cuda):
+    """A custom alphabet of 230 ambiguity codes over 32 states: the tip
+    tables of 4 categories (2 · 4 · 231 · 32 floats) do not fit a block
+    beside the bases, so the rule takes the simple kernel, which reads
+    them from device memory; bit for bit all the same. Random CLVs and
+    scalers, the BLO's edge rows."""
+    S, C = 32, 4
+    rng = np.random.default_rng(8)
+    chars = [chr(c) for c in range(1, 256) if chr(c) != "-"][:230]
+    masks = rng.choice(np.arange(1, 2 ** 20), 230, replace=False)
+    masks = [int(m) << int(rng.integers(0, 12)) for m in masks]
+    cmap = charmap.custom(S, dict(zip(chars, masks)) | {"-": 2 ** S - 1},
+                          "many", case_insensitive=False)
+    n_taxa = 8
+    seqs = [bytes(ord(c) for c in rng.choice(chars, 512)) for _ in
+            range(n_taxa)]
+    tree = Tree.from_newick(flagship.random_newick(n_taxa, rng))
+    part = create_partition(
+        seqs, charmap=cmap, n_rate_cats=C, alpha=0.75,
+        subst_rates=rng.uniform(0.5, 2.0, S * (S - 1) // 2),
+        freqs=rng.dirichlet([10] * S), compress=False, device="cpu")
+    part = part.cache_eigen().to(cuda)
+    n_codes, Ppad = _n_codes(part), part.n_patterns_padded
+    tabs = blo._compile_tables(part, blo.DirectedTraversal(tree))
+    assert n_codes > 200
+    assert _build.sumtable_config(C, S, n_codes, Ppad,
+                                  tabs.eref6.shape[0]) is None
+    n_slots = int(tabs.eref6[:, :2].max()) + 1
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    clvs = torch.rand((n_slots, C * S, Ppad), device=cuda, generator=gen)
+    scalers = torch.randint(-4, 4, (n_slots, 1, Ppad), dtype=torch.int32,
+                            device=cuda, generator=gen)
+    _sumtables_equal(part, clvs, scalers, tabs.eref6, tabs.basis)
+
+
+def test_sumtable_wrapper_refuses_forced_configs(cuda):
+    """A forced tile that the tiled kernel does not take raises; it is
+    never swapped for another or for the simple kernel."""
+    part, tree = _example(20, 4, cuda)
+    tabs, clvs, scalers = _directed(part, tree)
+    args = (part, clvs, scalers, tabs.eref6, tabs.basis)
+    with pytest.raises(ValueError, match="no configuration"):
+        deriv.edge_sumtables(*args, tile=256)     # 1280 threads
+    with pytest.raises(ValueError, match="no configuration"):
+        deriv.edge_sumtables(*args, tile=3)
+
+
+@pytest.mark.parametrize("states", SUMTABLE_STATES)
+@pytest.mark.parametrize("cats", [1, 4, 8, 32])
+def test_sumtable_config_matches_library(cuda, states, cats):
+    """The Python mirror of kernel 8's configuration is the library's, by
+    the rule and at every forced tile; every configuration the rule picks
+    can be resident on the card."""
+    for n_codes in (states + 1, 16, 230):
+        for Ppad in (128, 512, 4096, 16384, 100):
+            for E in (1, 200, 5000):
+                got, occ = _sumtable_config_lib(cats, states, n_codes, Ppad,
+                                                E)
+                assert got == _build.sumtable_config(cats, states, n_codes,
+                                                     Ppad, E)
+                if got is not None:
+                    assert occ >= 1
+            for T in _build.SUMTABLE_TILES:
+                assert _sumtable_config_lib(cats, states, n_codes, Ppad, 1,
+                                            T)[0] == \
+                    _build.sumtable_config(cats, states, n_codes, Ppad, 1, T)

@@ -298,3 +298,52 @@ def test_newton_config_cluster_size(cs, ppads, want):
                    for n in smaller)
     assert deriv.newton_config(cs, ppads, 1)["kind"] == "stream"
     assert deriv.newton_config([16] * 5000, [512] * 5000) is None
+
+
+@pytest.mark.parametrize("C", [1, 4, 8, 32])
+@pytest.mark.parametrize("S", [4, 5, 8, 16, 20, 32, 61, 64])
+def test_sumtable_config_invariants(C, S):
+    """Kernel 8's tiled configuration (the mirror of csrc/deriv.cu
+    sumtable_config): its tile divides Ppad, its threads are C · IG ·
+    T / 4 ≤ 256, its shared memory (mbarriers, bases, tip tables, two
+    stages, 128-byte aligned) fits a block, C·S fits one tensor copy's
+    box; the rule takes the widest tile that fits, or None (the simple
+    kernel) where that tile's CTA has under 4 warps or the launch fewer
+    items than SMs, or no tile fits; a forced tile is that one or
+    None."""
+    def r32(n):
+        return _build._round_up(n, 32)
+    for n_codes in (S + 1, 16, 230):
+        for Ppad in (128, 512, 4096, 16384, 100, 102):
+            fits = [T for T in _build.SUMTABLE_TILES
+                    if _build.sumtable_config(C, S, n_codes, Ppad, 1, T)]
+            for T in fits:
+                cf = _build.sumtable_config(C, S, n_codes, Ppad, 1, T)
+                assert cf["T"] == T and Ppad % T == 0 and T % 4 == 0
+                assert cf["SP"] == cf["IG"] * cf["RI"] >= S > \
+                    cf["SP"] - cf["RI"]
+                assert cf["threads"] == C * cf["IG"] * (T // 4) <= 256
+                assert cf["smem"] == 128 + 4 * (
+                    r32(32 + 2 * C * S * cf["SP"]
+                        + 2 * C * n_codes * cf["SP"])
+                    + 2 * r32(2 * r32(C * S * T) + 4 * T))
+                assert cf["smem"] <= 227 * 1024 and C * S <= 256
+            for E in (1, 13, 1000):
+                cf = _build.sumtable_config(C, S, n_codes, Ppad, E)
+                if not fits:
+                    assert cf is None
+                    continue
+                widest = _build.sumtable_config(C, S, n_codes, Ppad, 1,
+                                                fits[0])
+                small = (widest["threads"] < 128
+                         or E * (Ppad // fits[0]) < _build.SMS)
+                assert cf == (None if small else widest)
+    # no tile divides 102 patterns; at 64 states the bases and tables of 4
+    # categories exceed a block; C·S 512 exceeds a tensor copy's box; more
+    # than 64 states; DNA without categories makes CTAs of 2 warps
+    assert _build.sumtable_config(C, S, S + 1, 102, 1000) is None
+    assert _build.sumtable_config(4, 64, 65, 4096, 1000) is None
+    assert _build.sumtable_config(32, 16, 17, 4096, 1000) is None
+    assert _build.sumtable_config(C, 65, 66, 4096, 1000) is None
+    assert _build.sumtable_config(1, 4, 5, 16384, 1000) is None
+    assert _build.sumtable_config(4, 4, 5, 16384, 1000)["T"] == 256

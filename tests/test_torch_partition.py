@@ -140,8 +140,29 @@ def test_pmatrices_match_reference_goldens():
         np.testing.assert_allclose(P[e], golden, atol=1e-4)
 
 
+def _both_parsers(monkeypatch, parser):
+    """Both packages on the same Newick parser and pattern compressor:
+    ``python`` turns both native libraries off; ``native`` loads the
+    port's library and then the JAX package's, its loader re-armed, so
+    that neither keeps a fallback latched earlier in the process (the
+    two parsers number the edges differently)."""
+    import pllmod_tpu.native as jax_native
+    from pllmod_tpu_torch import native
+    if parser == "python":
+        monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        return
+    assert native.available()
+    monkeypatch.setattr(jax_native, "_tried", False)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert jax_native.available()
+
+
+@pytest.mark.parametrize("parser", ["native", "python"])
 @pytest.mark.parametrize("n_taxa,n_sites,seed", [(12, 256, 7), (40, 96, 3)])
-def test_flagship_example_matches_jax_entry(n_taxa, n_sites, seed):
+def test_flagship_example_matches_jax_entry(n_taxa, n_sites, seed, parser,
+                                            monkeypatch):
+    _both_parsers(monkeypatch, parser)
     jp, jt = jax_entry._example(n_taxa, n_sites, seed, dtype=jnp.float64)
     tp, tt = flagship.example(n_taxa, n_sites, seed, dtype=torch.float64,
                               device="cpu")
