@@ -40,7 +40,10 @@ It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
 rule), and kernel 8's simple kernel and tiled configurations at the
 BLO's launch shapes over a sweep of cells (the measurements behind
-``_build.sumtable_config``'s rule). It prints the flagship metric with
+``_build.sumtable_config``'s rule), and kernels 6 and 7 at every pattern
+tile and row-lane count that fills half the card, at the flagship and
+protein cells, each bit for bit (the measurements behind
+``_build.group_walk_tile``'s rule). It prints the flagship metric with
 every timed schedule's ms/eval, one ``{"blo": [...]}``, one
 ``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
 ``{"kernels": [...]}`` line (each kernel's launches in all, by cell and
@@ -49,22 +52,25 @@ by path), the card's name and power limit, and last
 script exits non-zero; without CUDA it exits 1 and prints no result.
 
 ``--profile`` also traces the main path's timed loop of each cell, the
-flagship's ``pallas`` and grouped loops and one BLO call each at the
+flagship's ``pallas``, grouped and packed loops, the protein cell's
+grouped and packed loops and one BLO call each at the
 flagship and protein cells and on the partitioned cell (LINKED) with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
-window; and it builds ``csrc/pruning.cu`` and ``csrc/deriv.cu`` once
-more with their phase marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``)
-and prints the mean cycles of each phase of a row of kernel 1 (flagship,
-protein), of a work item of kernel 8 and of a Newton iteration of
-kernel 10 (their all-edge shapes), with the marked build's ms a launch
-beside the library's. ``--parent DIR`` builds the kernels of another
-checkout at DIR (an earlier commit, unpacked with ``git archive`` into a
-directory that ``.gitignore`` lists) beside this tree's and times its
-kernels 1, 2, 3, 8 and 10 (each entry point from the library that
-defines it there, with its own signature) beside this tree's on the same
-inputs, outputs held equal (kernel 10 within DERIV_RTOL), in turns
-(parent, this tree, this tree, parent), by device time; kernels 8 and
+window; and it builds ``csrc/pruning.cu``, ``csrc/deriv.cu``,
+``csrc/packed.cu`` and ``csrc/grouped.cu`` once more with their phase
+marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``) and prints the mean
+cycles of each phase of a row of kernel 1 and of a step of kernels 6
+and 7 (flagship, protein), of a work item of kernel 8 and of a Newton
+iteration of kernel 10 (their all-edge shapes), with the marked build's
+ms a launch beside the library's. ``--parent DIR`` builds the kernels of
+another checkout at DIR (an earlier commit, unpacked with ``git
+archive`` into a directory that ``.gitignore`` lists) beside this tree's
+and times its kernels 1, 2, 3, 6, 7, 8 and 10 (each entry point from the
+library that defines it there, with its own signature) beside this
+tree's on the same inputs, outputs held equal (kernel 10 within
+DERIV_RTOL), in turns (parent, this tree, this tree, parent), by device
+time; kernels 6 and 7 at the flagship and protein cells, kernels 8 and
 10 at every shape the BLO launches: all edges and each edge-color class
 of the flagship and protein cells, and kernel 10 on the two-partition
 sweep.
@@ -774,6 +780,37 @@ def check_levels(part, tree, label):
     return rows
 
 
+GROUP_WALK_SWEEP_LANES = (1, 2, 4, 8)
+
+
+def group_walk_sweep(name, label, run, pick, want, part, n_codes) -> list:
+    """Kernel 6 or 7 (``run(tile=, lanes=)``) at every pattern tile and
+    row-lane count of the sweep whose configuration fits and whose grid
+    has at least a CTA for every two SMs, each held bit for bit against
+    the plain version (``pick(out)`` against ``want``) and timed (device
+    ms a launch): the measurements behind ``_build.group_walk_tile``'s
+    rule. Returns one row a configuration."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    rows = []
+    for R in GROUP_WALK_SWEEP_LANES:
+        for T in _build.TILES:
+            cf = _build.group_walk_config(C, S, n_codes, T, R)
+            if cf is None or -(-Ppad // T) < _build.SMS // 2:
+                continue
+            got = pick(run(tile=T, lanes=R))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} ({label}) at tile {T}, {R} "
+                                     "lanes differs from its plain version")
+            rows.append(dict(tile=T, lanes=R, kind=cf["kind"],
+                             threads=cf["threads"], smem=cf["smem"],
+                             ms=device_ms(lambda: run(tile=T, lanes=R), 5)))
+    best = min(rows, key=lambda r: r["ms"])
+    print(f"{name} ({label}) sweep: fastest tile {best['tile']}, "
+          f"{best['lanes']} lanes, {best['ms']:.4f} ms; "
+          + json.dumps(rows))
+    return rows
+
+
 def check_grouped(part, tree, label):
     """Kernel 7 against its plain version on every position a member
     writes, bit for bit; time per launch. Returns its kernel row."""
@@ -783,9 +820,10 @@ def check_grouped(part, tree, label):
     PQ = grouped.grouped_pmats(part, brl, sched.e_sides)
     tab = fused.code_table(part)
     args = (sched.side_meta, sched.dst_meta, PQ, part.tip_states, tab)
+    walk = dict(order=sched.order, windows=sched.windows)
     want_b, want_s = grouped.grouped_walk_plain(*args)
     plain_ms = time_ms(lambda: grouped.grouped_walk_plain(*args), 1)
-    bufs, sbufs = grouped.grouped_walk(*args)
+    bufs, sbufs = grouped.grouped_walk(*args, **walk)
     dst = sched.dst_meta.long()
     dg, dq = dst[..., 0], dst[..., 1]
     if not (torch.equal(bufs[dg, dq], want_b[dg, dq])
@@ -793,7 +831,12 @@ def check_grouped(part, tree, label):
         raise AssertionError(f"grouped_walk ({label}) differs from its plain "
                              "version")
     err = float((bufs[dg, dq] - want_b[dg, dq]).abs().max())
-    ms = device_ms(lambda: grouped.grouped_walk(*args), 10)
+    ms = device_ms(lambda: grouped.grouped_walk(*args, **walk), 10)
+    tiles = group_walk_sweep(
+        "grouped_walk", label, lambda **kw: grouped.grouped_walk(
+            *args, **walk, **kw), lambda out: (out[0][dg, dq],
+                                               out[1][dg, dq]),
+        (want_b[dg, dq], want_s[dg, dq]), part, tab.shape[0])
     # work of the real members (a dummy writes a trash position of the
     # landing buffer, q >= 2): tip children read their code rows, inner
     # children are the kernel's own outputs
@@ -811,14 +854,20 @@ def check_grouped(part, tree, label):
     flops = (2 * C * S * S * (n_in * Ppad + n_tip * tab.shape[0])
              + 3 * C * S * Ppad * n_real)
     b_ms, b_by = bound(in_bytes + out_bytes, flops)
+    T, R = _build.group_walk_tile(C, S, tab.shape[0], Ppad)
     print(f"grouped_walk ({label}): {ms:.4f} ms/launch, plain "
           f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), G {sched.G}, "
-          f"{sched.nG} groups, {n_real} members, bit for bit")
+          f"{sched.nG} groups, {n_real} members, "
+          f"{len(sched.windows) - 1} windows, tile {T}, {R} lanes, bit for "
+          "bit")
     return dict(name="grouped_walk", route="cuda",
                 source="pllmod_tpu_torch/csrc/grouped.cu",
                 replaces="pllmod_tpu/ops/pallas_grouped.py:234",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, G=sched.G, groups=sched.nG)
+                bound_by=b_by, library_ms=None, G=sched.G, groups=sched.nG,
+                windows=len(sched.windows) - 1, tile=T, lanes=R,
+                kind=_build.group_walk_config(C, S, tab.shape[0], T,
+                                              R)["kind"], tiles=tiles)
 
 
 # the paths of phase 3 and the kernels each must launch
@@ -873,13 +922,17 @@ def check_packed(part, tree, part64, label):
             sched.G)
     want_c, want_s = packed.packed_walk_plain(*args)
     plain_ms = time_ms(lambda: packed.packed_walk_plain(*args), 1)
-    clvs, scalers = packed.packed_walk(*args)
+    clvs, scalers = packed.packed_walk(*args, sched.windows)
     torch.cuda.synchronize()
     if not (torch.equal(clvs, want_c) and torch.equal(scalers, want_s)):
         raise AssertionError(f"packed_walk ({label}) differs from its plain "
                              "version")
     err = float((clvs - want_c).abs().max())
-    ms = device_ms(lambda: packed.packed_walk(*args), 10)
+    ms = device_ms(lambda: packed.packed_walk(*args, sched.windows), 10)
+    tiles = group_walk_sweep(
+        "packed_walk", label, lambda **kw: packed.packed_walk(
+            *args, sched.windows, **kw), lambda out: out, (want_c, want_s),
+        part, tab.shape[0])
     l_k = float(packed.loglikelihood_packed(part, brl, sched))
     l64 = float(engine.tree_loglikelihood(part64, tree, schedule="scan"))
     rel_close(l_k, l64, LOGL_RTOL, f"packed logL ({label}) vs float64 scan")
@@ -899,16 +952,21 @@ def check_packed(part, tree, part64, label):
     flops = (2 * C * S * S * (n_in * Ppad + n_tip * tab.shape[0])
              + 3 * C * S * Ppad * n_real)
     b_ms, b_by = bound(in_bytes + out_bytes, flops)
+    T, R = _build.group_walk_tile(C, S, tab.shape[0], Ppad)
     print(f"packed_walk ({label}): {ms:.4f} ms/launch, plain {plain_ms:.1f} "
           f"ms, bound {b_ms:.4f} ms ({b_by}), G {sched.G}, {sched.nG} groups, "
           f"{sched.n_slots_pad} padded slots for {sched.n_slots} real ones, "
+          f"{len(sched.windows) - 1} windows, tile {T}, {R} lanes, "
           f"contig {sched.contig_frac:.3f}, bit for bit")
     return dict(name="packed_walk", route="cuda",
                 source="pllmod_tpu_torch/csrc/packed.cu",
                 replaces="pllmod_tpu/ops/pallas_clv.py:1511",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, G=sched.G, groups=sched.nG,
-                n_slots_pad=sched.n_slots_pad, n_slots=sched.n_slots)
+                n_slots_pad=sched.n_slots_pad, n_slots=sched.n_slots,
+                windows=len(sched.windows) - 1, tile=T, lanes=R,
+                kind=_build.group_walk_config(C, S, tab.shape[0], T,
+                                              R)["kind"], tiles=tiles)
 
 
 def run_packed_path(cells):
@@ -1235,28 +1293,35 @@ NEWTON_PHASES = ("coefficients", "sums", "reduce_push", "cluster_sync",
 SUMTABLE_PHASES = ("barrier", "loads", "products", "stores")  # + staging
 
 
+GROUP_THREAD_PHASES = ("children_products", "barrier", "rescale_store")
+GROUP_TILE_PHASES = ("issue", "wait", "products", "barrier",
+                     "rescale_store")
+
+
 def start_phase_build():
-    """Start building pruning.cu and deriv.cu with their phase marks in a
-    thread, beside the default build; returns the build's future."""
+    """Start building pruning.cu, deriv.cu, packed.cu and grouped.cu with
+    their phase marks in a thread, beside the default build; returns the
+    build's future."""
     from concurrent.futures import ThreadPoolExecutor
     pool = ThreadPoolExecutor(1)
-    future = pool.submit(_build.build, ("pruning", "deriv"), PHASE_DEFINES)
+    future = pool.submit(_build.build, ("pruning", "deriv", "packed",
+                                        "grouped"), PHASE_DEFINES)
     pool.shutdown(wait=False)
     return future
 
 
 def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
                   names, once=None) -> None:
-    """Where a row of kernel 1 or a Newton iteration of kernel 10 spends
-    its cycles: ``fn`` (one launch through the port's wrapper) run
-    through ``marked``, the build with phase marks, records CTA 0's
-    thread 0's clock64() at each phase boundary of its first ``rows``
-    rows or iterations; prints the mean cycles of each phase over the
-    inner ones (the first and last two dropped where there are eight or
-    more, else one), and ms a launch of the marked build against the
-    port's own library, timed in turns (library, marked, marked,
-    library) with the marks recording. ``once``: the name of a phase
-    the kernel runs once, before its loop, marked in row 127 (kernel
+    """Where a row of kernel 1, a step of kernel 6 or 7 or a Newton
+    iteration of kernel 10 spends its cycles: ``fn`` (one launch through
+    the port's wrapper) run through ``marked``, the build with phase
+    marks, records CTA 0's thread 0's clock64() at each phase boundary of
+    its first ``rows`` rows or iterations; prints the mean cycles of each
+    phase over the inner ones (the first and last two dropped where there
+    are eight or more, else one), and ms a launch of the marked build
+    against the port's own library, timed in turns (library, marked,
+    marked, library) with the marks recording. ``once``: the name of a
+    phase the kernel runs once, before its loop, marked in row 127 (kernel
     8's staging)."""
     clk = torch.zeros(128 * 8, dtype=torch.int64, device="cuda")
     set_buffer(clk.data_ptr())
@@ -1283,10 +1348,10 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
 
 
 def run_phase_profiles(build, cells) -> None:
-    """:func:`phase_profile` of kernel 1 at the flagship and protein
-    cells and of kernels 8 and 10 at SUMTABLE_SHAPES' and NEWTON_SHAPES'
-    all-edge shapes, with the build that :func:`start_phase_build`
-    started."""
+    """:func:`phase_profile` of kernels 1, 6 and 7 at the flagship and
+    protein cells and of kernels 8 and 10 at SUMTABLE_SHAPES' and
+    NEWTON_SHAPES' all-edge shapes, with the build that
+    :func:`start_phase_build` started."""
     import ctypes
     paths = build.result()
     marked = _build.entry_points(paths)
@@ -1305,6 +1370,28 @@ def run_phase_profiles(build, cells) -> None:
         phase_profile(marked, set_buffer, label, "resident_walk",
                       lambda: resident.resident_walk(*args), len(idx8),
                       RESIDENT_PHASES)
+        # kernels 6 and 7: the cycles of a step (R rows of a window)
+        C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+        tab = fused.code_table(part)
+        T, R = _build.group_walk_tile(C, S, tab.shape[0], Ppad)
+        names = (GROUP_THREAD_PHASES if _build.group_walk_config(
+            C, S, tab.shape[0], T, R)["kind"] == "thread"
+            else GROUP_TILE_PHASES)
+        ps = packed.PackedSchedule(part, tree)
+        pargs = (ps.idxm, ps.e1, ps.e2, part.prob_matrices(brl).contiguous(),
+                 part.tip_states, tab, ps.G, ps.windows)
+        gs = grouped.GroupedSchedule(part, tree)
+        gargs = (gs.side_meta, gs.dst_meta,
+                 grouped.grouped_pmats(part, brl, gs.e_sides),
+                 part.tip_states, tab, gs.order, gs.windows)
+        for name, fn, win in (
+                ("packed_walk", lambda: packed.packed_walk(*pargs),
+                 ps.windows),
+                ("grouped_walk", lambda: grouped.grouped_walk(*gargs),
+                 gs.windows)):
+            steps = int(sum(-(-int(n) // R)
+                            for n in np.diff(win.cpu().numpy())))
+            phase_profile(marked, set_buffer, label, name, fn, steps, names)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for label, args in SUMTABLE_SHAPES:
         cf = sumtable_design(args[0], len(args[3]))
@@ -1481,7 +1568,8 @@ def routing_sweep():
 # ---------------------------------------------------------------------------
 PARENT_KERNELS = ("pllmod_resident_walk", "pllmod_fused_walk",
                   "pllmod_child_pass", "pllmod_edge_sumtables",
-                  "pllmod_newton_edges")
+                  "pllmod_newton_edges", "pllmod_packed_walk",
+                  "pllmod_grouped_walk")
 
 
 def start_parent_build(parent: str):
@@ -1528,9 +1616,10 @@ def _call(fn, label, *args):
 
 
 def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
-    """Kernels 1, 2, 3, 8 and 10 of another checkout (its C entry points,
-    :func:`parent_libs`) beside this tree's on the same inputs: kernels
-    1-3 and 8 bit for bit, kernel 10 within DERIV_RTOL; device ms a
+    """Kernels 1, 2, 3, 6, 7, 8 and 10 of another checkout (its C entry
+    points, :func:`parent_libs`) beside this tree's on the same inputs:
+    kernels 1-3 and 6-8 bit for bit (kernel 7 on the positions its
+    members write), kernel 10 within DERIV_RTOL; device ms a
     launch timed in turns (parent, this tree, this tree, parent).
     ``cells``: (label, part, tree) of the flagship DNA, protein and
     64-state cells; ``newton_shapes``: (label, parts, sts, scs, t0,
@@ -1671,6 +1760,73 @@ def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
            equal(lambda: [t for pair in mine3() for t in pair],
                  lambda: [t for pair in outs for t in pair],
                  f"child_pass ({label})"), 10, per=len(sl))
+        # kernels 6 and 7: a parent from before the group-window walk
+        # (17 and 16 arguments) runs at pattern_tile and takes no windows,
+        # order or scratch; a later one takes this tree's tile, lanes,
+        # tables and scratch (pre-pass and row table)
+        n_tips = part.tip_states.shape[0]
+        T, R = _build.group_walk_tile(C, S, n_codes, Ppad)
+        psched = packed.PackedSchedule(part, tree)
+        P = part.prob_matrices(brl).to(torch.float32).contiguous()
+        pargs = (psched.idxm, psched.e1, psched.e2, P, part.tip_states, tab,
+                 psched.G, psched.windows)
+        n_rows = len(psched.idxm)
+        theirs6 = (torch.empty((n_rows, C * S, Ppad), device=part.device),
+                   torch.empty((n_rows, 1, Ppad), dtype=torch.int32,
+                               device=part.device))
+        fn6 = libs["pllmod_packed_walk"]
+        mats6 = torch.empty((2 * n_rows, _build.group_walk_config(
+            C, S, n_codes, T, R)["Q"]), device=part.device)
+        rows6 = torch.empty((n_rows, _build.GROUP_WALK_ROW),
+                            dtype=torch.int32, device=part.device)
+        tail6 = ((_build.pattern_tile(C),) if len(fn6.argtypes) == 17 else
+                 (T, R, psched.windows.data_ptr(), len(psched.windows) - 1,
+                  mats6.data_ptr(), rows6.data_ptr()))
+
+        def theirs6_call():
+            _call(fn6, "packed walk", psched.idxm.data_ptr(),
+                  psched.e1.data_ptr(), psched.e2.data_ptr(), n_rows,
+                  P.data_ptr(), P.shape[0], part.tip_states.data_ptr(),
+                  n_tips, tab.data_ptr(), n_codes, theirs6[0].data_ptr(),
+                  theirs6[1].data_ptr(), Ppad, C, S, *tail6)
+        theirs6_call()
+        ab(f"packed_walk ({label})", lambda: packed.packed_walk(*pargs),
+           theirs6_call, equal(lambda: packed.packed_walk(*pargs),
+                               lambda: theirs6, f"packed_walk ({label})"), 10)
+        gsched = grouped.GroupedSchedule(part, tree)
+        PQ = grouped.grouped_pmats(part, brl, gsched.e_sides)
+        gargs = (gsched.side_meta, gsched.dst_meta, PQ, part.tip_states, tab,
+                 gsched.order, gsched.windows)
+        theirs7 = (torch.empty((gsched.nG + 1, gsched.Q, C * S, Ppad),
+                               device=part.device),
+                   torch.empty((gsched.nG + 1, gsched.Q, Ppad),
+                               dtype=torch.int32, device=part.device))
+        fn7 = libs["pllmod_grouped_walk"]
+        mats7 = torch.empty((gsched.nG * gsched.Q, _build.group_walk_config(
+            C, S, n_codes, T, R)["Q"]), device=part.device)
+        rows7 = torch.empty((gsched.nG * gsched.G, _build.GROUP_WALK_ROW),
+                            dtype=torch.int32, device=part.device)
+        tail7 = ((_build.pattern_tile(C),) if len(fn7.argtypes) == 16 else
+                 (T, R, gsched.order.data_ptr(), gsched.windows.data_ptr(),
+                  len(gsched.windows) - 1, mats7.data_ptr(),
+                  rows7.data_ptr()))
+
+        def theirs7_call():
+            _call(fn7, "grouped walk", gsched.side_meta.data_ptr(),
+                  gsched.dst_meta.data_ptr(), gsched.nG, gsched.G,
+                  PQ.data_ptr(), part.tip_states.data_ptr(), n_tips,
+                  tab.data_ptr(), n_codes, theirs7[0].data_ptr(),
+                  theirs7[1].data_ptr(), Ppad, C, S, *tail7)
+        dst = gsched.dst_meta.long()
+        dg, dq = dst[..., 0], dst[..., 1]
+
+        def written(out):
+            return out[0][dg, dq], out[1][dg, dq]
+        theirs7_call()
+        ab(f"grouped_walk ({label})", lambda: grouped.grouped_walk(*gargs),
+           theirs7_call, equal(lambda: written(grouped.grouped_walk(*gargs)),
+                               lambda: written(theirs7),
+                               f"grouped_walk ({label})"), 10)
     # kernel 8 at every BLO launch shape; a parent from before its tiled
     # kernel takes the simple kernel's tile as its last argument, a later
     # one the forced tile and ring depth (0, 0: its rule)
@@ -1765,7 +1921,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path's timed loops")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time kernels 1, 2, 3, 8 and 10 of the "
+                    help="also time kernels 1, 2, 3, 6, 7, 8 and 10 of the "
                          "checkout at DIR beside this tree's, by device "
                          "time")
     args = ap.parse_args(argv)
@@ -1943,9 +2099,12 @@ def main(argv=None) -> int:
     if args.profile:
         for label, (part, tr, _, _) in cells.items():
             profile_window(label, eval_loop(part, tr), TIMED_EVALS)
-        for sched in ("pallas", "grouped"):
+        for sched in ("pallas", "grouped", "packed"):
             profile_window(f"flagship DNA, {sched}",
                            eval_loop(dna, tree, sched), TIMED_EVALS)
+        for sched in ("grouped", "packed"):
+            profile_window(f"protein, {sched}",
+                           eval_loop(prot, ptree, sched), TIMED_EVALS)
         profile_window("BLO, flagship DNA",
                        lambda: blo.optimize_branch_lengths(dna, tree.copy()),
                        1)

@@ -1,5 +1,6 @@
 // Device and launch pieces shared by the CUDA sources of the port
-// (pruning.cu, levels.cu, grouped.cu, packed.cu and deriv.cu).
+// (pruning.cu, fused.cu, levels.cu, deriv.cu, and packed.cu and
+// grouped.cu through group_walk.cuh).
 //
 // The row walks (kernels 1-7) carry one exactness contract, which the
 // plain torch versions in ops/ follow bit for bit and which lives here
@@ -90,27 +91,6 @@ __device__ __forceinline__ void load_column(const float* src, size_t stride,
 #pragma unroll
   for (int j = 0; j < MAXS; ++j)
     if (j < S) x[j] = src[j * stride];
-}
-
-// The parent's S values of one category, o[i] = (Pa x1)_i * (Pb x2)_i,
-// each factor and the product rounded as above; returns their maximum.
-template <int MAXS>
-__device__ __forceinline__ float child_product(const float* Pa,
-                                               const float* Pb, int S,
-                                               const float (&x1)[MAXS],
-                                               const float (&x2)[MAXS],
-                                               float (&o)[MAXS]) {
-  constexpr int kUnroll = unroll_rows<MAXS>();
-  float m = -INFINITY;
-#pragma unroll kUnroll
-  for (int i = 0; i < MAXS; ++i) {
-    if (i < S) {
-      o[i] = __fmul_rn(row_dot<MAXS>(Pa, i, S, x1),
-                       row_dot<MAXS>(Pb, i, S, x2));
-      m = fmaxf(m, o[i]);
-    }
-  }
-  return m;
 }
 
 // The rescale exponent e of pattern column pl: thread (c, pl) brings the

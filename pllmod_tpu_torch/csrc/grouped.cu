@@ -13,20 +13,21 @@
 // endpoints land in buffer nG at q = 0 and 1; dummy members (tip/tip)
 // write rotating trash positions of it.
 //
-// Design. One CTA owns a tile of T pattern columns and walks the groups
-// in order, and the members of a group one after another; thread (c, p)
-// owns category c of pattern p. For each member it reads the S values of
-// both children (a tip from its code through the code -> CLV table, an
-// inner child from its position in the group's buffer), applies the two
-// per-child S x S matrices (PQ [nG, Q, C, S, S], staged in shared memory
-// when they fit), multiplies, exchanges its category maximum through
-// shared memory, rescales and writes the result and the cumulative scaler
-// to (dst_group, dst_q). A thread only reads buffer values that it wrote
-// itself (the same rows c*S.., the same pattern p), so no barrier
-// separates the groups; two a member guard the shared maxima and
-// matrices. The TPU kernel's DMA semaphores, read lookahead, all-fence
-// mode, tile-major buffers and probe knobs have no counterpart: patterns
-// are independent, and one CTA never waits on another.
+// Design: the group-window walk of csrc/group_walk.cuh, whose header
+// holds the device code; this file says where a member's children and
+// output live (GroupedRows). The schedule's own group order chains nearly
+// every group to the one before (it schedules the tallest ready node
+// first: 35 windows of one group at the flagship), and a member's result
+// does not depend on its group, so the walk visits the members in the
+// level order of their dependencies (GroupedSchedule.order: walk row r is
+// member order[r] = g * G + m), and a window is a level of that order
+// (GroupedSchedule.windows): R members in flight at once, their category
+// maxima behind one barrier. The pre-pass builds the table of position (g,
+// q) from PQ[g, q] directly, and a tip child is a lookup. Every dummy
+// member computes the same values (tip 0 on both sides, edge 0's
+// matrices), so two dummies writing one trash position in one window
+// write the same bits. The TPU kernel's DMA semaphores, read lookahead,
+// all-fence mode, tile-major buffers and probe knobs have no counterpart.
 //
 // Exactness: the walks' contract of csrc/common.cuh (products and sums
 // rounded separately in state order, the bit-formula rescale clipped to
@@ -40,125 +41,73 @@
 // and scaler rows once (126 x 17 x 16384 x 4 B = 140 MB) and the tip
 // codes are read once (8.4 MB): ~45 us at 3.35 TB/s, against ~0.4 GFLOP
 // (~6 us at 67 TFLOP/s). As designed each inner child is also read back
-// once by its consumer (~66 MB more).
-#include "common.cuh"
+// once by its consumer (~66 MB more, much of it from L2).
+#include "group_walk.cuh"
 
 namespace {
 
-using common::kMaxThreads;
-
-struct GroupedArgs {
+struct GroupedRows {
   const int* side_meta;  // [nG, Q, 2] (is_tip, tip)
   const int* dst_meta;   // [nG, G, 2] (dst_group, dst_q)
+  const int* order;      // [nG * G] the walk's member order
   int nG, G;
   const float* PQ;       // [nG, Q, C, S, S]
-  const int* codes;      // [n_tips, Ppad]
   int n_tips;
-  const float* codetab;  // [n_codes, S]
-  int n_codes;
-  float* bufs;           // [nG + 1, Q, C*S, Ppad]
-  int* sbufs;            // [nG + 1, Q, Ppad]
-  int Ppad, C, S, T;
+  long long msz;         // C * S * S
+
+  // walk row r's member id g * G + m
+  __device__ int member(int r) const {
+    return min(max(order[r], 0), nG * G - 1);
+  }
+  __device__ group_walk::Child child(int r, int k) const {
+    const int s = (int)side(r, k);
+    const int* sm = side_meta + 2 * (size_t)s;
+    if (sm[0] != 0) return {min(max(sm[1], 0), n_tips - 1), 0};
+    return {-1, s};
+  }
+  __device__ int out(int r) const {
+    const int Q = 2 * G;
+    const int* dst = dst_meta + 2 * (size_t)member(r);
+    return min(max(dst[0], 0), nG) * Q + min(max(dst[1], 0), Q - 1);
+  }
+  // position (g, k * G + m) of walk row r's child k: its side in mats
+  __device__ long long side(int r, int k) const {
+    const int mid = member(r), g = mid / G;
+    return (long long)g * 2 * G + k * G + (mid - g * G);
+  }
+  // the pre-pass's view of position s = g * Q + q
+  __device__ bool is_tip(int s) const { return side_meta[2 * s] != 0; }
+  __device__ const float* matrix(int s) const { return PQ + s * msz; }
 };
-
-// Shared memory beside the category maxima [C][T]: the code table and one
-// member's two matrices.
-size_t stage_floats(int C, int S, int n_codes) {
-  return (size_t)n_codes * S + (size_t)2 * C * S * S;
-}
-
-// The child at position q of group g: its S values of category c at
-// pattern p, and its scaler (read by category 0 only).
-template <int MAXS>
-__device__ __forceinline__ void load_child(const GroupedArgs& a,
-                                           const float* tab, int g, int q,
-                                           int c, int p, float (&x)[MAXS],
-                                           int& sc) {
-  const int S = a.S, Q = 2 * a.G;
-  const int* side = a.side_meta + ((size_t)g * Q + q) * 2;
-  if (side[0] != 0) {
-    const int tip = min(max(side[1], 0), a.n_tips - 1);
-    common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
-                           S, x);
-    sc = 0;
-    return;
-  }
-  const size_t pos = (size_t)g * Q + q;
-  common::load_column<MAXS>(a.bufs + (pos * a.C * S + c * S) * a.Ppad + p,
-                            a.Ppad, S, x);
-  sc = (c == 0) ? a.sbufs[pos * a.Ppad + p] : 0;
-}
-
-template <int MAXS, bool STAGE>
-__global__ void __launch_bounds__(kMaxThreads)
-grouped_walk(GroupedArgs a) {
-  extern __shared__ float smem[];
-  const int T = a.T, C = a.C, S = a.S, CS = C * S, G = a.G, Q = 2 * G;
-  const size_t msz = (size_t)C * S * S;
-  const int tid = threadIdx.x;
-  const int c = tid / T;
-  const int pl = tid - c * T;
-  const int p = blockIdx.x * T + pl;
-  const int nthr = blockDim.x;
-  float* red = smem;                        // [C][T]
-  float* tab_s = red + C * T;               // [n_codes * S]
-  float* P_s = tab_s + a.n_codes * S;       // [2][C*S*S]
-  if (STAGE)
-    for (int i = tid; i < a.n_codes * S; i += nthr) tab_s[i] = a.codetab[i];
-  const float* tab = STAGE ? tab_s : a.codetab;
-
-  for (int g = 0; g < a.nG; ++g) {
-    for (int m = 0; m < G; ++m) {
-      const float* P1 = a.PQ + ((size_t)g * Q + m) * msz;
-      const float* P2 = a.PQ + ((size_t)g * Q + G + m) * msz;
-      if (STAGE) {
-        for (size_t i = tid; i < msz; i += nthr) {
-          P_s[i] = P1[i];
-          P_s[msz + i] = P2[i];
-        }
-      }
-      __syncthreads();                      // matrices (and table) staged
-      const float* Pa = (STAGE ? P_s : P1) + c * S * S;
-      const float* Pb = (STAGE ? P_s + msz : P2) + c * S * S;
-      float x1[MAXS], x2[MAXS], o[MAXS];
-      int sc1, sc2;
-      load_child<MAXS>(a, tab, g, m, c, p, x1, sc1);
-      load_child<MAXS>(a, tab, g, G + m, c, p, x2, sc2);
-      const float mx = common::child_product<MAXS>(Pa, Pb, S, x1, x2, o);
-      const int e = common::rescale_exponent(red, mx, c, pl, C, T);
-      const int* dst_m = a.dst_meta + ((size_t)g * G + m) * 2;
-      const int dg = min(max(dst_m[0], 0), a.nG);
-      const int dq = min(max(dst_m[1], 0), Q - 1);
-      const size_t pos = (size_t)dg * Q + dq;
-      common::store_scaled<MAXS>(a.bufs + (pos * CS + c * S) * a.Ppad + p,
-                                 a.Ppad, S, o, e);
-      if (c == 0) a.sbufs[pos * a.Ppad + p] = sc1 + sc2 + e;
-    }
-  }
-}
-
-template <int MAXS>
-int launch_t(const GroupedArgs& a, cudaStream_t stream) {
-  const size_t stage = stage_floats(a.C, a.S, a.n_codes);
-  const bool staged = common::fits_smem((size_t)a.C * a.T + stage);
-  const size_t smem = 4 * ((size_t)a.C * a.T + (staged ? stage : 0));
-  return common::launch_kernel(
-      staged ? grouped_walk<MAXS, true> : grouped_walk<MAXS, false>,
-      dim3(a.Ppad / a.T), dim3(a.C * a.T), smem, stream, a);
-}
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = queued).
+// The walk's configuration at pattern tile T and R row lanes (csrc/
+// group_walk.cuh walk_config): out[0..8] = kind (0 thread, 1 tile, 2
+// wide), RI, RP, IG, SP, threads, Q, shared memory bytes, staged; returns
+// 1, or 0 where none fits. ops/_build.py::group_walk_config computes the
+// same.
+extern "C" int pllmod_grouped_config(int C, int S, int n_codes, int T, int R,
+                                     long long* out) {
+  return group_walk::config_query(C, S, n_codes, T, R, out);
+}
+
+// The pre-pass into mats [nG * Q, Q'] and the row table into rowtab
+// [nG * G, 8] (scratch of the caller), then the walk of the members in
+// order [nG * G] over windows [n_windows + 1] (walk-row offsets) at tile
+// T with R lanes. Returns the CUDA error code of the launches (0 =
+// queued).
 extern "C" int pllmod_grouped_walk(
     const int* side_meta, const int* dst_meta, int nG, int G, const float* PQ,
     const int* codes, int n_tips, const float* codetab, int n_codes,
-    float* bufs, int* sbufs, int Ppad, int C, int S, int T, void* stream) {
-  if (C * T > kMaxThreads || T <= 0 || Ppad % T != 0 || nG <= 0 || G <= 0)
-    return (int)cudaErrorInvalidConfiguration;
-  GroupedArgs a{side_meta, dst_meta, nG, G, PQ, codes, n_tips, codetab,
-                n_codes, bufs, sbufs, Ppad, C, S, T};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return common::dispatch_states(
-      S, [&](auto m) { return launch_t<decltype(m)::value>(a, st); });
+    float* bufs, int* sbufs, int Ppad, int C, int S, int T, int R,
+    const int* order, const int* windows, int n_windows, float* mats,
+    int* rowtab, void* stream) {
+  if (nG <= 0 || G <= 0 || n_tips <= 0) return (int)cudaErrorInvalidValue;
+  const GroupedRows rows{side_meta, dst_meta, order, nG, G, PQ, n_tips,
+                         (long long)C * S * S};
+  return group_walk::run<7>(rows, nG * 2 * G, nG * G, (nG + 1) * 2 * G,
+                            windows, n_windows, codes, codetab, n_codes,
+                            bufs, sbufs, Ppad, C, S, T, R, mats, rowtab,
+                            static_cast<cudaStream_t>(stream));
 }

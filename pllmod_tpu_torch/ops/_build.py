@@ -3,7 +3,8 @@
 ``nvcc`` compiles each source into its own shared library with a plain
 C interface under ``build/`` at the repository root, named by a hash of
 the source, the headers they share (``csrc/common.cuh``,
-``csrc/tile.cuh``, ``csrc/tables.cuh``) and the flags,
+``csrc/tile.cuh``, ``csrc/tables.cuh``, ``csrc/group_walk.cuh``) and the
+flags,
 on first use; the sources that lack a library are
 compiled all at once, one ``nvcc`` each. ctypes loads them. Nothing here
 runs at import time: the CPU-only tests import every module.
@@ -26,10 +27,13 @@ SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("pruning", "fused", "deriv", "levels", "grouped",
                         "packed")}
 # the shared headers (common.cuh is included by every source, tile.cuh by
-# pruning.cu, fused.cu and levels.cu, tables.cuh, the walks' pre-pass, by
-# pruning.cu and fused.cu); every library's hash covers all three
+# pruning.cu, fused.cu, levels.cu and group_walk.cuh, tables.cuh, the
+# walks' pre-pass, by pruning.cu, fused.cu and group_walk.cuh, and
+# group_walk.cuh, the group-window walk, by packed.cu and grouped.cu);
+# every library's hash covers all four
 HEADERS = tuple(os.path.join(_PKG, "csrc", h)
-                for h in ("common.cuh", "tile.cuh", "tables.cuh"))
+                for h in ("common.cuh", "tile.cuh", "tables.cuh",
+                          "group_walk.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -70,11 +74,17 @@ ENTRY_POINTS = {
     "pllmod_level_combined": ("levels", [_VP, _I] + [_VP] * 4 + [_I, _VP, _I,
                                                                  _VP]
                               + [_I] * 6 + [_VP], _I),
+    # kernels 6 and 7: their tables, ..., the tile T and lanes R, the
+    # walk's windows (and kernel 7's member order), the scratch of the
+    # pre-pass and of the row table
     "pllmod_grouped_walk": ("grouped", [_VP, _VP, _I, _I, _VP, _VP, _I, _VP,
-                                        _I, _VP, _VP] + [_I] * 4 + [_VP], _I),
+                                        _I, _VP, _VP] + [_I] * 5
+                            + [_VP, _VP, _I, _VP, _VP, _VP], _I),
+    "pllmod_grouped_config": ("grouped", [_I] * 5 + [_VP], _I),
     "pllmod_packed_walk": ("packed", [_VP, _VP, _VP, _I, _VP, _I, _VP, _I,
-                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
-                           _I),
+                                      _VP, _I, _VP, _VP] + [_I] * 5
+                           + [_VP, _I, _VP, _VP, _VP], _I),
+    "pllmod_packed_config": ("packed", [_I] * 5 + [_VP], _I),
 }
 
 _lock = threading.Lock()
@@ -182,9 +192,10 @@ def using(lib: types.SimpleNamespace):
 # ---------------------------------------------------------------------------
 # Launch checks, the kernels' launch configurations and the row-walk
 # launch shared by the two walk wrappers (ops/resident.py, ops/fused.py).
-# The numbers below are those of csrc/pruning.cu, csrc/fused.cu and
-# csrc/levels.cu; the card tests hold resident_config, fused_config and
-# child_config against the libraries' own.
+# The numbers below are those of csrc/pruning.cu, csrc/fused.cu,
+# csrc/levels.cu and csrc/group_walk.cuh; the card tests hold
+# resident_config, fused_config, child_config and group_walk_config
+# against the libraries' own.
 # ---------------------------------------------------------------------------
 MAX_STATES = 64            # widest register tile the kernels instantiate
 MAX_THREADS = 256          # __launch_bounds__ of the kernels
@@ -208,8 +219,8 @@ def _round_up(n: int, k: int) -> int:
 
 
 def pattern_tile(n_cats: int) -> int:
-    """Pattern columns per CTA of the level (4, 5), grouped, packed and
-    sumtable kernels: C·T threads per CTA, at most 256."""
+    """Pattern columns per CTA of the level (4, 5) and simple sumtable
+    kernels: C·T threads per CTA, at most 256."""
     for T in (64, 32, 16, 8, 4, 2, 1):
         if n_cats * T <= MAX_THREADS:
             return T
@@ -355,6 +366,131 @@ def fused_tile(C: int, S: int, n_codes: int, Ppad: int) -> int:
             return T
     raise ValueError(f"the fused walk takes no tile at {C} categories, "
                      f"{S} states and {n_codes} codes")
+
+
+GROUP_WALK_THREADS = 512   # __launch_bounds__ of the group-window walks
+GROUP_WALK_KINDS = ("thread", "tile", "wide")
+GROUP_WALK_LANES = (4, 2, 1)
+GROUP_WALK_MAX_LANES = 8   # group_walk.cuh kMaxLanes
+GROUP_WALK_ROW = 8         # ints of a row's entry in the row table
+GROUP_WALK_RING = 4 * GROUP_WALK_ROW   # ints a lane in the ring of steps
+# the tile walk's mbarriers and the slack that aligns its stage buffers
+# to 128 bytes
+GROUP_WALK_BARS, GROUP_WALK_ALIGN = 16, 128
+# registers a thread of each kind, from nvcc's report (ptxas -v) of the
+# libraries: the tile walk takes the 128 that 512 threads allow
+GROUP_WALK_REGS = {"thread": 64, "tile": 128, "wide": 128}
+
+
+@functools.lru_cache(maxsize=None)
+def group_walk_config(C: int, S: int, n_codes: int, T: int, R: int):
+    """The group-window walk's launch configuration (kernels 6 and 7) at
+    pattern tile T and R row lanes (csrc/group_walk.cuh walk_config; R at
+    most GROUP_WALK_MAX_LANES), or None where none fits: a dict of kind,
+    RI, RP, IG, SP, threads, Q (floats of one side's matrix or tip table
+    in the pre-pass scratch), smem (bytes) and staged. Up to 8 states the
+    thread walk ("thread": a thread a lane, category and RP patterns, 2
+    up to 4 states; the category maxima of two steps and the ring of
+    step tables in shared memory); beyond, the tile walk ("tile": RI ×
+    RP = 8 × 4 register tiles, 4 × 4 at 20 states; two stage buffers of
+    R rows' two children, 128-byte aligned, with each side's table where
+    that fits a block: staged = 1; its child tiles come by tensor copies
+    where C·S ≤ 256, T and Ppad are multiples of 4, else by cp.async;
+    the category maxima of two steps) where its threads fit, else the
+    wide kind ("wide": RI = MAXS, RP = 1). Cached per shape, as
+    :func:`group_walk_tile` is: every evaluation launches the walk."""
+    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 1
+            or not 1 <= R <= GROUP_WALK_MAX_LANES):
+        return None
+    maxs = _ladder(S)
+    rows = max(S, n_codes)
+    ring = GROUP_WALK_RING * R         # ints of the ring of step tables
+    if maxs <= 8:
+        rp = 2 if maxs <= 4 else 1
+        threads = R * C * (T // rp)
+        smem = 4 * (_round_up(2 * R * C * T, 4) + ring)
+        if (T % rp or threads > GROUP_WALK_THREADS
+                or smem > SMEM_PER_BLOCK):
+            return None
+        return dict(kind="thread", RI=maxs, RP=rp, IG=1, SP=maxs,
+                    threads=threads, Q=C * rows * maxs, smem=smem, staged=0)
+    for kind in ("tile", "wide"):
+        ri, rp = ((4 if maxs == 20 else 8), 4) if kind == "tile" \
+            else (maxs, 1)
+        if T % rp:
+            continue
+        ig = -(-S // ri)
+        threads = R * C * ig * (T // rp)
+        if threads > GROUP_WALK_THREADS:
+            continue
+        q = C * rows * ig * ri
+        for staged in (1, 0):
+            sb = _round_up(_round_up(q * staged, 32) + C * S * T + 2 * T, 32)
+            smem = (4 * (4 * R * sb + _round_up(2 * R * C * ig * T, 4)
+                         + ring)
+                    + GROUP_WALK_BARS + GROUP_WALK_ALIGN)
+            if smem <= SMEM_PER_BLOCK:
+                return dict(kind=kind, RI=ri, RP=rp, IG=ig, SP=ig * ri,
+                            threads=threads, Q=q, smem=smem, staged=staged)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def group_walk_tile(C: int, S: int, n_codes: int, Ppad: int):
+    """(pattern tile T, row lanes R) of the group-window walk. Among the
+    configurations of GROUP_WALK_LANES × TILES that are not the wide
+    kind, the one whose grid fills the card (at least 95 % of 132 CTAs),
+    then runs in the fewest waves (CTAs an SM by threads, shared memory
+    and GROUP_WALK_REGS registers a thread), then has the most lanes,
+    then the widest tile; where the register tile fits nowhere, the same
+    over the wide kind. Cached per shape, as :func:`group_walk_config`
+    is: every evaluation launches the walk. Raises where nothing fits."""
+    for kinds in (("thread", "tile"), ("wide",)):
+        best, key = None, None
+        for R in GROUP_WALK_LANES:
+            for T in TILES:
+                cf = group_walk_config(C, S, n_codes, T, R)
+                if cf is None or cf["kind"] not in kinds:
+                    continue
+                grid = -(-Ppad // T)
+                k = max(1, min(ctas_per_sm(cf["threads"], cf["smem"]),
+                               65536 // (cf["threads"]
+                                         * GROUP_WALK_REGS[cf["kind"]])))
+                cand = (grid >= 0.95 * SMS, -(-grid // (SMS * k)) * -1, R, T)
+                if key is None or cand > key:
+                    best, key = (T, R), cand
+        if best:
+            return best
+    raise ValueError(f"the group-window walk takes no tile at {C} "
+                     f"categories, {S} states and {n_codes} codes")
+
+
+def launch_group_walk(name: str, device, mats_rows: int, n_rows: int,
+                      C: int, S: int, n_codes: int, Ppad: int, tile, lanes,
+                      args_before, args_after) -> None:
+    """Launch kernel 6 or 7 (``name``) at ``tile`` and ``lanes`` (by
+    default :func:`group_walk_tile`'s) with the scratch of its pre-pass
+    (``mats_rows`` sides) and of its row table (``n_rows`` rows of
+    GROUP_WALK_ROW ints): ``args_before`` are the entry point's
+    arguments up to Ppad, C, S, ``args_after`` those between the lanes
+    and the scratch. Raises where the configuration does not fit."""
+    import torch
+    if S > MAX_STATES:
+        raise ValueError(f"{name}: at most {MAX_STATES} states, got {S}")
+    if tile is None or lanes is None:
+        T0, R0 = group_walk_tile(C, S, n_codes, Ppad)
+        tile, lanes = tile or T0, lanes or R0
+    T, R = tile, lanes
+    cf = group_walk_config(C, S, n_codes, T, R)
+    if cf is None:
+        raise ValueError(f"{name}: no launch configuration at tile {T}, "
+                         f"{R} lanes")
+    mats = torch.empty((mats_rows, cf["Q"]), dtype=torch.float32,
+                       device=device)
+    rowtab = torch.empty((n_rows, GROUP_WALK_ROW), dtype=torch.int32,
+                         device=device)
+    launch(name, device, *args_before, Ppad, C, S, T, R, *args_after,
+           mats.data_ptr(), rowtab.data_ptr())
 
 
 def child_config(C: int, S: int, n_codes: int, T: int):

@@ -12,7 +12,11 @@ at ``q = 0`` and ``1``; dummy members (tip/tip children of tip 0, edge
 0) fill short groups and write rotating trash positions of that buffer.
 
 :func:`grouped_walk` (kernel 7, ``pllmod_grouped_walk``,
-``csrc/grouped.cu``) runs the whole schedule in one launch: buffers
+``csrc/grouped.cu``, the group-window walk of ``csrc/group_walk.cuh``)
+runs the whole schedule in one launch, the members in the level order of
+their dependencies (:func:`walk_order`; the schedule's own group order
+chains nearly every group to the one before) and R members of a window
+at a time: buffers
 ``[nG + 1, Q, C·S, Ppad]`` float32 and ``[nG + 1, Q, Ppad]`` int32, each
 member's product rescaled by the bit formula with its cumulative
 scaler. Tip children are expanded from their codes and never stored, so
@@ -34,8 +38,49 @@ from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops.fused import code_table
 from pllmod_tpu_torch.ops.levels import root_loglikelihood_csp
+from pllmod_tpu_torch.ops.packed import window_offsets
 
 LAUNCHES = 0        # launches of the grouped kernel (counted by grouped_walk)
+
+
+def walk_order(side_meta, dst_meta):
+    """The group-window walk's member order and windows of a grouped
+    schedule's tables (numpy or tensors): (order int32 [nG·G], windows
+    int32 [n_windows + 1]). A member's level is one more than the highest
+    level of the members that write its inner children's positions (0
+    where it has none: tips only, and the dummies); ``order`` lists the
+    members ``g·G + m`` by level (in schedule order within one), walk row
+    ``i`` being member ``order[i]``, and ``windows`` are that walk's row
+    offsets cut by :func:`~pllmod_tpu_torch.ops.packed.window_offsets`:
+    a level's rows read only rows of lower levels. (Windows of whole
+    groups in the schedule's own order would hold one group each: it
+    schedules the tallest ready node first, so nearly every group reads
+    the one before.)"""
+    side = np.asarray(side_meta.cpu() if torch.is_tensor(side_meta)
+                      else side_meta)
+    dst = np.asarray(dst_meta.cpu() if torch.is_tensor(dst_meta)
+                     else dst_meta)
+    nG, Q, _ = side.shape
+    G = Q // 2
+    writer = {}                                # (g, q) -> member id
+    for g in range(nG):
+        for m in range(G):
+            writer[(int(dst[g, m, 0]), int(dst[g, m, 1]))] = g * G + m
+
+    def producers(mid):
+        g, m = divmod(mid, G)
+        return [writer[(g, k * G + m)] if side[g, k * G + m, 0] == 0
+                else -1 for k in range(2)]
+    level = np.zeros(nG * G, np.int64)
+    for mid in range(nG * G):                  # writers come earlier
+        level[mid] = max((level[w] + 1 for w in producers(mid) if w >= 0),
+                         default=0)
+    order = np.argsort(level, kind="stable")
+    rank = np.empty(nG * G, np.int64)
+    rank[order] = np.arange(nG * G)
+    reads = np.asarray([[rank[w] if w >= 0 else -1 for w in producers(mid)]
+                        for mid in order], np.int64).reshape(-1, 2)
+    return order.astype(np.int32), window_offsets(reads)
 
 
 def pick_group(CS: int) -> int:
@@ -57,6 +102,8 @@ class GroupedSchedule:
         ``e_sides_np`` the same in numpy
       root_info: (ref_u, ref_v, root_edge) with inner refs n_tips + q
         pointing into the landing buffer (group nG)
+      order, windows: int32 [nG·G], [n_windows + 1] — the group-window
+        walk's member order and windows (:func:`walk_order`)
     The tables are tensors on the partition's device.
     """
 
@@ -171,6 +218,9 @@ class GroupedSchedule:
         self.dst_meta = torch.as_tensor(dst_meta.astype(np.int32), device=dev)
         self.grp_meta = torch.as_tensor(grp_meta.astype(np.int32), device=dev)
         self.e_sides_np = e_sides
+        order, windows = walk_order(side_meta, dst_meta)
+        self.order = torch.as_tensor(order, device=dev)
+        self.windows = torch.as_tensor(windows, device=dev)
         self.e_sides = torch.as_tensor(e_sides, device=dev)
         ref_u = u if u < n_tips else n_tips + 0
         ref_v = v if v < n_tips else n_tips + 1
@@ -189,7 +239,9 @@ def grouped_pmats(partition, brlens, e_sides):
         torch.float32).contiguous()
 
 
-def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab):
+def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab, order=None,
+                 windows=None, tile: int | None = None,
+                 lanes: int | None = None):
     """Run a grouped schedule's whole traversal.
 
     Args:
@@ -197,6 +249,11 @@ def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab):
         (:class:`GroupedSchedule`)
       PQ: float32 [nG, Q, C, S, S] per-child matrices
       tip_codes: int32 [n_tips, Ppad]; codetab: float32 [n_codes, S]
+      order, windows: int32 [nG·G], [n_windows + 1] — the walk's member
+        order and windows (the schedule's; by default derived from the
+        tables on the host, :func:`walk_order`)
+      tile, lanes: force the kernel's pattern tile and row lanes (by
+        default ``_build.group_walk_tile``'s)
     Returns:
       (bufs float32 [nG + 1, Q, C·S, Ppad], sbufs int32 [nG + 1, Q, Ppad]):
       every member's rescaled product and cumulative scaler at its
@@ -210,28 +267,30 @@ def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab):
     nG, Q, C, S, _ = PQ.shape
     G = dst_meta.shape[1]
     n_tips, Ppad = tip_codes.shape
+    n_codes = codetab.shape[0]
     name = "pllmod_grouped_walk"
     _build.check_tensors(name, [
         (PQ, torch.float32, (nG, Q, C, S, S)),
         (side_meta, torch.int32, (nG, Q, 2)),
         (dst_meta, torch.int32, (nG, Q // 2, 2)),
         (tip_codes, torch.int32, (n_tips, Ppad)),
-        (codetab, torch.float32, (codetab.shape[0], S))])
-    if S > _build.MAX_STATES:
-        raise ValueError(f"{name}: at most {_build.MAX_STATES} states, "
-                         f"got {S}")
-    T = _build.pattern_tile(C)
-    if Ppad % T:
-        raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple of "
-                         f"the tile ({T})")
+        (codetab, torch.float32, (n_codes, S))])
+    if order is None or windows is None:
+        order, windows = (torch.as_tensor(t, device=PQ.device)
+                          for t in walk_order(side_meta, dst_meta))
+    _build.check_tensors(name, [(PQ, torch.float32, None),
+                                (order, torch.int32, (nG * G,)),
+                                (windows, torch.int32, None)])
     bufs = torch.empty((nG + 1, Q, C * S, Ppad), dtype=torch.float32,
                        device=PQ.device)
     sbufs = torch.empty((nG + 1, Q, Ppad), dtype=torch.int32,
                         device=PQ.device)
-    _build.launch(name, PQ.device, side_meta.data_ptr(), dst_meta.data_ptr(),
-                  nG, G, PQ.data_ptr(), tip_codes.data_ptr(), n_tips,
-                  codetab.data_ptr(), codetab.shape[0], bufs.data_ptr(),
-                  sbufs.data_ptr(), Ppad, C, S, T)
+    _build.launch_group_walk(
+        name, PQ.device, nG * Q, nG * G, C, S, n_codes, Ppad, tile, lanes,
+        (side_meta.data_ptr(), dst_meta.data_ptr(), nG, G, PQ.data_ptr(),
+         tip_codes.data_ptr(), n_tips, codetab.data_ptr(), n_codes,
+         bufs.data_ptr(), sbufs.data_ptr()),
+        (order.data_ptr(), windows.data_ptr(), windows.shape[0] - 1))
     LAUNCHES += 1
     return bufs, sbufs
 
@@ -267,7 +326,8 @@ def update_partials_grouped(partition, sched: GroupedSchedule, PQ):
     :func:`grouped_walk`; the landing buffer ``bufs[nG]`` holds the two
     root-facing CLVs at positions 0 and 1."""
     return grouped_walk(sched.side_meta, sched.dst_meta, PQ,
-                        partition.tip_states, code_table(partition))
+                        partition.tip_states, code_table(partition),
+                        sched.order, sched.windows)
 
 
 def loglikelihood_grouped(partition, brlens, sched: GroupedSchedule):

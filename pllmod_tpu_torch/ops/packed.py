@@ -12,8 +12,11 @@ Ppad]`` int32, the layout of the port's other walks, so
 root-edge term at ``root_info``.
 
 :func:`packed_walk` (kernel 6, ``pllmod_packed_walk``,
-``csrc/packed.cu``) runs every row in one launch, each with its two
-child matrices picked from ``P [edges, C, S, S]`` by ``e1`` / ``e2``. The
+``csrc/packed.cu``, the group-window walk of ``csrc/group_walk.cuh``)
+runs every row in one launch, each with its two child matrices picked
+from ``P [edges, C, S, S]`` by ``e1`` / ``e2``, over the schedule's
+windows (:func:`window_offsets`: runs of rows none of which reads
+another's slot, here the padded levels), R rows of a window at a time. The
 JAX kernel's block-diagonal ``[G·C·S, G·C·S]`` packs, its
 ``kron(I_G, codetab)`` tip table and its DMA machinery only feed the
 TPU's matrix unit and have no counterpart; the group structure stays in
@@ -38,6 +41,29 @@ from pllmod_tpu_torch.ops.levels import (level_combined_plain,
 LAUNCHES = {"packed_walk": 0}   # counted by packed_walk where it launches
 
 
+def window_offsets(reads) -> np.ndarray:
+    """Row offsets [n_windows + 1] (int32) of a walk's rows cut into
+    windows: the greedy runs of consecutive rows none of which reads the
+    output of a row of its own run. ``reads`` [n_rows, 2]: the row whose
+    output each child is (negative for a tip child); every such row
+    comes earlier."""
+    reads = np.asarray(reads).reshape(-1, 2)
+    starts = [0]
+    for r, row in enumerate(reads.max(axis=1)):
+        if row >= r:
+            raise ValueError(f"row {r} reads row {row}, not an earlier one")
+        if row >= starts[-1]:
+            starts.append(r)
+    return np.asarray(starts + [len(reads)], np.int32)
+
+
+def packed_reads(idxm) -> np.ndarray:
+    """[n_rows, 2]: the slot (= row) each child of a packed table reads,
+    −1 for a tip child."""
+    m = np.asarray(idxm)
+    return np.where(m[:, [1, 3]] != 0, -1, m[:, [0, 2]])
+
+
 class PackedSchedule:
     """Host-compiled G-packed level schedule (``pallas_clv.
     PackedSchedule``).
@@ -46,10 +72,12 @@ class PackedSchedule:
     tip1, tip2), idxg [nG, 8] (out_base_slot, fence, any_tip1, any_tip2,
     contig1, start_slot1, contig2, start_slot2), e1/e2 [nG·G] child edge
     ids (dummies -> edge 0), n_slots_pad, contig_frac, root_info (refs
-    remapped to the padded slots). The tables are int32 tensors on the
-    partition's device. The kernel reads ``idxm``, ``e1`` and ``e2``;
-    ``idxg``'s fence and contiguous-gather columns drive the TPU kernel's
-    DMAs and are kept for parity with the JAX package.
+    remapped to the padded slots), windows [n_windows + 1] (the walk's
+    row offsets, :func:`window_offsets`: the padded levels). The tables
+    are int32 tensors on the partition's device. The kernel reads
+    ``idxm``, ``e1``, ``e2`` and ``windows``; ``idxg``'s fence and
+    contiguous-gather columns drive the TPU kernel's DMAs and are kept
+    for parity with the JAX package.
     """
 
     def __init__(self, partition, tree, root_edge=None, group: int = 0):
@@ -138,8 +166,10 @@ class PackedSchedule:
                 idxg.append(row)
         idxg = np.asarray(idxg, np.int32)
         dev = partition.device
-        self.idxm = torch.as_tensor(np.concatenate(idxm).astype(np.int32),
-                                    device=dev)
+        idxm = np.concatenate(idxm).astype(np.int32)
+        self.windows = torch.as_tensor(window_offsets(packed_reads(idxm)),
+                                       device=dev)
+        self.idxm = torch.as_tensor(idxm, device=dev)
         self.idxg = torch.as_tensor(idxg, device=dev)
         self.e1 = torch.as_tensor(np.concatenate(e1s).astype(np.int32),
                                   device=dev)
@@ -157,7 +187,8 @@ class PackedSchedule:
         self.root_info = (remap(u), remap(v), e)
 
 
-def packed_walk(idxm, e1, e2, P, tip_codes, codetab, G: int):
+def packed_walk(idxm, e1, e2, P, tip_codes, codetab, G: int, windows=None,
+                tile: int | None = None, lanes: int | None = None):
     """Run a packed schedule's whole traversal.
 
     Args:
@@ -166,6 +197,11 @@ def packed_walk(idxm, e1, e2, P, tip_codes, codetab, G: int):
         ``P[e1[r]]`` and ``P[e2[r]]``)
       tip_codes: int32 [n_tips, Ppad]; codetab: float32 [n_codes, S]
       G: rows a group (the schedule's ``G``)
+      windows: int32 [n_windows + 1] row offsets of the walk's windows
+        (the schedule's ``windows``; by default cut from ``idxm`` on the
+        host, :func:`window_offsets`)
+      tile, lanes: force the kernel's pattern tile and row lanes (by
+        default ``_build.group_walk_tile``'s)
     Returns:
       (clvs float32 [nG·G, C·S, Ppad], scalers int32 [nG·G, 1, Ppad]):
       row ``r``'s rescaled product and cumulative scaler in slot ``r``.
@@ -176,30 +212,32 @@ def packed_walk(idxm, e1, e2, P, tip_codes, codetab, G: int):
     n_rows = idxm.shape[0]
     E, C, S, _ = P.shape
     n_tips, Ppad = tip_codes.shape
+    n_codes = codetab.shape[0]
     name = "pllmod_packed_walk"
     _build.check_tensors(name, [
         (P, torch.float32, (E, C, S, S)),
         (idxm, torch.int32, (n_rows, 6)),
         (e1, torch.int32, (n_rows,)), (e2, torch.int32, (n_rows,)),
         (tip_codes, torch.int32, (n_tips, Ppad)),
-        (codetab, torch.float32, (codetab.shape[0], S))])
-    if S > _build.MAX_STATES:
-        raise ValueError(f"{name}: at most {_build.MAX_STATES} states, "
-                         f"got {S}")
-    T = _build.pattern_tile(C)
-    if Ppad % T or n_rows == 0 or n_rows % G:
-        raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple of "
-                         f"the tile ({T}) and rows ({n_rows}) a nonzero "
+        (codetab, torch.float32, (n_codes, S))])
+    if n_rows == 0 or n_rows % G:
+        raise ValueError(f"{name}: rows ({n_rows}) must be a nonzero "
                          f"multiple of G ({G})")
+    if windows is None:
+        windows = torch.as_tensor(window_offsets(packed_reads(
+            idxm.cpu().numpy())), device=P.device)
+    _build.check_tensors(name, [(P, torch.float32, None),
+                                (windows, torch.int32, None)])
     clvs = torch.empty((n_rows, C * S, Ppad), dtype=torch.float32,
                        device=P.device)
     scalers = torch.empty((n_rows, 1, Ppad), dtype=torch.int32,
                           device=P.device)
-    _build.launch(name, P.device, idxm.data_ptr(), e1.data_ptr(),
-                  e2.data_ptr(), n_rows, P.data_ptr(), E,
-                  tip_codes.data_ptr(), n_tips, codetab.data_ptr(),
-                  codetab.shape[0], clvs.data_ptr(), scalers.data_ptr(),
-                  Ppad, C, S, T)
+    _build.launch_group_walk(
+        name, P.device, 2 * n_rows, n_rows, C, S, n_codes, Ppad, tile, lanes,
+        (idxm.data_ptr(), e1.data_ptr(), e2.data_ptr(), n_rows, P.data_ptr(),
+         E, tip_codes.data_ptr(), n_tips, codetab.data_ptr(), n_codes,
+         clvs.data_ptr(), scalers.data_ptr()),
+        (windows.data_ptr(), windows.shape[0] - 1))
     LAUNCHES["packed_walk"] += 1
     return clvs, scalers
 
@@ -234,7 +272,8 @@ def update_partials_packed(partition, P, packed: PackedSchedule):
     Ppad] float32, scalers [n_slots_pad, 1, Ppad] int32)."""
     return packed_walk(packed.idxm, packed.e1, packed.e2,
                        P.to(torch.float32).contiguous(),
-                       partition.tip_states, code_table(partition), packed.G)
+                       partition.tip_states, code_table(partition), packed.G,
+                       packed.windows)
 
 
 def loglikelihood_packed(partition, brlens, packed: PackedSchedule):

@@ -328,15 +328,17 @@ def _check_level_kernels(part, tree, root_edge=None):
         {"child_pass": 3 * n, "child2_pass": n, "level_combined": 2 * n}
 
 
-def _check_grouped_kernel(part, tree, root_edge=None, group=0):
+def _check_grouped_kernel(part, tree, root_edge=None, group=0, **walk):
     """Kernel 7 against its plain version on every position a member
-    writes (the tip positions of the buffers hold nothing)."""
+    writes (the tip positions of the buffers hold nothing); ``walk``:
+    the wrapper's tile= and lanes=."""
     sched = grouped.GroupedSchedule(part, tree, root_edge, group)
     PQ = grouped.grouped_pmats(part, _brl(tree, part), sched.e_sides)
     args = (sched.side_meta, sched.dst_meta, PQ, part.tip_states,
             fused.code_table(part))
     before = grouped.LAUNCHES
-    bufs, sbufs = grouped.grouped_walk(*args)
+    bufs, sbufs = grouped.grouped_walk(*args, sched.order, sched.windows,
+                                       **walk)
     assert grouped.LAUNCHES == before + 1
     want_b, want_s = grouped.grouped_walk_plain(*args)
     dg, dq = sched.dst_meta[..., 0].long(), sched.dst_meta[..., 1].long()
@@ -451,16 +453,17 @@ def test_level_and_grouped_wrappers_raise(cuda):
 # ---------------------------------------------------------------------------
 # the packed walk (kernel 6) and kernel 10 over K partitions
 # ---------------------------------------------------------------------------
-def _check_packed_kernel(part, tree, root_edge=None, group=0):
+def _check_packed_kernel(part, tree, root_edge=None, group=0, **walk):
     """Kernel 6 against its plain version on every slot, the dummy rows'
-    included, and the packed logL against the float64 serial engine."""
+    included, and the packed logL against the float64 serial engine;
+    ``walk``: the wrapper's tile= and lanes=."""
     from pllmod_tpu_torch.ops import packed
     sched = packed.PackedSchedule(part, tree, root_edge, group)
     P = part.prob_matrices(_brl(tree, part)).contiguous()
     args = (sched.idxm, sched.e1, sched.e2, P, part.tip_states,
             fused.code_table(part), sched.G)
     before = packed.LAUNCHES["packed_walk"]
-    clvs, sc = packed.packed_walk(*args)
+    clvs, sc = packed.packed_walk(*args, sched.windows, **walk)
     assert packed.LAUNCHES["packed_walk"] == before + 1
     want = packed.packed_walk_plain(*args)
     assert torch.equal(clvs, want[0]) and torch.equal(sc, want[1])
@@ -1171,3 +1174,169 @@ def test_sumtable_config_matches_library(cuda, states, cats):
                 assert _sumtable_config_lib(cats, states, n_codes, Ppad, 1,
                                             T)[0] == \
                     _build.sumtable_config(cats, states, n_codes, Ppad, 1, T)
+
+
+# ---------------------------------------------------------------------------
+# the group-window walk (kernels 6 and 7, csrc/group_walk.cuh)
+# ---------------------------------------------------------------------------
+# the state ladder (every register tile and both walk designs) at C = 1,
+# 4 and 8
+GROUP_LADDER = [(s, c) for s in (4, 5, 8, 16, 20, 32, 64) for c in (1, 4, 8)]
+
+
+def _fitting(C, S, n_codes, lanes=(1, 2, 3, 4, 8)):
+    """Every (tile, lanes) whose group-walk configuration fits."""
+    return [(T, R) for R in lanes for T in _build.TILES
+            if _build.group_walk_config(C, S, n_codes, T, R)]
+
+
+@pytest.mark.parametrize("states,cats", GROUP_LADDER)
+def test_group_walks_state_ladder(cuda, states, cats):
+    """Kernels 6 and 7 bit for bit with their plain versions along the
+    state ladder, at the rule's tile and lanes and at the widest tile
+    that fits with two lanes (windows of several steps)."""
+    part, tree = _example(states, cats, cuda)
+    _check_packed_kernel(part, tree)
+    _check_grouped_kernel(part, tree)
+    n_codes = part.code_clv.shape[0]
+    T, R = next((T, R) for T, R in _fitting(cats, states, n_codes, (2,)))
+    _check_packed_kernel(part, tree, tile=T, lanes=R)
+    _check_grouped_kernel(part, tree, tile=T, lanes=R)
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4)])
+def test_group_walks_every_tile_and_lane_count(cuda, states, cats):
+    """Both walks at every (tile, lanes) that fits, three lanes among
+    them: windows longer than a step (the 24-taxon tree's first window
+    holds 8 rows and more) and steps with idle lanes."""
+    part, tree = _example(states, cats, cuda)
+    for T, R in _fitting(cats, states, part.code_clv.shape[0]):
+        _check_packed_kernel(part, tree, tile=T, lanes=R)
+        _check_grouped_kernel(part, tree, tile=T, lanes=R)
+
+
+@pytest.mark.parametrize("case", ["caterpillar", "tip_root", "group3",
+                                  "g16"])
+def test_group_walks_edge_cases(cuda, case):
+    """A caterpillar (every level narrower than G: one row, the packed
+    walk's other rows dummies, and windows of one row), a root on a tip
+    edge, G = 3 given, and G = 16 (C·S = 4), each at a narrow and a
+    wide configuration."""
+    part, tree = _example(4, 4, cuda, n_taxa=14)
+    root_edge, group = None, 0
+    if case == "caterpillar":
+        tree = _caterpillar(14)
+        tree.lengths[:] = np.linspace(0.02, 0.3, len(tree.lengths))
+    elif case == "tip_root":
+        root_edge = _tip_edge(tree)
+    elif case == "group3":
+        group = 3
+    else:
+        part, tree = _example(4, 1, cuda, n_taxa=40)
+    for walk in ({}, dict(tile=64, lanes=4)):
+        sched = _check_packed_kernel(part, tree, root_edge, group, **walk)
+        gs = _check_grouped_kernel(part, tree, root_edge, group, **walk)
+    if case == "caterpillar":
+        assert len(sched.windows) - 1 == 12 and len(gs.windows) - 1 == 12
+    if case == "g16":
+        assert gs.G == 16
+
+
+def test_group_walks_protein_code_table(cuda):
+    """A protein alphabet's code table (21 codes, beyond the 20 states)
+    through the tip lookups of both walks, tile and wide kinds."""
+    part, tree = _example(20, 4, cuda, n_taxa=32)
+    assert part.code_clv.shape[0] >= 21
+    for walk in ({}, dict(tile=32, lanes=2), dict(tile=128, lanes=1)):
+        _check_packed_kernel(part, tree, **walk)
+        _check_grouped_kernel(part, tree, **walk)
+
+
+def test_group_walks_more_ctas_than_sms(cuda):
+    """More CTAs than the card has SMs (4096 patterns at tile 4 and 8)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for states in (4, 20):
+        part, tree = _example(states, 4, cuda, n_taxa=16, n_sites=4096)
+        for T in (4, 8):
+            assert part.n_patterns_padded // T > n_sm
+            _check_packed_kernel(part, tree, tile=T, lanes=2)
+            _check_grouped_kernel(part, tree, tile=T, lanes=2)
+
+
+@pytest.mark.parametrize("tile,lanes", [(4, 8), (8, 8), (4, 4)])
+def test_group_walks_repeated_launches(cuda, tile, lanes):
+    """The tile walk with tensor copies (20 states) at many lanes a CTA,
+    where a lane's threads span warps and most steps' copies were issued
+    a step ahead (one barrier a step), launched 20 times each on a
+    256-taxon tree: every launch bit for bit with the plain version. (A
+    lane's next step writing the category maxima that a slower thread
+    still read showed in 5 to 8 launches of 20 at the protein cell.)"""
+    from pllmod_tpu_torch.ops import packed
+    part, tree = _example(20, 4, cuda, n_taxa=256, n_sites=2048)
+    n_codes = part.code_clv.shape[0]
+    assert _build.group_walk_config(4, 20, n_codes, tile, lanes)["kind"] \
+        == "tile"
+    tab, tc = fused.code_table(part), part.tip_states
+    ps = packed.PackedSchedule(part, tree)
+    P = part.prob_matrices(_brl(tree, part)).contiguous()
+    pargs = (ps.idxm, ps.e1, ps.e2, P, tc, tab, ps.G)
+    pwant = packed.packed_walk_plain(*pargs)
+    gs = grouped.GroupedSchedule(part, tree)
+    PQ = grouped.grouped_pmats(part, _brl(tree, part), gs.e_sides)
+    gargs = (gs.side_meta, gs.dst_meta, PQ, tc, tab)
+    dg, dq = gs.dst_meta[..., 0].long(), gs.dst_meta[..., 1].long()
+    gwant = [w[dg, dq] for w in grouped.grouped_walk_plain(*gargs)]
+    for _ in range(20):
+        got = packed.packed_walk(*pargs, ps.windows, tile=tile, lanes=lanes)
+        assert all(torch.equal(g, w) for g, w in zip(got, pwant))
+        got = grouped.grouped_walk(*gargs, gs.order, gs.windows, tile=tile,
+                                   lanes=lanes)
+        assert all(torch.equal(g[dg, dq], w) for g, w in zip(got, gwant))
+
+
+@pytest.mark.parametrize("states,cats", GROUP_LADDER + [(4, 32), (64, 32)])
+def test_group_walk_config_matches_library(cuda, states, cats):
+    """_build.group_walk_config against both libraries' own queries
+    (pllmod_packed_config, pllmod_grouped_config) at every tile and
+    lane count, fitting or not."""
+    lib = _build.load()
+    out = (ctypes.c_longlong * 9)()
+    for n_codes in (states, 21):
+        for R in (1, 2, 3, 4, 8):
+            for T in _build.TILES:
+                want = _build.group_walk_config(cats, states, n_codes, T, R)
+                for fn in (lib.pllmod_packed_config,
+                           lib.pllmod_grouped_config):
+                    ok = fn(cats, states, n_codes, T, R, out)
+                    assert bool(ok) == (want is not None)
+                    if ok:
+                        got = dict(zip(("kind", "RI", "RP", "IG", "SP",
+                                        "threads", "Q", "smem", "staged"),
+                                       out))
+                        got["kind"] = _build.GROUP_WALK_KINDS[got["kind"]]
+                        assert got == want
+
+
+def test_group_walk_wrappers_raise(cuda):
+    """Kernels 6 and 7 refuse what no configuration takes and tables off
+    the card; neither falls back to its plain version."""
+    from pllmod_tpu_torch.ops import packed
+    part, tree = _example(4, 4, cuda)
+    ps = packed.PackedSchedule(part, tree)
+    P = part.prob_matrices(_brl(tree, part)).contiguous()
+    tab, tc = fused.code_table(part), part.tip_states
+    pargs = (ps.idxm, ps.e1, ps.e2, P, tc, tab, ps.G)
+    gs = grouped.GroupedSchedule(part, tree)
+    PQ = grouped.grouped_pmats(part, _brl(tree, part), gs.e_sides)
+    gargs = (gs.side_meta, gs.dst_meta, PQ, tc, tab)
+    before = packed.LAUNCHES["packed_walk"], grouped.LAUNCHES
+    with pytest.raises(ValueError, match="no launch configuration"):
+        packed.packed_walk(*pargs, ps.windows, tile=128, lanes=8)
+    with pytest.raises(ValueError, match="no launch configuration"):
+        grouped.grouped_walk(*gargs, gs.order, gs.windows, tile=128,
+                             lanes=8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        packed.packed_walk(*pargs, ps.windows.cpu())
+    with pytest.raises(ValueError, match="CUDA device"):
+        grouped.grouped_walk(*gargs, gs.order.cpu(), gs.windows)
+    assert (packed.LAUNCHES["packed_walk"], grouped.LAUNCHES) == before
