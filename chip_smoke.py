@@ -40,11 +40,14 @@ It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
 rule), and kernel 8's simple kernel and tiled configurations at the
 BLO's launch shapes over a sweep of cells (the measurements behind
-``_build.sumtable_config``'s rule), and kernels 6 and 7 at every pattern
-tile and row-lane count that fills half the card, at the flagship and
-protein cells, each bit for bit (the measurements behind
-``_build.group_walk_tile``'s rule). It prints the flagship metric with
-every timed schedule's ms/eval, one ``{"blo": [...]}``, one
+``_build.sumtable_config``'s rule), kernels 6 and 7 at every pattern
+tile and row-lane count that fills half the card, and kernels 4 and 5 at
+every pattern tile where they fit, each level timed and each tile's
+whole schedule run five times, at the flagship and protein cells, each
+bit for bit (the measurements behind ``_build.group_walk_tile``'s and
+``_build.level_tile``'s rules). It prints the flagship metric with
+every timed schedule's ms/eval (``pallas``, and ``combined``: kernel 5
+a level), one ``{"blo": [...]}``, one
 ``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
 ``{"kernels": [...]}`` line (each kernel's launches in all, by cell and
 by path), the card's name and power limit, and last
@@ -52,28 +55,32 @@ by path), the card's name and power limit, and last
 script exits non-zero; without CUDA it exits 1 and prints no result.
 
 ``--profile`` also traces the main path's timed loop of each cell, the
-flagship's ``pallas``, grouped and packed loops, the protein cell's
-grouped and packed loops and one BLO call each at the
+flagship's and the protein cell's ``pallas``, ``combined``, grouped and
+packed loops and one BLO call each at the
 flagship and protein cells and on the partitioned cell (LINKED) with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
 window; and it builds ``csrc/pruning.cu``, ``csrc/deriv.cu``,
-``csrc/packed.cu`` and ``csrc/grouped.cu`` once more with their phase
-marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``) and prints the mean
-cycles of each phase of a row of kernel 1 and of a step of kernels 6
-and 7 (flagship, protein), of a work item of kernel 8 and of a Newton
+``csrc/packed.cu``, ``csrc/grouped.cu`` and ``csrc/levels.cu`` once
+more with their phase marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``)
+and prints the mean cycles of each phase of a row of kernel 1, of a
+step of kernels 6 and 7 and of a row's tile of kernels 4 and 5
+(flagship, protein), of a work item of kernel 8 and of a Newton
 iteration of kernel 10 (their all-edge shapes), with the marked build's
 ms a launch beside the library's. ``--parent DIR`` builds the kernels of
 another checkout at DIR (an earlier commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists) beside this tree's
-and times its kernels 1, 2, 3, 6, 7, 8 and 10 (each entry point from the
+and times its kernels 1-8 and 10 (each entry point from the
 library that defines it there, with its own signature) beside this
 tree's on the same inputs, outputs held equal (kernel 10 within
 DERIV_RTOL), in turns (parent, this tree, this tree, parent), by device
-time; kernels 6 and 7 at the flagship and protein cells, kernels 8 and
+time; kernels 3-7 at the flagship and protein cells, kernels 8 and
 10 at every shape the BLO launches: all edges and each edge-color class
 of the flagship and protein cells, and kernel 10 on the two-partition
-sweep.
+sweep. It then times the ``pallas`` and ``combined`` evaluations of both
+checkouts at the flagship and protein cells in turns, each turn a
+process of its own (``eval_turns``: ms/eval, host issue ms/eval and the
+host µs of one kernel-4 and kernel-5 wrapper call, logLs held equal).
 """
 
 from __future__ import annotations
@@ -82,6 +89,7 @@ import argparse
 import atexit
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -186,6 +194,13 @@ def device_ms(fn, iters: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def least_device_ms(fn, iters: int) -> float:
+    """The smaller of two :func:`device_ms` measurements: a host stall
+    longer than the spin before one (a page fault, a collection) times
+    an idle device, which one measurement of a sweep of hundreds met."""
+    return min(device_ms(fn, iters), device_ms(fn, iters))
 
 
 def nbytes(*tensors) -> int:
@@ -643,11 +658,13 @@ def _child_cost(part, rows, side: int, n_codes: int):
 
 
 def level_bounds(part, idx, slices, n_codes: int):
-    """Per kernel, its mean bound over the levels' launches (ms) and what
-    sets the larger share of it: inputs read once (children, rows,
-    matrices, code table, and kernel 4's left and s1), outputs written
-    once; the product, maximum and scale cost C·S flops each a
-    pattern."""
+    """Per kernel, its mean bound over the levels' launches (ms), what
+    sets the larger share of it, and its mean exact-arithmetic ceiling
+    (ms: the operations at half the float32 rate, a multiply and an add
+    a term, since the exactness contract forbids FMA): inputs read once
+    (children, rows, matrices, code table, and kernel 4's left and s1),
+    outputs written once; the product, maximum and scale cost C·S flops
+    each a pattern."""
     C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
     rows_all = idx.cpu().numpy()
     per = {"child_pass": [], "child2_pass": [], "level_combined": []}
@@ -666,8 +683,60 @@ def level_bounds(part, idx, slices, n_codes: int):
     out = {}
     for k, v in per.items():
         ms = sum(bound(b, f)[0] for b, f in v) / len(v)
-        out[k] = (ms, bound(sum(b for b, _ in v), sum(f for _, f in v))[1])
+        exact = sum(f for _, f in v) / len(v) / (F32_FLOPS / 2) * 1e3
+        out[k] = (ms, bound(sum(b for b, _ in v), sum(f for _, f in v))[1],
+                  exact)
     return out
+
+
+LEVEL_SWEEP_REPEATS = 5   # whole-schedule runs a tile of kernels 4 and 5
+
+
+def level_tile_sweep(label, kernel, run, want, sl, C: int, S: int,
+                     n_codes: int) -> dict:
+    """Kernel 4 (``kernel`` "child2") or 5 ("combined") at every pattern
+    tile where a configuration fits, each a configuration the rule can
+    pick for some level: ``run(T, s, bufs)`` launches level ``s`` at tile
+    T into ``bufs``. At each tile the whole schedule runs
+    LEVEL_SWEEP_REPEATS times into buffers poisoned first, each held bit
+    for bit against the plain walk's ``want``; then each level is timed
+    (the least of two device ms a launch). Returns the tiles' rows and, a
+    level, the rule's tile and ms beside the fastest (the measurements
+    behind ``_build.level_tile``)."""
+    Ppad = want[0].shape[2]
+    rows = []
+    for T in _build.LEVEL_TILES:
+        cf = _build.level_config(kernel, C, S, n_codes, T)
+        if cf is None:
+            continue
+        for _ in range(LEVEL_SWEEP_REPEATS):
+            bufs = (torch.full_like(want[0], float("nan")),
+                    torch.full_like(want[1], -999))
+            for s in sl:
+                run(T, s, bufs)
+            if not (torch.equal(bufs[0], want[0])
+                    and torch.equal(bufs[1], want[1])):
+                raise AssertionError(f"{kernel} ({label}) at tile {T} "
+                                     "differs from its plain version")
+        rows.append(dict(tile=T, kind=cf["kind"],
+                         ms=[least_device_ms(lambda s=s: run(T, s, bufs), 10)
+                             for s in sl]))
+    per_level = []
+    for i, s in enumerate(sl):
+        W = s.stop - s.start
+        rule = _build.level_tile(kernel, C, S, n_codes, Ppad, W)
+        best = min(rows, key=lambda r: r["ms"][i])
+        per_level.append(dict(W=W, rule_tile=rule, rule_ms=next(
+            r["ms"][i] for r in rows if r["tile"] == rule),
+            best_tile=best["tile"], best_ms=best["ms"][i]))
+    rule_sum = sum(r["rule_ms"] for r in per_level)
+    best_sum = sum(r["best_ms"] for r in per_level)
+    print(f"{kernel} ({label}) tile sweep: the rule's tiles "
+          f"{rule_sum / len(sl):.4f} ms a launch, the fastest a level "
+          f"{best_sum / len(sl):.4f}, every tile bit for bit in "
+          f"{LEVEL_SWEEP_REPEATS} runs; " + json.dumps(per_level))
+    return dict(tiles=rows, levels=per_level, rule_ms=rule_sum / len(sl),
+                best_ms=best_sum / len(sl))
 
 
 def check_levels(part, tree, label):
@@ -675,9 +744,11 @@ def check_levels(part, tree, label):
     the cell's LevelSchedule, bit for bit: kernel 3 on both children of
     each level (on the plain walk's buffers), kernels 3+4 and kernel 5 as
     drivers of the whole schedule (every level's block and scaler rows
-    against the plain walk), and kernels 4 and 5 once more when timed in
-    place. Times per launch are means over the levels. Returns the three
-    kernel rows."""
+    against the plain walk), kernels 4 and 5 at every tile where they fit
+    (``level_tile_sweep``) and once more when timed in place. Times per
+    launch are means over the levels; kernel 5's row also times the split
+    step (two kernel-3 launches and the torch combine a level) for
+    information. Returns the three kernel rows."""
     lvls, offsets, _, ns = engine.compile_schedule(part, tree)
     tables = levels.level_tables(part, lvls)
     idx, e1, e2 = tables
@@ -723,6 +794,16 @@ def check_levels(part, tree, label):
             equal(levels.child_pass(idx[s], side, *ref, tc, tab, Pm),
                   levels.child_pass_plain(idx[s], side, *ref, tc, tab, Pm),
                   f"child_pass side {side}")
+    left_of = {s.start: pair for s, pair in zip(sl, lefts)}
+    sweeps = {
+        "child2_pass": level_tile_sweep(
+            label, "child2", lambda T, s, b: levels.child2_pass(
+                idx[s], *b, tc, tab, P2[s], *left_of[s.start], s.start,
+                tile=T), want, sl, C, S, tab.shape[0]),
+        "level_combined": level_tile_sweep(
+            label, "combined", lambda T, s, b: levels.level_update_combined(
+                *b, idx[s], tc, tab, P1[s], P2[s], s.start, tile=T),
+            want, sl, C, S, tab.shape[0])}
 
     def k3():
         for s in sl:
@@ -736,6 +817,10 @@ def check_levels(part, tree, label):
         for s, off in zip(sl, offsets):
             levels.level_update_combined(*ref, idx[s], tc, tab, P1[s], P2[s],
                                          off)
+
+    def split():
+        for s, off in zip(sl, offsets):
+            levels.level_update(*ref, idx[s], tc, tab, P1[s], P2[s], off)
 
     def p3():
         for s in sl:
@@ -753,30 +838,45 @@ def check_levels(part, tree, label):
     ms_ = [P1[s].reshape(-1, S, S).contiguous() for s in sl]
     bounds = level_bounds(part, idx, sl, tab.shape[0])
     # device time a launch (the per-level launches issue slower than the
-    # kernels run); the plain versions are timed as issued
+    # kernels run; kernels 4 and 5 the least of two); the plain versions
+    # are timed as issued
     times = {"child_pass": (device_ms(k3, 10) / L, time_ms(p3, 1) / L,
                             device_ms(lambda: [torch.bmm(m, x) for m, x
                                                in zip(ms_, xs)], 10) / L),
-             "child2_pass": (device_ms(k4, 10) / L,
+             "child2_pass": (least_device_ms(k4, 10) / L,
                              time_ms(walk_plain, 1) / L, None),
-             "level_combined": (device_ms(k5, 10) / L, time_ms(p5, 1) / L,
-                                None)}
+             "level_combined": (least_device_ms(k5, 10) / L,
+                                time_ms(p5, 1) / L, None)}
+    split_ms = least_device_ms(split, 10) / L
+    walk_plain()       # the split step's unclipped rescale wrote ref
+    k5()
+    equal(ref, want, "kernel 5 timed in place")
+    k4()
     equal(ref, want, "kernels 4 and 5 timed in place")
     del xs, ms_
     rows = []
     for name, line in (("child_pass", 113), ("child2_pass", 195),
                        ("level_combined", 282)):
         ms, plain_ms, lib_ms = times[name]
-        b_ms, b_by = bounds[name]
+        b_ms, b_by, exact_ms = bounds[name]
+        extra = {}
+        if name in sweeps:
+            extra = dict(tiles=sweeps[name], level_tiles=[
+                r["rule_tile"] for r in sweeps[name]["levels"]])
+        if name == "level_combined":
+            extra["split_ms"] = split_ms
         print(f"{name} ({label}): {ms:.4f} ms/launch (mean of {L} levels), "
               f"plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"library {lib_ms}, bit for bit")
+              f"exact-arithmetic ceiling {exact_ms:.4f} ms, library "
+              f"{lib_ms}" + (f", split step {split_ms:.4f} ms"
+                             if name == "level_combined" else "")
+              + ", bit for bit")
         rows.append(dict(name=name, route="cuda",
                          source="pllmod_tpu_torch/csrc/levels.cu",
                          replaces=f"pllmod_tpu/ops/pallas_clv.py:{line}",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                         levels=L))
+                         levels=L, **extra))
     return rows
 
 
@@ -1201,8 +1301,17 @@ def eval_loop(part, tree, schedule="auto"):
     lengths: returns ``loop()``, which issues them all and returns the
     summed logL (a device tensor). ``schedule="grouped"`` evaluates
     through ``grouped.loglikelihood_grouped`` on a schedule compiled
-    once."""
-    if schedule == "grouped":
+    once, "packed" through ``packed.loglikelihood_packed``, "combined"
+    through ``levels.loglikelihood_pallas(step="combined")`` (kernel 5 a
+    level) on a LevelSchedule and its tables compiled once."""
+    if schedule == "combined":
+        lvls, offsets, ri, ns = engine.compile_schedule(part, tree)
+        tables = levels.level_tables(part, lvls)
+
+        def ev(p, brl):
+            return levels.loglikelihood_pallas(p, lvls, brl, offsets, ri, ns,
+                                               step="combined", tables=tables)
+    elif schedule == "grouped":
         sched = grouped.GroupedSchedule(part, tree)
 
         def ev(p, brl):
@@ -1294,29 +1403,34 @@ SUMTABLE_PHASES = ("barrier", "loads", "products", "stores")  # + staging
 
 
 GROUP_THREAD_PHASES = ("children_products", "barrier", "rescale_store")
+# kernels 4 and 5 (csrc/levels.cu level_tiled), a row's tile 0
+LEVEL_PHASES = ("issue", "wait", "products", "maxima_barrier",
+                "rescale_store")
 GROUP_TILE_PHASES = ("issue", "wait", "products", "barrier",
                      "rescale_store")
 
 
 def start_phase_build():
-    """Start building pruning.cu, deriv.cu, packed.cu and grouped.cu with
-    their phase marks in a thread, beside the default build; returns the
-    build's future."""
+    """Start building pruning.cu, deriv.cu, packed.cu, grouped.cu and
+    levels.cu with their phase marks in a thread, beside the default
+    build; returns the build's future."""
     from concurrent.futures import ThreadPoolExecutor
     pool = ThreadPoolExecutor(1)
     future = pool.submit(_build.build, ("pruning", "deriv", "packed",
-                                        "grouped"), PHASE_DEFINES)
+                                        "grouped", "levels"), PHASE_DEFINES)
     pool.shutdown(wait=False)
     return future
 
 
 def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
                   names, once=None) -> None:
-    """Where a row of kernel 1, a step of kernel 6 or 7 or a Newton
-    iteration of kernel 10 spends its cycles: ``fn`` (one launch through
-    the port's wrapper) run through ``marked``, the build with phase
-    marks, records CTA 0's thread 0's clock64() at each phase boundary of
-    its first ``rows`` rows or iterations; prints the mean cycles of each
+    """Where a row of kernel 1, a step of kernel 6 or 7, a Newton
+    iteration of kernel 10 or a row's tile of kernel 4 or 5 spends its
+    cycles: ``fn`` (one launch through the port's wrapper) run through
+    ``marked``, the build with phase marks, records CTA 0's thread 0's
+    clock64() (kernels 4 and 5: tile 0's of each row) at each phase
+    boundary of its first ``rows`` rows or iterations; prints the mean
+    cycles of each
     phase over the inner ones (the first and last two dropped where there
     are eight or more, else one), and ms a launch of the marked build
     against the port's own library, timed in turns (library, marked,
@@ -1348,10 +1462,11 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
 
 
 def run_phase_profiles(build, cells) -> None:
-    """:func:`phase_profile` of kernels 1, 6 and 7 at the flagship and
-    protein cells and of kernels 8 and 10 at SUMTABLE_SHAPES' and
-    NEWTON_SHAPES' all-edge shapes, with the build that
-    :func:`start_phase_build` started."""
+    """:func:`phase_profile` of kernels 1, 4, 5, 6 and 7 at the flagship
+    and protein cells (kernels 4 and 5 on the widest level and on the
+    level with the most rows of two inner children) and of kernels 8 and
+    10 at SUMTABLE_SHAPES' and NEWTON_SHAPES' all-edge shapes, with the
+    build that :func:`start_phase_build` started."""
     import ctypes
     paths = build.result()
     marked = _build.entry_points(paths)
@@ -1392,6 +1507,33 @@ def run_phase_profiles(build, cells) -> None:
             steps = int(sum(-(-int(n) // R)
                             for n in np.diff(win.cpu().numpy())))
             phase_profile(marked, set_buffer, label, name, fn, steps, names)
+        # kernels 4 and 5: a row's tile, on two levels
+        lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+        idx, e1, e2 = levels.level_tables(part, lvls)
+        P = part.prob_matrices(brl)
+        P1, P2 = P[e1], P[e2]
+        bufs = levels.update_partials_pallas(part, P, lvls, offsets, ns)
+        rows_np = idx.cpu().numpy()
+        sl = [slice(o, o + len(lv)) for lv, o in zip(lvls, offsets)]
+        inner = [int(((rows_np[s, 2] == 0) & (rows_np[s, 3] == 0)).sum())
+                 for s in sl]
+        for li in sorted({0, int(np.argmax(inner))}):
+            s = sl[li]
+            W = s.stop - s.start
+            left, s1 = levels.child_pass(idx[s], 0, *bufs, part.tip_states,
+                                         tab, P1[s])
+            where = f"{label}, level {li} (W {W}, {inner[li]} inner rows)"
+            for kernel, fn in (
+                    ("child2_pass", lambda: levels.child2_pass(
+                        idx[s], *bufs, part.tip_states, tab, P2[s], left, s1,
+                        s.start)),
+                    ("level_combined", lambda: levels.level_update_combined(
+                        *bufs, idx[s], part.tip_states, tab, P1[s], P2[s],
+                        s.start))):
+                mode = "child2" if kernel == "child2_pass" else "combined"
+                T = _build.level_tile(mode, C, S, tab.shape[0], Ppad, W)
+                phase_profile(marked, set_buffer, f"{where}, tile {T}",
+                              kernel, fn, min(W, 128), LEVEL_PHASES)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for label, args in SUMTABLE_SHAPES:
         cf = sumtable_design(args[0], len(args[3]))
@@ -1563,28 +1705,30 @@ def routing_sweep():
 
 
 # ---------------------------------------------------------------------------
-# --parent: kernels 1, 2, 3 and 10 against another checkout's, by device
+# --parent: kernels 1-8 and 10 against another checkout's, by device
 # time
 # ---------------------------------------------------------------------------
 PARENT_KERNELS = ("pllmod_resident_walk", "pllmod_fused_walk",
-                  "pllmod_child_pass", "pllmod_edge_sumtables",
-                  "pllmod_newton_edges", "pllmod_packed_walk",
-                  "pllmod_grouped_walk")
+                  "pllmod_child_pass", "pllmod_child2_pass",
+                  "pllmod_level_combined", "pllmod_level_config",
+                  "pllmod_edge_sumtables", "pllmod_newton_edges",
+                  "pllmod_packed_walk", "pllmod_grouped_walk")
 
 
 def start_parent_build(parent: str):
     """Start building another checkout's kernels (its own ``_build``, in
     its own ``build/``) in a process of its own; returns the process,
     whose last output line is JSON: each entry point of PARENT_KERNELS
-    with its library's path and its C argument and result types, from
-    that checkout's own ``ENTRY_POINTS``."""
+    that the checkout defines with its library's path and its C argument
+    and result types, from that checkout's own ``ENTRY_POINTS``."""
     code = (
         "import json; from pllmod_tpu_torch.ops import _build; "
         "paths = _build.build(); "
         f"names = {PARENT_KERNELS!r}; "
         "print(json.dumps({n: [paths[_build.ENTRY_POINTS[n][0]], "
         "[t.__name__ for t in _build.ENTRY_POINTS[n][1]], "
-        "_build.ENTRY_POINTS[n][2].__name__] for n in names}))")
+        "_build.ENTRY_POINTS[n][2].__name__] for n in names "
+        "if n in _build.ENTRY_POINTS}))")
     return subprocess.Popen([sys.executable, "-c", code], cwd=parent,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -1616,10 +1760,11 @@ def _call(fn, label, *args):
 
 
 def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
-    """Kernels 1, 2, 3, 6, 7, 8 and 10 of another checkout (its C entry
-    points, :func:`parent_libs`) beside this tree's on the same inputs:
-    kernels 1-3 and 6-8 bit for bit (kernel 7 on the positions its
-    members write), kernel 10 within DERIV_RTOL; device ms a
+    """Kernels 1-8 and 10 of another checkout (its C entry points,
+    :func:`parent_libs`) beside this tree's on the same inputs: kernels
+    1-8 bit for bit (kernel 7 on the positions its members write, kernels
+    4 and 5 on the whole buffers after every level), kernel 10 within
+    DERIV_RTOL; device ms a
     launch timed in turns (parent, this tree, this tree, parent).
     ``cells``: (label, part, tree) of the flagship DNA, protein and
     64-state cells; ``newton_shapes``: (label, parts, sts, scs, t0,
@@ -1730,7 +1875,7 @@ def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
             continue
         # kernel 3 on every level's side 0
         lvls, offsets, _, ns = engine.compile_schedule(part, tree)
-        idx, e1, _ = levels.level_tables(part, lvls)
+        idx, e1, e2 = levels.level_tables(part, lvls)
         P1 = part.prob_matrices(brl)[e1].contiguous()
         sl = [slice(o, o + len(lv)) for lv, o in zip(lvls, offsets)]
         # the children's slots hold random CLVs and scalers: both kernels
@@ -1760,6 +1905,62 @@ def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
            equal(lambda: [t for pair in mine3() for t in pair],
                  lambda: [t for pair in outs for t in pair],
                  f"child_pass ({label})"), 10, per=len(sl))
+        # kernels 4 and 5 on every level, into buffers that start alike:
+        # a parent from before their tiled kernel (18 and 17 arguments)
+        # runs at pattern_tile, a later one at this tree's rule with the
+        # scratch of its pre-pass
+        s1s = [torch.randint(-3, 3, (len(lv), 1, Ppad), dtype=torch.int32,
+                             device=part.device) for lv in lvls]
+        lfts = [torch.rand((len(lv), C * S, Ppad), device=part.device)
+                for lv in lvls]
+        P2 = part.prob_matrices(brl)[e2].contiguous()
+        for kernel, fn45 in (("child2", libs["pllmod_child2_pass"]),
+                             ("combined", libs["pllmod_level_combined"])):
+            mine_b = [t.clone() for t in bufs]
+            theirs_b = [t.clone() for t in bufs]
+
+            old45 = len(fn45.argtypes) == (18 if kernel == "child2" else 17)
+            sides45 = _build.LEVEL_MODES.index(kernel) + 1
+            mats45 = []       # the scratch of each level's pre-pass
+            for lv in lvls:
+                T45 = _build.level_tile(kernel, C, S, n_codes, Ppad, len(lv))
+                mats45.append((T45, torch.empty(
+                    len(lv) * sides45 * _build.level_config(
+                        kernel, C, S, n_codes, T45)["Q"],
+                    device=part.device)))
+            scratch45 = [(_build.pattern_tile(C),) if old45 else
+                         (T45, m45.data_ptr()) for T45, m45 in mats45]
+
+            def theirs45():
+                for s, lf, s1, tail45 in zip(sl, lfts, s1s, scratch45):
+                    W = s.stop - s.start
+                    head = (idx[s].data_ptr(), W)
+                    Ps = ((P2[s].data_ptr(),) if kernel == "child2" else
+                          (P1[s].data_ptr(), P2[s].data_ptr()))
+                    body = (theirs_b[0].data_ptr(), theirs_b[1].data_ptr(),
+                            ns, part.tip_states.data_ptr(),
+                            part.tip_states.shape[0], tab.data_ptr(),
+                            n_codes)
+                    tail = ((lf.data_ptr(), s1.data_ptr()) if kernel ==
+                            "child2" else ())
+                    _call(fn45, kernel, *head, *Ps, *body, *tail, s.start,
+                          Ppad, C, S, *tail45)
+
+            def mine45():
+                for s, lf, s1 in zip(sl, lfts, s1s):
+                    if kernel == "child2":
+                        levels.child2_pass(idx[s], *mine_b, part.tip_states,
+                                           tab, P2[s], lf, s1, s.start)
+                    else:
+                        levels.level_update_combined(
+                            *mine_b, idx[s], part.tip_states, tab, P1[s],
+                            P2[s], s.start)
+            name45 = ("child2_pass" if kernel == "child2"
+                      else "level_combined")
+            ab(f"{name45} ({label})", mine45, theirs45,
+               equal(lambda: (mine45(), theirs45(), mine_b)[2],
+                     lambda: theirs_b, f"{name45} ({label})"), 10,
+               per=len(sl))
         # kernels 6 and 7: a parent from before the group-window walk
         # (17 and 16 arguments) runs at pattern_tile and takes no windows,
         # order or scratch; a later one takes this tree's tile, lanes,
@@ -1916,14 +2117,124 @@ def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# --parent: the level evaluations of both checkouts, in turns, each in a
+# process of its own (both packages are named pllmod_tpu_torch)
+# ---------------------------------------------------------------------------
+TURN_SCHEDULES = ("pallas", "combined")   # kernels 3 and 4, or 5, a level
+HOST_CALLS = 200          # wrapper calls timed: fewer than the launch queue
+TURN_REPEATS = 5          # timings a turn, the least kept (host stalls)
+
+
+def wrapper_host_us(part, tree) -> dict:
+    """Host µs to issue one call of kernel 4's and kernel 5's wrappers on
+    the cell's widest level: the mean of HOST_CALLS calls after a warm-up,
+    from an idle device, the least of TURN_REPEATS such means."""
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+    idx, e1, e2 = levels.level_tables(part, lvls)
+    P = part.prob_matrices(torch.as_tensor(
+        tree.lengths, dtype=torch.float32, device=part.device))
+    w = max(range(len(lvls)), key=lambda i: len(lvls[i]))
+    s = slice(offsets[w], offsets[w] + len(lvls[w]))
+    P1, P2 = P[e1][s].contiguous(), P[e2][s].contiguous()
+    tc, tab = part.tip_states, fused.code_table(part)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    bufs = (torch.zeros((ns, C * S, Ppad), device=part.device),
+            torch.zeros((ns, 1, Ppad), dtype=torch.int32, device=part.device))
+    left, s1 = levels.child_pass(idx[s], 0, *bufs, tc, tab, P1)
+    calls = {"child2_pass": lambda: levels.child2_pass(
+                 idx[s], *bufs, tc, tab, P2, left, s1, s.start),
+             "level_combined": lambda: levels.level_update_combined(
+                 *bufs, idx[s], tc, tab, P1, P2, s.start)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        means = []
+        for _ in range(TURN_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            means.append((time.perf_counter() - t0) * 1e6 / HOST_CALLS)
+        torch.cuda.synchronize()
+        out[name] = min(means)
+    return out
+
+
+def level_eval_times() -> dict:
+    """The level evaluations of TURN_SCHEDULES at the flagship and protein
+    cells on the package this process imports: {cell: {schedule: [ms/eval
+    on the device, host issue ms/eval (the least of TURN_REPEATS
+    timings), the timed loop's summed logL], "wrapper_host_us":
+    wrapper_host_us}}."""
+    out = {}
+    for label, spec in (("flagship DNA", FLAGSHIP), ("protein", PROTEIN)):
+        part, tree = flagship.example(**spec, device="cuda")
+        part = part.cache_eigen()
+        out[label] = {sched: [*min(timed_main_path(part, tree, label, sched)
+                                   for _ in range(TURN_REPEATS)),
+                              float(eval_loop(part, tree, sched)())]
+                      for sched in TURN_SCHEDULES}
+        out[label]["wrapper_host_us"] = wrapper_host_us(part, tree)
+    return out
+
+
+def eval_turn(checkout: str) -> dict:
+    """:func:`level_eval_times` in a process of its own that runs this
+    file's functions on the package and kernels of ``checkout`` (built in
+    its build/ beforehand)."""
+    code = ("import importlib.util, json; "
+            "spec = importlib.util.spec_from_file_location("
+            f"'smoke_turn', {os.path.abspath(__file__)!r}); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); "
+            "print(json.dumps(m.level_eval_times()))")
+    done = subprocess.run([sys.executable, "-c", code], cwd=checkout,
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise RuntimeError(f"the level evaluations of {checkout} failed: "
+                           + done.stderr[-3000:])
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def eval_turns(parent: str) -> dict:
+    """The ``pallas`` and ``combined`` evaluations of the checkout at
+    ``parent`` and of this tree in turns (parent, this tree, this tree,
+    parent), each turn a process of its own, at the flagship and protein
+    cells: ms/eval and host issue ms/eval, and the host µs of one kernel-4
+    and kernel-5 wrapper call. Each turn's summed logLs equal the first
+    turn's, bit for bit. Returns {cell: {schedule or "wrapper_host_us":
+    {"parent": [...], "this": [...]}}}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    turns = [(who, eval_turn(d)) for who, d in (
+        ("parent", parent), ("this", here), ("this", here),
+        ("parent", parent))]
+    out = {}
+    for label, first in turns[0][1].items():
+        out[label] = {}
+        for key in first:
+            got = {"parent": [], "this": []}
+            for who, t in turns:
+                v = t[label][key]
+                if key in TURN_SCHEDULES and v[2] != first[key][2]:
+                    raise AssertionError(
+                        f"{key} ({label}): the summed logL of a turn of "
+                        f"{who} differs from the parent's ({v[2]} against "
+                        f"{first[key][2]})")
+                got[who].append(v if key not in TURN_SCHEDULES else v[:2])
+            out[label][key] = got
+            print(f"in turns ({label}, {key}): parent {got['parent']}, "
+                  f"this tree {got['this']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace the main path's timed loops")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also time kernels 1, 2, 3, 6, 7, 8 and 10 of the "
-                         "checkout at DIR beside this tree's, by device "
-                         "time")
+                    help="also time kernels 1-8 and 10 of the checkout "
+                         "at DIR beside this tree's, by device time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2051,9 +2362,10 @@ def main(argv=None) -> int:
     run_level_paths([("flagship DNA", dna, tree, dna64),
                      ("protein", prot, ptree, prot64)])
     for row, prow in zip(*level_rows.values()):
-        row["protein"] = {k: prow[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "max_abs_err")}
+        row["protein"] = {k: prow[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "split_ms", "level_tiles", "tiles")
+            if k in prow}
 
     # ---- the packed walk (kernel 6) at the flagship and protein cells:
     # the kernel against its plain version, then its path, counted
@@ -2095,14 +2407,15 @@ def main(argv=None) -> int:
         ms_by_schedule[label] = {
             sched: dict(zip(("ms", "host_issue_ms"),
                             timed_main_path(part, tr, label, sched)))
-            for sched in ("fused", "pallas", "levels", "grouped")}
+            for sched in ("fused", "pallas", "combined", "levels",
+                          "grouped")}
     if args.profile:
         for label, (part, tr, _, _) in cells.items():
             profile_window(label, eval_loop(part, tr), TIMED_EVALS)
-        for sched in ("pallas", "grouped", "packed"):
+        for sched in ("pallas", "combined", "grouped", "packed"):
             profile_window(f"flagship DNA, {sched}",
                            eval_loop(dna, tree, sched), TIMED_EVALS)
-        for sched in ("grouped", "packed"):
+        for sched in ("pallas", "combined", "grouped", "packed"):
             profile_window(f"protein, {sched}",
                            eval_loop(prot, ptree, sched), TIMED_EVALS)
         profile_window("BLO, flagship DNA",
@@ -2122,6 +2435,7 @@ def main(argv=None) -> int:
                            ("protein", prot, ptree),
                            ("64-state", wide, wtree)], NEWTON_SHAPES,
             SUMTABLE_SHAPES)}))
+        print(json.dumps({"eval_turns": eval_turns(args.parent)}))
     NEWTON_SHAPES.clear()
     SUMTABLE_SHAPES.clear()
     del cells, dna64, prot64, wide64

@@ -39,15 +39,32 @@ int dispatch_states(int S, F&& f) {
 }
 
 // Opt `kern` into `smem` bytes of dynamic shared memory and queue it on
-// `stream`; returns the CUDA error code (0 = queued).
+// `stream`; with `dependent`, as a programmatic dependent of the kernel
+// before it on the stream (PDL: it may start once that kernel triggers
+// its dependents, and waits for that kernel's results at
+// griddepcontrol.wait). Returns the CUDA error code (0 = queued).
 template <typename Args>
 int launch_kernel(void (*kern)(Args), dim3 grid, dim3 block, size_t smem,
-                  cudaStream_t stream, const Args& a) {
+                  cudaStream_t stream, const Args& a,
+                  bool dependent = false) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, block, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (!dependent) {
+    kern<<<grid, block, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, a);
 }
 
 // Output rows of a walk's per-thread tile that are unrolled: up to 32
@@ -93,6 +110,15 @@ __device__ __forceinline__ void load_column(const float* src, size_t stride,
     if (j < S) x[j] = src[j * stride];
 }
 
+// The rescale exponent of a pattern whose maximum over all categories is
+// mm: the exponent field of mm less 126 (0 where mm is not positive),
+// clipped to [-125, 127].
+__device__ __forceinline__ int max_exponent(float mm) {
+  int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
+  if (!(mm > 0.f)) e = 0;
+  return min(max(e, -125), 127);
+}
+
 // The rescale exponent e of pattern column pl: thread (c, pl) brings the
 // maximum m of its category's values, the C maxima meet in red [C][T],
 // and e is taken from the bits of their maximum (0 where it is not
@@ -105,9 +131,7 @@ __device__ __forceinline__ int rescale_exponent(float* red, float m, int c,
   __syncthreads();
   float mm = red[pl];
   for (int k = 1; k < C; ++k) mm = fmaxf(mm, red[k * T + pl]);
-  int e = ((__float_as_int(mm) >> 23) & 0xFF) - 126;
-  if (!(mm > 0.f)) e = 0;
-  return min(max(e, -125), 127);
+  return max_exponent(mm);
 }
 
 // dst[i * stride] = o[i] * 2^-e for i = 0..S-1 (exact: a power of two),

@@ -3,65 +3,105 @@
 // scalers [n_slots, Ppad]. A level's rows are [W, 6] int32 (slot1, slot2,
 // is_tip1, is_tip2, tip1, tip2), its matrices [W, C, S, S] per child.
 //
-//  * pllmod_child_pass replaces the TPU kernel
+//  * pllmod_child_pass (kernel 3) replaces the TPU kernel
 //    pllmod_tpu/ops/pallas_clv.py::_make_child_kernel (call in
 //    _child_pass): out[w] = P[w] x child(w) for one child (side 0 or 1) of
 //    every row w, [W, C*S, Ppad], and the child's scaler row (0 for a tip).
-//    Its own kernel, child_kernel below.
-//  * pllmod_child2_pass replaces pallas_clv.py::_make_child2_kernel: the
-//    second child times its matrix, times `left` (the side-0 pass's
-//    output), the exact power-of-two rescale and the cumulative scaler
-//    s1 + s2 + e, written straight into slots [off, off + W) of the
-//    buffers. The JAX dynamic_update_slice has no counterpart: a level's
-//    children live in earlier levels, so no launch reads a slot it writes.
-//  * pllmod_level_combined replaces pallas_clv.py::_make_combined_kernel:
-//    both children, product and rescale in one launch, written in place
-//    the same way. The TPU kernel's full-buffer copy (a workaround for
-//    Mosaic's alias analysis) has no counterpart.
+//  * pllmod_child2_pass (kernel 4) replaces pallas_clv.py::
+//    _make_child2_kernel (call in _child2_pass): the second child times its
+//    matrix, times `left` (the side-0 pass's output), the exact
+//    power-of-two rescale and the cumulative scaler s1 + s2 + e, written
+//    straight into slots [off, off + W) of the buffers. The JAX
+//    dynamic_update_slice has no counterpart: a level's children live in
+//    earlier levels, so no launch reads a slot it writes.
+//  * pllmod_level_combined (kernel 5) replaces pallas_clv.py::
+//    _make_combined_kernel (call in level_update_combined): both children,
+//    product and rescale in one launch, written in place the same way. The
+//    TPU kernel's full-buffer copy (a workaround for Mosaic's alias
+//    analysis) has no counterpart.
 //
-// Design of the two combining kernels (level_kernel). Grid (pattern tile,
-// row): a CTA owns row w of the level and T pattern columns; thread (c, p)
-// owns category c of pattern p. It reads
-// the S values of its child(ren) into registers (coalesced across p),
-// applies the category's S x S matrix row by row and, in the two
-// combining kernels, multiplies, exchanges its category maximum through
-// shared memory and rescales. Tip children are expanded from int32 tip
-// codes through the code -> CLV table, never from expanded tip planes.
-// The row's matrices and the code table are staged in shared memory when
-// they fit (a template flag), else read from device memory, where they
-// stay in L1/L2.
+// Bound on the H100: bytes, for all three (chip_smoke.py computes each
+// level's figure from the run's tables). Every block is read or written
+// once: at the flagship (128 taxa x 16384 patterns GTR+G4, C*S = 16, 126
+// rows in 17 levels) the side-0 child pass writes 132 MB an evaluation,
+// the second-child pass reads it again beside its own children and writes
+// the level blocks, the combined pass reads the children once and writes
+// the blocks (~200 MB, ~60 us at 3.35 TB/s). The operations (2 C*S*S
+// flops a pattern an inner child, 3 C*S for product, maximum and scale)
+// are about half the bytes' time at protein (20 states) when counted at
+// the unfused rate the exactness contract below allows (a multiply and an
+// add a term: 33.5 TFLOP/s), a tenth at DNA.
 //
-// Design of the child pass (child_kernel). Grid (pattern tile, row,
-// category block), sized by the level's width W (ops/_build.py::
-// child_tile): wide levels take 128-pattern tiles, narrow ones (W = 1 at
-// the top of the tree) smaller tiles, so that every level launches about
-// one CTA an SM or more. Thread (c, ig, pg) owns RI states x 4 patterns of
-// category c (csrc/tile.cuh's register tile): the child's tile arrives in
-// shared memory by 16-byte cp.async while the CTA stages the row's matrix
-// transposed; outputs leave as 16-byte streaming stores (st.global.cs:
-// the second-child pass or the torch combine reads them once). A tip
-// child is a lookup of its table PT[c][code][i] = row_dot(P_c, i,
-// codetab[code]), built in shared memory, where the tile has at least as
-// many patterns as the table has codes (else the CTA multiplies the
-// expanded codes, as the table build would cost more).
+// Design, kernel 3 (child_kernel). Grid (pattern tile, row, category
+// block), sized by the level's width W (ops/_build.py::child_tile): wide
+// levels take 128-pattern tiles, narrow ones (W = 1 at the top of the
+// tree) smaller tiles, so that every level launches about one CTA an SM or
+// more. Thread (c, ig, pg) owns RI states x 4 patterns of category c
+// (csrc/tile.cuh's register tile): the child's tile arrives in shared
+// memory by 16-byte cp.async while the CTA stages the row's matrix
+// transposed; outputs leave as 16-byte streaming stores (st.global.cs: the
+// second-child pass or the torch combine reads them once). A tip child is
+// a lookup of its table PT[c][code][i] = row_dot(P_c, i, codetab[code]),
+// built in shared memory, where the tile has at least as many patterns as
+// the table has codes (else the CTA multiplies the expanded codes, as the
+// table build would cost more).
+//
+// Design, kernels 4 and 5 (level_tiled). The rescale needs the maximum
+// over all C*S values of a pattern, so a CTA owns every category of its
+// row's tile: grid (pattern tile, row), thread (c, ig, pg) owns RI states
+// x 4 patterns of category c, up to 512 threads (the tile set by the
+// level's width, ops/_build.py::level_tile: 256 patterns at DNA and 64 at
+// protein on the wide levels, enough CTAs for the card on a level of one
+// row; a ragged last tile). A launch is two kernels:
+//  1. the pre-pass of csrc/tables.cuh (LevelSides): each row side's
+//     matrix transposed, M[c][j][i] = P[c][i][j], or a tip child's table
+//     PT[c][code][i] = row_dot(P_c, i, codetab[code]), once a row side
+//     into the scratch mats [W * sides, Q]. (Built by every CTA of a row
+//     instead, from the matrices in device memory, the tables and the
+//     transposition took 18000 of a protein CTA's 29000 cycles on the
+//     widest level, all tips: chip_smoke.py's phase marks.)
+//  2. level_tiled, one CTA one tile, no loop (a CTA that walked several
+//     tiles of its row, the next tile's inputs landing in a second stage
+//     buffer, was slower at nearly every level: the buffers halved the
+//     CTAs an SM; chip_smoke.py's sweep), launched as the pre-pass's
+//     programmatic dependent (it starts while the pre-pass runs): each
+//     side's child tile X [C*S][T] (or a tip's codes) by 16-byte cp.async,
+//     kernel 4's `left` block and the scaler rows by 16-byte streaming
+//     loads into registers; then, once the pre-pass is done
+//     (griddepcontrol.wait), each side's table by cp.async (a few copies
+//     a thread: one thread's tensor copies would save little in a CTA
+//     that issues them once); one barrier; each side's product
+//     (tile::product, or tile::lookup of a tip: every tip is looked up),
+//     their product (or left times side 1's), the thread's maximum over
+//     its RI states; the C * IG maxima of each pattern meet in shared
+//     memory behind one barrier (written once a launch: no later step
+//     can overwrite them while a slow thread reads them); the rescale and
+//     16-byte streaming stores of the block and the scaler row (the next
+//     level reads them once). A side's region of shared memory holds a
+//     tip's table or an inner child's matrix and tile, never both, and
+//     RI = 4 is held to 64 registers: six 160-thread protein CTAs (T =
+//     32) or three 320-thread ones (T = 64) fit an SM.
+// Where the tiled kernel fits at no tile (C * IG * T / 4 threads beyond
+// 512 at T = 4, or its shared memory beyond a block's: wide category or
+// state counts, or a table of many codes), the simple kernel
+// (level_simple) runs: thread (c, p), all S states of its column in
+// registers, the row's matrices and the code table staged where they fit.
+// Both are chosen by level_config, mirrored by ops/_build.py::
+// level_config.
+//
+// Phase marks (csrc/common.cuh PHASE_MARK, built with -DPLLMOD_PHASES
+// only): level_tiled's tile 0 of each row w records at its start, after
+// issuing its copies and loads (the tables' after the pre-pass), after
+// the copies' barrier, after the products, after the maxima's barrier
+// and after the stores.
 //
 // Exactness: the walks' contract of csrc/common.cuh, products and sums
 // rounded separately (__fmul_rn / __fadd_rn) in child-state order j =
 // 0..S-1 and the rescale the bit formula clipped to [-125, 127]
 // (pallas_clv.py:224-232), so each kernel equals its plain version in
 // ops/levels.py bit for bit.
-//
-// Bound on the H100 at the flagship (128 taxa x 16384 patterns GTR+G4,
-// C*S = 16, 126 rows in 17 levels; chip_smoke.py computes the exact
-// figure from the run's tables): bytes, for all three. Over one
-// evaluation the side-0 child pass writes 126 blocks of 16 x 16384 floats
-// (132 MB) and reads the inner children's (~65 MB): ~60 us at 3.35 TB/s,
-// ~3.5 us a launch. The second-child pass reads that again beside its own
-// children and writes the level blocks (~330 MB, ~6 us a launch); the
-// combined kernel reads the children once and writes the blocks (~200
-// MB). The operations (2 C*S*S flops a pattern for an inner child, the
-// rescale's 3 C*S) come to ~0.4 GFLOP an evaluation, ~6 us at 67 TFLOP/s.
 #include "common.cuh"
+#include "tables.cuh"
 #include "tile.cuh"
 
 namespace {
@@ -70,31 +110,6 @@ using common::kMaxThreads;
 
 // [W, 6] row columns: slot1, slot2, is_tip1, is_tip2, tip1, tip2
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4;
-
-enum Mode { kChild = 0, kChild2 = 1, kCombined = 2 };
-
-struct LevelArgs {
-  const int* idx;        // [W, 6]
-  int W, side;           // side: the child pass's child (kChild)
-  const float* P1;       // [W, C, S, S]: kChild the pass's, kChild2 side
-                         // 1's, kCombined side 0's matrices
-  const float* P2;       // kCombined: [W, C, S, S] side 1's
-  float* clvs;           // [n_slots, C*S, Ppad]: the children; kChild2 and
-                         // kCombined write slots [off, off + W)
-  int* scalers;          // [n_slots, Ppad]
-  int n_slots;
-  const int* codes;      // [n_tips, Ppad]
-  int n_tips;
-  const float* codetab;  // [n_codes, S]
-  int n_codes;
-  const float* left;     // kChild2: [W, C*S, Ppad]
-  const int* s1;         // kChild2: [W, Ppad]
-  float* out;            // kChild: [W, C*S, Ppad]
-  int* out_sc;           // kChild: [W, Ppad]
-  int off, Ppad, C, S, T;
-};
-
-int n_mats(int mode) { return mode == kCombined ? 2 : 1; }
 
 // ---------------------------------------------------------------------------
 // the child pass (kernel 3)
@@ -250,135 +265,413 @@ __global__ void __launch_bounds__(kMaxThreads) child_kernel(ChildArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the second-child pass (kernel 4) and the combined level pass (kernel 5)
+// ---------------------------------------------------------------------------
+// Kernel 4 takes one side of each row (the row's child 1), kernel 5 two
+// (children 0 and 1): SIDES = mode + 1.
+enum Mode { kChild2 = 0, kCombined = 1 };
+enum LevelKind { kSimple = 0, kTiled = 1 };
+constexpr int kLevelThreads = 512;  // __launch_bounds__ of level_tiled
+constexpr int kLevelRP = 4;         // patterns a thread of level_tiled
+// level_tiled's stores of the block and scaler row: streaming (1,
+// st.global.cs) or write-back (0); scripts/level_stores_ab.py builds the
+// other and times both
+#ifndef PLLMOD_LEVEL_STREAM_STORES
+#define PLLMOD_LEVEL_STREAM_STORES 1
+#endif
+constexpr bool kLevelStream = PLLMOD_LEVEL_STREAM_STORES != 0;
+static_assert(kLevelRP == 4, "level_tiled's maxima are float4 vectors");
 
-// Shared memory beside the category maxima [C][T]: the code table and the
-// row's matrices.
+struct LevelArgs {
+  const int* idx;        // [W, 6]
+  const float* P[2];     // [W, C, S, S] a side: kernel 4 child 1's, kernel
+                         // 5 child 0's and child 1's
+  float* clvs;           // [n_slots, C*S, Ppad]: the children; the level
+                         // writes slots [off, off + W)
+  int* scalers;          // [n_slots, Ppad]
+  int n_slots;
+  const int* codes;      // [n_tips, Ppad]
+  int n_tips;
+  const float* codetab;  // [n_codes, S]
+  int n_codes;
+  const float* left;     // kernel 4: [W, C*S, Ppad]
+  const int* s1;         // kernel 4: [W, Ppad]
+  int off, Ppad, C, S, T;
+  const float* mats;     // level_tiled: the pre-pass's tables [W * SIDES, Q]
+  int Q, SP, IG;         // level_tiled's configuration
+};
+
+// The sides of a level's rows for the pre-pass of csrc/tables.cuh: side s
+// is the row's child CHILD0 + s % SIDES of row s / SIDES, with its
+// matrices P[s % SIDES] of that row.
+template <int MODE>
+struct LevelSides {
+  const int* idx;
+  const float* P0;
+  const float* P1;
+  long long msz;  // C * S * S
+  static constexpr int kSides = MODE + 1, kChild0 = MODE == kChild2 ? 1 : 0;
+  __device__ bool is_tip(int s) const {
+    return idx[6 * (s / kSides) + kIsTip + kChild0 + s % kSides] != 0;
+  }
+  __device__ const float* matrix(int s) const {
+    return (s % kSides ? P1 : P0) + (s / kSides) * msz;
+  }
+};
+
+// A launch configuration of kernels 4 and 5; ops/_build.py::level_config
+// mirrors it.
+struct LevelConfig {
+  int kind, ri, ig, sp;
+  long long q;  // floats of a side's table (level_tiled; 0 for level_simple)
+  int threads;
+  long long smem;
+};
+
+// Shared memory of level_simple beside its category maxima [C][T]: the
+// code table and the row's matrices.
 size_t stage_floats(int mode, int C, int S, int n_codes) {
-  return (size_t)n_codes * S + (size_t)n_mats(mode) * C * S * S;
+  return (size_t)n_codes * S + (size_t)(mode + 1) * C * S * S;
 }
 
-// Child k of the row: its S values of category c at pattern p, and its
-// scaler (read by category 0 only, which alone writes scalers).
+// The configuration at pattern tile T, or false where none fits:
+// level_tiled where T is a multiple of 4 and its C * IG * T / 4 threads
+// and shared memory fit (a side's region, a tip's table [Q], Q = C *
+// max(S, n_codes) * SP, or an inner child's matrix [C*S*SP] and tile
+// [C*S][T]; the maxima [C * IG][T]; the tip codes [sides][T]); else
+// level_simple where its C * T threads fit (RI = the register tile MAXS,
+// its matrices and code table staged where they fit a block).
+bool level_config(int mode, int C, int S, int n_codes, int T,
+                  LevelConfig* cf) {
+  if ((mode != kChild2 && mode != kCombined) || C < 1 || S < 1 || S > 64 ||
+      n_codes < 1 || T < 1)
+    return false;
+  const long long sides = mode + 1;
+  int ri = 0, maxs = 0;
+  common::dispatch_states(S, [&](auto m) {
+    maxs = decltype(m)::value;
+    ri = child_ri<decltype(m)::value>();
+    return 0;
+  });
+  const int ig = (S + ri - 1) / ri, sp = ig * ri;
+  if (T % kLevelRP == 0) {
+    const long long threads = (long long)C * ig * (T / kLevelRP);
+    const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
+    const long long inner = (long long)C * S * (sp + T);
+    const long long smem = 4 * (sides * (q > inner ? q : inner) +
+                                (long long)C * ig * T + sides * T);
+    if (threads <= kLevelThreads && smem <= (long long)common::kSmemOptin) {
+      *cf = LevelConfig{kTiled, ri, ig, sp, q, (int)threads, smem};
+      return true;
+    }
+  }
+  if ((long long)C * T <= kMaxThreads) {
+    const size_t stage = stage_floats(mode, C, S, n_codes);
+    const size_t red = (size_t)C * T;
+    const bool staged = common::fits_smem(red + stage);
+    *cf = LevelConfig{kSimple, maxs, 1, S, 0, C * T,
+                      (long long)(4 * (red + (staged ? stage : 0)))};
+    return true;
+  }
+  return false;
+}
+
+// Registers: RI = 4 (up to 4 and at 20 states) is held to 64 a thread,
+// two 512-thread CTAs' worth an SM, so that three 320-thread protein CTAs
+// (T = 64) fit an SM; RI = 8 takes up to 128.
+template <int MAXS, int RI, int MODE>
+__global__ void __launch_bounds__(kLevelThreads, RI == 4 ? 2 : 1)
+    level_tiled(LevelArgs a) {
+  extern __shared__ __align__(16) float level_smem[];
+  constexpr int RP = kLevelRP, SIDES = MODE + 1;
+  constexpr int CHILD0 = LevelSides<MODE>::kChild0;
+  const int T = a.T, C = a.C, S = a.S, CS = C * S, SP = a.SP, IG = a.IG;
+  const int Ppad = a.Ppad, n_codes = a.n_codes;
+  const int w = blockIdx.y, tid = threadIdx.x, nthr = blockDim.x;
+  const int npg = T / RP;
+  const int pg = tid % npg, rest = tid / npg, ig = rest % IG, c = rest / IG;
+  const int i0 = ig * RI, pl0 = pg * RP;
+  const int p0 = blockIdx.x * T, p = p0 + pl0;
+  const bool vec = Ppad % 4 == 0;
+  const bool writes_sc = c == 0 && ig == 0;
+  const int* row = a.idx + 6 * w;
+  // a side's region: its tip table [Q], or its matrix [C*S*SP] and child
+  // tile [C*S][T]
+  const int region = max(a.Q, CS * (SP + T));
+  float* red = level_smem + SIDES * region;            // [C * IG][T]
+  int* cd = reinterpret_cast<int*>(red + C * IG * T);  // [SIDES][T]
+  PHASE_INIT
+  PHASE_MARK(w, 0)
+
+  // each side's child tile (or its tip's codes) by cp.async, kernel 4's
+  // left block and the scaler rows straight to registers, while the
+  // pre-pass may still run; then each side's table from it
+  bool tip[SIDES];
+  int src[SIDES];  // the tip's row of codes, else the child's slot
+#pragma unroll
+  for (int k = 0; k < SIDES; ++k) {
+    tip[k] = __ldg(row + kIsTip + CHILD0 + k) != 0;
+    src[k] = tip[k]
+                 ? min(max(__ldg(row + kTip + CHILD0 + k), 0), a.n_tips - 1)
+                 : min(max(__ldg(row + kSlot + CHILD0 + k), 0),
+                       a.n_slots - 1);
+    if (tip[k])
+      tile::copy_tile(cd + k * T, a.codes + (size_t)src[k] * Ppad, 0, 1, T,
+                      p0, Ppad, vec, tid, nthr);
+    else
+      tile::copy_tile(level_smem + k * region + CS * SP,
+                      a.clvs + (size_t)src[k] * CS * Ppad, Ppad, CS, T, p0,
+                      Ppad, vec, tid, nthr);
+  }
+  float lv[RI][RP];
+  if constexpr (MODE == kChild2) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+      if (i0 + r < S) {
+        tile::load_run<RP>(
+            lv[r], a.left + ((size_t)w * CS + c * S + i0 + r) * Ppad + p, p,
+            Ppad, vec);
+      } else {
+#pragma unroll
+        for (int x = 0; x < RP; ++x) lv[r][x] = 0.f;
+      }
+  }
+  // the scaler rows, summed after the copies' barrier: kernel 4's s1,
+  // then each inner side's (0 for a tip)
+  int scv[SIDES + 1][RP];
+#pragma unroll
+  for (int k = 0; k <= SIDES; ++k)
+#pragma unroll
+    for (int x = 0; x < RP; ++x) scv[k][x] = 0;
+  if (writes_sc) {
+    if constexpr (MODE == kChild2)
+      tile::load_run<RP>(scv[SIDES], a.s1 + (size_t)w * Ppad + p, p, Ppad,
+                         vec);
+#pragma unroll
+    for (int k = 0; k < SIDES; ++k)
+      if (!tip[k])
+        tile::load_run<RP>(scv[k], a.scalers + (size_t)src[k] * Ppad + p, p,
+                           Ppad, vec);
+  }
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+#pragma unroll
+  for (int k = 0; k < SIDES; ++k)
+    tile::copy_run(level_smem + k * region,
+                   a.mats + ((size_t)w * SIDES + k) * a.Q,
+                   C * (tip[k] ? n_codes : S) * SP, tid, nthr);
+  tile::cp_commit();
+  PHASE_MARK(w, 1)
+  tile::cp_wait(0);
+  __syncthreads();
+  int stot[RP];
+#pragma unroll
+  for (int x = 0; x < RP; ++x) {
+    stot[x] = scv[SIDES][x];
+#pragma unroll
+    for (int k = 0; k < SIDES; ++k) stot[x] += scv[k][x];
+  }
+  PHASE_MARK(w, 2)
+
+  // the sides' products (a tip's: its table looked up) and their product
+  // (kernel 4: left times side 1's)
+  auto side = [&](int k, float (&acc)[RI][RP]) {
+    const float* tab = level_smem + k * region;
+    if (tip[k])
+      tile::lookup<RI, RP>(tab + c * n_codes * SP, cd + k * T, n_codes, SP,
+                           i0, pl0, acc);
+    else
+      tile::product<RI, RP, MAXS>(tab + c * S * SP, tab + CS * SP + c * S * T,
+                                  S, SP, T, i0, pl0, acc);
+  };
+  float o[RI][RP];
+  side(SIDES - 1, o);
+  if constexpr (MODE == kChild2) {
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int x = 0; x < RP; ++x) o[r][x] = __fmul_rn(lv[r][x], o[r][x]);
+  } else {
+    float o0[RI][RP];
+    side(0, o0);
+#pragma unroll
+    for (int r = 0; r < RI; ++r)
+#pragma unroll
+      for (int x = 0; x < RP; ++x) o[r][x] = __fmul_rn(o0[r][x], o[r][x]);
+  }
+  PHASE_MARK(w, 3)
+
+  // the maximum of each pattern's C*S values: the thread's over its RI
+  // states, then the C * IG of the CTA behind one barrier (written once a
+  // launch: nothing can overwrite them while a slow thread reads them)
+  float m[RP];
+#pragma unroll
+  for (int x = 0; x < RP; ++x) m[x] = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < RI; ++r) {
+    if (i0 + r >= S) continue;
+#pragma unroll
+    for (int x = 0; x < RP; ++x) m[x] = fmaxf(m[x], o[r][x]);
+  }
+  *reinterpret_cast<float4*>(red + (c * IG + ig) * T + pl0) =
+      make_float4(m[0], m[1], m[2], m[3]);
+  __syncthreads();
+  float4 mm = *reinterpret_cast<const float4*>(red + pl0);
+  for (int q = 1; q < C * IG; ++q) {
+    const float4 t = *reinterpret_cast<const float4*>(red + q * T + pl0);
+    mm = make_float4(fmaxf(mm.x, t.x), fmaxf(mm.y, t.y), fmaxf(mm.z, t.z),
+                     fmaxf(mm.w, t.w));
+  }
+  PHASE_MARK(w, 4)
+
+  // the rescale, and the block and scaler row as streaming stores
+  const int e[RP] = {common::max_exponent(mm.x), common::max_exponent(mm.y),
+                     common::max_exponent(mm.z), common::max_exponent(mm.w)};
+  const size_t slot = (size_t)a.off + w;
+#pragma unroll
+  for (int r = 0; r < RI; ++r)
+    if (i0 + r < S) {
+      float v[RP];
+#pragma unroll
+      for (int x = 0; x < RP; ++x)
+        v[x] = __fmul_rn(o[r][x], __int_as_float((127 - e[x]) << 23));
+      tile::store_run<RP, kLevelStream>(
+          a.clvs + (slot * CS + c * S + i0 + r) * Ppad + p, v, p, Ppad, vec);
+    }
+  if (writes_sc) {
+    int v[RP];
+#pragma unroll
+    for (int x = 0; x < RP; ++x) v[x] = stot[x] + e[x];
+    tile::store_run<RP, kLevelStream>(a.scalers + slot * Ppad + p, v, p,
+                                      Ppad, vec);
+  }
+  PHASE_MARK(w, 5)
+}
+
+// Child `child` of the row: its S values of category c at pattern p, and
+// its scaler (read by category 0 only, which alone writes scalers).
 template <int MAXS>
 __device__ __forceinline__ void load_child(const LevelArgs& a,
                                            const float* tab, const int* row,
-                                           int k, int c, int p,
+                                           int child, int c, int p,
                                            float (&x)[MAXS], int& sc) {
   const int S = a.S;
-  if (row[kIsTip + k] != 0) {
-    const int tip = min(max(row[kTip + k], 0), a.n_tips - 1);
+  if (row[kIsTip + child] != 0) {
+    const int tip = min(max(row[kTip + child], 0), a.n_tips - 1);
     common::load_tip<MAXS>(tab, a.codes[(size_t)tip * a.Ppad + p], a.n_codes,
                            S, x);
     sc = 0;
     return;
   }
-  const int slot = min(max(row[kSlot + k], 0), a.n_slots - 1);
+  const int slot = min(max(row[kSlot + child], 0), a.n_slots - 1);
   common::load_column<MAXS>(
       a.clvs + ((size_t)slot * a.C * S + c * S) * a.Ppad + p, a.Ppad, S, x);
   sc = (c == 0) ? a.scalers[(size_t)slot * a.Ppad + p] : 0;
 }
 
+// The simple kernel: thread (c, pl) owns category c of pattern p0 + pl,
+// its child columns and products in registers; a ragged last tile's
+// threads beyond Ppad read the last pattern and store nothing.
 template <int MAXS, int MODE, bool STAGE>
-__global__ void __launch_bounds__(kMaxThreads)
-level_kernel(LevelArgs a) {
+__global__ void __launch_bounds__(kMaxThreads) level_simple(LevelArgs a) {
   extern __shared__ float smem[];
-  const int T = a.T, C = a.C, S = a.S, CS = C * S;
-  const int w = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int c = tid / T;
-  const int pl = tid - c * T;
+  constexpr int SIDES = MODE + 1;
+  const int T = a.T, C = a.C, S = a.S, CS = C * S, Ppad = a.Ppad;
+  const int w = blockIdx.y, tid = threadIdx.x;
+  const int c = tid / T, pl = tid - c * T;
   const int p = blockIdx.x * T + pl;
-  const size_t msz = (size_t)C * S * S;
+  const bool live = p < Ppad;
+  const int pc = live ? p : Ppad - 1;
+  const size_t msz = (size_t)CS * S;
   float* red = smem;                        // [C][T]
   float* tab_s = red + C * T;               // [n_codes * S]
-  float* P_s = tab_s + a.n_codes * S;       // [n_mats][C*S*S]
-  const float* Pw1 = a.P1 + w * msz;
-  const float* Pw2 = MODE == kCombined ? a.P2 + w * msz : Pw1;
+  float* P_s = tab_s + a.n_codes * S;       // [SIDES][C*S*S]
   if (STAGE) {
     for (int i = tid; i < a.n_codes * S; i += blockDim.x)
       tab_s[i] = a.codetab[i];
-    for (size_t i = tid; i < msz; i += blockDim.x) {
-      P_s[i] = Pw1[i];
-      if (MODE == kCombined) P_s[msz + i] = Pw2[i];
-    }
+#pragma unroll
+    for (int k = 0; k < SIDES; ++k)
+      for (size_t i = tid; i < msz; i += blockDim.x)
+        P_s[k * msz + i] = a.P[k][w * msz + i];
     __syncthreads();
   }
   const float* tab = STAGE ? tab_s : a.codetab;
-  const float* Pa = (STAGE ? P_s : Pw1) + c * S * S;
-  const float* Pb = (STAGE ? P_s + msz : Pw2) + c * S * S;
+  auto mat = [&](int k) {
+    return (STAGE ? P_s + k * msz : a.P[k] + w * msz) + c * S * S;
+  };
   const int* row = a.idx + 6 * w;
   constexpr int kUnrollRows = common::unroll_rows<MAXS>();
-  float x[MAXS];
-  int sc;
-
-  // level_kernel is instantiated for kChild2 and kCombined only (the child
-  // pass has child_kernel). This branch and LevelArgs' child-pass fields
-  // stay as they were before, which keeps the two kernels' code: without
-  // them the 20-state second-child pass ran 28 % slower on the H100.
-  if (MODE == kChild) {
-    load_child<MAXS>(a, tab, row, a.side, c, p, x, sc);
-    float* dst = a.out + ((size_t)w * CS + c * S) * a.Ppad + p;
-#pragma unroll kUnrollRows
-    for (int i = 0; i < MAXS; ++i)
-      if (i < S) dst[(size_t)i * a.Ppad] = common::row_dot<MAXS>(Pa, i, S, x);
-    if (c == 0) a.out_sc[(size_t)w * a.Ppad + p] = sc;
-    return;
-  }
-
-  // the products first, then their maximum in a loop of its own: one
-  // loop of both makes the 20-state second-child pass ~30 % slower
-  float o[MAXS];
-  int stot;
+  float x[MAXS], o[MAXS];
+  int sc, stot;
+  // the products first, then their maximum in a loop of its own
+  load_child<MAXS>(a, tab, row, 1, c, pc, x, sc);
+  const float* Pb = mat(SIDES - 1);
   if (MODE == kChild2) {
-    load_child<MAXS>(a, tab, row, 1, c, p, x, sc);
-    const float* lw = a.left + ((size_t)w * CS + c * S) * a.Ppad + p;
+    const float* lw = a.left + ((size_t)w * CS + c * S) * Ppad + pc;
 #pragma unroll kUnrollRows
     for (int i = 0; i < MAXS; ++i)
       if (i < S)
-        o[i] = __fmul_rn(lw[(size_t)i * a.Ppad],
-                         common::row_dot<MAXS>(Pa, i, S, x));
-    stot = (c == 0) ? a.s1[(size_t)w * a.Ppad + p] + sc : 0;
+        o[i] = __fmul_rn(lw[(size_t)i * Ppad],
+                         common::row_dot<MAXS>(Pb, i, S, x));
+    stot = (c == 0) ? a.s1[(size_t)w * Ppad + pc] + sc : 0;
   } else {
-    float x2[MAXS];
-    int sc2;
-    load_child<MAXS>(a, tab, row, 0, c, p, x, sc);
-    load_child<MAXS>(a, tab, row, 1, c, p, x2, sc2);
+    float x0[MAXS];
+    int sc0;
+    load_child<MAXS>(a, tab, row, 0, c, pc, x0, sc0);
+    const float* Pa = mat(0);
 #pragma unroll kUnrollRows
     for (int i = 0; i < MAXS; ++i)
       if (i < S)
-        o[i] = __fmul_rn(common::row_dot<MAXS>(Pa, i, S, x),
-                         common::row_dot<MAXS>(Pb, i, S, x2));
-    stot = sc + sc2;
+        o[i] = __fmul_rn(common::row_dot<MAXS>(Pa, i, S, x0),
+                         common::row_dot<MAXS>(Pb, i, S, x));
+    stot = sc0 + sc;
   }
   float m = -INFINITY;
 #pragma unroll kUnrollRows
   for (int i = 0; i < MAXS; ++i)
     if (i < S) m = fmaxf(m, o[i]);
   const int e = common::rescale_exponent(red, m, c, pl, C, T);
+  if (!live) return;
   const size_t slot = (size_t)a.off + w;
-  common::store_scaled<MAXS>(a.clvs + (slot * CS + c * S) * a.Ppad + p,
-                             a.Ppad, S, o, e);
-  if (c == 0) a.scalers[slot * a.Ppad + p] = stot + e;
-}
-
-template <int MAXS, int MODE>
-int launch_t(const LevelArgs& a, cudaStream_t stream) {
-  const size_t stage = stage_floats(MODE, a.C, a.S, a.n_codes);
-  const bool staged = common::fits_smem((size_t)a.C * a.T + stage);
-  const size_t smem = 4 * ((size_t)a.C * a.T + (staged ? stage : 0));
-  return common::launch_kernel(staged ? level_kernel<MAXS, MODE, true>
-                                      : level_kernel<MAXS, MODE, false>,
-                               dim3(a.Ppad / a.T, a.W), dim3(a.C * a.T), smem,
-                               stream, a);
+  common::store_scaled<MAXS>(a.clvs + (slot * CS + c * S) * Ppad + p, Ppad,
+                             S, o, e);
+  if (c == 0) a.scalers[slot * Ppad + p] = stot + e;
 }
 
 template <int MODE>
-int launch(const LevelArgs& a, cudaStream_t stream) {
-  if (a.C * a.T > kMaxThreads || a.T <= 0 || a.Ppad % a.T != 0 ||
-      a.W <= 0 || a.W > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+int launch_level(LevelArgs a, int W, float* mats, cudaStream_t stream) {
+  LevelConfig cf;
+  if (a.off < 0 || a.off + W > a.n_slots || a.Ppad <= 0 ||
+      !level_config(MODE, a.C, a.S, a.n_codes, a.T, &cf) ||
+      (cf.kind == kTiled && mats == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (W <= 0 || W > 65535) return (int)cudaErrorInvalidConfiguration;
+  a.SP = cf.sp;
+  a.IG = cf.ig;
+  a.Q = (int)cf.q;
+  a.mats = mats;
+  const dim3 grid((a.Ppad + a.T - 1) / a.T, W), block(cf.threads);
+  if (cf.kind == kTiled) {
+    const LevelSides<MODE> sides{a.idx, a.P[0], a.P[1],
+                                 (long long)a.C * a.S * a.S};
+    const int err = tables::launch_sides<MODE == kChild2 ? 4 : 5>(
+        sides, W * (MODE + 1), a.codetab, a.n_codes, mats, a.C, a.S, cf.sp,
+        cf.q, stream);
+    if (err) return err;
+  }
   return common::dispatch_states(a.S, [&](auto m) {
-    return launch_t<decltype(m)::value, MODE>(a, stream);
+    constexpr int MAXS = decltype(m)::value;
+    // level_tiled is the pre-pass's programmatic dependent: its CTAs
+    // load their rows and issue their child copies while the pre-pass
+    // runs, and wait for its tables at griddepcontrol.wait
+    if (cf.kind == kTiled)
+      return common::launch_kernel(level_tiled<MAXS, child_ri<MAXS>(), MODE>,
+                                   grid, block, (size_t)cf.smem, stream, a,
+                                   true);
+    const bool staged = cf.smem > 4LL * a.C * a.T;
+    return common::launch_kernel(staged ? level_simple<MAXS, MODE, true>
+                                        : level_simple<MAXS, MODE, false>,
+                                 grid, block, (size_t)cf.smem, stream, a);
   });
 }
 
@@ -424,26 +717,42 @@ extern "C" int pllmod_child_config(int C, int S, int n_codes, int T,
   return 1;
 }
 
+// Kernels 4 and 5 take the scratch of their pre-pass, mats [W * sides,
+// Q] (level_config's Q; unused, and may be null, where the simple kernel
+// runs).
 extern "C" int pllmod_child2_pass(
     const int* idx, int W, const float* P, float* clvs, int* scalers,
     int n_slots, const int* codes, int n_tips, const float* codetab,
     int n_codes, const float* left, const int* s1, int off, int Ppad, int C,
-    int S, int T, void* stream) {
-  if (off < 0 || off + W > n_slots) return (int)cudaErrorInvalidValue;
-  LevelArgs a{idx, W, 1, P, nullptr, clvs, scalers, n_slots, codes, n_tips,
-              codetab, n_codes, left, s1, nullptr, nullptr, off, Ppad, C, S,
-              T};
-  return launch<kChild2>(a, static_cast<cudaStream_t>(stream));
+    int S, int T, float* mats, void* stream) {
+  LevelArgs a{idx, {P, nullptr}, clvs, scalers, n_slots, codes, n_tips,
+              codetab, n_codes, left, s1, off, Ppad, C, S, T, nullptr, 0,
+              0, 0};
+  return launch_level<kChild2>(a, W, mats, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pllmod_level_combined(
     const int* idx, int W, const float* P1, const float* P2, float* clvs,
     int* scalers, int n_slots, const int* codes, int n_tips,
     const float* codetab, int n_codes, int off, int Ppad, int C, int S,
-    int T, void* stream) {
-  if (off < 0 || off + W > n_slots) return (int)cudaErrorInvalidValue;
-  LevelArgs a{idx, W, 0, P1, P2, clvs, scalers, n_slots, codes, n_tips,
-              codetab, n_codes, nullptr, nullptr, nullptr, nullptr, off,
-              Ppad, C, S, T};
-  return launch<kCombined>(a, static_cast<cudaStream_t>(stream));
+    int T, float* mats, void* stream) {
+  LevelArgs a{idx, {P1, P2}, clvs, scalers, n_slots, codes, n_tips,
+              codetab, n_codes, nullptr, nullptr, off, Ppad, C, S, T,
+              nullptr, 0, 0, 0};
+  return launch_level<kCombined>(a, W, mats,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 4's (mode 0) or 5's (mode 1) configuration at pattern tile T:
+// out[0..6] = kind (0 simple, 1 tiled), RI, IG, SP, Q, threads, shared
+// memory bytes; returns 1, or 0 where none fits. ops/_build.py computes
+// the same without the library.
+extern "C" int pllmod_level_config(int mode, int C, int S, int n_codes,
+                                   int T, long long* out) {
+  LevelConfig cf;
+  if (!level_config(mode, C, S, n_codes, T, &cf)) return 0;
+  const long long v[7] = {cf.kind, cf.ri, cf.ig,      cf.sp,
+                          cf.q,    cf.threads, cf.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 1;
 }

@@ -1,9 +1,10 @@
 // The pre-pass of the walks that read tip children as lookups: every row
 // side's matrix transposed and padded, or a tip child's table, into a
 // scratch array in device memory. Shared by the fused walk (fused.cu,
-// kernel 2), the resident walk beyond 8 states (pruning.cu, kernel 1)
-// and the group-window walks (csrc/group_walk.cuh: packed.cu, kernel 6,
-// and grouped.cu, kernel 7); csrc/tile.cuh has the layouts.
+// kernel 2), the resident walk beyond 8 states (pruning.cu, kernel 1),
+// the group-window walks (csrc/group_walk.cuh: packed.cu, kernel 6, and
+// grouped.cu, kernel 7) and the second-child and combined level passes
+// (levels.cu, kernels 4 and 5); csrc/tile.cuh has the layouts.
 //
 // A side is named by an index s into the caller's table of sides: a
 // Sides policy says whether side s is a tip child (is_tip(s)) and which
@@ -48,12 +49,17 @@ struct RowSides {
 
 // One block a side and category: the category's matrix staged transposed
 // (row stride S + 1: conflict-free both ways), then written out padded to
-// SP, or its tip table computed from it. KERNEL is the walk that launches
-// it (1 the resident walk, 2 the fused walk, 6 the packed walk, 7 the
-// grouped walk), so that a profile tells the libraries' pre-passes apart.
+// SP, or its tip table computed from it. KERNEL is the kernel that
+// launches it (1 the resident walk, 2 the fused walk, 4 the second-child
+// pass, 5 the combined level pass, 6 the packed walk, 7 the grouped walk),
+// so that a profile tells the libraries' pre-passes apart.
 template <int KERNEL, typename Sides>
 __global__ void __launch_bounds__(kThreads)
 tables_kernel(Sides sides, TableArgs a) {
+  // a kernel launched after this one as its programmatic dependent (the
+  // level passes of levels.cu) may start now; it waits for these tables
+  // at griddepcontrol.wait. No effect on a kernel launched without it.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ float Pt[64 * 65];
   const int s = blockIdx.x, c = blockIdx.y;
   const int S = a.S, SP = a.SP, ld = S + 1;

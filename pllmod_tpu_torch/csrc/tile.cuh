@@ -1,6 +1,8 @@
-// Register-tiled pieces of the fused walk (fused.cu, kernel 2) and the
-// child pass (levels.cu, kernel 3): asynchronous copies of pattern tiles
-// into shared memory and the micro-tile product of one child.
+// Register-tiled pieces of the fused walk (fused.cu, kernel 2), the
+// per-level kernels (levels.cu, kernels 3, 4 and 5) and the walks that
+// include this header: asynchronous copies of pattern tiles into shared
+// memory, the micro-tile product of one child and the vector loads and
+// stores of a thread's patterns.
 //
 // Layouts. A child's tile in shared memory is X [lines][T]: line q holds
 // its values of CLV row q for the T pattern columns of the tile. A row's
@@ -231,6 +233,25 @@ __device__ __forceinline__ float tip_entry(const float* Ptc, int ld,
   for (int j = 1; j < S; ++j)
     acc = __fadd_rn(acc, __fmul_rn(Ptc[j * ld + i], x[j]));
   return acc;
+}
+
+// Load RP consecutive values (patterns p .. p + RP - 1) of one line read
+// once (ld.global.cs), as one vector where vec allows; 0 at patterns at or
+// beyond Ppad.
+template <int RP, typename V>
+__device__ __forceinline__ void load_run(V (&v)[RP], const V* src, int p,
+                                         int Ppad, bool vec) {
+  if constexpr (RP == 4) {
+    if (vec && p + 3 < Ppad) {
+      using V4 = typename std::conditional<std::is_same<V, float>::value,
+                                           float4, int4>::type;
+      const V4 t = __ldcs(reinterpret_cast<const V4*>(src));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < RP; ++x) v[x] = p + x < Ppad ? __ldcs(src + x) : V(0);
 }
 
 // Store RP consecutive values (patterns p .. p + RP - 1) of one line, as

@@ -68,12 +68,16 @@ ENTRY_POINTS = {
     "pllmod_child_pass": ("levels", [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _I,
                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
                           _I),
+    # kernels 4 and 5: ..., the tile T, the scratch of their pre-pass
     "pllmod_child2_pass": ("levels", [_VP, _I, _VP, _VP, _VP, _I, _VP, _I,
-                                      _VP, _I, _VP, _VP] + [_I] * 5 + [_VP],
-                           _I),
+                                      _VP, _I, _VP, _VP] + [_I] * 5
+                           + [_VP, _VP], _I),
     "pllmod_level_combined": ("levels", [_VP, _I] + [_VP] * 4 + [_I, _VP, _I,
                                                                  _VP]
-                              + [_I] * 6 + [_VP], _I),
+                              + [_I] * 6 + [_VP, _VP], _I),
+    # kernels 4 and 5's configuration: mode (0 kernel 4, 1 kernel 5), C, S,
+    # n_codes, T
+    "pllmod_level_config": ("levels", [_I] * 5 + [_VP], _I),
     # kernels 6 and 7: their tables, ..., the tile T and lanes R, the
     # walk's windows (and kernel 7's member order), the scratch of the
     # pre-pass and of the row table
@@ -194,15 +198,15 @@ def using(lib: types.SimpleNamespace):
 # launch shared by the two walk wrappers (ops/resident.py, ops/fused.py).
 # The numbers below are those of csrc/pruning.cu, csrc/fused.cu,
 # csrc/levels.cu and csrc/group_walk.cuh; the card tests hold
-# resident_config, fused_config, child_config and group_walk_config
-# against the libraries' own.
+# resident_config, fused_config, child_config, level_config and
+# group_walk_config against the libraries' own.
 # ---------------------------------------------------------------------------
 MAX_STATES = 64            # widest register tile the kernels instantiate
 MAX_THREADS = 256          # __launch_bounds__ of the kernels
 SMEM_PER_BLOCK = 232_448   # H100: shared memory one block may opt into
 SMS = 132                  # H100 SXM streaming multiprocessors
 SMEM_PER_SM = 233_472      # shared memory of one SM (228 KB)
-LEVEL_CTAS = 0.95 * SMS    # a child pass's grid: about one CTA an SM
+LEVEL_CTAS = 0.95 * SMS    # a per-level kernel's grid: about one CTA an SM
 TILES = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
@@ -219,8 +223,8 @@ def _round_up(n: int, k: int) -> int:
 
 
 def pattern_tile(n_cats: int) -> int:
-    """Pattern columns per CTA of the level (4, 5) and simple sumtable
-    kernels: C·T threads per CTA, at most 256."""
+    """Pattern columns per CTA of the resident walk's global kind and of
+    the simple sumtable kernel: C·T threads per CTA, at most 256."""
     for T in (64, 32, 16, 8, 4, 2, 1):
         if n_cats * T <= MAX_THREADS:
             return T
@@ -532,6 +536,77 @@ def child_tile(C: int, S: int, n_codes: int, Ppad: int, W: int) -> int:
         if -(-Ppad // T) * W * -(-C // cf["CB"]) >= LEVEL_CTAS:
             return T
     return fits[-1][0]
+
+
+LEVEL_MODES = ("child2", "combined")    # kernels 4 and 5: mode + 1 sides
+LEVEL_KINDS = ("simple", "tile")
+LEVEL_THREADS = 512        # __launch_bounds__ of kernels 4 and 5's tiled one
+LEVEL_TILES = (256,) + TILES
+
+
+@functools.lru_cache(maxsize=None)
+def level_config(mode: str, C: int, S: int, n_codes: int, T: int):
+    """Kernel 4's (``mode`` "child2") or 5's ("combined") launch
+    configuration at pattern tile T (csrc/levels.cu level_config), or
+    None: a dict of kind, RI (states a thread), IG, SP, Q (floats of a
+    side's table from the pre-pass), threads and smem (bytes). The tiled
+    kernel ("tile": thread (c, ig, pg) owns RI × 4 patterns of category
+    c, every category in one CTA; each row side's transposed matrix or
+    tip table built once by a pre-pass into a scratch of W·sides·Q
+    floats) where T is a multiple of 4 and its C·IG·T/4 threads (at most
+    LEVEL_THREADS) and shared memory fit: each side's region (a tip's
+    table [Q], Q = C·max(S, n_codes)·SP, or an inner child's matrix
+    [C·S·SP] and tile [C·S][T]), the maxima [C·IG][T] and the tip codes
+    [sides][T]; else the simple kernel ("simple": thread (c, p), RI = the
+    register tile MAXS, Q = 0) where its C·T threads fit, its matrices
+    and code table staged where they fit a block. Cached per shape: every
+    level launches it."""
+    if (mode not in LEVEL_MODES or C < 1 or not 1 <= S <= MAX_STATES
+            or n_codes < 1 or T < 1):
+        return None
+    sides = LEVEL_MODES.index(mode) + 1
+    maxs = _ladder(S)
+    ri = 4 if maxs in (4, 20) else 8
+    ig = -(-S // ri)
+    sp = ig * ri
+    if T % 4 == 0:
+        threads = C * ig * (T // 4)
+        q = C * max(S, n_codes) * sp
+        smem = 4 * (sides * max(q, C * S * (sp + T)) + C * ig * T
+                    + sides * T)
+        if threads <= LEVEL_THREADS and smem <= SMEM_PER_BLOCK:
+            return dict(kind="tile", RI=ri, IG=ig, SP=sp, Q=q,
+                        threads=threads, smem=smem)
+    if C * T <= MAX_THREADS:
+        stage = n_codes * S + sides * C * S * S
+        staged = 4 * (C * T + stage) <= SMEM_PER_BLOCK
+        return dict(kind="simple", RI=maxs, IG=1, SP=S, Q=0, threads=C * T,
+                    smem=4 * (C * T + (stage if staged else 0)))
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def level_tile(mode: str, C: int, S: int, n_codes: int, Ppad: int,
+               W: int) -> int:
+    """Kernel 4's or 5's pattern tile for a level of W rows: among the
+    tiles of LEVEL_TILES where the tiled kernel fits, the largest whose
+    grid (tiles × W) has at least LEVEL_CTAS CTAs, else the smallest whose
+    CTA has a warp's threads or more (a narrower one copies the row's
+    tables with fewer threads), else the largest; where the tiled kernel
+    fits at no tile, the same over the simple kernel's tiles. Raises where
+    nothing fits."""
+    for kind in ("tile", "simple"):
+        fits = [(T, cf["threads"]) for T in LEVEL_TILES
+                if (cf := level_config(mode, C, S, n_codes, T))
+                and cf["kind"] == kind]
+        for T, _ in fits:
+            if -(-Ppad // T) * W >= LEVEL_CTAS:
+                return T
+        warps = [T for T, threads in fits if threads >= 32]
+        if warps or fits:
+            return warps[-1] if warps else fits[0][0]
+    raise ValueError(f"kernel {mode!r} takes no tile at {C} categories, "
+                     f"{S} states and {n_codes} codes")
 
 
 SUMTABLE_TILES = (256, 128, 64, 32, 16, 8, 4)

@@ -26,6 +26,13 @@ torch version and a launch count in :data:`LAUNCHES`:
   both children, product and rescale in one launch, written into the
   level's slots.
 
+Kernels 4 and 5 take their pattern tile from the level's width as well
+(``_build.level_tile``: the tiled kernel, every category of a row's tile
+in one CTA after a pre-pass of each row side's table, or the simple
+kernel where that fits no tile); each wrapper takes ``tile=`` to force
+one (``_build.level_config`` says what a tile gives). All three take a
+ragged last tile.
+
 The last two write in place into the buffers they are given (the JAX
 functions return updated copies; ``dynamic_update_slice`` and the
 combined kernel's full-buffer copy have no counterpart): a level's
@@ -163,12 +170,10 @@ def level_combined_plain(idx, clvs, scalers, tip_codes, codetab, P1, P2,
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 # ---------------------------------------------------------------------------
-def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=(),
-           ragged: bool = False):
+def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=()):
     """Check a level kernel's inputs (CUDA tensors of the kernel's types
-    and shapes, at most MAX_STATES states; patterns a multiple of
-    ``_build.pattern_tile`` unless the kernel takes a ragged last tile);
-    returns (W, n_slots, Ppad, C, S, T)."""
+    and shapes, at most MAX_STATES states and 65535 rows); returns (W,
+    n_slots, Ppad, C, S)."""
     W = idx.shape[0]
     n_slots, _, Ppad = clvs.shape
     _, C, S, _ = mats[0].shape
@@ -182,11 +187,9 @@ def _check(name, idx, clvs, scalers, tip_codes, codetab, mats, extra=(),
     if S > _build.MAX_STATES:
         raise ValueError(f"{name}: at most {_build.MAX_STATES} states, "
                          f"got {S}")
-    T = _build.pattern_tile(C)
-    if (Ppad % T and not ragged) or W > 65535:
-        raise ValueError(f"{name}: patterns ({Ppad}) must be a multiple of "
-                         f"the tile ({T}) and rows ({W}) at most 65535")
-    return W, n_slots, Ppad, C, S, T
+    if W > 65535:
+        raise ValueError(f"{name}: at most 65535 rows, got {W}")
+    return W, n_slots, Ppad, C, S
 
 
 def _check_offset(name, offset: int, W: int, n_slots: int) -> None:
@@ -215,9 +218,8 @@ def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P,
     if clvs.device.type == "cpu":
         return child_pass_plain(idx, side, clvs, scalers, tip_codes, codetab,
                                 P)
-    W, n_slots, Ppad, C, S, _ = _check("pllmod_child_pass", idx, clvs,
-                                       scalers, tip_codes, codetab, [P],
-                                       ragged=True)
+    W, n_slots, Ppad, C, S = _check("pllmod_child_pass", idx, clvs,
+                                    scalers, tip_codes, codetab, [P])
     n_codes = codetab.shape[0]
     T = _build.child_tile(C, S, n_codes, Ppad, W) if tile is None else tile
     if _build.child_config(C, S, n_codes, T) is None:
@@ -236,51 +238,102 @@ def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P,
     return out, sc
 
 
+def level_scratch_floats(mode: str, C: int, S: int, n_codes: int,
+                         Ppad: int, W: int, tile: int | None = None) -> int:
+    """Floats of the scratch that kernel 4's (``mode`` "child2") or 5's
+    ("combined") pre-pass fills for a level of W rows at pattern tile
+    ``tile`` (by default the rule's, ``_build.level_tile``): W·sides·Q,
+    0 where the simple kernel runs."""
+    T = (_build.level_tile(mode, C, S, n_codes, Ppad, max(W, 1))
+         if tile is None else tile)
+    cf = _build.level_config(mode, C, S, n_codes, T)
+    return W * (_build.LEVEL_MODES.index(mode) + 1) * cf["Q"] if cf else 0
+
+
+def _level_launch(name, mode: str, C: int, S: int, n_codes: int, Ppad: int,
+                  W: int, tile, device, scratch):
+    """Kernel 4's or 5's pattern tile (``tile``, or the rule's,
+    ``_build.level_tile``, for a level of W rows) and the scratch of its
+    pre-pass: ``scratch`` where given (checked), else a new one (None
+    where the simple kernel runs); raises where the kernel takes no
+    configuration at that tile."""
+    T = (_build.level_tile(mode, C, S, n_codes, Ppad, max(W, 1))
+         if tile is None else tile)
+    cf = _build.level_config(mode, C, S, n_codes, T)
+    if cf is None:
+        raise ValueError(f"{name}: no launch configuration at tile {T}")
+    n = W * (_build.LEVEL_MODES.index(mode) + 1) * cf["Q"]
+    if not n:
+        return T, None
+    if scratch is None:
+        return T, torch.empty(n, dtype=torch.float32, device=device)
+    if (scratch.dtype != torch.float32 or scratch.device != device
+            or not scratch.is_contiguous() or scratch.numel() < n):
+        raise ValueError(f"{name}: the scratch must be a contiguous float32 "
+                         f"tensor of at least {n} floats on {device}")
+    return T, scratch
+
+
 def child2_pass(idx, clvs, scalers, tip_codes, codetab, P, left, s1,
-                offset: int):
+                offset: int, tile: int | None = None, scratch=None):
     """Second-child pass fused with the combine (``pallas_clv.
     _child2_pass``): ``left ⊙ (P[w]·child2)``, rescaled by the bit
     formula, with the cumulative scaler ``s1 + s2 + e``, written into
     slots ``[offset, offset + W)`` of ``clvs`` / ``scalers`` (in place;
-    returned). ``left`` float32 [W, C·S, Ppad] and ``s1`` int32 [W, 1,
-    Ppad] are :func:`child_pass`'s side-0 outputs; the other arguments as
-    there, ``P`` the side-1 matrices."""
+    returned), on the card at pattern tile ``tile`` (by default
+    ``_build.level_tile``'s for the level's width). ``left`` float32 [W,
+    C·S, Ppad] and ``s1`` int32 [W, 1, Ppad] are :func:`child_pass`'s
+    side-0 outputs; the other arguments as there, ``P`` the side-1
+    matrices. ``scratch``: a float32 tensor on the card of at least
+    :func:`level_scratch_floats` floats for the pre-pass's tables (by
+    default one is allocated)."""
     if clvs.device.type == "cpu":
         return child2_pass_plain(idx, clvs, scalers, tip_codes, codetab, P,
                                  left, s1, offset)
-    W, n_slots, Ppad, C, S, T = _check(
+    W, n_slots, Ppad, C, S = _check(
         "pllmod_child2_pass", idx, clvs, scalers, tip_codes, codetab, [P],
         [(left, torch.float32, (idx.shape[0], clvs.shape[1], clvs.shape[2])),
          (s1, torch.int32, (idx.shape[0], 1, clvs.shape[2]))])
     _check_offset("pllmod_child2_pass", offset, W, n_slots)
+    T, mats = _level_launch("pllmod_child2_pass", "child2", C, S,
+                            codetab.shape[0], Ppad, W, tile, clvs.device,
+                            scratch)
     if W:
         _build.launch("pllmod_child2_pass", clvs.device, idx.data_ptr(), W,
                       P.data_ptr(), clvs.data_ptr(), scalers.data_ptr(),
                       n_slots, tip_codes.data_ptr(), tip_codes.shape[0],
                       codetab.data_ptr(), codetab.shape[0], left.data_ptr(),
-                      s1.data_ptr(), offset, Ppad, C, S, T)
+                      s1.data_ptr(), offset, Ppad, C, S, T,
+                      None if mats is None else mats.data_ptr())
         LAUNCHES["child2_pass"] += 1
     return clvs, scalers
 
 
 def level_update_combined(clvs, scalers, idx, tip_codes, codetab, P1, P2,
-                          offset: int):
+                          offset: int, tile: int | None = None,
+                          scratch=None):
     """One level in one launch (``pallas_clv.level_update_combined``):
     both children, their product, the bit-formula rescale and the
     cumulative scalers, written into slots ``[offset, offset + W)`` (in
-    place; returned)."""
+    place; returned), on the card at pattern tile ``tile`` (by default
+    ``_build.level_tile``'s for the level's width); ``scratch`` as in
+    :func:`child2_pass`."""
     if clvs.device.type == "cpu":
         return level_combined_plain(idx, clvs, scalers, tip_codes, codetab,
                                     P1, P2, offset)
-    W, n_slots, Ppad, C, S, T = _check("pllmod_level_combined", idx, clvs,
-                                       scalers, tip_codes, codetab, [P1, P2])
+    W, n_slots, Ppad, C, S = _check("pllmod_level_combined", idx, clvs,
+                                    scalers, tip_codes, codetab, [P1, P2])
     _check_offset("pllmod_level_combined", offset, W, n_slots)
+    T, mats = _level_launch("pllmod_level_combined", "combined", C, S,
+                            codetab.shape[0], Ppad, W, tile, clvs.device,
+                            scratch)
     if W:
         _build.launch("pllmod_level_combined", clvs.device, idx.data_ptr(),
                       W, P1.data_ptr(), P2.data_ptr(), clvs.data_ptr(),
                       scalers.data_ptr(), n_slots, tip_codes.data_ptr(),
                       tip_codes.shape[0], codetab.data_ptr(),
-                      codetab.shape[0], offset, Ppad, C, S, T)
+                      codetab.shape[0], offset, Ppad, C, S, T,
+                      None if mats is None else mats.data_ptr())
         LAUNCHES["level_combined"] += 1
     return clvs, scalers
 
@@ -330,19 +383,26 @@ def update_partials_pallas(partition, P, levels, offsets, n_slots: int,
     clvs = torch.empty((n_slots, CS, Ppad), dtype=torch.float32, device=dev)
     scalers = torch.empty((n_slots, 1, Ppad), dtype=torch.int32, device=dev)
     tip_codes, codetab = partition.tip_states, code_table(partition)
+    scratch = None      # kernels 4 and 5's pre-pass tables, one an eval
+    if dev.type == "cuda" and step != "split":
+        n = max((level_scratch_floats(step, partition.n_cats,
+                                      partition.states, codetab.shape[0],
+                                      Ppad, len(lv)) for lv in levels),
+                default=0)
+        scratch = torch.empty(n, dtype=torch.float32, device=dev)
     for lv, off in zip(levels, offsets):
         s = slice(off, off + len(lv))
         if step == "child2":
             left, s1 = child_pass(idx[s], 0, clvs, scalers, tip_codes,
                                   codetab, P1[s])
             child2_pass(idx[s], clvs, scalers, tip_codes, codetab, P2[s],
-                        left, s1, off)
+                        left, s1, off, scratch=scratch)
         elif step == "split":
             level_update(clvs, scalers, idx[s], tip_codes, codetab, P1[s],
                          P2[s], off)
         else:
             level_update_combined(clvs, scalers, idx[s], tip_codes, codetab,
-                                  P1[s], P2[s], off)
+                                  P1[s], P2[s], off, scratch=scratch)
     return clvs, scalers
 
 

@@ -140,6 +140,17 @@ def _child_config_lib(C, S, n_codes, T):
     return dict(zip(keys, list(out)))
 
 
+def _level_config_lib(mode, C, S, n_codes, T):
+    out = (ctypes.c_longlong * 7)()
+    if not _build.load().pllmod_level_config(
+            _build.LEVEL_MODES.index(mode), C, S, n_codes, T, out):
+        return None
+    keys = ("kind", "RI", "IG", "SP", "Q", "threads", "smem")
+    got = dict(zip(keys, list(out)))
+    got["kind"] = _build.LEVEL_KINDS[got["kind"]]
+    return got
+
+
 def test_cuda_tensors_never_take_the_plain_path(cuda):
     """A CUDA input the kernel rejects raises; it is not rerouted."""
     part, tree = _example(4, 4, cuda)
@@ -377,6 +388,159 @@ def test_level_and_grouped_kernels_edge_cases(cuda, case):
         root_edge = _tip_edge(tree)
     _check_level_kernels(part, tree, root_edge)
     _check_grouped_kernel(part, tree, root_edge)
+
+
+def _level_tiles(mode, C, S, n_codes):
+    """Every tile of kernel 4 or 5 where a configuration fits: each one
+    the rule can pick."""
+    return [T for T in _build.LEVEL_TILES
+            if _build.level_config(mode, C, S, n_codes, T)]
+
+
+def _check_level_tiles(part, tree, root_edge=None, Ppads=(None,)):
+    """Kernels 4 and 5 against their plain versions on every level, at
+    the rule's tile and every tile that fits, at each pattern count of
+    ``Ppads`` (None: the partition's; a count that is no multiple of the
+    tile leaves a ragged last tile): the level's slots are poisoned
+    before each launch and the whole buffers compared bit for bit."""
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree, root_edge)
+    idx, e1, e2 = levels.level_tables(part, lvls)
+    P = part.prob_matrices(_brl(tree, part))
+    P1, P2 = P[e1], P[e2]
+    tab = fused.code_table(part)
+    C, S, n_codes = part.n_cats, part.states, tab.shape[0]
+    want = _level_walk_plain(idx, P1, P2, part.tip_states, tab, lvls,
+                             offsets, ns, C, S)
+    tiles = {m: [None] + _level_tiles(m, C, S, n_codes)
+             for m in _build.LEVEL_MODES}
+    for Ppad in Ppads:
+        Ppad = Ppad or part.n_patterns_padded
+        tc = part.tip_states[:, :Ppad].contiguous()
+        bufs = [w[..., :Ppad].contiguous() for w in want]
+        for lv, off in zip(lvls, offsets):
+            s = slice(off, off + len(lv))
+
+            def fresh():
+                out = [b.clone() for b in bufs]
+                out[0][s] = float("nan")
+                out[1][s] = -999
+                return out
+            left, s1 = levels.child_pass_plain(idx[s], 0, *bufs, tc, tab,
+                                               P1[s])
+            ref4 = levels.child2_pass_plain(idx[s], *fresh(), tc, tab, P2[s],
+                                            left, s1, off)
+            ref5 = levels.level_combined_plain(idx[s], *fresh(), tc, tab,
+                                               P1[s], P2[s], off)
+            for T in tiles["child2"]:
+                got = levels.child2_pass(idx[s], *fresh(), tc, tab, P2[s],
+                                         left, s1, off, tile=T)
+                assert all(torch.equal(g, r) for g, r in zip(got, ref4)), \
+                    ("child2", T, Ppad, off)
+            for T in tiles["combined"]:
+                got = levels.level_update_combined(*fresh(), idx[s], tc, tab,
+                                                   P1[s], P2[s], off, tile=T)
+                assert all(torch.equal(g, r) for g, r in zip(got, ref5)), \
+                    ("combined", T, Ppad, off)
+
+
+@pytest.mark.parametrize("states,cats", LEVEL_SHAPES)
+def test_level_kernels_every_tile_and_ragged(cuda, states, cats):
+    """Kernels 4 and 5 along the state ladder at every tile that fits
+    (tiled and simple kernels), at the partition's patterns and at 100
+    and 101 (ragged last tiles, the second without 16-byte vectors)."""
+    part, tree = _example(states, cats, cuda, n_taxa=14, n_sites=256)
+    _check_level_tiles(part, tree, Ppads=(None, 100, 101))
+
+
+@pytest.mark.parametrize("case", ["caterpillar", "tip_root", "g16"])
+def test_level_kernels_every_tile_edge_cases(cuda, case):
+    """Kernels 4 and 5 at every tile on a caterpillar (every level one
+    row), with the root on a tip edge, and at C·S = 4, with a ragged last
+    tile."""
+    if case == "g16":
+        part, tree = _example(4, 1, cuda, n_taxa=40)
+        _check_level_tiles(part, tree, Ppads=(None, 101))
+        return
+    part, tree = _example(4, 4, cuda, n_taxa=14)
+    root_edge = None
+    if case == "caterpillar":
+        tree = _caterpillar(14)
+        tree.lengths[:] = np.linspace(0.02, 0.3, len(tree.lengths))
+    else:
+        root_edge = _tip_edge(tree)
+    _check_level_tiles(part, tree, root_edge, Ppads=(None, 101))
+
+
+@pytest.mark.parametrize("states,cats,tile", [
+    (20, 4, None), (20, 4, 64), (20, 4, 4), (4, 4, None), (4, 4, 256),
+    (64, 4, None)])
+def test_level_kernels_repeated_launches(cuda, states, cats, tile):
+    """Kernels 4 and 5 through their drivers on a 256-taxon tree, 20 times
+    each at the rule's tiles or one forced tile, each launch started
+    while its pre-pass runs (a programmatic dependent) into one scratch
+    shared by every level, as ``update_partials_pallas`` shares it: every
+    launch bit for bit with the plain walk, and each counted once a
+    level."""
+    part, tree = _example(states, cats, cuda, n_taxa=256, n_sites=2048)
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+    tables = levels.level_tables(part, lvls)
+    idx, e1, e2 = tables
+    P = part.prob_matrices(_brl(tree, part))
+    P1, P2 = P[e1], P[e2]
+    tc, tab = part.tip_states, fused.code_table(part)
+    want = _level_walk_plain(idx, P1, P2, tc, tab, lvls, offsets, ns, cats,
+                             states)
+    sl = [slice(o, o + len(lv)) for lv, o in zip(lvls, offsets)]
+    scratch = torch.empty(max(
+        levels.level_scratch_floats(m, cats, states, tab.shape[0],
+                                    part.n_patterns_padded, len(lv), tile)
+        for m in _build.LEVEL_MODES for lv in lvls), device=cuda)
+    before = dict(levels.LAUNCHES)
+    for _ in range(20):
+        for kernel in ("child2", "combined"):
+            clvs = torch.full_like(want[0], float("nan"))
+            sc = torch.full_like(want[1], -999)
+            for s, off in zip(sl, offsets):
+                if kernel == "child2":
+                    left, s1 = levels.child_pass(idx[s], 0, clvs, sc, tc,
+                                                 tab, P1[s])
+                    levels.child2_pass(idx[s], clvs, sc, tc, tab, P2[s],
+                                       left, s1, off, tile=tile,
+                                       scratch=scratch)
+                else:
+                    levels.level_update_combined(clvs, sc, idx[s], tc, tab,
+                                                 P1[s], P2[s], off, tile=tile,
+                                                 scratch=scratch)
+            assert torch.equal(clvs, want[0]) and torch.equal(sc, want[1])
+    n = 20 * len(sl)
+    assert levels.LAUNCHES["child2_pass"] - before["child2_pass"] == n
+    assert levels.LAUNCHES["level_combined"] - before["level_combined"] == n
+
+
+def test_level_scratch_is_checked(cuda):
+    """A scratch too small, of another type or on the CPU is refused, not
+    written past; one of the right size is taken."""
+    part, tree = _example(20, 4, cuda)
+    lvls, offsets, _, ns = engine.compile_schedule(part, tree)
+    idx, e1, e2 = levels.level_tables(part, lvls)
+    P = part.prob_matrices(_brl(tree, part))
+    tc, tab = part.tip_states, fused.code_table(part)
+    s = slice(offsets[0], offsets[0] + len(lvls[0]))
+    bufs = _level_walk_plain(idx, P[e1], P[e2], tc, tab, lvls, offsets, ns,
+                             4, 20)
+    n = levels.level_scratch_floats("combined", 4, 20, tab.shape[0],
+                                    part.n_patterns_padded, len(lvls[0]))
+    assert n > 0
+    for bad in (torch.empty(n - 1, device=cuda),
+                torch.empty(n, dtype=torch.float64, device=cuda),
+                torch.empty(n)):
+        with pytest.raises(ValueError, match="scratch"):
+            levels.level_update_combined(*bufs, idx[s], tc, tab, P[e1][s],
+                                         P[e2][s], s.start, scratch=bad)
+    want = [b.clone() for b in bufs]
+    levels.level_update_combined(*bufs, idx[s], tc, tab, P[e1][s], P[e2][s],
+                                 s.start, scratch=torch.empty(n, device=cuda))
+    assert all(torch.equal(b, w) for b, w in zip(bufs, want))
 
 
 @pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (5, 4)])
@@ -811,6 +975,18 @@ def test_fused_and_child_configs_match_library(cuda, states, cats):
                 _build.fused_config(cats, states, n_codes, T)
             assert _child_config_lib(cats, states, n_codes, T) == \
                 _build.child_config(cats, states, n_codes, T)
+
+
+@pytest.mark.parametrize("states", FUSED_STATES + (5, 16))
+@pytest.mark.parametrize("cats", FUSED_CATS + (32, 256))
+def test_level_config_matches_library(cuda, states, cats):
+    """The Python mirror of kernels 4 and 5's launch configuration is
+    what the library computes, at every tile, fitting or not."""
+    for mode in _build.LEVEL_MODES:
+        for n_codes in (states + 1, 16, 200):
+            for T in _build.LEVEL_TILES + (3, 12):
+                assert _level_config_lib(mode, cats, states, n_codes, T) == \
+                    _build.level_config(mode, cats, states, n_codes, T)
 
 
 @pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (5, 1),

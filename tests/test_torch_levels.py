@@ -280,3 +280,48 @@ def test_child_tile_follows_level_width(C, S, n_codes, Ppad, W, T, lookup):
             assert cf["threads"] <= _build.MAX_THREADS
             assert cf["smem"] <= _build.SMEM_PER_BLOCK
             assert 1 <= cf["CB"] <= C and cf["SP"] >= S
+
+
+@pytest.mark.parametrize("C,S,n_codes,Ppad,W,T2,T5,kind", [
+    (4, 4, 16, 16384, 1, 128, 128, "tile"),     # flagship, W = 1
+    (4, 4, 16, 16384, 2, 256, 256, "tile"),
+    (4, 4, 16, 16384, 44, 256, 256, "tile"),    # its widest level
+    (4, 20, 24, 4096, 1, 32, 32, "tile"),       # protein, W = 1
+    (4, 20, 24, 4096, 2, 64, 64, "tile"),
+    (4, 20, 24, 4096, 172, 64, 64, "tile"),     # its widest level
+    (4, 64, 65, 4096, 44, 64, 32, "tile"),      # 64 states
+    (256, 4, 16, 512, 1, 4, 4, "tile"),         # 256 categories
+    (256, 20, 24, 512, 4, 1, 1, "simple"),      # ... beyond the tiles
+    (4, 20, 24, 100, 1, 8, 8, "tile"),          # few patterns: a warp
+])
+def test_level_tile_follows_level_width(C, S, n_codes, Ppad, W, T2, T5, kind):
+    """Kernels 4 and 5's tile fills the card at every width where a tile
+    can (else a CTA keeps a warp), takes the simple kernel only where the
+    tiled one fits no tile, sizes each side's table from the pre-pass for
+    the larger of the matrix and the tip table (the scratch of a level
+    holds W·sides of them), and every configuration fits a block's
+    threads and shared memory."""
+    for mode, want in (("child2", T2), ("combined", T5)):
+        T = _build.level_tile(mode, C, S, n_codes, Ppad, W)
+        assert T == want
+        cf = _build.level_config(mode, C, S, n_codes, T)
+        assert cf["kind"] == kind
+        sides = _build.LEVEL_MODES.index(mode) + 1
+        assert levels.level_scratch_floats(mode, C, S, n_codes, Ppad, W) \
+            == W * sides * cf["Q"]
+        if W == 1 and kind == "tile" and Ppad >= 4096:
+            assert -(-Ppad // T) >= _build.LEVEL_CTAS
+        for T in _build.LEVEL_TILES:
+            cf = _build.level_config(mode, C, S, n_codes, T)
+            if cf is None:
+                assert C * T > _build.MAX_THREADS
+                continue
+            assert cf["smem"] <= _build.SMEM_PER_BLOCK and cf["SP"] >= S
+            if cf["kind"] == "tile":
+                assert cf["threads"] == C * cf["IG"] * T // 4
+                assert cf["threads"] <= _build.LEVEL_THREADS
+                assert cf["RI"] * cf["IG"] == cf["SP"]
+                assert cf["Q"] == C * max(S, n_codes) * cf["SP"]
+            else:
+                assert cf["threads"] == C * T <= _build.MAX_THREADS
+                assert cf["Q"] == 0
