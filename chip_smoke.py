@@ -9,7 +9,7 @@ It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
 (one ``nvcc`` a source, all six at once), holds each kernel against its
 plain torch version on the card (the fused walk at four shapes: the
 flagship's fuse_root and directed tables, protein, 64 states), and
-drives five paths, each run with every kernel's launch count set to 0
+drives six paths, each run with every kernel's launch count set to 0
 just before it and read just after, the launches logged by cell and
 path (``counted``):
 
@@ -34,7 +34,23 @@ path (``counted``):
    changed length, per site) and ``optimize_branch_lengths_treeinfo`` in
    LINKED and SCALED (1.0, 0.5) modes, checked against the float64
    serial engine; kernel 10 for two partitions against its plain
-   version.
+   version;
+6. model-parameter optimization (``algorithm/opt_model.py``), path
+   ``opt_model``: the CLI's ``eval ... --model GTR+G4 --opt`` (parsed
+   by ``cli.parse_args``, run by ``cmd_eval``) on the flagship
+   alignment and tree written to
+   ``build/opt_model`` (rates, frequencies, alpha, branches); LG+G4+I
+   from the AA registry at the protein cell (``opt_alpha_pinv``, then
+   ``opt_brlen``); free rates (+R4) at the flagship cell
+   (``opt_rates_weights``); the 189-dimension PROTGTR canary of
+   ``tools/tpu_parity.py`` (10 × 256, ``opt_subst_rates`` at tol 1e-3,
+   then a float64 restart from its endpoint that may gain ≤ 0.05). Each
+   run ends at or above its start and within 1e-6 of the float64 serial
+   engine at its parameters; before them the edge-decomposition (value,
+   grad) of the rates, freqs, alpha+pinv and cats families (kernel 2's
+   directed CLVs) is held against the float64 decomposition on the card
+   (relative f < 1e-6, g < 1e-3), and the EM E-step's kernel-2 CLVs
+   against the serial engine.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -49,15 +65,19 @@ bit for bit (the measurements behind ``_build.group_walk_tile``'s and
 every timed schedule's ms/eval (``pallas``, and ``combined``: kernel 5
 a level), one ``{"blo": [...]}``, one
 ``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
-``{"kernels": [...]}`` line (each kernel's launches in all, by cell and
-by path), the card's name and power limit, and last
+``{"edge_decomposition": ...}``, one ``{"opt_model": [...]}`` (each run's
+logL against float64, host ms by family, (value, grad) calls, Brent
+iterations, launches by kernel; ``--profile``: its device busy share)
+and one ``{"kernels": [...]}`` line (each kernel's launches in all, by
+cell and by path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero; without CUDA it exits 1 and prints no result.
 
 ``--profile`` also traces the main path's timed loop of each cell, the
 flagship's and the protein cell's ``pallas``, ``combined``, grouped and
-packed loops and one BLO call each at the
-flagship and protein cells and on the partitioned cell (LINKED) with
+packed loops, one BLO call each at the
+flagship and protein cells and on the partitioned cell (LINKED) and
+each phase-6 run with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
 window; and it builds ``csrc/pruning.cu``, ``csrc/deriv.cu``,
@@ -97,13 +117,21 @@ import time
 import numpy as np
 import torch
 
-from pllmod_tpu_torch import flagship
+from pllmod_tpu_torch import cli, flagship
+from pllmod_tpu_torch.algorithm import opt_model
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
 from pllmod_tpu_torch.common import BRLEN_LINKED, BRLEN_SCALED
-from pllmod_tpu_torch.ops import (_build, deriv, engine, fused, grouped,
-                                  levels, packed, resident)
-from pllmod_tpu_torch.optimize import blo, blo_bounded
+from pllmod_tpu_torch.common import (PARAM_FREE_RATES, PARAM_RATE_WEIGHTS,
+                                     PARAM_SUBST_RATES)
+from pllmod_tpu_torch.msa import io as msa_io
+from pllmod_tpu_torch.msa.msa import MSA
+from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine, fused,
+                                  grouped, levels, packed, resident)
+from pllmod_tpu_torch.ops.partition import create_partition
+from pllmod_tpu_torch.optimize import blo, blo_bounded, edge_grad
+from pllmod_tpu_torch.optimize.em import em_rates_weights
+from pllmod_tpu_torch.tree.topology import Tree
 from pllmod_tpu_torch.tree.treeinfo import TreeInfo
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor flop/s
@@ -1359,11 +1387,11 @@ def timed_main_path(part, tree, label, schedule="auto"):
     return ms, issue_ms
 
 
-def profile_window(label, fn, calls: int) -> None:
+def profile_window(label, fn, calls: int) -> dict:
     """Trace ``fn()`` (``calls`` evaluations or BLO calls, after one
     warm-up): device time per call of each device kernel (torch.profiler's
     kernel events, not the host ops that launched them) and the device's
-    busy share of the window."""
+    busy share of the window. Prints and returns the summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1382,7 +1410,7 @@ def profile_window(label, fn, calls: int) -> None:
             row[1] += 1
     busy_us = sum(us for us, _ in per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    print(json.dumps({
+    summary = {
         "profile": label, "calls": calls,
         "window_ms_per_call": window_s * 1e3 / calls,
         "device_busy_ms_per_call": busy_us / 1e3 / calls,
@@ -1391,7 +1419,9 @@ def profile_window(label, fn, calls: int) -> None:
         / calls,
         "kernels": [{"name": k[:90], "device_us_per_call": us / calls,
                      "calls_per_call": n / calls}
-                    for k, (us, n) in rows[:12]]}))
+                    for k, (us, n) in rows[:12]]}
+    print(json.dumps(summary))
+    return summary
 
 
 PHASE_DEFINES = ("PLLMOD_PHASES",)    # csrc/common.cuh PHASE_MARK
@@ -1702,6 +1732,317 @@ def routing_sweep():
         del part
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: model-parameter optimization (algorithm/opt_model.py)
+# ---------------------------------------------------------------------------
+OPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "opt_model")      # the eval command's input files
+PROTGTR = dict(n_taxa=10, n_sites=256, seed=0)   # tools/tpu_parity.py:306
+CANARY_GAIN = 0.05        # the canary's float64 restart may gain this much
+DECOMP_F_RTOL, DECOMP_G_RTOL = 1e-6, 1e-3     # tools/tpu_parity.py:296-299
+EM_LOG_ATOL = 1e-5        # E-step: kernel 2 vs serial engine, ln L[p]
+# every kernel a phase-6 run must launch (kernel 2 on every gradient path)
+OPT_MUST = {"cli": ("resident_walk", "fused_walk", "edge_sumtables",
+                    "edge_derivatives", "newton_edges"),
+            "protein": ("resident_walk", "fused_walk", "edge_sumtables",
+                        "edge_derivatives", "newton_edges"),
+            "free_rates": ("resident_walk", "fused_walk"),
+            "canary": ("fused_walk",)}
+
+
+def f64_copy(part):
+    """A partition's float64 copy on its device, without the cached
+    eigendecomposition (recomputed in float64)."""
+    return part.to(dtype=torch.float64).with_model_params()
+
+
+def f64_treeinfo_lnl(ti) -> float:
+    """The float64 serial engine's total logL at a TreeInfo's parameters
+    and lengths."""
+    ops, ri = ti.tree.traversal_ops()
+    return sum(float(engine.loglikelihood(
+        f64_copy(ti.partitions[i]), ops,
+        torch.as_tensor(ti.partition_brlens(i), dtype=torch.float64,
+                        device="cuda"), ri))
+        for i in ti.local_indices())
+
+
+def _decomp_vg(build, brl, et, x):
+    xt = torch.tensor(x, dtype=torch.float64, device="cuda",
+                      requires_grad=True)
+    f = edge_grad.edge_decomp_neg_loglh(build(xt), brl, et)
+    g, = torch.autograd.grad(f, xt)
+    return float(f.detach()), g.cpu().numpy()
+
+
+def check_decomposition(part, tree, label, families):
+    """The edge-decomposition (value, grad) of the float32 card path
+    (kernel 2's directed walk) against the float64 decomposition on the
+    card (the serial engine's directed CLVs), per family: relative f <
+    DECOMP_F_RTOL, relative g < DECOMP_G_RTOL (tools/tpu_parity.py's
+    bar). Returns the rows."""
+    part64 = f64_copy(part)
+    ets = {dt: edge_grad.edge_tables(p, tree)
+           for dt, p in (("f32", part), ("f64", part64))}
+    brls = {dt: torch.as_tensor(tree.lengths, dtype=p.dtype, device="cuda")
+            for dt, p in (("f32", part), ("f64", part64))}
+    rows = []
+    for name, x in families:
+        build = {"rates": lambda p: lambda z: edge_grad.with_rates(
+                     p, edge_grad.expand_sym(z, torch.arange(
+                         len(z) + 1, device="cuda"), len(z))),
+                 "freqs": lambda p: lambda z: edge_grad.with_freq_ratios(
+                     p, z),
+                 "alpha_pinv": lambda p: lambda z:
+                     edge_grad.with_alpha_pinv(p, z),
+                 "cats": lambda p: lambda z: edge_grad.with_cats(p, z)}
+        f32, g32 = _decomp_vg(build[name](part), brls["f32"], ets["f32"], x)
+        f64, g64 = _decomp_vg(build[name](part64), brls["f64"], ets["f64"],
+                              x)
+        _, ms, _ = _events_ms(lambda: _decomp_vg(
+            build[name](part), brls["f32"], ets["f32"], x), 3)
+        rel_f = abs(f32 - f64) / abs(f64)
+        rel_g = float(np.max(np.abs(g32 - g64)
+                             / (np.abs(g64) + 1e-2 * np.abs(g64).max())))
+        print(f"edge decomposition ({label}, {name}): rel f {rel_f:.3e}, "
+              f"rel g {rel_g:.3e}, {ms:.3f} ms a (value, grad)")
+        if not (rel_f < DECOMP_F_RTOL and rel_g < DECOMP_G_RTOL):
+            raise AssertionError(f"edge decomposition ({label}, {name}) "
+                                 f"off float64: f {rel_f}, g {rel_g}")
+        rows.append(dict(family=name, rel_f=rel_f, rel_g=rel_g,
+                         ms_per_value_and_grad=ms, dims=len(x)))
+    return rows
+
+
+def check_em_estep(part, tree, label):
+    """The EM E-step's per-site per-category likelihoods from kernel 2's
+    walk (float32) against the serial engine (float64) on the card: the
+    site mixtures' logs, the posterior category shares (what the M-step
+    reads; a category that underflows in float32 has a share of 0 in
+    both) and the EM weights of both."""
+    out = {}
+    for dt, p in (("f32", part), ("f64", f64_copy(part))):
+        brl = torch.as_tensor(tree.lengths, dtype=p.dtype, device="cuda")
+        with torch.no_grad():
+            lh, sc = opt_model.site_cat_likelihood(p, tree, brl)
+        mix = lh.double()[:p.n_patterns] * p.rate_weights.double()
+        site = mix.sum(1)
+        ln_site = torch.log(site) + sc.double()[:p.n_patterns] * clv.LN2
+        w = em_rates_weights(lh.to("cpu", torch.float64),
+                             p.pattern_weights.to("cpu", torch.float64),
+                             p.rate_weights.to("cpu", torch.float64))
+        out[dt] = (ln_site, mix / site[:, None], w)
+    err = float((out["f32"][0] - out["f64"][0]).abs().max())
+    perr = float((out["f32"][1] - out["f64"][1]).abs().max())
+    werr = float((out["f32"][2] - out["f64"][2]).abs().max())
+    print(f"EM E-step ({label}): kernel 2 against the float64 serial "
+          f"engine: max |Δ ln L[p]| {err!r}, max |Δ posterior| {perr!r}, "
+          f"max |Δw| {werr!r}")
+    if not (err <= EM_LOG_ATOL and perr <= EM_LOG_ATOL and werr <= 1e-4):
+        raise AssertionError(f"EM E-step ({label}) off float64: {err}, "
+                             f"{perr}, {werr}")
+    return dict(max_abs_site_log_err=err, max_abs_posterior_err=perr,
+                max_abs_weight_err=werr)
+
+
+def reset_peak_memory() -> float:
+    """Reset the card's peak-allocation counter; returns the GiB of
+    tensors allocated now (what a run's peak starts from)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def opt_row(cell, what, start, lnl, ti, got, stats, gpu, mem):
+    """A phase-6 row: the run's logL against its start and the float64
+    serial engine at its parameters, its counts and host ms by family
+    (``stats``: ``opt_model``'s, or host ``seconds`` a family of its
+    own), its launches and its device memory: ``mem`` = (GiB allocated
+    at its start, :func:`reset_peak_memory`'s return), the peak read
+    here, before the float64 check allocates."""
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"opt_model ({cell}, {what}): device memory {mem!r} GiB "
+          f"allocated at the start, peak {peak!r} GiB")
+    want = f64_treeinfo_lnl(ti)
+    if not lnl >= start - 1e-9 * abs(start):
+        raise AssertionError(f"opt_model ({cell}, {what}) ended below its "
+                             f"start: {lnl} < {start}")
+    rel_close(lnl, want, LOGL_RTOL, f"opt_model ({cell}, {what}) vs float64")
+    p = ti.partitions[0]
+    by_family = {fam: {("ms" if k == "seconds" else k):
+                       (v * 1e3 if k == "seconds" else v)
+                       for k, v in c.items()} for fam, c in stats.items()}
+    return dict(cell=cell, run=what, start_lnl=start, lnl=lnl,
+                f64_lnl=want, rel_to_f64=abs(lnl - want) / abs(want),
+                by_family=by_family,
+                launches={k: n for k, n in got.items() if n},
+                alpha=float(p.alpha), pinv=float(p.prop_invar[0]),
+                start_gib=mem, peak_gib=peak, gpu=gpu)
+
+
+def run_opt_model(gpu, profile: bool):
+    """Phase 6: (a) ``eval --opt`` at the flagship DNA cell (GTR+G4: rates,
+    frequencies, alpha, branches) through the CLI's ``eval``; (b) LG+G4+I from
+    the AA registry at the protein cell: ``opt_alpha_pinv`` then
+    ``opt_brlen``; (c) free rates (+R4, alpha NaN) at the flagship DNA
+    cell: ``opt_rates_weights``, its E-step held against the serial
+    engine; (d) the PROTGTR canary: ``opt_subst_rates`` at tol 1e-3 in
+    float32, restarted in float64 from its endpoint. The edge
+    decomposition of the four gradient families is held against float64
+    first. Each run is counted under path ``opt_model``. Returns (rows,
+    decomposition rows)."""
+    rows, decomp = [], {}
+    os.makedirs(OPT_DIR, exist_ok=True)
+    seqs, newick, _, _ = flagship.example_data(**FLAGSHIP)
+    n = FLAGSHIP["n_taxa"]
+    fasta = os.path.join(OPT_DIR, "flagship.fasta")
+    nwk = os.path.join(OPT_DIR, "flagship.nwk")
+    msa_io.write_fasta(MSA([f"t{i}" for i in range(n)], seqs), fasta)
+    with open(nwk, "w") as fh:
+        fh.write(newick)
+    argv = ["eval", "--msa", fasta, "--tree", nwk, "--model", "GTR+G4",
+            "--opt"]
+
+    # (a) the CLI path; the decomposition and the E-step checks first, on
+    # the same partition
+    msa = msa_io.load_msa(fasta)
+    tree = Tree.from_newick(newick)
+    cli._order_tree_tips(tree, msa)
+    part, _, _ = cli.build_partition(msa, "GTR+G4")
+    decomp["flagship DNA"] = check_decomposition(part, tree, "flagship DNA", [
+        ("rates", np.array([1.1, 2.0, 0.7, 0.9, 3.0])),
+        ("freqs", np.array([1.2, 0.8, 1.1])),
+        ("alpha_pinv", np.array([0.6, 0.15])),
+        ("cats", np.array([0.2, 0.6, 1.2, 2.0]))])
+    decomp["em_estep"] = {"flagship DNA": check_em_estep(
+        part, tree, "flagship DNA")}
+    args = cli.parse_args(argv)
+
+    def cli_run():
+        t0 = time.perf_counter()
+        out = args.fn(args)
+        out["stats"]["eval --opt"] = {"seconds": time.perf_counter() - t0}
+        return out
+    mem = reset_peak_memory()
+    res, got = counted("flagship DNA", "opt_model", cli_run,
+                       must=OPT_MUST["cli"])
+    rows.append(opt_row("flagship DNA", "eval --opt GTR+G4", res["lnl0"],
+                        res["lnl"], res["treeinfo"], got, res["stats"], gpu,
+                        mem))
+    if profile:
+        rows[-1]["profile"] = profile_window(
+            "opt_model, flagship DNA (eval --opt)",
+            lambda: args.fn(args), 1)
+
+    # (b) protein, LG+G4+I
+    pseqs, pnewick, _, _ = flagship.example_data(**PROTEIN)
+    ptree = Tree.from_newick(pnewick)
+    labels = [f"t{i}" for i in range(PROTEIN["n_taxa"])]
+    pmsa = MSA(labels, pseqs)
+    cli._order_tree_tips(ptree, pmsa)
+    ppart, _, mask = cli.build_partition(pmsa, "LG+G4+I")
+    decomp["protein"] = check_decomposition(ppart, ptree, "protein", [
+        ("alpha_pinv", np.array([0.6, 0.15]))])
+
+    def protein_run():
+        ti = TreeInfo(ptree.copy(), [ppart], params_to_optimize=mask)
+        stats = {}
+        start = ti.compute_loglh()
+        t0 = time.perf_counter()
+        opt_model.opt_alpha_pinv(ti, stats=stats)
+        t1 = time.perf_counter()
+        opt_model.opt_brlen(ti)
+        stats["alpha_pinv"]["seconds"] = t1 - t0
+        stats["brlen"] = {"seconds": time.perf_counter() - t1}
+        return ti, start, ti.compute_loglh(), stats
+    mem = reset_peak_memory()
+    (ti, start, lnl, stats), got = counted("protein", "opt_model",
+                                           protein_run,
+                                           must=OPT_MUST["protein"])
+    rows.append(opt_row("protein", "LG+G4+I opt_alpha_pinv, opt_brlen",
+                        start, lnl, ti, got, stats, gpu, mem))
+    if profile:
+        rows[-1]["profile"] = profile_window("opt_model, protein",
+                                             protein_run, 1)
+    del ti, ppart
+    torch.cuda.empty_cache()
+
+    # (c) free rates + weights at the flagship DNA cell (+R4)
+    rpart = create_partition(msa.sequences, states=4, n_rate_cats=4,
+                             alpha=None, compress=False)
+    decomp["em_estep"]["flagship DNA +R4"] = check_em_estep(
+        rpart, tree, "flagship DNA +R4")
+
+    def free_rates_run():
+        ti = TreeInfo(tree.copy(), [rpart],
+                      params_to_optimize=PARAM_FREE_RATES
+                      | PARAM_RATE_WEIGHTS)
+        start = ti.compute_loglh()
+        stats = {}
+        t0 = time.perf_counter()
+        opt_model.opt_rates_weights(ti, stats=stats)
+        stats["rates_weights"]["seconds"] = time.perf_counter() - t0
+        return ti, start, ti.compute_loglh(), stats
+    mem = reset_peak_memory()
+    (ti, start, lnl, stats), got = counted("flagship DNA +R4", "opt_model",
+                                           free_rates_run,
+                                           must=OPT_MUST["free_rates"])
+    rows.append(opt_row("flagship DNA +R4", "opt_rates_weights", start, lnl,
+                        ti, got, stats, gpu, mem))
+    if profile:
+        rows[-1]["profile"] = profile_window("opt_model, flagship DNA +R4",
+                                             free_rates_run, 1)
+
+    # (d) the 189-dimension PROTGTR canary
+    rng = np.random.default_rng(PROTGTR["seed"])
+    ctree = Tree.from_newick(flagship.random_newick(PROTGTR["n_taxa"], rng))
+    syms = np.array(list(charmap.MULTI_SYMBOLS[:20]))
+    cseqs = ["".join(r) for r in syms[rng.integers(
+        0, 20, (PROTGTR["n_taxa"], PROTGTR["n_sites"]))]]
+
+    def canary_part(dt, rates=None):
+        r = np.random.default_rng(5)
+        p = create_partition(cseqs, states=20, n_rate_cats=4,
+                             charmap=charmap.multistate(20), alpha=0.8,
+                             subst_rates=r.uniform(0.5, 2.0, 190),
+                             freqs=r.dirichlet([8] * 20), compress=False,
+                             dtype=dt)
+        if rates is not None:
+            p = p.with_model_params(subst_rates=rates)
+        return p.cache_eigen()
+
+    def canary_run():
+        ti = TreeInfo(ctree.copy(), [canary_part(torch.float32)],
+                      params_to_optimize=PARAM_SUBST_RATES)
+        start = ti.compute_loglh()
+        stats = {}
+        t0 = time.perf_counter()
+        lnl = opt_model.opt_subst_rates(ti, tol=1e-3, stats=stats)
+        stats["rates"]["seconds"] = time.perf_counter() - t0
+        return ti, start, lnl, stats
+    mem = reset_peak_memory()
+    (ti, start, lnl, stats), got = counted("PROTGTR canary", "opt_model",
+                                           canary_run,
+                                           must=OPT_MUST["canary"])
+    row = opt_row("PROTGTR canary", "opt_subst_rates tol 1e-3", start, lnl,
+                  ti, got, stats, gpu, mem)
+    polish = TreeInfo(ctree.copy(), [canary_part(
+        torch.float64, ti.partitions[0].subst_rates.to(torch.float64))],
+        params_to_optimize=PARAM_SUBST_RATES)
+    at_end = polish.compute_loglh()
+    gain = opt_model.opt_subst_rates(polish, tol=1e-3) - at_end
+    print(f"PROTGTR canary: float32 {lnl!r}, float64 at its endpoint "
+          f"{at_end!r}, float64 restart gains {gain!r}")
+    if not gain <= CANARY_GAIN:
+        raise AssertionError(f"PROTGTR canary: the float64 restart gained "
+                             f"{gain} > {CANARY_GAIN}")
+    row.update(f64_restart_gain=gain)
+    rows.append(row)
+    for r in rows:
+        print(f"opt_model: {json.dumps(r)}")
+    return rows, decomp
 
 
 # ---------------------------------------------------------------------------
@@ -2390,6 +2731,11 @@ def main(argv=None) -> int:
         must=("fused_walk", "fused_tables", "resident_walk",
               "resident_tables", "edge_sumtables", "newton_edges_multi"))
     del prot2_64
+
+    # ---- model-parameter optimization: the CLI's eval --opt, protein
+    # alpha+pinv and branches, free rates, the PROTGTR canary; each
+    # counted under path opt_model
+    opt_rows, decomp_rows = run_opt_model(gpu, args.profile)
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
@@ -2455,6 +2801,8 @@ def main(argv=None) -> int:
                                  for k, v in packed_ms.items()},
                       "partitioned": partitioned}))
     print(json.dumps({"routing": routing}))
+    print(json.dumps({"edge_decomposition": decomp_rows}))
+    print(json.dumps({"opt_model": opt_rows}))
     print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

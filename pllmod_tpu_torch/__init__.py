@@ -11,9 +11,12 @@ on two CUDA kernels (``csrc/pruning.cu``): the shared-memory-resident
 traversal (``ops.resident``) and the traversal that keeps every CLV in
 device memory (``ops.fused``). Later slices add branch-length
 optimization (``optimize.blo``), the level, grouped and packed
-schedules (``ops.levels``, ``ops.grouped``, ``ops.packed``) and the
-partitioned layer (``tree.treeinfo``). ``ROADMAP.md`` lists what is
-ported and what is left.
+schedules (``ops.levels``, ``ops.grouped``, ``ops.packed``), the
+partitioned layer (``tree.treeinfo``), the model registries
+(``utils``), the alignment layer (``msa``), model-parameter
+optimization (``algorithm.opt_model``, ``optimize.params``) and the
+``eval`` command (``python -m pllmod_tpu_torch eval``, ``cli``).
+``ROADMAP.md`` lists what is ported and what is left.
 """
 
 import torch

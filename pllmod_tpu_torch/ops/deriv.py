@@ -66,7 +66,7 @@ def compile_edge_refs_np(edge_ref, edge_mask, n_tips: int):
     return out.astype(np.int32)
 
 
-def compile_edge_refs(edge_ref, edge_mask, n_tips: int, device="cpu"):
+def compile_edge_refs(edge_ref, edge_mask, n_tips: int, device):
     """:func:`compile_edge_refs_np` as an int32 tensor on ``device``."""
     return torch.as_tensor(compile_edge_refs_np(edge_ref, edge_mask, n_tips),
                            device=device)

@@ -85,6 +85,22 @@ def loglikelihood_persite_fast(partition, tree, brlens=None,
                                          n_slots, persite=True)
 
 
+def loglikelihood_asc(partition, asc_partition, ops, brlens, root_info):
+    """Log-likelihood with Lewis-type ascertainment-bias correction
+    (libpll PLL_ATTRIB_AB_FLAG) on the serial engine:
+
+        lnL = Σ_p w_p ln L_p − (Σ_p w_p) · ln(1 − Σ_j L_const_j)
+
+    where ``asc_partition`` = :func:`pllmod_tpu_torch.ops.partition.
+    make_asc_partition` holds the S constant-site patterns."""
+    total, _ = loglikelihood_persite(partition, ops, brlens, root_info)
+    _, lnl_const = loglikelihood_persite(asc_partition, ops, brlens,
+                                         root_info)
+    p_const = torch.sum(torch.exp(lnl_const) * asc_partition.pattern_weights)
+    W = torch.sum(partition.pattern_weights)
+    return total - W * torch.log1p(-p_const)
+
+
 def loglikelihood_with_buffers(partition, ops, brlens, root_info):
     """As :func:`loglikelihood` but also returns (P, clvs, scalers) for
     incremental reuse."""

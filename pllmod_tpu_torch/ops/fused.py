@@ -190,6 +190,14 @@ def pair_pmats(partition, brlens, e1, e2, *, root_row: bool):
     return P5.contiguous()
 
 
+def gather_pairs(P, e1, e2):
+    """The rows' matrices [nW, 2, C, S, S] float32, (P[e1[w]], P[e2[w]]),
+    from the P-matrices ``P`` [E, C, S, S] of every edge, for a table
+    without a root row (the caller already holds P, e.g. a gradient's
+    forward)."""
+    return P[torch.stack([e1, e2], dim=1)].to(torch.float32).contiguous()
+
+
 def code_table(partition):
     """[n_codes, S] float32 code → tip-CLV table the kernels read."""
     return partition.code_clv.to(torch.float32).contiguous()

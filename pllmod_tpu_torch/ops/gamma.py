@@ -3,14 +3,22 @@
 PyTorch counterpart of ``pllmod_tpu.ops.gamma`` — libpll's
 ``pll_compute_gamma_cats(alpha, ncats, rates, PLL_GAMMA_RATES_MEAN|MEDIAN)``.
 
-Partition construction uses the host scipy discretization
-(:func:`compute_gamma_cats_host`); :func:`compute_gamma_cats` is the
-tensor version behind ``Partition.with_alpha``, built on the port's own
-regularized lower incomplete gamma :func:`gammainc` (the series below
-``a + 1``, the Lentz continued fraction above, as scipy and XLA's
-``igamma`` do; ``torch.special.gammainc`` turns to a ~1e-9-accurate
-asymptotic series above shape 20). The Gamma quantile function has no
-torch op, so it is solved by Newton iterations.
+:func:`compute_gamma_cats`, behind ``Partition.with_alpha``, is a
+``torch.autograd.Function``: its forward is the host float64 scipy
+discretization (:func:`compute_gamma_cats_host`, k numbers: no device
+launch), and its backward differentiates the quantiles implicitly
+(:func:`gamma_cats_alpha_grad`): from P(a, b_i) = p_i,
+db_i/da = −∂ₐP(a, b_i) / ∂ₓP(a, b_i), with ∂ₐP summed from the series
+of P term by term (:func:`dgammainc_da`). The JAX package differentiates
+through its Newton iterations instead (``tests/test_torch_gradients.py``
+holds the two within 1e-6).
+
+The port also keeps its own regularized lower incomplete gamma on
+tensors, :func:`gammainc` (the series below ``a + 1``, the Lentz
+continued fraction above, as scipy and XLA's ``igamma`` do;
+``torch.special.gammainc`` turns to a ~1e-9-accurate asymptotic series
+above shape 20), and its inverse :func:`gammaincinv` by Newton
+iterations (the Gamma quantile function has no torch op).
 """
 
 from __future__ import annotations
@@ -116,27 +124,92 @@ def gammaincinv(a, p):
     return torch.exp(u)
 
 
+class _GammaCats(torch.autograd.Function):
+    """alpha (0-dim tensor) -> the k category rates, forward on the host
+    in float64, backward by :func:`gamma_cats_alpha_grad`."""
+
+    @staticmethod
+    def forward(ctx, alpha, n_cats: int, mode: int):
+        a = float(alpha.detach())
+        ctx.args = (a, n_cats, mode)
+        return torch.as_tensor(compute_gamma_cats_host(a, n_cats, mode),
+                               dtype=alpha.dtype, device=alpha.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dr = gamma_cats_alpha_grad(*ctx.args)
+        g = grad.detach().to("cpu", torch.float64).numpy() @ dr
+        return (torch.as_tensor(g, dtype=grad.dtype, device=grad.device),
+                None, None)
+
+
 def compute_gamma_cats(alpha, n_cats: int, mode: int = GAMMA_RATES_MEAN):
-    """Discrete Gamma category rates with mean 1 (tensor version).
+    """Discrete Gamma category rates with mean 1, differentiable in
+    ``alpha`` (a tensor of the result's dtype and device; a number gives
+    float64 on the CPU).
 
     mode=GAMMA_RATES_MEAN   — Yang (1994) mean-per-bin discretization
     mode=GAMMA_RATES_MEDIAN — median-per-bin, renormalized to mean 1
     """
     alpha = torch.as_tensor(alpha)
-    k = n_cats
-    if k == 1:
+    if not alpha.is_floating_point():
+        alpha = alpha.to(torch.float64)
+    if n_cats == 1:
         return torch.ones(1, dtype=alpha.dtype, device=alpha.device)
-    ar = torch.arange(k, dtype=alpha.dtype, device=alpha.device)
+    return _GammaCats.apply(alpha.reshape(()), n_cats, mode)
+
+
+def dgammainc_da(a, x):
+    """∂P(a, x)/∂a of the regularized lower incomplete gamma, float64
+    numpy (broadcasting; a > 0, x ≥ 0), from the series
+    P(a, x) = Σ_n t_n, t_n = e^{-x} x^{a+n} / Γ(a+n+1), term by term:
+    ∂ₐt_n = t_n (ln x − ψ(a+n+1)). The terms peak near n = x − a and
+    fall below 1e-17 of the peak within ~9√x + 40 more."""
+    from scipy.special import digamma, gammaln
+    a, x = np.broadcast_arrays(np.asarray(a, np.float64),
+                               np.asarray(x, np.float64))
+    out = np.zeros(a.shape)
+    pos = x > 0
+    if not pos.any():
+        return out
+    ap, xp = a[pos], x[pos]
+    xmax = float(xp.max())
+    n = np.arange(int(np.ceil(xmax + 9.0 * np.sqrt(xmax) + 40.0)))[:, None]
+    lx = np.log(xp)
+    t = np.exp((ap + n) * lx - xp - gammaln(ap + n + 1.0))
+    out[pos] = (t * (lx - digamma(ap + n + 1.0))).sum(axis=0)
+    return out
+
+
+def _dgammainc_dx(a, x):
+    """∂P(a, x)/∂x = x^{a−1} e^{−x} / Γ(a) (x > 0)."""
+    from scipy.special import gammaln
+    return np.exp((a - 1.0) * np.log(x) - x - gammaln(a))
+
+
+def gamma_cats_alpha_grad(alpha: float, n_cats: int,
+                          mode: int = GAMMA_RATES_MEAN) -> np.ndarray:
+    """d r_i / d alpha [k] of :func:`compute_gamma_cats_host`, float64.
+
+    The quantiles b_i = P⁻¹(a, p_i) move by db_i/da = −∂ₐP(a, b_i) /
+    ∂ₓP(a, b_i). Mean mode: r_i = k [P(a+1, b_{i+1}) − P(a+1, b_i)]
+    (b_0 = 0, b_k = ∞), so dr_i/da = k (D_{i+1} − D_i) with
+    D_i = ∂ₐP(a+1, b_i) + ∂ₓP(a+1, b_i) db_i/da (D_0 = D_k = 0). Median
+    mode: m_i = b_i / a, r = k m / Σm."""
+    from scipy.special import gammaincinv as sp_gammaincinv
+    a, k = float(alpha), n_cats
+    if k == 1:
+        return np.zeros(1)
     if mode == GAMMA_RATES_MEDIAN:
-        med = gammaincinv(alpha, (2.0 * ar + 1.0) / (2.0 * k)) / alpha
-        return med * (k / torch.sum(med))
-    # mean mode: bin boundaries at quantiles i/k of Gamma(alpha, alpha);
-    # category mean = k [P(alpha+1, alpha b_{i+1}) - P(alpha+1, alpha b_i)]
-    bounds = gammaincinv(alpha, ar[1:] / k)     # rate-1 units: x = alpha b
-    cdf = gammainc(alpha + 1.0, bounds)
-    zero = torch.zeros(1, dtype=cdf.dtype, device=cdf.device)
-    cdf_full = torch.cat([zero, cdf, zero + 1.0])
-    return k * (cdf_full[1:] - cdf_full[:-1])
+        b = sp_gammaincinv(a, (2.0 * np.arange(k) + 1.0) / (2.0 * k))
+        db = -dgammainc_da(a, b) / _dgammainc_dx(a, b)
+        m, dm = b / a, db / a - b / (a * a)
+        tot = m.sum()
+        return k * (dm * tot - m * dm.sum()) / (tot * tot)
+    b = sp_gammaincinv(a, np.arange(1, k) / k)
+    db = -dgammainc_da(a, b) / _dgammainc_dx(a, b)
+    D = dgammainc_da(a + 1.0, b) + _dgammainc_dx(a + 1.0, b) * db
+    return k * np.diff(np.concatenate([[0.0], D, [0.0]]))
 
 
 def compute_gamma_cats_host(alpha, n_cats: int, mode: int = GAMMA_RATES_MEAN):

@@ -65,8 +65,11 @@ class Partition:
     has_pinv: bool = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
+        # a p-inv that an optimizer differentiates counts as present (the
+        # mixture then has its gradient even at 0, and the same value)
         pinv_c = self.prop_invar[self.param_indices]
-        object.__setattr__(self, "has_pinv", bool((pinv_c > 0).any()))
+        object.__setattr__(self, "has_pinv", self.prop_invar.requires_grad
+                           or bool((pinv_c > 0).any()))
 
     # ------------------------------------------------------------------
     @property
@@ -142,26 +145,46 @@ class Partition:
         return self.replace(**kw)
 
     def prob_matrices(self, brlens):
-        """P-matrices for all edges × categories: [E, C, S, S]."""
+        """P-matrices for all edges × categories: [E, C, S, S].
+
+        Routed as the JAX package routes it: the cached
+        eigendecomposition when set (differentiable in the lengths,
+        category rates and p-inv); otherwise
+        :func:`eigen.prob_matrices_params`, differentiable in every model
+        parameter and safe at degenerate spectra; the matrix exponential
+        for non-reversible models."""
         brlens = torch.as_tensor(brlens).to(self.device, self.dtype)
         if not self.reversible:
             return eigen_mod.prob_matrices_expm_multi(
                 self.subst_rates, self.freqs, brlens, self.rate_cats,
                 self.param_indices, self.prop_invar)
-        return eigen_mod.prob_matrices_multi(
-            self.eigen(), brlens, self.rate_cats, self.param_indices,
-            self.prop_invar)
+        if self.eigen_lam is not None:
+            return eigen_mod.prob_matrices_multi(
+                (self.eigen_lam, self.eigen_V, self.eigen_Vinv), brlens,
+                self.rate_cats, self.param_indices, self.prop_invar)
+        return eigen_mod.prob_matrices_params(
+            self.subst_rates, self.freqs, brlens, self.rate_cats,
+            self.param_indices, self.prop_invar)
 
     def with_alpha(self, alpha) -> "Partition":
         """Return a partition with alpha set and category rates
-        recomputed."""
-        alpha = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
+        recomputed (on the host, differentiable in ``alpha``:
+        :func:`gamma.compute_gamma_cats`)."""
+        if not isinstance(alpha, torch.Tensor):
+            alpha = torch.tensor(float(alpha), dtype=torch.float64)
         cats = gamma_mod.compute_gamma_cats(alpha, self.n_cats,
                                             self.gamma_mode)
-        return self.replace(alpha=alpha, rate_cats=cats.to(self.dtype))
+        return self.replace(alpha=alpha.to(self.device, self.dtype),
+                            rate_cats=cats.to(self.device, self.dtype))
 
     def freqs_per_cat(self):
         return self.freqs[self.param_indices]          # [C, S]
+
+    def pinv_mix(self):
+        """Scalar p-inv of rate matrix 0 — an optimizer's starting point
+        only; the likelihood paths index ``prop_invar[param_indices]``
+        per category (:meth:`pinv_per_cat`)."""
+        return self.prop_invar[0]
 
     def pinv_per_cat(self):
         """Per-category proportion of invariant sites (prop_invar indexed
@@ -266,6 +289,39 @@ def create_partition(
         n_patterns=n_patterns,
         gamma_mode=gamma_mode,
         reversible=reversible,
+    )
+
+
+def make_asc_partition(partition) -> Partition:
+    """Companion partition of the S constant-site patterns, for Lewis-type
+    ascertainment-bias correction (libpll PLL_ATTRIB_AB_FLAG: the
+    reference allocates ``sites + states`` dummy sites,
+    treeinfo.c:333-335).
+
+    Pattern j has every tip in state j; the same tree evaluated on it
+    gives the probabilities L_j of a constant column, and the corrected
+    log-likelihood is ``Σ_p w_p [ln L_p − ln(1 − Σ_j L_j)]`` (Lewis
+    2001; :func:`pllmod_tpu_torch.ops.engine.loglikelihood_asc`)."""
+    S = partition.states
+    pad = partition.n_patterns_padded
+    codes = np.zeros((partition.n_tips, pad), np.int32)
+    # a pure-state code table of its own: code j+1 = state j, code 0 =
+    # gap (padding)
+    code_clv = np.zeros((S + 1, S))
+    code_clv[0] = 1.0
+    for j in range(S):
+        code_clv[j + 1, j] = 1.0
+        codes[:, j] = j + 1
+    w = np.zeros(pad)
+    w[:S] = 1.0  # a selector, not a weight
+    dev, dt = partition.device, partition.dtype
+    return partition.replace(
+        tip_states=torch.as_tensor(codes, device=dev),
+        code_clv=torch.as_tensor(code_clv, dtype=dt, device=dev),
+        pattern_weights=torch.as_tensor(w, dtype=dt, device=dev),
+        inv_indicator=torch.zeros((pad, S), dtype=dt, device=dev),
+        # the correction is defined for the variable-rates process only
+        prop_invar=torch.zeros_like(partition.prop_invar),
     )
 
 

@@ -257,7 +257,11 @@ class _Tables:
     lnB: torch.Tensor | None = None
 
 
-def _compile_tables(partition, trav) -> _Tables:
+def _compile_tables(partition, trav, derivs: bool = True) -> _Tables:
+    """The tables of ``trav`` for ``partition``; ``derivs=False`` leaves
+    out the derivative kernels' constants (the directed walk alone, as
+    the model-parameter gradients of ``optimize/edge_grad.py`` use
+    it)."""
     dev = partition.device
     tabs = _Tables(kernel=partition.dtype == torch.float32, ops=trav.ops,
                    edge_ref=torch.as_tensor(trav.edge_ref, device=dev).long())
@@ -268,20 +272,25 @@ def _compile_tables(partition, trav) -> _Tables:
         tabs.e1 = torch.as_tensor(e1, device=dev).long()
         tabs.e2 = torch.as_tensor(e2, device=dev).long()
         tabs.n_slots = n_slots
+        tabs.codetab = fused_mod.code_table(partition)
+    if tabs.kernel and derivs:
         tabs.eref6 = kern.compile_edge_refs(trav.edge_ref, trav.edge_mask,
                                             partition.n_tips, dev)
-        tabs.codetab = fused_mod.code_table(partition)
         tabs.basis = kern.sumtable_basis(partition)
         tabs.lw = kern._lam_weight_rows(partition)
         tabs.lnB = kern.invar_log_plane(partition)
     return tabs
 
 
-def _directed_clvs(partition, tabs, brlens):
+def _directed_clvs(partition, tabs, brlens, P=None):
     """The kernel path's directed CLVs: the fused walk over the directed
-    table (no root row) at ``brlens``."""
-    P5 = fused_mod.pair_pmats(partition, brlens, tabs.e1, tabs.e2,
-                              root_row=False)
+    table (no root row) at ``brlens``, or at the P-matrices ``P``
+    [E, C, S, S] of every edge when the caller has them."""
+    if P is None:
+        P5 = fused_mod.pair_pmats(partition, brlens, tabs.e1, tabs.e2,
+                                  root_row=False)
+    else:
+        P5 = fused_mod.gather_pairs(P, tabs.e1, tabs.e2)
     return fused_mod.fused_walk(tabs.idx8, P5, partition.tip_states,
                                 tabs.codetab, tabs.n_slots)
 

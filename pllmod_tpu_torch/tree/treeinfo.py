@@ -76,6 +76,9 @@ class TreeInfo:
         # buffers, each keyed on what it was built from
         self._fast_cache: dict = {}
         self._incr_cache: dict = {}
+        # per partition: the edge-decomposition tables of
+        # algorithm/opt_model.py, keyed on (topology, partition shape)
+        self._edge_tables: dict = {}
 
     # ------------------------------------------------------------------
     @property

@@ -1516,3 +1516,139 @@ def test_group_walk_wrappers_raise(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         grouped.grouped_walk(*gargs, gs.order.cpu(), gs.windows)
     assert (packed.LAUNCHES["packed_walk"], grouped.LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# model-parameter optimization (algorithm/opt_model.py)
+# ---------------------------------------------------------------------------
+def _decomp_vg(part, tree, build, x):
+    from pllmod_tpu_torch.optimize import edge_grad as eg
+    et = eg.edge_tables(part, tree)
+    xt = torch.tensor(x, dtype=torch.float64, device=part.device,
+                      requires_grad=True)
+    f = eg.edge_decomp_neg_loglh(build(part)(xt), _brl(tree, part).to(
+        part.dtype), et)
+    g, = torch.autograd.grad(f, xt)
+    return float(f.detach()), g.cpu().numpy()
+
+
+def _decomp_families():
+    from pllmod_tpu_torch.optimize import edge_grad as eg
+
+    def rates(p):
+        R = p.states * (p.states - 1) // 2
+        return lambda z: eg.with_rates(p, eg.expand_sym(
+            z, torch.arange(R, device=p.device), R - 1))
+    return {"rates": rates,
+            "freqs": lambda p: lambda z: eg.with_freq_ratios(p, z),
+            "alpha_pinv": lambda p: lambda z: eg.with_alpha_pinv(p, z),
+            "cats": lambda p: lambda z: eg.with_cats(p, z)}
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (5, 4)])
+def test_edge_decomposition_on_card_matches_float64(cuda, states, cats):
+    """The four gradient families' (value, grad) on the card: float32
+    through kernel 2's directed walk against float64 through the serial
+    engine, to tools/tpu_parity.py's bar (relative f < 1e-6, relative
+    g < 1e-3); every float32 evaluation launches kernel 2."""
+    part, tree = _example(states, cats, cuda)
+    part64 = part.to(dtype=torch.float64).with_model_params()
+    part = part.with_model_params()
+    R, S = states * (states - 1) // 2, states
+    points = {"rates": np.linspace(0.7, 1.8, R - 1),
+              "freqs": np.linspace(0.8, 1.3, S - 1),
+              "alpha_pinv": np.array([0.6, 0.15]),
+              "cats": np.linspace(0.2, 2.0, cats)}
+    for name, build in _decomp_families().items():
+        before = fused.LAUNCHES
+        f32, g32 = _decomp_vg(part, tree, build, points[name])
+        assert fused.LAUNCHES == before + 1, name
+        f64, g64 = _decomp_vg(part64, tree, build, points[name])
+        assert abs(f32 - f64) / abs(f64) < 1e-6, name
+        rel_g = np.abs(g32 - g64) / (np.abs(g64) + 1e-2 * np.abs(g64).max())
+        assert rel_g.max() < 1e-3, name
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4)])
+def test_em_estep_on_card_matches_serial_engine(cuda, states, cats):
+    """The EM E-step's per-site per-category likelihoods from kernel 2's
+    walk over the op table (float32) against the serial engine
+    (float64) on the card: the site mixtures' logs, the posterior
+    category shares and the EM weights of both."""
+    from pllmod_tpu_torch.algorithm import opt_model as om
+    from pllmod_tpu_torch.optimize.em import em_rates_weights
+    part, tree = _example(states, cats, cuda)
+    out = {}
+    for p in (part, part.to(dtype=torch.float64)):
+        before = fused.LAUNCHES
+        with torch.no_grad():
+            lh, sc = om.site_cat_likelihood(p, tree, _brl(tree, p).to(
+                p.dtype))
+        assert fused.LAUNCHES == before + (p.dtype == torch.float32)
+        mix = lh.double()[:p.n_patterns] * p.rate_weights.double()
+        site = mix.sum(1)
+        ln = torch.log(site) + sc.double()[:p.n_patterns] * clv.LN2
+        w = em_rates_weights(lh.cpu().double(), p.pattern_weights.cpu(),
+                             p.rate_weights.cpu())
+        out[p.dtype] = (ln, mix / site[:, None], w.double())
+    (a, pa, wa), (b, pb, wb) = out[torch.float32], out[torch.float64]
+    assert float((a - b).abs().max()) < 1e-5
+    assert float((pa - pb).abs().max()) < 1e-5
+    assert float((wa - wb).abs().max()) < 1e-5
+
+
+def test_model_functions_on_cuda_tensors(cuda):
+    """The P-matrix and alpha Functions on CUDA tensors: the P-matrix
+    forward and backward on the card equal the CPU's, finite at the JC
+    spectrum; the alpha discretization's result and gradient land on
+    the card."""
+    from pllmod_tpu_torch.ops import eigen, gamma
+    rng = np.random.default_rng(3)
+    for rates, freqs in ((rng.uniform(0.5, 2.0, (1, 6)),
+                          rng.dirichlet([5] * 4, 1)),
+                         (np.ones((1, 6)), np.full((1, 4), 0.25))):
+        args = [rates, freqs, rng.uniform(0.05, 0.5, 9),
+                np.array([0.3, 0.8, 1.2, 1.7]), np.array([0.1])]
+        grads = {}
+        for dev in ("cpu", cuda):
+            ts = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in args]
+            P = eigen.prob_matrices_params(
+                ts[0], ts[1], ts[2], ts[3],
+                torch.zeros(4, dtype=torch.int64, device=dev), ts[4])
+            assert P.device.type == torch.device(dev).type
+            cot = torch.linspace(-1, 1, P.numel(), dtype=torch.float64,
+                                 device=dev).view_as(P)
+            grads[str(dev)] = [P.detach().cpu()] + [
+                g.cpu() for g in torch.autograd.grad(P, ts, cot)]
+        for g, h in zip(grads["cpu"], grads[str(cuda)]):
+            assert torch.isfinite(h).all()
+            assert torch.allclose(g, h, rtol=1e-10, atol=1e-12)
+    a = torch.tensor(0.7, dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    r = gamma.compute_gamma_cats(a, 4)
+    assert r.device.type == "cuda" and r.dtype == torch.float32
+    g, = torch.autograd.grad(r @ torch.arange(4.0, device=cuda), a)
+    assert g.device.type == "cuda"
+    want = gamma.gamma_cats_alpha_grad(0.7, 4) @ np.arange(4.0)
+    assert float(g) == pytest.approx(want, rel=1e-5)
+
+
+def test_opt_model_on_card_matches_float64(cuda):
+    """One opt_model round on the card (float32: kernels 1, 2 and 8-10):
+    its logL is at or above its start and is the float64 serial
+    engine's at the returned parameters and lengths; kernel 2 launched
+    for the gradients."""
+    from pllmod_tpu_torch.algorithm import opt_model as om
+    from pllmod_tpu_torch.common import PARAM_ALL
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    part, tree = _example(4, 4, cuda)
+    ti = TreeInfo(tree.copy(), [part], params_to_optimize=PARAM_ALL)
+    start = ti.compute_loglh()
+    before = fused.LAUNCHES, resident.LAUNCHES
+    lnl = om.opt_model(ti)
+    assert lnl >= start
+    assert fused.LAUNCHES > before[0] and resident.LAUNCHES > before[1]
+    p64 = ti.partitions[0].to(dtype=torch.float64).with_model_params()
+    want = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
+    assert abs(lnl - want) / abs(want) < 1e-6

@@ -77,7 +77,7 @@ def directed(request):
 def test_edge_refs_and_basis_match_jax(directed):
     case, trav = directed["case"], directed["trav"]
     got = deriv.compile_edge_refs(trav.edge_ref, trav.edge_mask,
-                                  case.tpart.n_tips)
+                                  case.tpart.n_tips, "cpu")
     np.testing.assert_array_equal(got.numpy(), np.asarray(directed["eref6"]))
     AB = np.asarray(pallas_deriv.sumtable_basis(case.jpart))
     basis = deriv.sumtable_basis(case.tpart).numpy()

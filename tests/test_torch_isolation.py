@@ -51,6 +51,13 @@ def test_import_loads_no_jax():
             "import pllmod_tpu_torch.tree.treeinfo\n"
             "import pllmod_tpu_torch.optimize.blo\n"
             "import pllmod_tpu_torch.optimize.blo_bounded\n"
+            "import pllmod_tpu_torch.algorithm.opt_model\n"
+            "import pllmod_tpu_torch.optimize.edge_grad\n"
+            "import pllmod_tpu_torch.optimize.params, pllmod_tpu_torch.cli\n"
+            "import pllmod_tpu_torch.utils, pllmod_tpu_torch.msa\n"
+            "import pllmod_tpu_torch.utils.models_aa\n"
+            "import pllmod_tpu_torch.utils.models_gt\n"
+            "import pllmod_tpu_torch.utils.models_mult\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
             "print(sorted(new & %r))\n" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -94,6 +101,38 @@ def test_blo_default_device_raises_without_cuda(no_cuda):
     part, tree = flagship.example(6, 32, device="cpu")
     _, lnl = blo.optimize_branch_lengths(part, tree, max_sweeps=1)
     assert lnl < 0
+
+
+def test_model_optimization_default_device_raises_without_cuda(no_cuda,
+                                                             tmp_path):
+    """The slice-10 entry points (the ``eval`` command, ``build_partition``)
+    ask for the card by default; the model optimizers run where their
+    partitions lie."""
+    from pllmod_tpu_torch import cli
+    from pllmod_tpu_torch.algorithm import opt_model
+    from pllmod_tpu_torch.msa.msa import MSA
+    from pllmod_tpu_torch.msa.io import write_fasta
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    seqs = ["ACGTAC", "ACGAAC", "ACTTAA", "TCGTAC"]
+    labels = ["a", "b", "c", "d"]
+    msa = MSA(labels, seqs)
+    with pytest.raises(common.PllModError):
+        cli.build_partition(msa, "GTR+G4")
+    write_fasta(msa, str(tmp_path / "a.fasta"))
+    (tmp_path / "t.nwk").write_text("((a:0.1,b:0.2):0.1,c:0.3,d:0.2);")
+    argv = ["eval", "--msa", str(tmp_path / "a.fasta"), "--tree",
+            str(tmp_path / "t.nwk"), "--model", "JC+G4", "--opt"]
+    with pytest.raises(common.PllModError):
+        cli.main(argv)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    args = cli.parse_args(argv + ["--device", "cpu"])
+    result = args.fn(args)
+    assert result["lnl"] >= result["lnl0"]
+    assert result["stats"]
+    part, _, mask = cli.build_partition(msa, "K80", device="cpu")
+    ti = TreeInfo(result["treeinfo"].tree, [part], params_to_optimize=mask)
+    start = ti.compute_loglh()
+    assert opt_model.opt_model(ti) >= start
 
 
 def test_kernel_launch_rejects_cpu_tensors():
