@@ -9,7 +9,7 @@ It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
 (one ``nvcc`` a source, all six at once), holds each kernel against its
 plain torch version on the card (the fused walk at four shapes: the
 flagship's fuse_root and directed tables, protein, 64 states), and
-drives six paths, each run with every kernel's launch count set to 0
+drives seven paths, each run with every kernel's launch count set to 0
 just before it and read just after, the launches logged by cell and
 path (``counted``):
 
@@ -39,7 +39,9 @@ path (``counted``):
    ``opt_model``: the CLI's ``eval ... --model GTR+G4 --opt`` (parsed
    by ``cli.parse_args``, run by ``cmd_eval``) on the flagship
    alignment and tree written to
-   ``build/opt_model`` (rates, frequencies, alpha, branches); LG+G4+I
+   ``build/opt_model`` (rates, frequencies, alpha, branches), the
+   alignment simulated along that tree (``flagship.simulated_data``,
+   the cell of phase 7); LG+G4+I
    from the AA registry at the protein cell (``opt_alpha_pinv``, then
    ``opt_brlen``); free rates (+R4) at the flagship cell
    (``opt_rates_weights``); the 189-dimension PROTGTR canary of
@@ -50,7 +52,25 @@ path (``counted``):
    grad) of the rates, freqs, alpha+pinv and cats families (kernel 2's
    directed CLVs) is held against the float64 decomposition on the card
    (relative f < 1e-6, g < 1e-3), and the EM E-step's kernel-2 CLVs
-   against the serial engine.
+   against the serial engine;
+7. SPR rounds and ancestral states (``algorithm/spr.py``,
+   ``algorithm/ancestral.py``) on the flagship alignment simulated along
+   its own tree (``flagship.simulated``: its rates, frequencies, α 0.75),
+   started from that tree after 10 seeded random SPR moves: the first
+   batch of each scorer (kernel 2 over K remainder trees, the float32
+   contractions) against the same scorer on float64 copies on the card
+   (logL within 1e-6 relative on every live edge, thorough lengths
+   within 1e-3 relative or 1e-5 absolute; the thorough check repeated
+   on a second simulated alignment), kernel 2 over a 16-candidate table
+   (16 remainder trees, 6080 slots) against its plain walk bit for bit,
+   then one fast round (radius
+   1-10, path ``spr_fast``) and one thorough round (radius 1-5,
+   ``spr_thorough``), each from the perturbed tree: logL at or above its
+   start and within 1e-6 of the float64 serial engine at its final
+   tree, the tree binary and connected; then the marginal ancestral
+   states of all 126 inner nodes (path ``ancestral``): each site's
+   probabilities sum to 1 and agree with float64 on the card within
+   1e-5.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -67,7 +87,13 @@ a level), one ``{"blo": [...]}``, one
 ``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
 ``{"edge_decomposition": ...}``, one ``{"opt_model": [...]}`` (each run's
 logL against float64, host ms by family, (value, grad) calls, Brent
-iterations, launches by kernel; ``--profile``: its device busy share)
+iterations, launches by kernel; ``--profile``: its device busy share),
+one ``{"spr": [...]}`` (each round's host ms, candidates, batches and
+largest K, applied moves, top-list size, host-build seconds, logL at
+start and end and against float64, RF to the simulating tree at start
+and end, launches by kernel, peak device GiB less the start;
+``--profile``: its busy share and largest device items), one
+``{"ancestral": ...}``
 and one ``{"kernels": [...]}`` line (each kernel's launches in all, by
 cell and by path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -76,8 +102,8 @@ script exits non-zero; without CUDA it exits 1 and prints no result.
 ``--profile`` also traces the main path's timed loop of each cell, the
 flagship's and the protein cell's ``pallas``, ``combined``, grouped and
 packed loops, one BLO call each at the
-flagship and protein cells and on the partitioned cell (LINKED) and
-each phase-6 run with
+flagship and protein cells and on the partitioned cell (LINKED),
+each phase-6 run and each SPR round with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
 window; and it builds ``csrc/pruning.cu``, ``csrc/deriv.cu``,
@@ -118,7 +144,7 @@ import numpy as np
 import torch
 
 from pllmod_tpu_torch import cli, flagship
-from pllmod_tpu_torch.algorithm import opt_model
+from pllmod_tpu_torch.algorithm import ancestral, opt_model, spr
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
 from pllmod_tpu_torch.common import BRLEN_LINKED, BRLEN_SCALED
@@ -131,6 +157,7 @@ from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine, fused,
 from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded, edge_grad
 from pllmod_tpu_torch.optimize.em import em_rates_weights
+from pllmod_tpu_torch.tree import splits
 from pllmod_tpu_torch.tree.topology import Tree
 from pllmod_tpu_torch.tree.treeinfo import TreeInfo
 
@@ -146,6 +173,8 @@ DERIV_RTOL = dict(lnl=2e-6, d=2e-5, t=5e-4, lnl0=2e-6)
 BOUNDED_ABS, BOUNDED_REL = 0.05, 1e-7   # bounded vs full BLO: |Δl| bar
 SITE_OPS = 20             # flops of the site math of one pattern (K9/K10)
 FLAGSHIP = dict(n_taxa=128, n_sites=16384, seed=3)        # bench.py's shape
+# the flagship alignment simulated along its own tree (phases 6 and 7)
+SIM_SEED = 11
 PROTEIN = dict(n_taxa=512, n_sites=4096, seed=5, states=20)
 # the partitioned cell's second partition, on the flagship tree
 PARTITION2 = dict(n_sites=4096, seed=5, states=20)
@@ -1895,7 +1924,8 @@ def run_opt_model(gpu, profile: bool):
     decomposition rows)."""
     rows, decomp = [], {}
     os.makedirs(OPT_DIR, exist_ok=True)
-    seqs, newick, _, _ = flagship.example_data(**FLAGSHIP)
+    seqs, newick, _, _ = flagship.simulated_data(**FLAGSHIP,
+                                                 sim_seed=SIM_SEED)
     n = FLAGSHIP["n_taxa"]
     fasta = os.path.join(OPT_DIR, "flagship.fasta")
     nwk = os.path.join(OPT_DIR, "flagship.nwk")
@@ -2043,6 +2073,258 @@ def run_opt_model(gpu, profile: bool):
     for r in rows:
         print(f"opt_model: {json.dumps(r)}")
     return rows, decomp
+
+
+# ---------------------------------------------------------------------------
+# phase 7: SPR rounds and ancestral states (algorithm/spr.py, ancestral.py)
+# ---------------------------------------------------------------------------
+SPR_PERTURB = 10          # seeded random SPR moves from the simulating tree
+SPR_PERTURB_SEED = 17
+# the thorough scorer's check is repeated on a second alignment simulated
+# along the same tree from these seeds
+SIM_SEED_2, SPR_PERTURB_SEED_2 = 23, 29
+SPR_CHECK_K = 8           # candidates of the fast scorer's checked batch
+SPR_CHECK_K_THOROUGH = 4  # and of the thorough one's
+# thorough lengths vs float64: 1e-3 relative, or a tenth of the triplet
+# Newton's stopping step absolute near the 1e-4 lower bound, where
+# float32 rounding moves a flat optimum by ~1e-6
+TRIPLET_RTOL, TRIPLET_ATOL = 1e-3, 0.1 * spr.TRIPLET_TOL
+ANC_ATOL = 1e-5           # ancestral probabilities vs float64; site sums
+# every kernel an SPR round must launch: kernel 1 (compute_loglh), kernel
+# 2 (full-tree and K-candidate directed CLVs), kernels 8-10 (the BLO)
+SPR_MUST = ("resident_walk", "fused_walk", "fused_tables", "edge_sumtables",
+            "edge_derivatives", "newton_edges")
+SPR_ROUNDS = (("fast", dict(radius_min=1, radius_max=10)),
+              ("thorough", dict(thorough=True, radius_min=1, radius_max=5)))
+
+
+def check_spr_scorers(part, tree, modes=SPR_ROUNDS):
+    """The first batch of each mode's scorer (kernel 2 in the loop, the
+    float32 contractions) against the same scorer on float64 copies on
+    the card (the serial engine): logL within LOGL_RTOL relative on every
+    live edge, thorough lengths within TRIPLET_RTOL relative or
+    TRIPLET_ATOL absolute. Returns the margins (with the float64 and
+    float32 lengths where the relative and where the absolute length
+    error is largest) and the checks' host ms."""
+    out = {}
+    cands = spr._prune_candidates(tree)
+    for mode, kw in modes:
+        thorough = kw.get("thorough", False)
+        k = SPR_CHECK_K_THOROUGH if thorough else SPR_CHECK_K
+        got = {}
+        for dt, p in (("f32", part), ("f64", f64_copy(part))):
+            ti = TreeInfo(tree.copy(), [p])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[dt] = spr.score_candidates(ti, cands[:k], kw["radius_min"],
+                                           kw["radius_max"], thorough)
+            torch.cuda.synchronize()
+            got[dt + "_ms"] = (time.perf_counter() - t0) * 1e3
+            del ti
+            torch.cuda.empty_cache()
+        rel_l = rel_t = abs_t = margin_t = 0.0
+        at_rel = at_abs = (None, None)   # (float64, float32) lengths
+        n_live = 0
+        for r32, r64 in zip(got["f32"], got["f64"]):
+            live = np.isfinite(r64[1])
+            if r32[0] != r64[0] or not np.array_equal(
+                    live, np.isfinite(r32[1])):
+                raise AssertionError(f"SPR scorer ({mode}): the float32 and "
+                                     f"float64 windows differ at {r32[0]}")
+            n_live += int(live.sum())
+            rel_l = max(rel_l, float(np.max(
+                np.abs(r32[1][live] - r64[1][live]) / np.abs(r64[1][live]))))
+            if thorough:
+                for t32, t64 in zip(r32[2], r64[2]):
+                    d = np.abs(t32[live] - t64[live])
+                    t = np.abs(t64[live])
+                    pair = (t64[live], t32[live])
+                    j = int(np.argmax(d / t))
+                    if d[j] / t[j] > rel_t:
+                        rel_t = float(d[j] / t[j])
+                        at_rel = tuple(float(x[j]) for x in pair)
+                    j = int(np.argmax(d))
+                    if d[j] > abs_t:
+                        abs_t = float(d[j])
+                        at_abs = tuple(float(x[j]) for x in pair)
+                    margin_t = max(margin_t, float(np.max(
+                        d / np.maximum(TRIPLET_RTOL * t, TRIPLET_ATOL))))
+        print(f"SPR scorer ({mode}, first {k} candidates, {n_live} live "
+              f"edges): float32 against float64 on the card: logL "
+              f"relative {rel_l:.3e}; lengths relative {rel_t:.3e} "
+              f"(float64 {at_rel[0]!r}, float32 {at_rel[1]!r}), absolute "
+              f"{abs_t:.3e} (float64 {at_abs[0]!r}, float32 "
+              f"{at_abs[1]!r}); {got['f32_ms']:.1f} / "
+              f"{got['f64_ms']:.1f} ms")
+        if not (len(got["f32"]) == len(got["f64"]) > 0 and n_live
+                and rel_l <= LOGL_RTOL and margin_t <= 1.0):
+            raise AssertionError(f"SPR scorer ({mode}) off float64: logL "
+                                 f"{rel_l}, lengths {rel_t} relative, "
+                                 f"{abs_t} absolute")
+        out[mode] = dict(candidates=len(got["f32"]), live_edges=n_live,
+                         rel_lnl=rel_l, rel_lengths=rel_t,
+                         rel_lengths_at=at_rel, abs_lengths=abs_t,
+                         abs_lengths_at=at_abs, margin_lengths=margin_t,
+                         f32_ms=got["f32_ms"],
+                         f64_ms=got["f64_ms"])
+    return out
+
+
+def check_spr_table(part, tree):
+    """Kernel 2 over the K-candidate table a fast batch launches at the
+    largest K (SPR_BATCH_CAP remainder trees of the round's first
+    candidates, K·stride slots, built as ``spr._score_builds`` builds
+    it) against its plain walk on the same inputs: equal bit for bit on
+    every slot, CLVs and scalers. Returns its row."""
+    K = spr.SPR_BATCH_CAP
+    kw = dict(SPR_ROUNDS)["fast"]
+    builds = []
+    for e, j in spr._prune_candidates(tree):
+        b = spr._build_candidate(tree, e, j, kw["radius_min"],
+                                 kw["radius_max"])
+        if b is not None:
+            builds.append(b[0])
+        if len(builds) == K:
+            break
+    stride = 3 * (tree.n_tips - 2) + 2
+    tabs = spr._batch_tables(tree, builds, stride)
+    wt = blo.walk_tables(part, tabs["ops_cat"], K * stride)
+    brl = torch.as_tensor(tabs["brl_cat"], dtype=part.dtype,
+                          device=part.device)
+    P5 = fused.pair_pmats(part, brl, wt.e1, wt.e2, root_row=False)
+    args = (wt.idx8, P5, part.tip_states, wt.codetab, wt.n_slots)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    got = {}
+    for name, walk in (("kernel", fused.fused_walk),
+                       ("plain", fused.fused_walk_plain)):
+        out = (torch.zeros((wt.n_slots, C * S, Ppad), device=part.device),
+               torch.zeros((wt.n_slots, 1, Ppad), dtype=torch.int32,
+                           device=part.device))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = walk(*args, out=out)
+        torch.cuda.synchronize()
+        got[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    (k_clv, k_sc), (p_clv, p_sc) = got["kernel"], got["plain"]
+    same = torch.equal(k_clv, p_clv) and torch.equal(k_sc, p_sc)
+    err = float((k_clv - p_clv).abs().max())
+    row = dict(candidates=len(builds), slots=wt.n_slots, rows=len(wt.idx8),
+               buffer_gib=k_clv.numel() * 4 / 2**30, max_abs_err=err,
+               kernel_ms=got["kernel_ms"], plain_ms=got["plain_ms"])
+    print(f"SPR batch table (kernel 2 against its plain walk, one call "
+          f"each, host ms): {json.dumps(row)}")
+    del got, k_clv, k_sc, p_clv, p_sc, out
+    torch.cuda.empty_cache()
+    if not (same and len(builds) == K):
+        raise AssertionError(f"kernel 2 over the {K}-candidate SPR table "
+                             f"differs from its plain walk: {err}")
+    return row
+
+
+def run_spr(gpu, profile: bool):
+    """Phase 7: the flagship cell simulated along its own tree
+    (``flagship.simulated``, GTR+G4 at its rates, frequencies and α 0.75),
+    started from that tree after SPR_PERTURB seeded random SPR moves: the
+    scorers' first batches against float64 (:func:`check_spr_scorers`),
+    then one fast round (radius 1-10) and one thorough round (radius
+    1-5), each from the perturbed tree and counted under its path; each
+    round's logL at or above its start and within LOGL_RTOL of the
+    float64 serial engine at its final tree and lengths, the final tree
+    binary and connected. Then the marginal ancestral states of every
+    inner node of the thorough round's tree, counted under
+    ``ancestral``: every site's probabilities sum to 1 within ANC_ATOL
+    and agree with float64 on the card within ANC_ATOL. Returns (rows,
+    scorer checks, the ancestral row)."""
+    part, truth = flagship.simulated(**FLAGSHIP, sim_seed=SIM_SEED,
+                                     device="cuda")
+    part = part.cache_eigen()
+    start = truth.copy()
+    flagship.random_spr(start, SPR_PERTURB,
+                        np.random.default_rng(SPR_PERTURB_SEED))
+    start.check_integrity()
+    scorer = check_spr_scorers(part, start)
+    scorer["batch_table"] = check_spr_table(part, start)
+    part2, _ = flagship.simulated(**FLAGSHIP, sim_seed=SIM_SEED_2,
+                                  device="cuda")
+    start2 = truth.copy()
+    flagship.random_spr(start2, SPR_PERTURB,
+                        np.random.default_rng(SPR_PERTURB_SEED_2))
+    scorer["thorough, second seed"] = check_spr_scorers(
+        part2.cache_eigen(), start2, SPR_ROUNDS[1:])["thorough"]
+    del part2
+    torch.cuda.empty_cache()
+    rows = []
+    final = None
+    for mode, kw in SPR_ROUNDS:
+        def one_round(kw=kw):
+            ti = TreeInfo(start.copy(), [part])
+            stats = {}
+            spr.HOST_BUILD_SECONDS = 0.0
+            lnl0 = ti.compute_loglh()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lnl, n_applied, top = spr.spr_round(ti, stats=stats, **kw)
+            torch.cuda.synchronize()
+            stats["host_ms"] = (time.perf_counter() - t0) * 1e3
+            stats["host_build_s"] = spr.HOST_BUILD_SECONDS
+            return ti, lnl0, lnl, n_applied, top, stats
+        mem = reset_peak_memory()
+        (ti, lnl0, lnl, n_applied, top, stats), got = counted(
+            "flagship SPR", f"spr_{mode}", one_round, must=SPR_MUST)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tree = ti.tree
+        if not (tree.is_binary() and tree.check_integrity()):
+            raise AssertionError(f"SPR round ({mode}): the final tree is "
+                                 "not binary and connected")
+        want = f64_treeinfo_lnl(ti)
+        if not lnl >= lnl0 - 1e-9 * abs(lnl0):
+            raise AssertionError(f"SPR round ({mode}) ended below its "
+                                 f"start: {lnl} < {lnl0}")
+        rel_close(lnl, want, LOGL_RTOL, f"SPR round ({mode}) vs float64")
+        row = dict(cell="flagship SPR", round=mode, **kw,
+                   host_ms=stats["host_ms"],
+                   candidates=stats["candidates"],
+                   batches=stats["batches"], max_batch=stats["max_batch"],
+                   batch_limit=stats["batch_limit"],
+                   full_clv_builds=stats["full_builds"],
+                   applied=n_applied, toplist=len(top),
+                   host_build_s=stats["host_build_s"], start_lnl=lnl0,
+                   lnl=lnl, f64_lnl=want,
+                   rel_to_f64=abs(lnl - want) / abs(want),
+                   rf_start=splits.rf_distance(start, truth),
+                   rf_end=splits.rf_distance(tree, truth),
+                   launches={k: n for k, n in got.items() if n},
+                   start_gib=mem, peak_gib=peak,
+                   peak_less_start_gib=peak - mem, gpu=gpu)
+        print(f"SPR round ({mode}): {json.dumps(row)}")
+        if profile:
+            row["profile"] = profile_window(f"SPR round ({mode})",
+                                            lambda kw=kw: one_round(kw), 1)
+        rows.append(row)
+        final = tree
+        del ti
+        torch.cuda.empty_cache()
+
+    def anc():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nodes, probs = ancestral.ancestral_probabilities(part, final)
+        return nodes, probs, (time.perf_counter() - t0) * 1e3
+    (nodes, probs, ms), got = counted("flagship SPR", "ancestral", anc,
+                                      must=("fused_walk", "fused_tables"))
+    _, probs64 = ancestral.ancestral_probabilities(f64_copy(part), final)
+    n = part.n_patterns
+    sum_err = float(np.abs(probs[:, :n].sum(-1) - 1.0).max())
+    err = float(np.abs(probs[:, :n] - probs64[:, :n]).max())
+    print(f"ancestral states ({len(nodes)} inner nodes): {ms:.1f} ms, "
+          f"max |Σp − 1| {sum_err!r}, max |Δp| against float64 {err!r}")
+    if not (len(nodes) == FLAGSHIP["n_taxa"] - 2 and sum_err <= ANC_ATOL
+            and err <= ANC_ATOL):
+        raise AssertionError(f"ancestral states off: {sum_err}, {err}")
+    anc_row = dict(cell="flagship SPR", nodes=len(nodes), host_ms=ms,
+                   max_abs_sum_err=sum_err, max_abs_err_to_f64=err,
+                   launches={k: n for k, n in got.items() if n}, gpu=gpu)
+    return rows, scorer, anc_row
 
 
 # ---------------------------------------------------------------------------
@@ -2736,6 +3018,9 @@ def main(argv=None) -> int:
     # alpha+pinv and branches, free rates, the PROTGTR canary; each
     # counted under path opt_model
     opt_rows, decomp_rows = run_opt_model(gpu, args.profile)
+
+    # ---- SPR rounds and ancestral states on the simulated flagship cell
+    spr_rows, spr_scorer, anc_row = run_spr(gpu, args.profile)
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
@@ -2803,6 +3088,8 @@ def main(argv=None) -> int:
     print(json.dumps({"routing": routing}))
     print(json.dumps({"edge_decomposition": decomp_rows}))
     print(json.dumps({"opt_model": opt_rows}))
+    print(json.dumps({"spr": spr_rows, "spr_scorer_checks": spr_scorer}))
+    print(json.dumps({"ancestral": anc_row}))
     print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

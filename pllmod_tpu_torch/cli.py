@@ -1,9 +1,12 @@
 """Command-line front end of the port — counterpart of ``pllmod_tpu.cli``'s
-``eval`` subcommand (the other subcommands come with the slices that port
-their modules):
+``eval``, ``ancestral`` and ``rf`` subcommands (the others come with the
+slices that port their modules):
 
     python -m pllmod_tpu_torch eval --msa a.fasta --tree t.nwk \\
         --model GTR+G4 [--opt] [--tol 1e-3] [--device cuda|cpu]
+    python -m pllmod_tpu_torch ancestral --msa a.fasta --tree t.nwk \\
+        [--model GTR+G] [--device cuda|cpu]
+    python -m pllmod_tpu_torch rf trees1.nwk [trees2.nwk ...]
 
 Model strings follow the downstream convention ``NAME[+G[n]][+I][+FC|+FE]``:
 ``NAME`` resolves against the DNA, protein, genotype and MULTIx
@@ -13,7 +16,10 @@ sites; ``+FE``/``+FC`` force equal / empirical (counted) base
 frequencies (default: the model's own frequencies, empirical when the
 model leaves them free). ``--opt`` runs ``algorithm.opt_model`` (rates,
 frequencies, alpha/p-inv, branches) and prints the optimized logL and
-tree. The work runs on ``--device`` (default: the CUDA card).
+tree. ``ancestral`` prints the most probable state of every site at
+every inner node (one FASTA record a node); ``rf`` the pairwise
+Robinson-Foulds distances of the trees in its files. ``eval`` and
+``ancestral`` run on ``--device`` (default: the CUDA card).
 """
 
 from __future__ import annotations
@@ -161,6 +167,54 @@ def cmd_eval(args):
     return dict(treeinfo=ti, lnl0=lnl0, lnl=lnl, stats=stats)
 
 
+def cmd_ancestral(args):
+    """Print the marginal ancestral states of every inner node, one
+    record a node, per site in alignment order (RAxML-NG --ancestral
+    prints one state string per inner node). Returns (nodes, states)."""
+    from pllmod_tpu_torch.algorithm.ancestral import ancestral_states
+    from pllmod_tpu_torch.ops import charmap as charmap_mod
+
+    msa = _read_msa(args.msa)
+    tree = _read_trees(args.tree)[0]
+    _order_tree_tips(tree, msa)
+    # uncompressed: per-site output in alignment order
+    part, model, _mask = build_partition(msa, args.model, compress=False,
+                                         device=args.device)
+    if model.states == 4:
+        syms = "ACGT"
+    elif model.states == 20:
+        syms = charmap_mod.AA_ORDER
+    else:
+        syms = charmap_mod.MULTI_SYMBOLS[:model.states]
+    nodes, states = ancestral_states(part, tree)
+    n_sites = len(msa.sequences[0])
+    for node, st in zip(nodes, states):
+        print(f">node_{node}")
+        print("".join(syms[int(s)] for s in st[:n_sites]))
+    return nodes, states
+
+
+def cmd_rf(args):
+    """Print the pairwise RF distance matrix of the trees in
+    ``args.trees`` (multi-Newick files). Returns the matrix."""
+    from pllmod_tpu_torch.tree.splits import max_rf_distance, rf_distance
+
+    trees = []
+    for path in args.trees:
+        trees.extend(_read_trees(path))
+    if len(trees) < 2:
+        raise SystemExit("need at least two trees")
+    n = len(trees)
+    print(f"{n} trees; max RF = {max_rf_distance(trees[0].n_tips)}")
+    dist = np.zeros((n, n), int)
+    for i in range(n):
+        for j in range(i + 1, n):
+            dist[i, j] = dist[j, i] = rf_distance(trees[i], trees[j])
+    for row in dist:
+        print(" ".join(f"{d:4d}" for d in row))
+    return dist
+
+
 def parse_args(argv=None):
     """The command line ``argv`` parsed; ``args.fn(args)`` runs the
     subcommand."""
@@ -178,6 +232,19 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("ancestral", help="marginal ancestral states at "
+                                         "every inner node")
+    p.add_argument("--msa", required=True)
+    p.add_argument("--tree", required=True)
+    p.add_argument("--model", default="GTR+G")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.set_defaults(fn=cmd_ancestral)
+
+    p = sub.add_parser("rf", help="pairwise RF distance matrix")
+    p.add_argument("trees", nargs="+")
+    p.set_defaults(fn=cmd_rf)
     return ap.parse_args(argv)
 
 

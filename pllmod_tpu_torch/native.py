@@ -16,6 +16,7 @@ this package uses so far:
 - :func:`parse_newick` — one-pass Newick -> flat arrays
 - :func:`directed_traversal` — the directed-CLV schedule of the
   branch-length optimizer
+- :func:`shared_splits` — the shared-split count of the RF distance
 
 Every entry point has a pure-python fallback in the calling module;
 callers use :func:`available` to pick the fast path. The fallback is
@@ -88,6 +89,7 @@ def load_library(build_dir: str = BUILD_DIR):
     lib.pllmod_newick_parse.restype = ctypes.c_int
     lib.pllmod_newick_extract.restype = ctypes.c_int
     lib.pllmod_directed_traversal.restype = ctypes.c_int64
+    lib.pllmod_shared_splits.restype = ctypes.c_int64
     return lib
 
 
@@ -180,3 +182,15 @@ def directed_traversal(edges: np.ndarray, n_tips: int, n_nodes: int,
     if n < 0:
         return None
     return ops[:n], slot_de
+
+
+def shared_splits(a: np.ndarray, b: np.ndarray) -> int:
+    """The number of splits (rows of uint64 words) that ``a`` and ``b``
+    share, each counted once (``tree.splits.rf_distance_splits``)."""
+    lib = _load()
+    a = np.ascontiguousarray(a, np.uint64)
+    b = np.ascontiguousarray(b, np.uint64)
+    return int(lib.pllmod_shared_splits(
+        _ptr(a, ctypes.c_uint64), ctypes.c_int64(a.shape[0]),
+        _ptr(b, ctypes.c_uint64), ctypes.c_int64(b.shape[0]),
+        ctypes.c_int64(a.shape[1] if a.ndim == 2 else 1)))

@@ -245,7 +245,7 @@ class _Tables:
     table and the derivative kernels' constants for the kernel path."""
     kernel: bool
     ops: np.ndarray
-    edge_ref: torch.Tensor                 # long [E, 2]
+    edge_ref: torch.Tensor | None = None   # long [E, 2]
     idx8: torch.Tensor | None = None
     e1: torch.Tensor | None = None
     e2: torch.Tensor | None = None
@@ -257,22 +257,33 @@ class _Tables:
     lnB: torch.Tensor | None = None
 
 
-def _compile_tables(partition, trav, derivs: bool = True) -> _Tables:
-    """The tables of ``trav`` for ``partition``; ``derivs=False`` leaves
-    out the derivative kernels' constants (the directed walk alone, as
-    the model-parameter gradients of ``optimize/edge_grad.py`` use
-    it)."""
-    dev = partition.device
-    tabs = _Tables(kernel=partition.dtype == torch.float32, ops=trav.ops,
-                   edge_ref=torch.as_tensor(trav.edge_ref, device=dev).long())
+def walk_tables(partition, ops, n_slots_min: int | None = None) -> _Tables:
+    """The directed walk's tables of the op rows ``ops`` (rows with out
+    slot −1 skipped) for ``partition``: kernel 2's table for float32, the
+    rows alone for the serial engine. ``n_slots_min`` fixes the CLV
+    buffer from below, for either engine (a table of several trees whose
+    references reach past its last written slot)."""
+    tabs = _Tables(kernel=partition.dtype == torch.float32, ops=ops,
+                   n_slots=n_slots_min or 0)
     if tabs.kernel:
-        idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(partition,
-                                                            trav.ops)
+        dev = partition.device
+        idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(
+            partition, ops, n_slots_min=n_slots_min)
         tabs.idx8 = torch.as_tensor(idx8, device=dev)
         tabs.e1 = torch.as_tensor(e1, device=dev).long()
         tabs.e2 = torch.as_tensor(e2, device=dev).long()
         tabs.n_slots = n_slots
         tabs.codetab = fused_mod.code_table(partition)
+    return tabs
+
+
+def _compile_tables(partition, trav, derivs: bool = True) -> _Tables:
+    """The tables of ``trav`` for ``partition``; ``derivs=False`` leaves
+    out the derivative kernels' constants (the directed walk alone, as
+    ``optimize/edge_grad.directed_clvs`` runs it)."""
+    dev = partition.device
+    tabs = walk_tables(partition, trav.ops)
+    tabs.edge_ref = torch.as_tensor(trav.edge_ref, device=dev).long()
     if tabs.kernel and derivs:
         tabs.eref6 = kern.compile_edge_refs(trav.edge_ref, trav.edge_mask,
                                             partition.n_tips, dev)

@@ -127,17 +127,37 @@ def root_per_cat(clv_root, freqs_per_cat, right):
     return (clv_root * freqs_per_cat[:, :, None] * right).sum(-2)
 
 
-def _directed_side_clvs(partition, P, brlens, et: EdgeTables):
+def directed_clvs(partition, tabs, brlens=None, P=None):
+    """The directed CLVs of the tables ``tabs`` (``blo._compile_tables``
+    or ``blo.walk_tables``) at the lengths ``brlens`` (a tensor indexed
+    by the rows' edge ids) or at the P-matrices ``P`` [E, C, S, S]:
+    kernel 2's walk for a float32 partition, the serial engine for
+    float64 (a buffer of ``tabs.n_slots`` + 1 slots when the tables fix
+    it). Returns (clvs, scalers, gather), ``gather`` the matching one of
+    :func:`gather_csp` / :func:`gather_std`."""
+    if tabs.kernel:
+        clvs, scalers = blo_mod._directed_clvs(partition, tabs, brlens, P=P)
+        return clvs, scalers, gather_csp
+    if P is None:
+        P = partition.prob_matrices(brlens)
+    init_clvs = init_scalers = None
+    if tabs.n_slots:
+        Ppad, C, S = (partition.n_patterns_padded, partition.n_cats,
+                      partition.states)
+        init_clvs = torch.zeros((tabs.n_slots + 1, Ppad, C, S),
+                                dtype=partition.dtype, device=partition.device)
+        init_scalers = torch.zeros((tabs.n_slots + 1, Ppad),
+                                   dtype=torch.int32, device=partition.device)
+    clvs, scalers = clv_mod.update_partials(partition, P, tabs.ops,
+                                            init_clvs, init_scalers)
+    return clvs, scalers, gather_std
+
+
+def _directed_side_clvs(partition, P, et: EdgeTables):
     """The root-side and subtree-side CLVs of every live edge
     ([E, C, S, P] each) and their summed scalers [E, P], at the
     P-matrices ``P`` (no autograd)."""
-    tabs = et.tabs
-    if tabs.kernel:
-        clvs, scalers = blo_mod._directed_clvs(partition, tabs, brlens, P=P)
-        gather = gather_csp
-    else:
-        clvs, scalers = clv_mod.update_partials(partition, P, tabs.ops)
-        gather = gather_std
+    clvs, scalers, gather = directed_clvs(partition, et.tabs, P=P)
     clvR, sR = gather(partition, clvs, scalers, et.ref_root)
     clvS, sS = gather(partition, clvs, scalers, et.ref_sub)
     return clvR, clvS, sR + sS
@@ -158,8 +178,7 @@ def edge_decomp_neg_loglh(p_theta, brlens, et: EdgeTables):
     P_theta = p_theta.prob_matrices(brlens)                 # [E_all,C,S,S]
     p_const = detached(p_theta)
     with torch.no_grad():
-        clvR, clvS, sc = _directed_side_clvs(
-            p_const, P_theta.detach(), brlens.detach(), et)
+        clvR, clvS, sc = _directed_side_clvs(p_const, P_theta.detach(), et)
     P_e = P_theta[et.edges]                                 # [E, C, S, S]
     right = torch.matmul(P_e, clvS)                         # [E, C, S, P]
     per_cat = root_per_cat(clvR, p_const.freqs_per_cat().to(clvR.dtype),

@@ -19,8 +19,8 @@ CLV-validity protocol (treeinfo.c:38-61, 872-944): only the op rows
 whose branch lengths changed, or that depend on one that did, run again
 on the cached buffers — through the fused kernel in place
 (``engine.fused_update_eval``) for float32, the serial engine for
-float64. ``compute_ancestral`` is not ported yet (it waits for
-``algorithm/ancestral.py``).
+float64. ``compute_ancestral`` gives each partition's marginal ancestral
+states at its own branch lengths (``algorithm/ancestral.py``).
 """
 
 from __future__ import annotations
@@ -321,6 +321,22 @@ class TreeInfo:
         return (torch.as_tensor(idx8, device=dev),
                 torch.as_tensor(e1, device=dev).long(),
                 torch.as_tensor(e2, device=dev).long())
+
+    # -- ancestral states (treeinfo.c:1558-1718) --------------------------
+    def compute_ancestral(self, nodes=None):
+        """Marginal ancestral state probabilities per partition
+        (pllmod_treeinfo_compute_ancestral), each at that partition's
+        branch lengths. Returns a list of (nodes, probs [n_nodes,
+        patterns, states]) per local partition."""
+        from pllmod_tpu_torch.algorithm.ancestral import \
+            ancestral_probabilities
+        out = []
+        for i in self.local_indices():
+            t = self.tree.copy()
+            t.lengths = np.asarray(self.partition_brlens(i))
+            out.append(ancestral_probabilities(self.partitions[i], t,
+                                               nodes=nodes))
+        return out
 
     # -- brlen-scaler normalization (treeinfo.c:1101-1197) ----------------
     def normalize_brlen_scalers(self) -> None:

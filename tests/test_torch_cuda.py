@@ -1652,3 +1652,123 @@ def test_opt_model_on_card_matches_float64(cuda):
     p64 = ti.partitions[0].to(dtype=torch.float64).with_model_params()
     want = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
     assert abs(lnl - want) / abs(want) < 1e-6
+
+
+def _spr_batch(part, tree, K):
+    """The first K candidates' concatenated remainder table of an SPR
+    batch (``algorithm/spr.py``) with its kernel-2 table and matrices."""
+    from pllmod_tpu_torch.algorithm import spr
+    builds = []
+    for e, j in spr._prune_candidates(tree):
+        b = spr._build_candidate(tree, e, j, 1, 10)
+        if b is not None:
+            builds.append(b[0])
+        if len(builds) == K:
+            break
+    stride = 3 * (tree.n_tips - 2) + 2
+    tabs = spr._batch_tables(tree, builds, stride)
+    wt = blo.walk_tables(part, tabs["ops_cat"], K * stride)
+    brl = torch.as_tensor(tabs["brl_cat"], dtype=part.dtype,
+                          device=part.device)
+    P5 = fused.pair_pmats(part, brl, wt.e1, wt.e2, root_row=False)
+    return wt.idx8, P5, wt.n_slots
+
+
+@pytest.mark.parametrize("states,cats", [(4, 4), (20, 4)])
+def test_spr_batch_table_matches_plain(cuda, states, cats):
+    """Kernel 2 over a K-candidate SPR table (16 remainder trees, K·stride
+    slots) equals its plain walk bit for bit, every slot."""
+    part, tree = _example(states, cats, cuda, n_taxa=40, n_sites=256)
+    idx8, P5, ns = _spr_batch(part, tree, 16)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+
+    def zeros():
+        return (torch.zeros((ns, C * S, Ppad), device=cuda),
+                torch.zeros((ns, 1, Ppad), dtype=torch.int32, device=cuda))
+    args = (idx8, P5, part.tip_states, fused.code_table(part), ns)
+    before = fused.LAUNCHES
+    k_clv, k_sc = fused.fused_walk(*args, out=zeros())
+    assert fused.LAUNCHES == before + 1
+    p_clv, p_sc = fused.fused_walk_plain(*args, out=zeros())
+    assert ns == 16 * (3 * (40 - 2) + 2)
+    assert torch.equal(k_clv, p_clv)
+    assert torch.equal(k_sc, p_sc)
+
+
+@pytest.mark.parametrize("thorough", [False, True])
+def test_spr_batch_limit_follows_free_memory(cuda, monkeypatch, thorough):
+    """The auto batch limit is the power of two below half the card's
+    free bytes over a candidate's bytes (uncapped here), and 16 with the
+    cap. The free bytes count the blocks the caching allocator holds
+    unused: 8 GiB freed but kept reserved leave the limit as it was."""
+    from pllmod_tpu_torch.algorithm import spr
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    part, tree = flagship.example(128, 16384, seed=3, device="cuda")
+    ti = TreeInfo(tree, [part])
+    E = len(tree.edge_nodes)
+    stride = 3 * (tree.n_tips - 2) + 2
+    slot = part.n_cats * part.states * part.n_patterns_padded * 4
+    rows = (spr.THOROUGH_ROW_SLOTS * spr._window_bound(E) if thorough
+            else 4 * E)
+    monkeypatch.setattr(spr, "SPR_BATCH_MAX", None)
+    monkeypatch.setattr(spr, "SPR_BATCH_CAP", 1 << 30)
+
+    def free():
+        return (torch.cuda.mem_get_info(cuda)[0]
+                + torch.cuda.memory_reserved(cuda)
+                - torch.cuda.memory_allocated(cuda))
+
+    def want(free):
+        n = max(1, free // 2 // ((stride + rows) * slot))
+        return 1 << (n.bit_length() - 1)
+    free0 = free()
+    k = spr._spr_batch_limit(ti, E, stride, thorough)
+    free1 = free()
+    assert k in (want(free0), want(free1)) and k >= 2
+    held = torch.empty(8 << 30, dtype=torch.uint8, device=cuda)
+    del held                       # freed, still reserved
+    assert torch.cuda.memory_reserved(cuda) - torch.cuda.memory_allocated(
+        cuda) >= 8 << 30
+    assert spr._spr_batch_limit(ti, E, stride, thorough) in (
+        want(free0), want(free1), want(free()))
+    torch.cuda.empty_cache()
+    monkeypatch.setattr(spr, "SPR_BATCH_CAP", 16)
+    assert spr._spr_batch_limit(ti, E, stride, thorough) == min(16, k)
+
+
+def test_spr_round_on_card_matches_float64(cuda, monkeypatch):
+    """One fast SPR round at 32 taxa on the card (float32: kernel 2 for
+    every directed CLV, kernels 1 and 8-10) against the same round in
+    float64 on the card (the serial engine): the same final topology,
+    each logL at or above its start, the float32 logL within 1e-6 of the
+    float64 serial engine at its tree and lengths. No plain walk runs."""
+    from pllmod_tpu_torch.algorithm import spr
+    from pllmod_tpu_torch.tree import splits
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    part, truth = flagship.simulated(32, 1024, seed=9, device="cuda")
+    start = truth.copy()
+    flagship.random_spr(start, 4, np.random.default_rng(1))
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        p = part.to(dtype=dt).with_model_params().cache_eigen()
+        ti = TreeInfo(start.copy(), [p])
+        lnl0 = ti.compute_loglh()
+        if dt == torch.float32:
+            def no_plain(*a, **k):
+                raise AssertionError("a plain walk ran on the card")
+            monkeypatch.setattr(clv, "walk_rows_plain", no_plain)
+            before = fused.LAUNCHES, deriv.LAUNCHES["newton_edges"]
+        lnl, n, _ = spr.spr_round(ti)
+        if dt == torch.float32:
+            monkeypatch.undo()
+            assert fused.LAUNCHES > before[0]
+            assert deriv.LAUNCHES["newton_edges"] > before[1]
+        assert lnl >= lnl0 and n > 0
+        out[dt] = (lnl, ti)
+    lnl32, ti32 = out[torch.float32]
+    lnl64, ti64 = out[torch.float64]
+    assert splits.rf_distance(ti32.tree, ti64.tree) == 0
+    p64 = ti32.partitions[0].to(dtype=torch.float64).with_model_params()
+    want = float(engine.tree_loglikelihood(p64, ti32.tree, schedule="scan"))
+    assert abs(lnl32 - want) / abs(want) < 1e-6
+    assert abs(lnl32 - lnl64) / abs(lnl64) < 1e-6

@@ -58,6 +58,13 @@ def test_import_loads_no_jax():
             "import pllmod_tpu_torch.utils.models_aa\n"
             "import pllmod_tpu_torch.utils.models_gt\n"
             "import pllmod_tpu_torch.utils.models_mult\n"
+            "import pllmod_tpu_torch.algorithm.spr\n"
+            "import pllmod_tpu_torch.algorithm.ancestral\n"
+            "import pllmod_tpu_torch.tree.moves\n"
+            "import pllmod_tpu_torch.tree.rtree\n"
+            "import pllmod_tpu_torch.tree.splits\n"
+            "import pllmod_tpu_torch.tree.constraint\n"
+            "import pllmod_tpu_torch.tree.utils\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
             "print(sorted(new & %r))\n" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -133,6 +140,41 @@ def test_model_optimization_default_device_raises_without_cuda(no_cuda,
     ti = TreeInfo(result["treeinfo"].tree, [part], params_to_optimize=mask)
     start = ti.compute_loglh()
     assert opt_model.opt_model(ti) >= start
+
+
+def test_ancestral_command_default_device_raises_without_cuda(no_cuda,
+                                                            tmp_path):
+    """The ``ancestral`` command asks for the card by default, as
+    ``eval`` does, and runs on the CPU only when asked."""
+    from pllmod_tpu_torch import cli
+    from pllmod_tpu_torch.msa.msa import MSA
+    from pllmod_tpu_torch.msa.io import write_fasta
+    msa = MSA(["a", "b", "c", "d"], ["ACGTAC", "ACGAAC", "ACTTAA", "TCGTAC"])
+    write_fasta(msa, str(tmp_path / "a.fasta"))
+    (tmp_path / "t.nwk").write_text("((a:0.1,b:0.2):0.1,c:0.3,d:0.2);")
+    argv = ["ancestral", "--msa", str(tmp_path / "a.fasta"), "--tree",
+            str(tmp_path / "t.nwk"), "--model", "JC+G4"]
+    with pytest.raises(common.PllModError):
+        cli.main(argv)
+    args = cli.parse_args(argv + ["--device", "cpu"])
+    nodes, states = args.fn(args)
+    assert len(nodes) == 2 and states.shape[1] >= 6
+
+
+def test_spr_round_runs_where_its_partitions_lie(no_cuda):
+    """``spr_round`` has no device of its own: a CPU TreeInfo runs on
+    the CPU (kernel 2's plain walk for float32)."""
+    import numpy as np
+    from pllmod_tpu_torch.algorithm.spr import spr_round
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    with pytest.raises(common.PllModError):
+        flagship.simulated(8, 64)
+    part, tree = flagship.simulated(8, 64, device="cpu")
+    flagship.random_spr(tree, 1, np.random.default_rng(0))
+    ti = TreeInfo(tree, [part])
+    start = ti.compute_loglh()
+    lnl, _, _ = spr_round(ti, 1, 3)
+    assert lnl >= start
 
 
 def test_kernel_launch_rejects_cpu_tensors():
