@@ -9,7 +9,7 @@ It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
 (one ``nvcc`` a source, all six at once), holds each kernel against its
 plain torch version on the card (the fused walk at four shapes: the
 flagship's fuse_root and directed tables, protein, 64 states), and
-drives seven paths, each run with every kernel's launch count set to 0
+drives eight paths, each run with every kernel's launch count set to 0
 just before it and read just after, the launches logged by cell and
 path (``counted``):
 
@@ -70,7 +70,22 @@ path (``counted``):
    tree, the tree binary and connected; then the marginal ancestral
    states of all 126 inner nodes (path ``ancestral``): each site's
    probabilities sum to 1 and agree with float64 on the card within
-   1e-5.
+   1e-5;
+8. the full ML search (``algorithm/search.py``, ``tree/starting.py``,
+   ``binary/``) on the search cell (``flagship.search_cell``: 246 taxa
+   × 4465 sites simulated along a random tree, GTR+Γ4 from α 0.5,
+   float32, compressed): a native parsimony start, ``ml_search`` at
+   radius 1/5/15, 18 rounds at most, fast then thorough, checkpointed
+   after every round (path ``ml_search``); no round below the best
+   before it less 1e-3, the end above the start and within 1e-6 of the
+   float64 serial engine, the final tree binary and connected; the
+   simulating tree through the same ``opt_model`` as a yardstick; the
+   checkpoint after round 2 loaded onto the card (the file's arrays bit
+   for bit) and resumed into a fresh TreeInfo (``ml_search_resume``: its
+   first two rounds the full run's, its third at the full run's mode
+   and radius and at or above its logL less 0.1); and the CLI's
+   ``search`` on a 32-taxon slice at its default device
+   (``cli_search``).
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -93,7 +108,13 @@ largest K, applied moves, top-list size, host-build seconds, logL at
 start and end and against float64, RF to the simulating tree at start
 and end, launches by kernel, peak device GiB less the start;
 ``--profile``: its busy share and largest device items), one
-``{"ancestral": ...}``
+``{"ancestral": ...}``, one ``{"search": ...}`` (each round's mode,
+radius, applied moves, logL, host ms, candidates and batches, and the
+checkpoint's bytes and the ms of one ``save_treeinfo`` of the same
+state; host ms by stage; RF to the simulating tree; launches; peak
+device GiB less the start; the yardstick, the resume and the CLI's run;
+``--profile``: the busy share and largest device items of the opening
+``opt_model`` and two rounds)
 and one ``{"kernels": [...]}`` line (each kernel's launches in all, by
 cell and by path), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -103,7 +124,7 @@ script exits non-zero; without CUDA it exits 1 and prints no result.
 flagship's and the protein cell's ``pallas``, ``combined``, grouped and
 packed loops, one BLO call each at the
 flagship and protein cells and on the partitioned cell (LINKED),
-each phase-6 run and each SPR round with
+each phase-6 run, each SPR round and the search's opening rounds with
 ``torch.profiler`` and prints where the device time of one evaluation
 or call goes (device kernels only) and the device's busy share of the
 window; and it builds ``csrc/pruning.cu``, ``csrc/deriv.cu``,
@@ -134,8 +155,10 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -143,13 +166,14 @@ import time
 import numpy as np
 import torch
 
-from pllmod_tpu_torch import cli, flagship
-from pllmod_tpu_torch.algorithm import ancestral, opt_model, spr
+from pllmod_tpu_torch import binary, cli, convert, flagship
+from pllmod_tpu_torch.algorithm import ancestral, opt_model, search, spr
 from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
 from pllmod_tpu_torch.common import BRLEN_LINKED, BRLEN_SCALED
-from pllmod_tpu_torch.common import (PARAM_FREE_RATES, PARAM_RATE_WEIGHTS,
-                                     PARAM_SUBST_RATES)
+from pllmod_tpu_torch.common import (PARAM_ALPHA, PARAM_BRANCHES_ITERATIVE,
+                                     PARAM_FREE_RATES, PARAM_FREQUENCIES,
+                                     PARAM_RATE_WEIGHTS, PARAM_SUBST_RATES)
 from pllmod_tpu_torch.msa import io as msa_io
 from pllmod_tpu_torch.msa.msa import MSA
 from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine, fused,
@@ -2328,6 +2352,278 @@ def run_spr(gpu, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the full ML search (algorithm/search.py, tree/starting.py,
+# binary/)
+# ---------------------------------------------------------------------------
+SEARCH_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "search")    # checkpoints, the CLI's input
+SEARCH_CELL = dict(seed=246, n_taxa=246, n_sites=4465)
+SEARCH_ALPHA0 = 0.5       # the starting Γ shape (tools/probe_search246.py)
+SEARCH_PARSIMONY_SEED = 1
+SEARCH_MASK = (PARAM_SUBST_RATES | PARAM_FREQUENCIES | PARAM_ALPHA
+               | PARAM_BRANCHES_ITERATIVE)
+SEARCH_KW = dict(radius_min=1, radius_step=5, radius_max=15, max_rounds=18,
+                 thorough=True)
+MONOTONE_SLACK = 1e-3     # a round's logL vs the best before it
+RESUME_AFTER = 2          # the checkpoint copied aside after this round
+RESUME_SLACK = 0.1        # resumed end vs the full run's next round
+CLI_SEARCH_TAXA = 32
+CLI_SEARCH_ARGS = ["--radius-max", "5"]
+# every kernel the search must launch (SPR_MUST), and the CLI's search
+CLI_SEARCH_MUST = ("resident_walk", "fused_walk", "edge_sumtables",
+                   "edge_derivatives", "newton_edges")
+
+
+@contextlib.contextmanager
+def search_stages(calls: list):
+    """``ml_search``'s two callees timed by host clock while the block
+    runs: each ``opt_model`` and ``spr_round`` call appends (name, ms,
+    the round's ``stats`` for ``spr_round``) to ``calls``."""
+    real = search.opt_model, search.spr_round
+
+    def opt(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[0](*a, **kw)
+        calls.append(("opt_model", (time.perf_counter() - t0) * 1e3, None))
+        return out
+
+    def round_(*a, **kw):
+        stats = {}
+        t0 = time.perf_counter()
+        out = real[1](*a, stats=stats, **kw)
+        calls.append(("spr_round", (time.perf_counter() - t0) * 1e3, stats))
+        return out
+
+    search.opt_model, search.spr_round = opt, round_
+    try:
+        yield calls
+    finally:
+        search.opt_model, search.spr_round = real
+
+
+def checkpoint_partition_arrays(path: str, idx: int = 0) -> dict:
+    """The arrays of partition ``idx`` as the checkpoint file holds them
+    (numpy, read from the block itself)."""
+    with binary.BinaryFile.open(path) as f:
+        _, _, _, data = f._load_block(2 + idx, binary.BLOCK_PARTITION)
+    return binary.binary._unpack_arrays(data)
+
+
+def run_search(gpu, profile: bool):
+    """Phase 8: the search cell (``flagship.search_cell``: 246 taxa ×
+    4465 sites simulated along a random tree, GTR+Γ4, float32,
+    compressed): a native parsimony start; ``ml_search`` with the probe's
+    settings (SEARCH_KW), checkpointed after every round, path
+    ``ml_search``; a resume from the checkpoint after round RESUME_AFTER
+    into a fresh TreeInfo on the start, path ``ml_search_resume``; the
+    CLI's ``search`` on a CLI_SEARCH_TAXA-taxon slice at its default
+    device, path ``cli_search``. Checks: no round below the best before
+    it less MONOTONE_SLACK, the end above the start and within LOGL_RTOL
+    of float64, the final tree binary and connected; the resumed run's
+    first rounds equal the full run's, its next round has the full run's
+    mode and radius, its end at or above that round's less RESUME_SLACK
+    and within LOGL_RTOL of float64; a checkpoint loaded onto the card
+    holds the file's arrays bit for bit. Returns the phase's row."""
+    from pllmod_tpu_torch import native
+    from pllmod_tpu_torch.tree import starting
+    os.makedirs(SEARCH_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    seqs, labels, truth = flagship.search_cell(**SEARCH_CELL)
+    sim_ms = (time.perf_counter() - t0) * 1e3
+    if not native.available():
+        raise AssertionError("the port's native library did not load: the "
+                             "parsimony start would take its Python path")
+    t0 = time.perf_counter()
+    start, pscore = starting.parsimony_stepwise(
+        labels, seqs, charmap.DNA, seed=SEARCH_PARSIMONY_SEED)
+    pars_ms = (time.perf_counter() - t0) * 1e3
+    rf_start = splits.rf_distance(start, truth)
+    part = create_partition(seqs, states=4, n_rate_cats=4,
+                            alpha=SEARCH_ALPHA0, device="cuda")
+    print(f"search 246: simulated {len(seqs)} x {len(seqs[0])} in "
+          f"{sim_ms:.1f} ms ({part.n_patterns} patterns, "
+          f"{part.n_patterns_padded} padded); parsimony start score "
+          f"{pscore} in {pars_ms:.1f} ms (native), RF {rf_start} to the "
+          f"simulating tree")
+    ck = os.path.join(SEARCH_DIR, "search.ck")
+    ck_resume = os.path.join(SEARCH_DIR, f"round{RESUME_AFTER}.ck")
+    ck_side = os.path.join(SEARCH_DIR, "side.ck")
+    rounds, calls = [], []
+    clock = {}
+
+    def on_round(rec):
+        now = time.perf_counter()
+        row = dict(mode=rec.mode, radius=rec.radius, applied=rec.n_applied,
+                   lnl=rec.loglh, host_ms=(now - clock["prev"]) * 1e3,
+                   checkpoint_bytes=os.path.getsize(ck))
+        if len(rounds) + 1 == RESUME_AFTER:
+            shutil.copy(ck, ck_resume)
+        # one save_treeinfo of the same state, timed beside the search
+        t0 = time.perf_counter()
+        binary.save_treeinfo(ck_side, clock["ti"])
+        row["checkpoint_ms"] = (time.perf_counter() - t0) * 1e3
+        rounds.append(row)
+        print(f"search 246 round {len(rounds)}: {json.dumps(row)}")
+        clock["prev"] = time.perf_counter()
+
+    def full_search():
+        ti = clock["ti"] = TreeInfo(start.copy(), [part],
+                                    params_to_optimize=SEARCH_MASK)
+        clock["start"] = clock["prev"] = time.perf_counter()
+        with search_stages(calls):
+            res = search.ml_search(ti, checkpoint_path=ck,
+                                   on_round=on_round, **SEARCH_KW)
+        clock["end"] = time.perf_counter()
+        return ti, res
+
+    mem = reset_peak_memory()
+    (ti, res), got = counted("search 246", "ml_search", full_search,
+                             must=SPR_MUST)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host_ms = (clock["end"] - clock["start"]) * 1e3
+    best, viol = res.start_loglh, 0
+    for r in res.rounds:
+        viol += r.loglh < best - MONOTONE_SLACK
+        best = max(best, r.loglh)
+    tree = ti.tree
+    want = f64_treeinfo_lnl(ti)
+    opt_ms = [ms for name, ms, _ in calls if name == "opt_model"]
+    spr_calls = [(ms, st) for name, ms, st in calls if name == "spr_round"]
+    ck_ms = sum(r["checkpoint_ms"] for r in rounds)
+    for r, (ms, st) in zip(rounds, spr_calls):
+        r.update(spr_ms=ms, candidates=st["candidates"],
+                 batches=st["batches"], max_batch=st["max_batch"])
+    row = dict(
+        cell="search 246", taxa=len(seqs), sites=len(seqs[0]),
+        patterns=part.n_patterns, settings=SEARCH_KW, alpha0=SEARCH_ALPHA0,
+        parsimony_score=pscore, parsimony_ms=pars_ms, simulate_ms=sim_ms,
+        rounds=rounds, n_rounds=res.n_rounds, start_lnl=res.start_loglh,
+        lnl=res.loglh, f64_lnl=want, rel_to_f64=abs(res.loglh - want)
+        / abs(want), monotone_violations=viol, rf_start=rf_start,
+        rf_end=splits.rf_distance(tree, truth), host_ms=host_ms,
+        host_ms_by_stage=dict(
+            parsimony=pars_ms, opening_opt_model=opt_ms[0],
+            spr_rounds=sum(ms for ms, _ in spr_calls),
+            interleaved_opt_model=sum(opt_ms[1:-1]),
+            final_opt_model=opt_ms[-1],
+            checkpoint_writes_timed_beside=ck_ms),
+        opt_model_calls=len(opt_ms),
+        alpha=float(ti.partitions[0].alpha),
+        launches={k: n for k, n in got.items() if n},
+        start_gib=mem, peak_gib=peak, peak_less_start_gib=peak - mem,
+        gpu=gpu)
+    summary = {k: v for k, v in row.items() if k != "rounds"}
+    print(f"search 246: {json.dumps(summary)}")
+    if viol or not res.loglh > res.start_loglh:
+        raise AssertionError(f"search 246: {viol} rounds below the best "
+                             f"before them, or the end {res.loglh} not "
+                             f"above the start {res.start_loglh}")
+    rel_close(res.loglh, want, LOGL_RTOL, "search 246 vs float64")
+    if not (tree.is_binary() and tree.check_integrity()):
+        raise AssertionError("search 246: the final tree is not binary "
+                             "and connected")
+
+    # ---- a yardstick for the search's end: the simulating tree, its
+    # own lengths and the starting model through the same opt_model
+    def on_truth():
+        ti_t = TreeInfo(truth.copy(), [part], params_to_optimize=SEARCH_MASK)
+        lnl0 = ti_t.compute_loglh()
+        t0 = time.perf_counter()
+        lnl = opt_model.opt_model(ti_t, tol=1e-3)
+        return (lnl0, lnl, float(ti_t.partitions[0].alpha),
+                float(ti_t.tree.lengths.sum()),
+                (time.perf_counter() - t0) * 1e3)
+    (l0, lt, at, sum_t, ms_t), _ = counted("search 246", "opt_model_truth",
+                                           on_truth)
+    row["simulating_tree"] = dict(
+        start_lnl=l0, lnl=lt, alpha=at, length_sum=sum_t,
+        search_length_sum=float(tree.lengths.sum()),
+        truth_length_sum=float(truth.lengths.sum()), host_ms=ms_t)
+    print(f"search 246, the simulating tree through opt_model: "
+          f"{json.dumps(row['simulating_tree'])}")
+
+    # ---- the checkpoint after round RESUME_AFTER: loaded onto the card,
+    # then resumed into a fresh TreeInfo on the start
+    on_card, _ = binary.load_treeinfo(ck_resume)
+    held = checkpoint_partition_arrays(ck_resume)
+    for f in convert.ARRAY_FIELDS:
+        t = getattr(on_card.partitions[0], f)
+        if not (t.is_cuda and np.array_equal(t.cpu().numpy(), held[f])
+                and t.cpu().numpy().dtype == held[f].dtype):
+            raise AssertionError(f"checkpoint loaded onto the card: {f} "
+                                 "differs from the file")
+    del on_card
+
+    def resumed():
+        ti2 = TreeInfo(start.copy(), [part], params_to_optimize=SEARCH_MASK)
+        t0 = time.perf_counter()
+        r2 = search.ml_search(ti2, checkpoint_path=ck_resume, resume=True,
+                              **dict(SEARCH_KW, max_rounds=RESUME_AFTER + 1))
+        return ti2, r2, (time.perf_counter() - t0) * 1e3
+    (ti2, res2, resume_ms), got2 = counted("search 246", "ml_search_resume",
+                                           resumed, must=SPR_MUST)
+    want2 = f64_treeinfo_lnl(ti2)
+    nxt = res.rounds[RESUME_AFTER]
+    resume = dict(rounds=[dataclasses.asdict(r) for r in res2.rounds],
+                  lnl=res2.loglh, f64_lnl=want2,
+                  rel_to_f64=abs(res2.loglh - want2) / abs(want2),
+                  full_run_round=dataclasses.asdict(nxt), host_ms=resume_ms,
+                  launches={k: n for k, n in got2.items() if n})
+    print(f"search 246, resumed after round {RESUME_AFTER}: "
+          f"{json.dumps(resume)}")
+    if not (res2.rounds[:RESUME_AFTER] == res.rounds[:RESUME_AFTER]
+            and res2.n_rounds == RESUME_AFTER + 1
+            and (res2.rounds[-1].mode, res2.rounds[-1].radius)
+            == (nxt.mode, nxt.radius)
+            and res2.loglh >= nxt.loglh - RESUME_SLACK):
+        raise AssertionError("search 246: the resumed run lost its history "
+                             "or ended below the full run's round "
+                             f"{RESUME_AFTER + 1}")
+    rel_close(res2.loglh, want2, LOGL_RTOL, "resumed search vs float64")
+    row["resume"] = resume
+    del ti2
+
+    # ---- the CLI's search on a slice of the cell, at its default device
+    fasta = os.path.join(SEARCH_DIR, "slice.fasta")
+    msa_io.write_fasta(MSA(labels[:CLI_SEARCH_TAXA], seqs[:CLI_SEARCH_TAXA]),
+                       fasta)
+    args = cli.parse_args(["search", "--msa", fasta] + CLI_SEARCH_ARGS)
+
+    def cli_search():
+        t0 = time.perf_counter()
+        out = args.fn(args)
+        return out, (time.perf_counter() - t0) * 1e3
+    (out, cli_ms), got3 = counted("search 246", "cli_search", cli_search,
+                                  must=CLI_SEARCH_MUST)
+    cres, cti = out["result"], out["treeinfo"]
+    want3 = f64_treeinfo_lnl(cti)
+    row["cli"] = dict(argv=["search", "--msa", "slice.fasta"]
+                      + CLI_SEARCH_ARGS, taxa=CLI_SEARCH_TAXA,
+                      device=str(cti.partitions[0].device),
+                      n_rounds=cres.n_rounds, start_lnl=cres.start_loglh,
+                      lnl=cres.loglh, f64_lnl=want3,
+                      rel_to_f64=abs(cres.loglh - want3) / abs(want3),
+                      host_ms=cli_ms,
+                      launches={k: n for k, n in got3.items() if n})
+    print(f"search 246, the CLI's search: {json.dumps(row['cli'])}")
+    if not (cti.partitions[0].device.type == "cuda"
+            and cres.loglh > cres.start_loglh):
+        raise AssertionError("the CLI's search did not run on the card or "
+                             "did not improve its start")
+    rel_close(cres.loglh, want3, LOGL_RTOL, "the CLI's search vs float64")
+    del ti, cti
+    torch.cuda.empty_cache()
+    if profile:
+        row["profile"] = profile_window(
+            "search 246, opening opt_model and 2 rounds",
+            lambda: search.ml_search(
+                TreeInfo(start.copy(), [part],
+                         params_to_optimize=SEARCH_MASK),
+                **dict(SEARCH_KW, max_rounds=2)), 1)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # --parent: kernels 1-8 and 10 against another checkout's, by device
 # time
 # ---------------------------------------------------------------------------
@@ -3021,6 +3317,10 @@ def main(argv=None) -> int:
 
     # ---- SPR rounds and ancestral states on the simulated flagship cell
     spr_rows, spr_scorer, anc_row = run_spr(gpu, args.profile)
+
+    # ---- the full ML search on the search cell: parsimony start,
+    # checkpoints, a resume, the CLI's search
+    search_row = run_search(gpu, args.profile)
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
@@ -3090,6 +3390,7 @@ def main(argv=None) -> int:
     print(json.dumps({"opt_model": opt_rows}))
     print(json.dumps({"spr": spr_rows, "spr_scorer_checks": spr_scorer}))
     print(json.dumps({"ancestral": anc_row}))
+    print(json.dumps({"search": search_row}))
     print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

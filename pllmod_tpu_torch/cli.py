@@ -1,12 +1,17 @@
-"""Command-line front end of the port — counterpart of ``pllmod_tpu.cli``'s
-``eval``, ``ancestral`` and ``rf`` subcommands (the others come with the
-slices that port their modules):
+"""Command-line front end of the port — counterpart of ``pllmod_tpu.cli``,
+all seven of its subcommands:
 
     python -m pllmod_tpu_torch eval --msa a.fasta --tree t.nwk \\
         --model GTR+G4 [--opt] [--tol 1e-3] [--device cuda|cpu]
+    python -m pllmod_tpu_torch search --msa a.fasta --model GTR+G+I \\
+        [--seed 1] [--checkpoint ck.bin [--resume]] [--device cuda|cpu]
+    python -m pllmod_tpu_torch parsimony --msa a.fasta [--seed 1]
     python -m pllmod_tpu_torch ancestral --msa a.fasta --tree t.nwk \\
         [--model GTR+G] [--device cuda|cpu]
     python -m pllmod_tpu_torch rf trees1.nwk [trees2.nwk ...]
+    python -m pllmod_tpu_torch consensus trees.nwk [--threshold 0.5]
+    python -m pllmod_tpu_torch support --tree best.nwk boots.nwk \\
+        [--metric tbe]
 
 Model strings follow the downstream convention ``NAME[+G[n]][+I][+FC|+FE]``:
 ``NAME`` resolves against the DNA, protein, genotype and MULTIx
@@ -16,10 +21,17 @@ sites; ``+FE``/``+FC`` force equal / empirical (counted) base
 frequencies (default: the model's own frequencies, empirical when the
 model leaves them free). ``--opt`` runs ``algorithm.opt_model`` (rates,
 frequencies, alpha/p-inv, branches) and prints the optimized logL and
-tree. ``ancestral`` prints the most probable state of every site at
-every inner node (one FASTA record a node); ``rf`` the pairwise
-Robinson-Foulds distances of the trees in its files. ``eval`` and
-``ancestral`` run on ``--device`` (default: the CUDA card).
+tree. ``search`` runs ``algorithm.ml_search`` from a parsimony starting
+tree (or ``--tree``, ``--random-start``, or a ``--constraint`` resolved
+by parsimony), checkpointed to ``--checkpoint`` after every round.
+``parsimony`` prints a parsimony starting tree and its score.
+``ancestral`` prints the most probable state of every site at every
+inner node (one FASTA record a node); ``rf`` the pairwise
+Robinson-Foulds distances of the trees in its files; ``support`` the
+bootstrap support (FBP, TBE) of a best tree's branches; ``consensus``
+the majority-rule (or strict, or MRE) consensus of a tree file.
+``eval``, ``search`` and ``ancestral`` run on ``--device`` (default:
+the CUDA card); the other four are host code.
 """
 
 from __future__ import annotations
@@ -167,6 +179,80 @@ def cmd_eval(args):
     return dict(treeinfo=ti, lnl0=lnl0, lnl=lnl, stats=stats)
 
 
+def cmd_search(args):
+    """Full ML search. Returns a dict: the run's ``treeinfo`` (the best
+    tree and model) and its :class:`~pllmod_tpu_torch.algorithm.search.
+    SearchResult` as ``result``."""
+    from pllmod_tpu_torch.algorithm.search import ml_search
+    from pllmod_tpu_torch.ops import charmap as charmap_mod
+    from pllmod_tpu_torch.tree.starting import (parsimony_stepwise,
+                                                random_tree,
+                                                resolve_multi_parsimony)
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+
+    msa = _read_msa(args.msa)
+    constraint = None
+    if args.tree:
+        start = _read_trees(args.tree)[0]
+        # reorder the MSA rows BEFORE encoding tip states: the tree-tip ->
+        # partition-row mapping is positional
+        _order_tree_tips(start, msa)
+        part, model, mask = build_partition(msa, args.model,
+                                            device=args.device)
+    else:
+        part, model, mask = build_partition(msa, args.model,
+                                            device=args.device)
+        if args.constraint:
+            # constrained search (RAxML-NG --tree-constraint semantics):
+            # resolve the multifurcating constraint by parsimony, then
+            # restrict every SPR to topologies containing its splits
+            from pllmod_tpu_torch.tree.constraint import Constraint
+            cons_tree = _read_trees(args.constraint)[0]
+            cm = charmap_mod.for_states(model.states)
+            seq_of = dict(zip(msa.labels, msa.sequences))
+            ordered = [seq_of[lb] for lb in cons_tree.labels]
+            start, steps = resolve_multi_parsimony(
+                cons_tree, [(ordered, cm, None)], seed=args.seed)
+            msa = type(msa)(list(cons_tree.labels), ordered)
+            part, model, mask = build_partition(msa, args.model,
+                                                device=args.device)
+            constraint = Constraint(cons_tree, start.labels)
+            print(f"constrained parsimony start: {steps} steps")
+        elif args.random_start:
+            start = random_tree(msa.labels, seed=args.seed)
+        else:
+            cm = charmap_mod.for_states(model.states)
+            start, steps = parsimony_stepwise(msa.labels, msa.sequences,
+                                              cm, seed=args.seed)
+            print(f"parsimony starting tree: {steps} steps")
+    ti = TreeInfo(start, [part], params_to_optimize=mask)
+    res = ml_search(
+        ti, radius_step=args.radius_step, radius_max=args.radius_max,
+        lh_epsilon=args.epsilon, checkpoint_path=args.checkpoint,
+        resume=args.resume, constraint=constraint,
+        on_round=lambda r: print(f"[{r.mode:8s}] radius={r.radius:2d} "
+                                 f"applied={r.n_applied:3d} "
+                                 f"logL={r.loglh:.4f}", flush=True))
+    print(f"final logL = {res.loglh:.6f} ({res.n_rounds} rounds)")
+    print(ti.tree.to_newick())
+    return dict(treeinfo=ti, result=res)
+
+
+def cmd_parsimony(args):
+    """Print a parsimony starting tree and its score. Returns (tree,
+    score)."""
+    from pllmod_tpu_torch.ops import charmap as charmap_mod
+    from pllmod_tpu_torch.tree.starting import parsimony_stepwise
+
+    msa = _read_msa(args.msa)
+    cm = charmap_mod.for_states(args.states)
+    tree, steps = parsimony_stepwise(msa.labels, msa.sequences, cm,
+                                     seed=args.seed)
+    print(f"parsimony score: {steps}")
+    print(tree.to_newick())
+    return tree, steps
+
+
 def cmd_ancestral(args):
     """Print the marginal ancestral states of every inner node, one
     record a node, per site in alignment order (RAxML-NG --ancestral
@@ -215,6 +301,48 @@ def cmd_rf(args):
     return dist
 
 
+def cmd_support(args):
+    """Map bootstrap support onto a best tree (the reference's
+    tbe_functions.c / pllmod_utree_draw_support workflow): FBP = classic
+    Felsenstein proportions (exact split matches), TBE = transfer
+    bootstrap expectation (Lemoine et al. 2018, tbe_naive driver).
+    Returns {metric: {edge: support}}."""
+    from pllmod_tpu_torch.tree.tbe import fbp_support, tbe_support
+    from pllmod_tpu_torch.tree.topology import set_tip_order
+    from pllmod_tpu_torch.tree.utils import newick_with_support
+
+    ref = _read_trees(args.tree)[0]
+    boots = []
+    for path in args.bootstraps:
+        boots.extend(_read_trees(path))
+    if not boots:
+        raise SystemExit("need at least one bootstrap tree")
+    # normalize tip order once: with --metric both each support function
+    # would otherwise redo the label matching for every bootstrap tree
+    boots = [set_tip_order(bt, ref.labels) if bt.labels != ref.labels
+             else bt for bt in boots]
+    print(f"{len(boots)} bootstrap trees")
+    out = {}
+    for name, fn in (("fbp", fbp_support), ("tbe", tbe_support)):
+        if args.metric not in (name, "both"):
+            continue
+        out[name] = sup = fn(ref, boots)
+        print(f"{name.upper()} tree: "
+              f"{newick_with_support(ref, sup, as_fraction=args.fraction)}")
+    return out
+
+
+def cmd_consensus(args):
+    """Print the consensus of the trees in ``args.trees`` with its
+    supports. Returns (tree, supports)."""
+    from pllmod_tpu_torch.tree.consensus import consensus_from_file
+    from pllmod_tpu_torch.tree.utils import newick_with_support
+
+    tree, supports = consensus_from_file(args.trees, args.threshold)
+    print(newick_with_support(tree, supports))
+    return tree, supports
+
+
 def parse_args(argv=None):
     """The command line ``argv`` parsed; ``args.fn(args)`` runs the
     subcommand."""
@@ -233,6 +361,30 @@ def parse_args(argv=None):
                    help="torch device to run on (default: cuda)")
     p.set_defaults(fn=cmd_eval)
 
+    p = sub.add_parser("search", help="full ML tree search")
+    p.add_argument("--msa", required=True)
+    p.add_argument("--model", default="GTR+G")
+    p.add_argument("--tree", help="starting tree (default: parsimony)")
+    p.add_argument("--constraint", help="topological constraint tree "
+                   "(multifurcating Newick; search is restricted to "
+                   "topologies containing its splits)")
+    p.add_argument("--random-start", action="store_true")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--radius-step", type=int, default=5)
+    p.add_argument("--radius-max", type=int, default=20)
+    p.add_argument("--epsilon", type=float, default=0.1)
+    p.add_argument("--checkpoint")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("parsimony", help="parsimony starting tree")
+    p.add_argument("--msa", required=True)
+    p.add_argument("--states", type=int, default=4)
+    p.add_argument("--seed", type=int, default=42)
+    p.set_defaults(fn=cmd_parsimony)
+
     p = sub.add_parser("ancestral", help="marginal ancestral states at "
                                          "every inner node")
     p.add_argument("--msa", required=True)
@@ -245,6 +397,22 @@ def parse_args(argv=None):
     p = sub.add_parser("rf", help="pairwise RF distance matrix")
     p.add_argument("trees", nargs="+")
     p.set_defaults(fn=cmd_rf)
+
+    p = sub.add_parser("support", help="bootstrap support (FBP / TBE) "
+                                       "drawn onto a best tree")
+    p.add_argument("--tree", required=True, help="best/reference tree")
+    p.add_argument("bootstraps", nargs="+",
+                   help="bootstrap tree file(s), multi-Newick")
+    p.add_argument("--metric", choices=("fbp", "tbe", "both"),
+                   default="both")
+    p.add_argument("--fraction", action="store_true",
+                   help="print supports as fractions instead of percent")
+    p.set_defaults(fn=cmd_support)
+
+    p = sub.add_parser("consensus", help="majority-rule consensus")
+    p.add_argument("trees")
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.set_defaults(fn=cmd_consensus)
     return ap.parse_args(argv)
 
 

@@ -11,6 +11,7 @@ matched on codes keeps a stable contract.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,6 +28,14 @@ def resolve_device(device="cuda") -> torch.device:
                           f"device {device!r} requested but CUDA is not "
                           "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def host_array(x):
+    """A tensor (on any device) or an array-like as a host numpy array —
+    what the host-side writers and printers take."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 # ---------------------------------------------------------------------------

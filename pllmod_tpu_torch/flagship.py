@@ -13,6 +13,9 @@ data, whose likelihood has interior optima and one best topology, where
 i.i.d. random characters leave the optima on their bounds and every
 topology about as bad as every other. :func:`random_spr` perturbs a tree
 by seeded random SPR moves, so that an SPR round has moves to find.
+:func:`search_cell` is the data of the full-search cell (246 × 4465
+GTR+Γ4, the JAX package's ``tools/probe_search246.py`` recipe): a random
+tree, a model and an alignment simulated along that tree.
 """
 
 from __future__ import annotations
@@ -186,3 +189,23 @@ def random_spr(tree, n_moves, rng):
         tree.invalidate()
         done.append((e, junction, r))
     return done
+
+
+def search_cell(seed=246, n_taxa=246, n_sites=4465):
+    """(sequences, labels, tree) of the search cell: a random binary
+    topology on ``t0..t{n_taxa-1}``
+    (:func:`~pllmod_tpu_torch.tree.starting.random_tree`) with lengths
+    U(0.02, 0.6), and an alignment of ``n_sites`` simulated along it
+    (:func:`simulate`) under GTR rates U(0.5, 2.5), frequencies
+    Dirichlet(12, 9, 9, 12) and Γ4 shape 0.9, every draw from
+    ``np.random.default_rng(seed)``. Sequence i belongs to ``labels[i]``,
+    tip i of the simulating ``tree``."""
+    from pllmod_tpu_torch.tree.starting import random_tree
+    rng = np.random.default_rng(seed)
+    labels = [f"t{i}" for i in range(n_taxa)]
+    tree = random_tree(labels, seed=int(rng.integers(2**31)))
+    tree.lengths = rng.uniform(0.02, 0.6, len(tree.lengths))
+    rates = rng.uniform(0.5, 2.5, 6)
+    freqs = rng.dirichlet([12, 9, 9, 12])
+    seqs = simulate(rng, tree, n_sites, rates, freqs, "ACGT", alpha=0.9)
+    return seqs, labels, tree

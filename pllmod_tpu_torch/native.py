@@ -17,6 +17,12 @@ this package uses so far:
 - :func:`directed_traversal` — the directed-CLV schedule of the
   branch-length optimizer
 - :func:`shared_splits` — the shared-split count of the RF distance
+- :func:`fitch_score`, :func:`directed_fitch_sets`,
+  :func:`parsimony_stepwise` — Fitch parsimony scoring, the directed
+  Fitch sets of every edge, and the greedy stepwise-addition tree
+  (``tree/starting.py``)
+- :func:`transfer_distance_matrix`, :func:`tbe_mindist` — the transfer
+  distances of the bootstrap support (``tree/tbe.py``)
 
 Every entry point has a pure-python fallback in the calling module;
 callers use :func:`available` to pick the fast path. The fallback is
@@ -90,6 +96,11 @@ def load_library(build_dir: str = BUILD_DIR):
     lib.pllmod_newick_extract.restype = ctypes.c_int
     lib.pllmod_directed_traversal.restype = ctypes.c_int64
     lib.pllmod_shared_splits.restype = ctypes.c_int64
+    lib.pllmod_fitch_score.restype = ctypes.c_double
+    lib.pllmod_directed_fitch_sets.restype = ctypes.c_int
+    lib.pllmod_parsimony_stepwise.restype = ctypes.c_int
+    lib.pllmod_transfer_distance_matrix.restype = None
+    lib.pllmod_tbe_mindist.restype = None
     return lib
 
 
@@ -194,3 +205,100 @@ def shared_splits(a: np.ndarray, b: np.ndarray) -> int:
         _ptr(a, ctypes.c_uint64), ctypes.c_int64(a.shape[0]),
         _ptr(b, ctypes.c_uint64), ctypes.c_int64(b.shape[0]),
         ctypes.c_int64(a.shape[1] if a.ndim == 2 else 1)))
+
+
+def fitch_score(tip_masks: np.ndarray, ops: np.ndarray,
+                weights: np.ndarray) -> float:
+    """Native Fitch scoring. tip_masks uint64 [tips, sites]; ops int32
+    [n_ops, 3] postorder (unused, child1, child2): ids below the tip
+    count are tips, the others scratch row (id - tips)."""
+    lib = _load()
+    tip_masks = np.ascontiguousarray(tip_masks, np.uint64)
+    ops = np.ascontiguousarray(ops, np.int32)
+    w = np.ascontiguousarray(weights, np.float64)
+    T, S = tip_masks.shape
+    return float(lib.pllmod_fitch_score(
+        _ptr(tip_masks, ctypes.c_uint64), ctypes.c_int64(T),
+        ctypes.c_int64(S), _ptr(ops, ctypes.c_int32),
+        ctypes.c_int64(ops.shape[0]), _ptr(w, ctypes.c_double)))
+
+
+def directed_fitch_sets(edges: np.ndarray, n_tips: int, n_nodes: int,
+                        masks: np.ndarray):
+    """Directed Fitch state sets per live edge (the parsimony analog of
+    directed CLVs). edges int32 [E, 2] (-1 rows dead), masks uint64
+    [n_tips, S]. Returns (A, B) uint64 [E, S]: A[e] = the set of
+    ``edges[e, 0]``'s side, B[e] = ``edges[e, 1]``'s side."""
+    lib = _load()
+    edges = np.ascontiguousarray(edges, np.int32)
+    masks = np.ascontiguousarray(masks, np.uint64)
+    E = edges.shape[0]
+    S = masks.shape[1]
+    A = np.zeros((E, S), np.uint64)
+    B = np.zeros((E, S), np.uint64)
+    rc = lib.pllmod_directed_fitch_sets(
+        _ptr(edges, ctypes.c_int32), ctypes.c_int64(E),
+        ctypes.c_int64(n_tips), ctypes.c_int64(n_nodes),
+        _ptr(masks, ctypes.c_uint64), ctypes.c_int64(S),
+        _ptr(A, ctypes.c_uint64), _ptr(B, ctypes.c_uint64))
+    if rc != 0:
+        raise RuntimeError("native directed_fitch_sets failed")
+    return A, B
+
+
+def parsimony_stepwise(masks: np.ndarray, weights: np.ndarray,
+                       order: np.ndarray) -> np.ndarray:
+    """Greedy stepwise-addition parsimony topology. masks uint64 [n, S],
+    weights float64 [S], order int32 [n] insertion order. Returns edges
+    int32 [2n-3, 2] (inner ids from n)."""
+    lib = _load()
+    masks = np.ascontiguousarray(masks, np.uint64)
+    w = np.ascontiguousarray(weights, np.float64)
+    order = np.ascontiguousarray(order, np.int32)
+    n, S = masks.shape
+    out = np.zeros((2 * n - 3, 2), np.int32)
+    rc = lib.pllmod_parsimony_stepwise(
+        _ptr(masks, ctypes.c_uint64), ctypes.c_int64(n),
+        ctypes.c_int64(S), _ptr(w, ctypes.c_double),
+        _ptr(order, ctypes.c_int32), _ptr(out, ctypes.c_int32))
+    if rc != 0:
+        raise RuntimeError("native parsimony_stepwise failed")
+    return out
+
+
+def transfer_distance_matrix(a: np.ndarray, b: np.ndarray,
+                             n_tips: int) -> np.ndarray:
+    """min(popcount(a ^ b), n_tips - popcount(a ^ b)) of every row pair
+    of two split matrices (uint64 [n, words]). Returns int32 [na, nb]."""
+    lib = _load()
+    a = np.ascontiguousarray(a, np.uint64)
+    b = np.ascontiguousarray(b, np.uint64)
+    na, W = a.shape if a.ndim == 2 else (0, 0)
+    nb = b.shape[0]
+    out = np.zeros((na, nb), np.int32)
+    lib.pllmod_transfer_distance_matrix(
+        _ptr(a, ctypes.c_uint64), ctypes.c_int64(na),
+        _ptr(b, ctypes.c_uint64), ctypes.c_int64(nb),
+        ctypes.c_int64(W), ctypes.c_int64(n_tips),
+        _ptr(out, ctypes.c_int32))
+    return out
+
+
+def tbe_mindist(light: np.ndarray, p: np.ndarray, post: np.ndarray,
+                n_tips: int, n_nodes: int) -> np.ndarray:
+    """Counting-traversal minimum transfer distances: one O(N) pass per
+    reference split over the bootstrap tree's postorder. light uint64
+    [R, words] light-side masks, p int32 [R], post int32 [n_post, 3]
+    rows (node, left, right). Returns int32 [R]."""
+    lib = _load()
+    light = np.ascontiguousarray(light, np.uint64)
+    p = np.ascontiguousarray(p, np.int32)
+    post = np.ascontiguousarray(post, np.int32)
+    R, W = light.shape
+    out = np.zeros(R, np.int32)
+    lib.pllmod_tbe_mindist(
+        _ptr(light, ctypes.c_uint64), _ptr(p, ctypes.c_int32),
+        ctypes.c_int64(R), ctypes.c_int64(W), ctypes.c_int64(n_tips),
+        _ptr(post, ctypes.c_int32), ctypes.c_int64(post.shape[0]),
+        ctypes.c_int64(n_nodes), _ptr(out, ctypes.c_int32))
+    return out

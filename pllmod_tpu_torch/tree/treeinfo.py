@@ -80,6 +80,15 @@ class TreeInfo:
         # algorithm/opt_model.py, keyed on (topology, partition shape)
         self._edge_tables: dict = {}
 
+    def clear_caches(self) -> None:
+        """Drop every cached evaluator, incremental buffer and edge table
+        (after the state was replaced wholesale, as a checkpoint resume
+        does: the keys track topology and alignment identity, not a
+        swap of every partition)."""
+        self._fast_cache.clear()
+        self._incr_cache.clear()
+        self._edge_tables.clear()
+
     # ------------------------------------------------------------------
     @property
     def n_partitions(self) -> int:

@@ -1772,3 +1772,57 @@ def test_spr_round_on_card_matches_float64(cuda, monkeypatch):
     want = float(engine.tree_loglikelihood(p64, ti32.tree, schedule="scan"))
     assert abs(lnl32 - want) / abs(want) < 1e-6
     assert abs(lnl32 - lnl64) / abs(lnl64) < 1e-6
+
+
+def test_checkpointed_search_and_resume_on_card(cuda, tmp_path):
+    """A checkpointed ``ml_search`` at 24 taxa on the card (float32: the
+    kernels; a fast round, then the thorough stage) and its resume from
+    the checkpoint after round 1 into a fresh TreeInfo: each round at or
+    above the best before it, the end within 1e-6 of the float64 serial
+    engine; the resumed run keeps round 1 and ends at or above the full
+    run's end less 0.1; a checkpoint loaded onto the card holds the
+    file's arrays, bit for bit those loaded onto the CPU."""
+    import shutil
+    from pllmod_tpu_torch.algorithm.search import ml_search
+    from pllmod_tpu_torch.binary import load_treeinfo
+    from pllmod_tpu_torch.common import PARAM_ALPHA, PARAM_BRANCHES_ITERATIVE
+    from pllmod_tpu_torch.convert import ARRAY_FIELDS
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    part, truth = flagship.simulated(24, 512, seed=9, device="cuda")
+    part = part.cache_eigen()
+    start = truth.copy()
+    flagship.random_spr(start, 3, np.random.default_rng(4))
+    mask = PARAM_ALPHA | PARAM_BRANCHES_ITERATIVE
+    kw = dict(radius_step=2, radius_max=3, max_rounds=4, lh_epsilon=0.01)
+    ck, ck1 = str(tmp_path / "search.ck"), str(tmp_path / "round1.ck")
+
+    def on_round(rec):
+        if not seen:
+            shutil.copy(ck, ck1)
+        seen.append(rec)
+
+    seen = []
+    before = fused.LAUNCHES, deriv.LAUNCHES["newton_edges"]
+    ti = TreeInfo(start.copy(), [part], params_to_optimize=mask)
+    res = ml_search(ti, checkpoint_path=ck, on_round=on_round, **kw)
+    assert fused.LAUNCHES > before[0]
+    assert deriv.LAUNCHES["newton_edges"] > before[1]
+    best = res.start_loglh
+    for r in res.rounds:
+        assert r.loglh >= best - 1e-3
+        best = max(best, r.loglh)
+    assert res.loglh > res.start_loglh and res.rounds[0].n_applied > 0
+    p64 = ti.partitions[0].to(dtype=torch.float64).with_model_params()
+    want = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
+    assert abs(res.loglh - want) / abs(want) < 1e-6
+    on_card, _ = load_treeinfo(ck1)
+    on_cpu, _ = load_treeinfo(ck1, device="cpu")
+    for f in ARRAY_FIELDS:
+        got = getattr(on_card.partitions[0], f)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), getattr(on_cpu.partitions[0], f))
+    ti2 = TreeInfo(start.copy(), [part], params_to_optimize=mask)
+    res2 = ml_search(ti2, checkpoint_path=ck1, resume=True, **kw)
+    assert res2.rounds[0] == res.rounds[0]
+    assert res2.loglh >= res.loglh - 0.1
+    assert ti2.partitions[0].device.type == "cuda"

@@ -65,6 +65,12 @@ def test_import_loads_no_jax():
             "import pllmod_tpu_torch.tree.splits\n"
             "import pllmod_tpu_torch.tree.constraint\n"
             "import pllmod_tpu_torch.tree.utils\n"
+            "import pllmod_tpu_torch.tree.starting\n"
+            "import pllmod_tpu_torch.tree.tbe\n"
+            "import pllmod_tpu_torch.tree.consensus\n"
+            "import pllmod_tpu_torch.tree.show\n"
+            "import pllmod_tpu_torch.binary\n"
+            "import pllmod_tpu_torch.algorithm.search\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
             "print(sorted(new & %r))\n" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
@@ -175,6 +181,35 @@ def test_spr_round_runs_where_its_partitions_lie(no_cuda):
     start = ti.compute_loglh()
     lnl, _, _ = spr_round(ti, 1, 3)
     assert lnl >= start
+
+
+def test_search_command_default_device_raises_without_cuda(no_cuda,
+                                                         tmp_path):
+    """The ``search`` command asks for the card by default, as ``eval``
+    does; ``ml_search`` and the checkpoint loader run where they are
+    told, and ``parsimony`` is host code."""
+    from pllmod_tpu_torch import cli
+    from pllmod_tpu_torch.binary import load_treeinfo, save_treeinfo
+    from pllmod_tpu_torch.msa.msa import MSA
+    from pllmod_tpu_torch.msa.io import write_fasta
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    msa = MSA(["a", "b", "c", "d", "e"],
+              ["ACGTACGT", "ACGAACGA", "ACTTAATT", "TCGTACGT", "TCGAACGA"])
+    write_fasta(msa, str(tmp_path / "a.fasta"))
+    argv = ["search", "--msa", str(tmp_path / "a.fasta"), "--model",
+            "JC+G4", "--radius-max", "1"]
+    with pytest.raises(common.PllModError):
+        cli.main(argv)
+    args = cli.parse_args(argv + ["--device", "cpu", "--checkpoint",
+                                  str(tmp_path / "ck.bin")])
+    result = args.fn(args)
+    assert result["result"].loglh >= result["result"].start_loglh
+    with pytest.raises(common.PllModError):
+        load_treeinfo(str(tmp_path / "ck.bin"))
+    ti, _ = load_treeinfo(str(tmp_path / "ck.bin"), device="cpu")
+    assert isinstance(ti, TreeInfo)
+    save_treeinfo(str(tmp_path / "ck2.bin"), ti)
+    assert cli.main(["parsimony", "--msa", str(tmp_path / "a.fasta")]) == 0
 
 
 def test_kernel_launch_rejects_cpu_tensors():
