@@ -9,7 +9,7 @@ It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
 (one ``nvcc`` a source, all six at once), holds each kernel against its
 plain torch version on the card (the fused walk at four shapes: the
 flagship's fuse_root and directed tables, protein, 64 states), and
-drives eight paths, each run with every kernel's launch count set to 0
+drives nine paths, each run with every kernel's launch count set to 0
 just before it and read just after, the launches logged by cell and
 path (``counted``):
 
@@ -85,7 +85,22 @@ path (``counted``):
    first two rounds the full run's, its third at the full run's mode
    and radius and at or above its logL less 0.1); and the CLI's
    ``search`` on a 32-taxon slice at its default device
-   (``cli_search``).
+   (``cli_search``);
+9. the site mesh (``pllmod_tpu_torch/parallel``, ``multichip.py``), path
+   ``mesh``: 4 shards on cuda:0, and on a machine with several cards one
+   shard a card as well (a line names the meshes, the card count and
+   the card); at the flagship's full width ``compute_loglh`` full and
+   incremental, the fused and resident sharded evaluations, the
+   treeinfo BLO, ``opt_model`` GTR+G4 on phase 6's alignment and one
+   fast SPR round (radius 1-5) on phase 7's cell, each within 1e-6 of
+   the float64 serial engine, the BLO and the round at or above their
+   start, kernels 1, 2, 8 and 9 launched on every shard and kernel 10
+   never; the partition DP of the flagship alignment as four 4096-site
+   partitions on the 1-D and the 2 × 2 mesh; ``ml_search`` (two rounds,
+   checkpointed) and its resume on phase 8's 32-taxon slice;
+   ``multichip.dryrun_multichip`` (path ``mesh_dryrun``); and one shard
+   against the mesh for the evaluation, the BLO call and the SPR round
+   (``--profile``: their busy shares). It prints one ``{"mesh": ...}``.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -181,6 +196,7 @@ from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine, fused,
 from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded, edge_grad
 from pllmod_tpu_torch.optimize.em import em_rates_weights
+from pllmod_tpu_torch.parallel import is_sharded
 from pllmod_tpu_torch.tree import splits
 from pllmod_tpu_torch.tree.topology import Tree
 from pllmod_tpu_torch.tree.treeinfo import TreeInfo
@@ -1806,8 +1822,11 @@ OPT_MUST = {"cli": ("resident_walk", "fused_walk", "edge_sumtables",
 
 
 def f64_copy(part):
-    """A partition's float64 copy on its device, without the cached
+    """A partition's float64 copy on its device (a sharded partition's
+    gathered on its first device), without the cached
     eigendecomposition (recomputed in float64)."""
+    if is_sharded(part):
+        part = part.gather()
     return part.to(dtype=torch.float64).with_model_params()
 
 
@@ -2624,6 +2643,356 @@ def run_search(gpu, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the site mesh (parallel/, multichip.py)
+# ---------------------------------------------------------------------------
+MESH_SHARDS_ONE_CARD = 4  # shards on cuda:0 where the machine has one card
+MESH_TIMED_LOGLH = 20     # compute_loglh calls timed a mesh
+MESH_SPR = dict(radius_min=1, radius_max=5)
+MESH_DP_PARTS = 4         # the flagship alignment as 4096-site partitions
+MESH_OPT_MASK = (PARAM_SUBST_RATES | PARAM_FREQUENCIES | PARAM_ALPHA
+                 | PARAM_BRANCHES_ITERATIVE)
+MESH_SEARCH_KW = dict(radius_min=1, radius_step=5, radius_max=5)
+MESH_SEARCH_ROUNDS = 2    # the sharded search's rounds; its resume one more
+# the kernels each mesh path must launch, on every shard (their launches
+# a multiple of the shard count); kernel 10 must not launch under a mesh
+MESH_MUST = {
+    "compute_loglh": ("resident_walk",),
+    "compute_loglh_incremental": ("fused_walk",),
+    "fused_sharded": ("fused_walk",),
+    "resident_sharded": ("resident_walk",),
+    "blo": ("fused_walk", "edge_sumtables", "edge_derivatives"),
+    "opt_model": ("resident_walk", "fused_walk", "edge_sumtables",
+                  "edge_derivatives"),
+    "spr_fast": ("resident_walk", "fused_walk", "edge_sumtables",
+                 "edge_derivatives"),
+    "partition_dp": ("resident_walk",),
+    "partition_dp_2d": ("resident_walk",),
+    "ml_search": ("resident_walk", "fused_walk", "edge_sumtables",
+                  "edge_derivatives"),
+    "ml_search_resume": ("resident_walk", "fused_walk", "edge_sumtables",
+                         "edge_derivatives"),
+}
+PER_SHARD = ("resident_walk", "fused_walk", "edge_sumtables",
+             "edge_derivatives")
+
+
+def sync_all(mesh) -> None:
+    for dev in dict.fromkeys(mesh.device_list):
+        torch.cuda.synchronize(dev)
+
+
+def mesh_counted(cell: str, what: str, mesh, fn):
+    """``fn()`` counted under path ``mesh`` (:func:`counted`): the kernels
+    of MESH_MUST[what] launched a multiple of the mesh's shard count
+    times, kernel 10 never. Returns (fn's result, host ms, the
+    counts)."""
+    def run():
+        sync_all(mesh)
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all(mesh)
+        return out, (time.perf_counter() - t0) * 1e3
+    (out, ms), got = counted(cell, "mesh", run, must=MESH_MUST[what])
+    n = mesh.size
+    odd = {k: got[k] for k in PER_SHARD if got[k] % n}
+    if odd or got["newton_edges"] or got["newton_edges_multi"]:
+        raise AssertionError(
+            f"{what} ({cell}): launches not on every one of {n} shards "
+            f"{odd} or kernel 10 under the mesh {got}")
+    return out, ms, {k: v for k, v in got.items() if v}
+
+
+def mesh_devices():
+    """The meshes phase 9 runs: MESH_SHARDS_ONE_CARD shards on cuda:0,
+    and on a machine with several cards one shard a card as well (the
+    largest power of two of them that divides the flagship's 16384
+    patterns)."""
+    cards = torch.cuda.device_count()
+    meshes = [(f"{MESH_SHARDS_ONE_CARD} shards on cuda:0",
+               ["cuda:0"] * MESH_SHARDS_ONE_CARD)]
+    if cards > 1:
+        k = 1 << (cards.bit_length() - 1)
+        meshes.append((f"{k} cards", [f"cuda:{i}" for i in range(k)]))
+    return meshes
+
+
+def mesh_timings(label, mesh, part, tree, spr_cell, row, profile: bool):
+    """One shard against the mesh: ms (CUDA events on the first device
+    and the host clock, every device synchronised) of a compute_loglh
+    on a one-shard mesh of the first device and on ``mesh``; of a
+    treeinfo BLO call and a fast SPR round on the one-shard mesh, beside
+    the mesh's own from its checked runs (``row``). ``--profile`` adds
+    each path's device busy share (torch.profiler, kernel time summed
+    over the devices) over its window, for both meshes. ``spr_cell``:
+    phase 7's (partition, perturbed start tree)."""
+    from pllmod_tpu_torch.parallel import make_mesh, shard_treeinfo
+    spart, spr_start = spr_cell
+    one = make_mesh(mesh.device_list[:1])
+    rows = {}
+    for tag, m in (("1 shard", one), (label, mesh)):
+        ti = shard_treeinfo(TreeInfo(tree.copy(), [part]), m)
+        ti.compute_loglh()
+        sync_all(m)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(MESH_TIMED_LOGLH):
+            ti.compute_loglh()
+        ev1.record()
+        sync_all(m)
+        host = (time.perf_counter() - t0) * 1e3 / MESH_TIMED_LOGLH
+        out = dict(shards=m.size, compute_loglh_ms=ev0.elapsed_time(ev1)
+                   / MESH_TIMED_LOGLH, compute_loglh_host_ms=host)
+        if m is one:
+            ti = shard_treeinfo(TreeInfo(tree.copy(), [part]), m)
+            _, out["blo_ms"], out["blo_launches"] = mesh_counted(
+                f"flagship DNA, {tag}", "blo", m,
+                lambda ti=ti: blo.optimize_branch_lengths_treeinfo(ti))
+            ti = shard_treeinfo(TreeInfo(spr_start.copy(), [spart]), m)
+            res, out["spr_fast_ms"], out["spr_launches"] = mesh_counted(
+                f"flagship SPR, {tag}", "spr_fast", m,
+                lambda ti=ti: spr.spr_round(ti, **MESH_SPR))
+            out["spr_applied"] = res[1]
+        else:
+            out.update({k: row[k] for k in (
+                "blo_ms", "blo_launches", "spr_fast_ms", "spr_launches")},
+                spr_applied=row["spr_fast"]["applied"])
+        if profile:
+            ti = shard_treeinfo(TreeInfo(tree.copy(), [part]), m)
+            out["profile_compute_loglh"] = profile_window(
+                f"mesh compute_loglh, {tag}",
+                lambda ti=ti: [ti.compute_loglh()
+                               for _ in range(MESH_TIMED_LOGLH)],
+                MESH_TIMED_LOGLH)
+            out["profile_blo"] = profile_window(
+                f"mesh BLO, {tag}",
+                lambda: blo.optimize_branch_lengths_treeinfo(
+                    shard_treeinfo(TreeInfo(tree.copy(), [part]), m)), 1)
+            out["profile_spr_fast"] = profile_window(
+                f"mesh fast SPR round, {tag}", lambda: spr.spr_round(
+                    shard_treeinfo(TreeInfo(spr_start.copy(), [spart]), m),
+                    **MESH_SPR), 1)
+        print(f"mesh timings ({tag}): {json.dumps(out)}")
+        rows[tag] = out
+    return rows
+
+
+def run_mesh(gpu, profile: bool):
+    """Phase 9: the site mesh (``pllmod_tpu_torch/parallel``) on every
+    card: MESH_SHARDS_ONE_CARD shards on cuda:0, and with several cards
+    one shard a card as well (:func:`mesh_devices`). At the flagship's
+    full width (128 × 16384 GTR+Γ4 float32), each run counted under path
+    ``mesh`` (:func:`mesh_counted`: kernels 1, 2, 8 and 9 on every shard,
+    kernel 10 never) and held within LOGL_RTOL of the float64 serial
+    engine: ``compute_loglh`` full and incremental, the fused and
+    resident sharded evaluations, the treeinfo BLO (at or above its
+    start), ``opt_model`` GTR+G4 on phase 6's simulated alignment, one
+    fast ``spr_round`` (radius 1-5) on phase 7's cell (at or above its
+    start); the partition DP of the flagship alignment as four 4096-site
+    partitions on the 1-D and the 2 × 2 mesh; at small width
+    ``ml_search`` (two rounds, checkpointed) and its resume on phase 8's
+    32-taxon cell; ``multichip.dryrun_multichip``; and one shard against
+    the mesh for the evaluation, the BLO call and the SPR round
+    (:func:`mesh_timings`). Returns the phase's row."""
+    from pllmod_tpu_torch import multichip
+    from pllmod_tpu_torch.parallel import (loglikelihood_fused_sharded,
+                                           loglikelihood_resident_sharded,
+                                           make_2d_mesh, make_mesh,
+                                           shard_treeinfo, stack_partitions,
+                                           total_loglh_partition_dp,
+                                           total_loglh_partition_dp_2d)
+    from pllmod_tpu_torch.tree import starting
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    meshes = mesh_devices()
+    print(f"mesh: {json.dumps({lbl: devs for lbl, devs in meshes})}, "
+          f"{cards} card(s), {gpu}")
+    part, tree = flagship.example(**FLAGSHIP, device="cuda")
+    part = part.cache_eigen()
+    part64 = f64_copy(part)
+    ops, ri = tree.traversal_ops()
+    brl64 = torch.as_tensor(tree.lengths, dtype=torch.float64, device="cuda")
+    want = float(engine.loglikelihood(part64, ops, brl64, ri))
+    sim_part, spr_start = flagship.simulated(**FLAGSHIP, sim_seed=SIM_SEED,
+                                             device="cuda")
+    sim_part = sim_part.cache_eigen()
+    flagship.random_spr(spr_start, SPR_PERTURB,
+                        np.random.default_rng(SPR_PERTURB_SEED))
+    spr_cell = (sim_part, spr_start)
+    out = dict(cards=cards, gpu=gpu)
+    for label, devs in meshes:
+        mesh = make_mesh(devs)
+        n = mesh.size
+        row = dict(devices=devs)
+        cell = f"flagship DNA, {label}"
+        # compute_loglh, full then incremental after one changed length
+        ti = shard_treeinfo(TreeInfo(tree.copy(), [part]), mesh)
+        lnl, row["compute_loglh_ms"], row["compute_loglh_launches"] = \
+            mesh_counted(cell, "compute_loglh", mesh, ti.compute_loglh)
+        rel_close(lnl, want, LOGL_RTOL, f"mesh compute_loglh ({label})")
+        ti.compute_loglh(incremental=True)
+        edge = int(np.nonzero(tree.edge_nodes[:, 0] >= 0)[0][5])
+        ti.set_branch_length(edge, float(ti.tree.lengths[edge]) * 1.5)
+        inc, _, row["incremental_launches"] = mesh_counted(
+            cell, "compute_loglh_incremental", mesh,
+            lambda ti=ti: ti.compute_loglh(incremental=True))
+        brl_inc = torch.as_tensor(ti.tree.lengths, dtype=torch.float64,
+                                  device="cuda")
+        rel_close(inc, float(engine.loglikelihood(part64, ops, brl_inc, ri)),
+                  LOGL_RTOL, f"mesh incremental compute_loglh ({label})")
+        for what, fn in (("fused_sharded", loglikelihood_fused_sharded),
+                         ("resident_sharded",
+                          loglikelihood_resident_sharded)):
+            got, row[f"{what}_ms"], _ = mesh_counted(
+                cell, what, mesh, lambda fn=fn: float(fn(part, tree,
+                                                         tree.lengths, mesh)))
+            rel_close(got, want, LOGL_RTOL, f"mesh {what} ({label})")
+        # the treeinfo BLO
+        ti = shard_treeinfo(TreeInfo(tree.copy(), [part]), mesh)
+        start = ti.compute_loglh()
+        stats = {}
+        lnl, row["blo_ms"], row["blo_launches"] = mesh_counted(
+            cell, "blo", mesh,
+            lambda ti=ti: blo.optimize_branch_lengths_treeinfo(ti,
+                                                                stats=stats))
+        if not lnl >= start:
+            raise AssertionError(f"mesh BLO ({label}) ended below its "
+                                 f"start: {lnl} < {start}")
+        rel_close(lnl, f64_treeinfo_lnl(ti), LOGL_RTOL,
+                  f"mesh BLO ({label}) vs float64")
+        row["blo"] = dict(start=start, lnl=lnl, **stats)
+        # opt_model GTR+G4 on phase 6's simulated alignment
+        msa = msa_io.load_msa(os.path.join(OPT_DIR, "flagship.fasta"))
+        with open(os.path.join(OPT_DIR, "flagship.nwk")) as fh:
+            otree = Tree.from_newick(fh.read())
+        cli._order_tree_tips(otree, msa)
+        opart, _, omask = cli.build_partition(msa, "GTR+G4", device="cuda")
+        ti = shard_treeinfo(TreeInfo(otree, [opart],
+                                     params_to_optimize=omask), mesh)
+        ostart = ti.compute_loglh()
+        ostats = {}
+        lnl, row["opt_model_ms"], row["opt_model_launches"] = mesh_counted(
+            f"flagship opt_model, {label}", "opt_model", mesh,
+            lambda ti=ti: opt_model.opt_model(ti, stats=ostats))
+        if not lnl >= ostart:
+            raise AssertionError(f"mesh opt_model ({label}) ended below its "
+                                 f"start: {lnl} < {ostart}")
+        rel_close(lnl, f64_treeinfo_lnl(ti), LOGL_RTOL,
+                  f"mesh opt_model ({label}) vs float64")
+        row["opt_model"] = dict(start=ostart, lnl=lnl, stats=ostats)
+        del ti, opart
+        # one fast SPR round on phase 7's cell
+        ti = shard_treeinfo(TreeInfo(spr_start.copy(), [sim_part]), mesh)
+        sstart = ti.compute_loglh()
+        sstats = {}
+        (lnl, applied, _), row["spr_fast_ms"], row["spr_launches"] = \
+            mesh_counted(f"flagship SPR, {label}", "spr_fast", mesh,
+                         lambda ti=ti: spr.spr_round(ti, stats=sstats,
+                                                     **MESH_SPR))
+        if not (lnl >= sstart and ti.tree.is_binary()
+                and ti.tree.check_integrity()):
+            raise AssertionError(f"mesh SPR round ({label}) ended below its "
+                                 f"start ({lnl} < {sstart}) or broke the "
+                                 "tree")
+        rel_close(lnl, f64_treeinfo_lnl(ti), LOGL_RTOL,
+                  f"mesh SPR round ({label}) vs float64")
+        row["spr_fast"] = dict(start=sstart, lnl=lnl, applied=applied,
+                               **sstats)
+        del ti
+        # partition DP: the flagship alignment as 4096-site partitions
+        # (as many as the mesh has devices, where that is more)
+        seqs, _, rates, freqs = flagship.example_data(**FLAGSHIP)
+        n_dp = max(MESH_DP_PARTS, n)
+        w = FLAGSHIP["n_sites"] // n_dp
+        dparts = [create_partition(
+            [s[k * w:(k + 1) * w] for s in seqs], states=4,
+            subst_rates=rates, freqs=freqs, alpha=0.75, compress=False,
+            device="cuda") for k in range(n_dp)]
+        dwant = sum(float(engine.loglikelihood(f64_copy(p), ops, brl64, ri))
+                    for p in dparts)
+        stacked = stack_partitions(dparts)
+        dbrl = torch.stack([torch.as_tensor(tree.lengths, dtype=torch.float32,
+                                            device="cuda")] * n_dp)
+        dp_mesh = make_mesh(devs, axis_name="parts")
+        got, row["partition_dp_ms"], _ = mesh_counted(
+            cell, "partition_dp", dp_mesh, lambda: float(
+                total_loglh_partition_dp(stacked, ops, dbrl, ri, dp_mesh)))
+        rel_close(got, dwant, LOGL_RTOL, f"mesh partition DP ({label})")
+        if n % 2 == 0:
+            m2 = make_2d_mesh((2, n // 2), devs)
+            got, row["partition_dp_2d_ms"], _ = mesh_counted(
+                cell, "partition_dp_2d", m2, lambda: float(
+                    total_loglh_partition_dp_2d(stacked, ops, dbrl, ri, m2)))
+            rel_close(got, dwant, LOGL_RTOL,
+                      f"mesh 2-D partition DP ({label})")
+        del stacked, dparts
+        # ml_search and its resume on phase 8's 32-taxon cell
+        sseqs, slabels, _ = flagship.search_cell(**SEARCH_CELL)
+        sseqs, slabels = sseqs[:CLI_SEARCH_TAXA], slabels[:CLI_SEARCH_TAXA]
+        sstart_tree, _ = starting.parsimony_stepwise(
+            slabels, sseqs, charmap.DNA, seed=SEARCH_PARSIMONY_SEED)
+        spart = create_partition(sseqs, states=4, alpha=SEARCH_ALPHA0,
+                                 pattern_pad=128 * n, device="cuda")
+        os.makedirs(SEARCH_DIR, exist_ok=True)
+        ck = os.path.join(SEARCH_DIR, f"mesh{n}.ck")
+        if os.path.exists(ck):
+            os.remove(ck)
+
+        def sharded_ti():
+            return shard_treeinfo(TreeInfo(sstart_tree.copy(), [spart],
+                                           params_to_optimize=SEARCH_MASK),
+                                  mesh)
+        ti = sharded_ti()
+        res, row["ml_search_ms"], _ = mesh_counted(
+            f"search 32, {label}", "ml_search", mesh,
+            lambda ti=ti: search.ml_search(
+                ti, checkpoint_path=ck, max_rounds=MESH_SEARCH_ROUNDS,
+                **MESH_SEARCH_KW))
+        rel_close(res.loglh, f64_treeinfo_lnl(ti), LOGL_RTOL,
+                  f"mesh ml_search ({label}) vs float64")
+        ti2 = sharded_ti()
+        res2, row["ml_search_resume_ms"], _ = mesh_counted(
+            f"search 32, {label}", "ml_search_resume", mesh,
+            lambda: search.ml_search(
+                ti2, checkpoint_path=ck, resume=True,
+                max_rounds=MESH_SEARCH_ROUNDS + 1, **MESH_SEARCH_KW))
+        kept = [(r.mode, r.radius, r.loglh) for r in res2.rounds[:len(
+            res.rounds)]]
+        if (kept != [(r.mode, r.radius, r.loglh) for r in res.rounds]
+                or not all(p.device.type == "cuda" and len(p.shards) == n
+                           for p in ti2.partitions)):
+            raise AssertionError(f"mesh resume ({label}) lost its history "
+                                 "or its shards")
+        rel_close(res2.loglh, f64_treeinfo_lnl(ti2), LOGL_RTOL,
+                  f"mesh ml_search resume ({label}) vs float64")
+        row["ml_search"] = dict(
+            start=res.start_loglh, lnl=res.loglh, rounds=res.n_rounds,
+            resume_lnl=res2.loglh, resume_rounds=res2.n_rounds)
+        del ti, ti2, spart
+        # the dry run, then one shard against n for the timed paths
+        (row["dryrun"], row["dryrun_ms"]), _ = counted(
+            f"dryrun, {label}", "mesh_dryrun",
+            lambda: timed_host(lambda: multichip.dryrun_multichip(n, devs)))
+        torch.cuda.empty_cache()
+        row["timings"] = mesh_timings(label, mesh, part, tree, spr_cell,
+                                      row, profile)
+        print(f"mesh ({label}): {json.dumps(row)}")
+        out[label] = row
+    out["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_host(fn):
+    """(fn(), host ms)."""
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+# ---------------------------------------------------------------------------
 # --parent: kernels 1-8 and 10 against another checkout's, by device
 # time
 # ---------------------------------------------------------------------------
@@ -3321,6 +3690,12 @@ def main(argv=None) -> int:
     # ---- the full ML search on the search cell: parsimony start,
     # checkpoints, a resume, the CLI's search
     search_row = run_search(gpu, args.profile)
+
+    # ---- the site mesh: the paths above sharded over 4 shards on cuda:0
+    # (and one shard a card where there are several), counted under path
+    # mesh; partition DP; the dry run
+    torch.cuda.empty_cache()
+    mesh_row = run_mesh(gpu, args.profile)
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
@@ -3391,6 +3766,7 @@ def main(argv=None) -> int:
     print(json.dumps({"spr": spr_rows, "spr_scorer_checks": spr_scorer}))
     print(json.dumps({"ancestral": anc_row}))
     print(json.dumps({"search": search_row}))
+    print(json.dumps({"mesh": mesh_row}))
     print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

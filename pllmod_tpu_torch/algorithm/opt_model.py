@@ -32,7 +32,14 @@ The lock-step L-BFGS makes one (value, grad) call for all lanes a step
 and one device→host copy of all lanes' (f, g). The JAX package's
 device-resident L-BFGS and whole-Brent programs, their policy switch
 and the LRU caches of jitted programs exist for the TPU's dispatch cost
-and are not ported; neither are its sharded (``shard_map``) branches.
+and are not ported.
+
+Under a site mesh (``parallel.shard_treeinfo``; the JAX package's
+``shard_map`` branches, opt_model.py:427-436, :505-557) every family
+runs against the sharded partitions: the Brent lanes evaluate through a
+reducing evaluator (each shard's kernel on its device, the logLs
+reduced), the edge decomposition runs on every shard and sums, and the
+EM E-step's per-category sums are reduced over the shards.
 
 Every driver takes ``stats``, an optional dict that it fills by family
 with counts: ``vg_calls`` (L-BFGS (value, grad) calls), ``brent_iters``
@@ -61,6 +68,8 @@ from pllmod_tpu_torch.optimize import edge_grad as eg
 from pllmod_tpu_torch.optimize.brent import minimize_brent_multi
 from pllmod_tpu_torch.optimize.em import em_rates_weights
 from pllmod_tpu_torch.optimize.lbfgsb import minimize_lbfgsb_multi
+from pllmod_tpu_torch.parallel.sharding import (is_sharded, per_shard,
+                                                shards_of)
 
 def _count(stats, family: str, key: str, n=1) -> None:
     if stats is not None:
@@ -70,13 +79,14 @@ def _count(stats, family: str, key: str, n=1) -> None:
 
 def _edge_tables(treeinfo, idx) -> eg.EdgeTables:
     """:func:`edge_tables` of partition ``idx``, cached on the treeinfo
-    by partition and keyed on (topology, partition shape, device): the
-    families of one ``opt_model`` call reuse them."""
+    by partition and keyed on (topology, partition shape, the shards'
+    devices): the families of one ``opt_model`` call reuse them."""
     part = treeinfo.partitions[idx]
     tree = treeinfo.tree
     key = (tree.edge_nodes.tobytes(), part.n_tips, str(part.dtype),
            part.n_cats, part.states, part.n_patterns_padded,
-           part.code_clv.shape[0], str(part.device))
+           part.code_clv.shape[0],
+           tuple(str(s.device) for s in shards_of(part)))
     ent = treeinfo._edge_tables.get(idx)
     if ent is None or ent[0] != key:
         ent = treeinfo._edge_tables[idx] = (key, eg.edge_tables(part, tree))
@@ -139,10 +149,14 @@ def _evaluator(treeinfo, idx):
     on the current topology: the treeinfo's cached
     ``engine.compile_fast_eval`` evaluator for float32 (kernel 1, or
     kernel 2 with its root row, by the ``auto`` rule), the serial engine
-    for float64."""
+    for float64. A sharded partition's evaluator runs each shard's on
+    its device and reduces the logLs (``engine.shard_evaluator``)."""
     part = treeinfo.partitions[idx]
     ops, root_info = treeinfo.tree.traversal_ops()
     ri = tuple(int(x) for x in root_info)
+    if is_sharded(part):
+        return engine_mod.shard_evaluator(
+            treeinfo._fast_eval(idx, part, ops, ri))
     if engine_mod.use_fast_kernel(part):
         return treeinfo._fast_eval(idx, part, ops, ri)
 
@@ -369,15 +383,17 @@ def opt_frequencies(treeinfo, min_freq=common.MIN_FREQ, tol=1e-4,
 # ---------------------------------------------------------------------------
 # free rates + weights (EM + L-BFGS, renormalization into brlens)
 # ---------------------------------------------------------------------------
-def site_cat_likelihood(part, tree, brlens):
+def site_cat_likelihood(part, tree, brlens, tables=None):
     """Per-site per-category scaled likelihood [P, C] and log2 scaler [P]
     at the traversal's root edge, for the EM E-step: float32 takes the
-    two root-side CLVs from kernel 2's walk over the tree's op table,
-    float64 the serial engine."""
+    two root-side CLVs from kernel 2's walk over the tree's op table
+    (``tables``: that table's ``fused.compile_fused`` on the
+    partition's device, when the caller has it), float64 the serial
+    engine."""
     P = part.prob_matrices(brlens)
     if engine_mod.use_fast_kernel(part):
-        idx8, e1, e2, (u, v, e), n_slots = fused_mod.compile_fused(part,
-                                                                   tree)
+        idx8, e1, e2, (u, v, e), n_slots = (
+            tables or fused_mod.compile_fused(part, tree))
         clvs, scalers = fused_mod.fused_walk(
             idx8, fused_mod.gather_pairs(P, e1, e2), part.tip_states,
             fused_mod.code_table(part), n_slots)
@@ -405,6 +421,8 @@ def opt_rates_weights(treeinfo, min_rate=common.MIN_RATE,
     Rounds are round-major across partitions: every round runs the
     unconverged partitions as lanes (one EM each, one lock-step L-BFGS,
     one convergence evaluation each through the partition's evaluator).
+    A sharded partition's E-step runs on every shard, and the EM's
+    per-category sums are reduced over the shards.
     Each lane reads its branch lengths at entry; under UNLINKED linkage
     its factor goes into that partition's own lengths only."""
     lanes = []
@@ -435,12 +453,21 @@ def opt_rates_weights(treeinfo, min_rate=common.MIN_RATE,
             if st["mask"] & PARAM_RATE_WEIGHTS:
                 _count(stats, "rates_weights", "em_steps")
                 with torch.no_grad():
-                    lh, _ = site_cat_likelihood(st["part"], treeinfo.tree,
-                                                st["brl"])
                     part = st["part"]
+                    shards = shards_of(part)
+                    tabs = [None] * len(shards)
+                    if engine_mod.use_fast_kernel(part):
+                        # kernel 2's table compiled once for every shard
+                        idx8, e1, e2, ri, ns = fused_mod.compile_fused(
+                            shards[0], treeinfo.tree)
+                        tabs = [(*t, ri, ns) for t in
+                                per_shard((idx8, e1, e2), shards)]
                     w = em_rates_weights(
-                        lh.to("cpu", torch.float64),
-                        part.pattern_weights.to("cpu", torch.float64),
+                        [site_cat_likelihood(s, treeinfo.tree, st["brl"],
+                                             t)[0].to("cpu", torch.float64)
+                         for s, t in zip(shards, tabs)],
+                        [s.pattern_weights.to("cpu", torch.float64)
+                         for s in shards],
                         part.rate_weights.to("cpu", torch.float64))
                 st["part"] = part.replace(
                     rate_weights=w.to(part.device, part.dtype))

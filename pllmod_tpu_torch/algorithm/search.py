@@ -32,7 +32,10 @@ Every likelihood evaluation runs where the TreeInfo's partitions lie
 is host code. A checkpoint holds the cutoff state without its
 ``drops`` (tuple keys, which JSON cannot hold), as the JAX package's
 does: a resumed round may skip other subtrees than the uninterrupted
-one and apply other moves.
+one and apply other moves. A checkpoint holds whole, host-side
+partitions, so a sharded search's checkpoint loads unsharded and the
+other way round; a resume under a mesh (``treeinfo.mesh``) re-shards
+the restored partitions onto it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import dataclasses
 
 from pllmod_tpu_torch.algorithm.opt_model import opt_model
 from pllmod_tpu_torch.algorithm.spr import spr_round
+from pllmod_tpu_torch.parallel.sharding import shard_treeinfo
 
 
 @dataclasses.dataclass
@@ -98,7 +102,8 @@ def ml_search(treeinfo, *, radius_min: int = 1, radius_step: int = 5,
       resume: with ``checkpoint_path`` pointing at an existing file,
         restore ``treeinfo`` and continue from the recorded stage and
         radius instead of starting over. The restored partitions go on
-        the device, and in the dtype, of ``treeinfo``'s own.
+        the device, and in the dtype, of ``treeinfo``'s own, and are
+        sharded onto ``treeinfo.mesh`` when it has one.
 
     Returns:
       :class:`SearchResult`; ``treeinfo`` holds the best tree/model.
@@ -120,6 +125,10 @@ def ml_search(treeinfo, *, radius_min: int = 1, radius_step: int = 5,
         treeinfo.brlen_scalers = ti2.brlen_scalers
         treeinfo.params_to_optimize = ti2.params_to_optimize
         treeinfo.brlen_linkage = ti2.brlen_linkage
+        if treeinfo.mesh is not None:
+            # checkpoints hold whole partitions; the resumed search keeps
+            # running sharded
+            shard_treeinfo(treeinfo, treeinfo.mesh, treeinfo.mesh_axis)
         # no evaluator, incremental buffer or edge table of the state
         # before the swap may serve the restored one
         treeinfo.clear_caches()

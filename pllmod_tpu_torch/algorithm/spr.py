@@ -46,6 +46,15 @@ Both are gathered into ``[.., C, S, P]`` (``edge_grad.gather_csp`` /
 patterns in float64. The scorers' contractions are plain torch: the
 JAX package has no Pallas kernel there. The round ends with
 ``blo.optimize_branch_lengths_treeinfo`` (kernels 1, 8–10 for float32).
+
+Under a site mesh (sharded partitions, ``parallel.shard_treeinfo``; the
+JAX package's ``_fused_clvs_brl_sharded``, ``_score_*_sharded``,
+spr.py:144-216, :590-672) the full-tree CLVs and both scorers run on
+every shard, on its device, from tables compiled once: the fast
+scorer's per-candidate scores are reduced over the shards before the
+top list is chosen, and the thorough scorer's triplet Newton sums its
+derivatives over every shard each iteration, so that every shard takes
+the same step. The closing BLO reduces its own (``optimize/blo.py``).
 """
 
 from __future__ import annotations
@@ -61,11 +70,13 @@ import torch
 from pllmod_tpu_torch.common import BRLEN_SCALED
 from pllmod_tpu_torch.ops import derivatives as deriv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
+from pllmod_tpu_torch.ops.engine import reduce_shards
 from pllmod_tpu_torch.optimize import blo as blo_mod
 from pllmod_tpu_torch.optimize.blo import (DirectedTraversal,
                                            optimize_branch_lengths_treeinfo)
 from pllmod_tpu_torch.optimize.edge_grad import directed_clvs
 from pllmod_tpu_torch.optimize.newton import minimize_newton_multi
+from pllmod_tpu_torch.parallel.sharding import shards_of
 from pllmod_tpu_torch.tree import moves
 
 # Reuse the full-tree directed-CLV buffers across applied SPRs under the
@@ -140,10 +151,12 @@ def _batch_budget(dev) -> int:
 
 def _spr_batch_limit(treeinfo, n_edge_slots: int, stride: int,
                      thorough: bool = False) -> int:
-    """Auto batch bound: the bytes a candidate keeps alive, summed over
-    the partitions, against :func:`_batch_budget` at the round's start.
-    A candidate holds its remainder buffer (``stride`` slots of C·S·Ppad
-    values) and, in fast mode, 4 slots a regraft edge (the two gathered
+    """Auto batch bound: the bytes a candidate keeps alive on each
+    device, summed over the partitions and the shards that share that
+    device, against the device's :func:`_batch_budget` at the round's
+    start; the tightest device sets the bound. A candidate holds its
+    remainder buffer (``stride`` slots of C·S·Ppad values, a shard's
+    Ppad) and, in fast mode, 4 slots a regraft edge (the two gathered
     sides and the two P·side products), in thorough mode
     :data:`THOROUGH_ROW_SLOTS` a window row. Floored to a power of
     two, capped at :data:`SPR_BATCH_CAP`; :data:`SPR_BATCH_MAX` overrides
@@ -152,14 +165,14 @@ def _spr_batch_limit(treeinfo, n_edge_slots: int, stride: int,
         return max(1, SPR_BATCH_MAX)
     rows = (THOROUGH_ROW_SLOTS * _window_bound(n_edge_slots) if thorough
             else 4 * n_edge_slots)
-    per = 0
-    dev = None
+    per: dict = {}
     for i in treeinfo.local_indices():
-        p = treeinfo.partitions[i]
-        dev = p.device
-        per += ((stride + rows) * p.n_patterns_padded * p.n_cats * p.states
+        for p in shards_of(treeinfo.partitions[i]):
+            per[p.device] = per.get(p.device, 0) + (
+                (stride + rows) * p.n_patterns_padded * p.n_cats * p.states
                 * p.freqs.element_size())
-    k = max(1, int(_batch_budget(dev) // max(per, 1)))
+    k = max(1, min((int(_batch_budget(dev) // max(n, 1))
+                    for dev, n in per.items()), default=1))
     k = 1 << (k.bit_length() - 1)          # floor to a power of two
     return int(min(SPR_BATCH_CAP, k))
 
@@ -167,11 +180,18 @@ def _spr_batch_limit(treeinfo, n_edge_slots: int, stride: int,
 def full_tree_clvs(partition, brlens, trav):
     """The full tree's directed CLVs of ``trav`` at ``brlens`` (numpy):
     (clvs, scalers, gather) of :func:`edge_grad.directed_clvs`."""
+    return _full_clvs(partition, brlens, trav)[0]
+
+
+def _full_clvs(partition, brlens, trav):
+    """:func:`full_tree_clvs` of every shard of ``partition`` (a plain
+    partition is its one shard), each on its device from one table
+    compile: a list in shard order."""
     brl = torch.as_tensor(np.asarray(brlens, np.float64),
                           dtype=partition.dtype, device=partition.device)
-    return directed_clvs(
-        partition, blo_mod._compile_tables(partition, trav, derivs=False),
-        brl)
+    tabs = blo_mod._compile_tables(partition, trav, derivs=False)
+    return [directed_clvs(s, t, brl)
+            for s, t in zip(shards_of(partition), tabs.shards or [tabs])]
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +207,7 @@ def _weighted_lnl(partition, per_cat, scaler):
 
 def _score_regrafts_batch(partition, ops_cat, brl_cat, clv_S_b, scaler_S_b,
                           t_s_b, edge_ref_flat, edge_mask_b, half_flat,
-                          stride: int):
+                          stride: int, tables=None):
     """Fast-mode regraft scoring for K prune candidates at once.
 
     The K remainder trees' directed traversals are concatenated into one
@@ -206,14 +226,16 @@ def _score_regrafts_batch(partition, ops_cat, brl_cat, clv_S_b, scaler_S_b,
       edge_mask_b: bool [K, E]
       half_flat: [K*E] attachment half-lengths
       stride: CLV-slot stride between candidates (n_ops_full + 2)
+      tables: ``blo.walk_tables(partition, ops_cat, K * stride)`` when
+        the caller has compiled it
     Returns:
       lnl float64 [K, E] (-inf on masked edges)
     """
     dtype = partition.dtype
     K, E = edge_mask_b.shape
-    clvs, scalers, gather = directed_clvs(
-        partition, blo_mod.walk_tables(partition, ops_cat, K * stride),
-        brl_cat)
+    if tables is None:
+        tables = blo_mod.walk_tables(partition, ops_cat, K * stride)
+    clvs, scalers, gather = directed_clvs(partition, tables, brl_cat)
     P_s = partition.prob_matrices(t_s_b)                    # [K,C,S,S]
     fc = partition.freqs_per_cat()                          # [C,S]
     s_in = torch.matmul(P_s, clv_S_b.to(dtype)) * fc[:, :, None]
@@ -243,10 +265,12 @@ def _triplet_newton(sides, t_s, hl, min_brlen, max_brlen):
     sumtable, summed over partitions with the brlen-scaler chain rule
     (df·s, ddf·s², pll_optimize.c:1249-1267).
 
-    ``sides``: per partition (part, scaler, eigen, A_x, sx, A_y, sy,
-    clv_S, scaler_S) with the sides [K, W, C, S, P] / [K, W, P] and the
-    subtree [K, 1, C, S, P] / [K, 1, P]; ``t_s`` [K, W], ``hl`` [K, W]
-    the start lengths. Returns (lnl, ts, tx, ty), each [K, W]."""
+    ``sides``: per partition, or per shard of a sharded partition
+    (part, scaler, eigen, A_x, sx, A_y, sy, clv_S, scaler_S) with the
+    sides [K, W, C, S, P] / [K, W, P] and the subtree [K, 1, C, S, P] /
+    [K, 1, P] on that part's device; ``t_s`` [K, W], ``hl`` [K, W] the
+    start lengths. The derivatives and logLs are summed over every side
+    on ``t_s``'s device. Returns (lnl, ts, tx, ty), each [K, W]."""
     K, W = hl.shape
 
     def comb(part, psc, c1, t1, c2, t2):
@@ -276,10 +300,10 @@ def _triplet_newton(sides, t_s, hl, min_brlen, max_brlen):
             df_tot = torch.zeros_like(t)
             ddf_tot = torch.zeros_like(t)
             for (part, psc, eigen, *_), st, sc in zip(sides, sts, scs):
-                _, df, ddf = deriv_mod.edge_derivatives(part, st, sc,
-                                                        t * psc, eigen)
-                df_tot = df_tot + df * psc
-                ddf_tot = ddf_tot + ddf * psc * psc
+                _, df, ddf = deriv_mod.edge_derivatives(
+                    part, st, sc, (t * psc).to(st.device), eigen)
+                df_tot = df_tot + df.to(t.device) * psc
+                ddf_tot = ddf_tot + ddf.to(t.device) * psc * psc
             return df_tot, ddf_tot
 
         t_new = minimize_newton_multi(deriv, t0, min_brlen, max_brlen,
@@ -287,8 +311,9 @@ def _triplet_newton(sides, t_s, hl, min_brlen, max_brlen):
                                       max_iters=TRIPLET_ITERS)
         lnl = torch.zeros_like(t_new)
         for (part, psc, eigen, *_), st, sc in zip(sides, sts, scs):
-            lnl = lnl + deriv_mod.edge_derivatives(part, st, sc,
-                                                   t_new * psc, eigen)[0]
+            lnl = lnl + deriv_mod.edge_derivatives(
+                part, st, sc, (t_new * psc).to(st.device), eigen)[0].to(
+                    t_new.device)
         if which == 0:
             return (t_new, tx, ty), lnl
         if which == 1:
@@ -314,8 +339,9 @@ def _score_regrafts_thorough_batch(partitions, part_scalers, ops_cat,
     edges.
 
     Args:
-      partitions / part_scalers: the partitions and their brlen scalers
-        (SCALED mode; 1.0 otherwise)
+      partitions / part_scalers: the partitions, or the shards of sharded
+        ones, and their brlen scalers (SCALED mode; 1.0 otherwise); each
+        one's subtree CLVs on its device
       ops_cat: int [K·n_ops_full, 5] concatenated remainder tables
       brl_cat: [K·E] per-candidate R branch lengths (P ids offset k·E)
       clv_S_b/scaler_S_b: per partition [K, C, S, P] / [K, P]
@@ -325,14 +351,20 @@ def _score_regrafts_thorough_batch(partitions, part_scalers, ops_cat,
     """
     K, W = wmask.shape
     sides = []
+    compiled: dict = {}     # the table, compiled once a dtype
     for part, psc, cS, sS in zip(partitions, part_scalers, clv_S_b,
                                  scaler_S_b):
         dtype = part.dtype
-        clvs, scalers, gather = directed_clvs(
-            part, blo_mod.walk_tables(part, ops_cat, K * stride),
-            brl_cat * psc)
-        A_x, sx = gather(part, clvs, scalers, eref_w[..., 0].reshape(-1))
-        A_y, sy = gather(part, clvs, scalers, eref_w[..., 1].reshape(-1))
+        first = compiled.get(dtype)
+        if first is None:
+            tables = compiled[dtype] = blo_mod.walk_tables(
+                part, ops_cat, K * stride)
+        else:
+            tables = blo_mod.tables_for(first, part)
+        clvs, scalers, gather = directed_clvs(part, tables, brl_cat * psc)
+        eref = eref_w.to(part.device)
+        A_x, sx = gather(part, clvs, scalers, eref[..., 0].reshape(-1))
+        A_y, sy = gather(part, clvs, scalers, eref[..., 1].reshape(-1))
         del clvs, scalers
         shp = (K, W) + A_x.shape[1:]
         sides.append((part, psc, part.eigen(),
@@ -550,9 +582,9 @@ def _subtree_ref(tree, trav_full, bld):
 def _score_builds(treeinfo, part_idx, trav_full, full_clvs, builds,
                   thorough: bool, stats=None):
     """Score ``builds`` in one batch against the full-tree directed CLVs
-    ``full_clvs`` (per partition (clvs, scalers, gather) of
-    ``trav_full``). Returns the per-candidate resolve() contexts in
-    candidate order."""
+    ``full_clvs`` (per partition, the list of its shards' (clvs,
+    scalers, gather) of ``trav_full``, :func:`_full_clvs`). Returns the
+    per-candidate resolve() contexts in candidate order."""
     tree = treeinfo.tree
     stride = 3 * (tree.n_tips - 2) + 2
     K = len(builds)
@@ -565,13 +597,15 @@ def _score_builds(treeinfo, part_idx, trav_full, full_clvs, builds,
                                                              stride)
     refs_np = np.asarray([_subtree_ref(tree, trav_full, bld)
                           for bld in builds], np.int64)
-    cS_b, sS_b = [], []
+    # per partition, per shard: (shard, subtree CLVs, subtree scalers)
+    units = []
     for i, part in zip(part_idx, parts):
-        clvs, scalers, gather = full_clvs[i]
-        refs = torch.as_tensor(refs_np, device=part.device)
-        cS, sS = gather(part, clvs, scalers, refs)
-        cS_b.append(cS)
-        sS_b.append(sS)
+        per = []
+        for s, (clvs, scalers, gather) in zip(shards_of(part), full_clvs[i]):
+            cS, sS = gather(s, clvs, scalers,
+                            torch.as_tensor(refs_np, device=s.device))
+            per.append((s, cS, sS))
+        units.append(per)
 
     def dev(x, part, dtype=None):
         return torch.as_tensor(x, device=part.device,
@@ -579,14 +613,25 @@ def _score_builds(treeinfo, part_idx, trav_full, full_clvs, builds,
 
     if not thorough:
         score_parts = []
-        for part, cS, sS in zip(parts, cS_b, sS_b):
-            scores = _score_regrafts_batch(
-                part, tabs["ops_cat"], dev(tabs["brl_cat"], part), cS, sS,
-                dev(tabs["t_s_b"], part),
-                dev(tabs["eref_cat"], part, torch.int64),
-                dev(tabs["mask_b"], part, torch.bool),
-                dev(tabs["half_cat"], part), stride)
-            score_parts.append(scores.cpu().numpy())
+        compiled: dict = {}     # the K-candidate table, once a dtype
+        for part, per in zip(parts, units):
+            scores = []
+            for s, cS, sS in per:
+                first = compiled.get(s.dtype)
+                if first is None:
+                    wt = compiled[s.dtype] = blo_mod.walk_tables(
+                        s, tabs["ops_cat"], K * stride)
+                else:
+                    wt = blo_mod.tables_for(first, s)
+                scores.append(_score_regrafts_batch(
+                    s, tabs["ops_cat"], dev(tabs["brl_cat"], s), cS, sS,
+                    dev(tabs["t_s_b"], s),
+                    dev(tabs["eref_cat"], s, torch.int64),
+                    dev(tabs["mask_b"], s, torch.bool),
+                    dev(tabs["half_cat"], s), stride, tables=wt))
+            # the shards' scores reduced before the top list is chosen
+            score_parts.append(
+                reduce_shards(scores, part.device).cpu().numpy())
         return [dict(prune_edge=bld["prune_edge"],
                      junction=bld["junction"], a=bld["a"], b=bld["b"],
                      R=bld["R"], mask=bld["mask"],
@@ -595,9 +640,13 @@ def _score_builds(treeinfo, part_idx, trav_full, full_clvs, builds,
                 for k, bld in enumerate(builds)]
 
     p0 = parts[0]
+    pscs = _part_scalers(treeinfo, part_idx)
+    flat = [(s, psc, cS, sS) for per, psc in zip(units, pscs)
+            for s, cS, sS in per]
     lnls_w, ts_w, tx_w, ty_w = _score_regrafts_thorough_batch(
-        parts, _part_scalers(treeinfo, part_idx), tabs["ops_cat"],
-        dev(tabs["brl_cat"], p0), cS_b, sS_b, dev(tabs["t_s_b"], p0),
+        [u[0] for u in flat], [u[1] for u in flat], tabs["ops_cat"],
+        dev(tabs["brl_cat"], p0), [u[2] for u in flat],
+        [u[3] for u in flat], dev(tabs["t_s_b"], p0),
         dev(tabs["eref_w"], p0, torch.int64),
         dev(tabs["wmask"], p0, torch.bool), dev(tabs["halves_w"], p0),
         1e-4, 100.0, stride)
@@ -631,8 +680,8 @@ def score_candidates(treeinfo, cands, radius_min: int = 1,
                                               radius_max) for e, j in cands)
               if b is not None]
     trav = DirectedTraversal(tree)
-    full = {i: full_tree_clvs(treeinfo.partitions[i],
-                              treeinfo.partition_brlens(i), trav)
+    full = {i: _full_clvs(treeinfo.partitions[i],
+                          treeinfo.partition_brlens(i), trav)
             for i in part_idx}
     ctxs = _score_builds(treeinfo, part_idx, trav, full, builds, thorough)
     E = len(tree.edge_nodes)
@@ -794,9 +843,9 @@ def spr_round(treeinfo, radius_min: int = 1, radius_max: int = 10,
         trav_full = DirectedTraversal(tree)
         full_clvs.clear()
         for i in part_idx:
-            full_clvs[i] = full_tree_clvs(treeinfo.partitions[i],
-                                          treeinfo.partition_brlens(i),
-                                          trav_full)
+            full_clvs[i] = _full_clvs(treeinfo.partitions[i],
+                                      treeinfo.partition_brlens(i),
+                                      trav_full)
         if stats is not None:
             stats["full_builds"] += 1
         dirty_nodes.clear()

@@ -52,6 +52,7 @@ from pllmod_tpu_torch.common import (
     host_array,
     resolve_device,
 )
+from pllmod_tpu_torch.parallel.sharding import is_sharded
 
 MAGIC = b"PLLTPUB1"
 ACCESS_SEQUENTIAL = 0
@@ -370,7 +371,9 @@ def save_treeinfo(path: str, treeinfo, extra: bytes = b""):
     CUSTOM block holding linkage mode / scalers / brlens / param masks
     (the reference's downstream checkpoint composition over
     pll_binary.c:204-1270). ``extra`` rides along for caller state
-    (e.g. an optimizer's bookkeeping)."""
+    (e.g. an optimizer's bookkeeping). A sharded partition is written
+    whole (its shards gathered), so the file loads with or without a
+    mesh."""
     import json
 
     meta = {
@@ -390,7 +393,8 @@ def save_treeinfo(path: str, treeinfo, extra: bytes = b""):
         f.dump_custom(0, blob)
         f.dump_tree(1, treeinfo.tree)
         for i in meta["local"]:
-            f.dump_partition(2 + i, treeinfo.partitions[i])
+            p = treeinfo.partitions[i]
+            f.dump_partition(2 + i, p.gather() if is_sharded(p) else p)
 
 
 def load_treeinfo(path: str, device="cuda"):

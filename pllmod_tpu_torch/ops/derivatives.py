@@ -37,7 +37,9 @@ def sumtable(partition, clv_p, clv_c, eigen=None):
     pi_c = partition.freqs_per_cat()                 # [C,S]
     V_c = V[partition.param_indices]                 # [C,S,S]
     Vinv_c = Vinv[partition.param_indices]           # [C,S,S]
-    left = torch.einsum("...pci,ci,cik->...pck", clv_p, pi_c, V_c)
+    # the small factors first, the order opt_einsum picks for the
+    # three-operand form, without its path search on every call
+    left = torch.einsum("...pci,cik->...pck", clv_p, pi_c[:, :, None] * V_c)
     right = torch.einsum("ckj,...pcj->...pck", Vinv_c, clv_c)
     return left * right
 
@@ -75,8 +77,10 @@ def edge_derivatives(partition, st, scaler, brlen, eigen=None):
     expo = torch.exp(lr * t[..., None, None, None])  # [...,1,C,S]
     base = st * expo                                 # [...,P,C,S]
     L = torch.einsum("...pcs,c->...p", base, w_eff)
-    dL = torch.einsum("...pcs,cs,c->...p", base, lr, w_eff)
-    ddL = torch.einsum("...pcs,cs,c->...p", base, lr * lr, w_eff)
+    # (the weights folded in first, as opt_einsum's path for the
+    # three-operand form does, without its search on every call)
+    dL = torch.einsum("...pcs,cs->...p", base, lr * w_eff[:, None])
+    ddL = torch.einsum("...pcs,cs->...p", base, (lr * lr) * w_eff[:, None])
 
     tiny = 1e-300 if dtype == torch.float64 else 1e-37
     Lsafe = torch.clamp(L, min=tiny)

@@ -27,6 +27,13 @@ per-site and buffer-returning evaluations, the partial traversal on
 cached buffers (:func:`loglikelihood_update` on the serial engine,
 :func:`fused_update_eval` on the fused kernel) and the K-partition
 evaluation :func:`multi_eval`.
+
+For a site mesh (:mod:`pllmod_tpu_torch.parallel`): :func:`reduce_shards`,
+the one reduce every sharded driver uses (each shard's partial sums
+moved to the mesh's first device and added there in shard order), and
+the per-shard evaluators of :func:`shard_evaluators` (one table compile,
+copied onto each shard's device by :func:`evaluator_on`), which
+:func:`multi_eval` runs and reduces.
 """
 
 from __future__ import annotations
@@ -310,6 +317,38 @@ def use_fast_kernel(partition) -> bool:
     return partition.dtype == torch.float32
 
 
+def reduce_shards(values, device):
+    """The sum of the shards' partial values (tensors of one shape, each
+    on its shard's device) on ``device``, added in shard order, so the
+    result does not depend on which device finished first. float32
+    partials are added in float64 and the sum rounded once. Autograd
+    runs back through the cross-device copies. The port's counterpart of
+    the JAX package's ``psum`` over the site axis (the reference's
+    ``parallel_reduce_cb``, treeinfo.c:1061-1067)."""
+    first = values[0]
+    if len(values) == 1:
+        return first.to(device)
+    acc_dtype = (torch.float64 if first.dtype == torch.float32
+                 else first.dtype)
+    total = first.to(device, acc_dtype)
+    for v in values[1:]:
+        total = total + v.to(device, acc_dtype)
+    return total.to(first.dtype)
+
+
+def shard_evaluator(evs):
+    """One evaluator ``ev(part, brlens) -> logL`` over the shards of a
+    sharded partition: ``evs[k]`` (from :func:`shard_evaluators`) runs on
+    ``part.shards[k]``, on that shard's device, and the logLs are
+    reduced on the partition's first device (:func:`reduce_shards`)."""
+    def ev(part, brl):
+        return reduce_shards([e(p, brl) for e, p in zip(evs, part.shards)],
+                             part.device)
+    ev.schedule = evs[0].schedule
+    ev.shards = evs
+    return ev
+
+
 def multi_eval(parts, brls, evs):
     """Evaluate K float32 partitions through their kernels: one
     evaluation each, issued back to back on the stream, and the K logLs
@@ -319,11 +358,69 @@ def multi_eval(parts, brls, evs):
     the TPU's dispatch cost; here the lanes are ``evs``, each partition's
     :func:`compile_fast_eval` evaluator (the kernel of ``auto``).
 
+    A sharded partition's entry of ``evs`` is the list of its shards'
+    evaluators (:func:`shard_evaluators`): each shard evaluates on its
+    own device and the shards' logLs are reduced (:func:`reduce_shards`)
+    on the partition's first device, where every lane of a mesh then
+    lies. The JAX package runs its lane program under ``shard_map`` with
+    a ``psum`` (``engine.multi_eval(..., mesh)``).
+
     Args:
       parts: K partitions; brls: their branch lengths; evs: their
-        evaluators ``ev(part, brlens) -> logL``
+        evaluators ``ev(part, brlens) -> logL``, or lists of them
     """
-    return torch.stack([ev(p, brl) for p, brl, ev in zip(parts, brls, evs)])
+    return torch.stack([
+        (shard_evaluator(ev) if isinstance(ev, (list, tuple)) else ev)(
+            p, brl) for p, brl, ev in zip(parts, brls, evs)])
+
+
+def tables_on(obj, device):
+    """``obj`` with every tensor inside its tuples, lists and dicts
+    copied onto ``device`` (a tensor already there is kept): a host
+    compile's device tables for a shard on another device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(tables_on(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: tables_on(v, device) for k, v in obj.items()}
+    return obj
+
+
+def _bound(schedule, run, tables):
+    """The evaluator ``ev(part, brlens) = run(part, brlens, *tables)``,
+    carrying its schedule, its function and its device tables."""
+    def ev(part, brl):
+        return run(part, brl, *tables)
+    ev.schedule, ev.run, ev.tables = schedule, run, tables
+    return ev
+
+
+def evaluator_on(ev, device):
+    """The evaluator ``ev`` (of :func:`compile_fast_eval`) with its device
+    tables copied onto ``device``: the same host compile serves a shard
+    on another device. ``ev`` itself where its tables lie there."""
+    tables = tables_on(ev.tables, torch.device(device))
+    if all(a is b for a, b in zip(tables, ev.tables)):
+        return ev
+    return _bound(ev.schedule, ev.run, tables)
+
+
+def shard_evaluators(partition, tree, root_edge=None, schedule="auto"):
+    """The per-shard evaluators of a sharded partition
+    (:class:`~pllmod_tpu_torch.parallel.sharding.ShardedPartition`): the
+    tables of ``schedule`` compiled once, from shard 0 (every shard has
+    the same shape), and copied onto each shard's device. Shards on one
+    device share one evaluator."""
+    shards = partition.shards
+    first = compile_fast_eval(shards[0], tree, root_edge, schedule)
+    by_dev = {shards[0].device: first}
+    out = []
+    for s in shards:
+        if s.device not in by_dev:
+            by_dev[s.device] = evaluator_on(first, s.device)
+        out.append(by_dev[s.device])
+    return out
 
 
 def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
@@ -331,9 +428,10 @@ def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
     shape, topology) once; returns ``ev(part, brlens) -> logL`` (a 0-dim
     tensor on the partition's device; a float for "repeats", which keeps
     no tables), with the schedule it runs as
-    ``ev.schedule``. ``auto`` decides on this tree's own resident slot
-    count. ``part`` may differ from ``partition`` in model parameters,
-    not in data or shape."""
+    ``ev.schedule`` and its device tables as ``ev.tables``
+    (:func:`evaluator_on` copies them onto another device). ``auto``
+    decides on this tree's own resident slot count. ``part`` may differ
+    from ``partition`` in model parameters, not in data or shape."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r}; one of "
                          f"{SCHEDULES}")
@@ -347,45 +445,46 @@ def compile_fast_eval(partition, tree, root_edge=None, schedule="auto"):
         idx8, e1, e2, n_slots = table or resident_mod.compile_resident(
             partition, tree, root_edge)
 
-        def ev(part, brl):
+        def run(part, brl, idx8, e1, e2):
             return resident_mod.loglikelihood_resident(
                 part, idx8, brl, (e1, e2), n_slots)
+        tables = (idx8, e1, e2)
     elif schedule == "fused":
         idx8, e1, e2, ri, n_slots = fused_mod.compile_fused(
             partition, tree, root_edge, fuse_root=True)
 
-        def ev(part, brl):
+        def run(part, brl, idx8, e1, e2):
             return fused_mod.loglikelihood_fused(part, idx8, brl, e1, e2,
                                                  ri, n_slots)
+        tables = (idx8, e1, e2)
     elif schedule in ("pallas", "levels"):
         levels, offsets, ri, n_slots = compile_schedule(partition, tree,
                                                         root_edge)
         if schedule == "pallas":
-            tables = levels_mod.level_tables(partition, levels)
-
-            def ev(part, brl):
+            def run(part, brl, tabs):
                 return levels_mod.loglikelihood_pallas(
-                    part, levels, brl, offsets, ri, n_slots, tables=tables)
+                    part, levels, brl, offsets, ri, n_slots, tables=tabs)
+            tables = (levels_mod.level_tables(partition, levels),)
         else:
-            levels = tuple(torch.as_tensor(lv, dtype=torch.int64,
-                                           device=partition.device)
-                           for lv in levels)
-
-            def ev(part, brl):
-                return loglikelihood_levels(part, levels, brl, offsets, ri,
+            def run(part, brl, lvls):
+                return loglikelihood_levels(part, lvls, brl, offsets, ri,
                                             n_slots)
+            tables = (tuple(torch.as_tensor(lv, dtype=torch.int64,
+                                            device=partition.device)
+                            for lv in levels),)
     elif schedule == "repeats":
 
-        def ev(part, brl):
+        def run(part, brl):
             return repeats_mod.loglikelihood_repeats(part, tree, brl,
                                                      root_edge)
+        tables = ()
     else:
         ops, root_info = tree.traversal_ops(root_edge)
 
-        def ev(part, brl):
+        def run(part, brl):
             return loglikelihood(part, ops, brl, root_info)
-    ev.schedule = schedule
-    return ev
+        tables = ()
+    return _bound(schedule, run, tables)
 
 
 def tree_loglikelihood(partition, tree, brlens=None, root_edge=None,

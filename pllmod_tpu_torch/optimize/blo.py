@@ -48,6 +48,18 @@ summed per-partition derivatives with the chain rule df·s, ddf·s²
 (pll_optimize.c:1249-1267). The JAX package's device-program drivers
 (``_blo_run``, ``_blo_run_multi``) exist for the TPU's dispatch cost;
 the port runs their host loops.
+
+Under a site mesh (a sharded partition,
+:mod:`pllmod_tpu_torch.parallel`; the JAX package's ``_blo_run_sharded``
+/ ``_blo_run_multi_sharded``, blo.py:734-830) the same host loops run:
+each shard builds its directed CLVs and sumtables on its own device
+from tables compiled once (:func:`tables_for`), and every Newton
+iteration sums the shards' derivatives (kernel 9 for float32) with
+``engine.reduce_shards``, the reference's per-iteration reduce
+(pll_optimize.c:1270-1286). Kernel 10 runs a whole Newton inside one
+launch and cannot reduce across shards, so it is off under a mesh
+(blo.py:741-742); so is the memory-bounded sweep, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -64,7 +76,10 @@ from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import deriv as kern
 from pllmod_tpu_torch.ops import derivatives as deriv_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
+from pllmod_tpu_torch.ops.engine import reduce_shards, tables_on
 from pllmod_tpu_torch.optimize.newton import minimize_newton_multi
+from pllmod_tpu_torch.parallel.sharding import (SITES_AXIS, is_sharded,
+                                                shard_partition)
 
 MAX_NEWTON_ITERS = 10
 N_POLISH = 4
@@ -242,7 +257,10 @@ def _safe_accept(t0, t_opt, l_old, l_new):
 class _Tables:
     """The per-call tables of a directed traversal on the partition's
     device: ``ops`` / ``edge_ref`` for the plain path; the fused-walk
-    table and the derivative kernels' constants for the kernel path."""
+    table and the derivative kernels' constants for the kernel path.
+    For a sharded partition, ``shards[k]`` are shard k's tables (on its
+    device) and the rest holds only ``kernel``, ``ops`` and
+    ``n_slots``."""
     kernel: bool
     ops: np.ndarray
     edge_ref: torch.Tensor | None = None   # long [E, 2]
@@ -255,6 +273,36 @@ class _Tables:
     basis: torch.Tensor | None = None
     lw: torch.Tensor | None = None
     lnB: torch.Tensor | None = None
+    shards: list | None = None
+
+
+def tables_for(tabs: _Tables, partition) -> _Tables:
+    """``tabs``, compiled for a partition of the same tree and dtype,
+    made ``partition``'s: the op tables copied onto its device (never
+    compiled again), its own code table and, where ``tabs`` has them,
+    its own sumtable basis, weight rows and p-inv plane (a shard's
+    patterns, another partition's model)."""
+    dev = partition.device
+    out = dataclasses.replace(tabs, **{
+        f: tables_on(getattr(tabs, f), dev)
+        for f in ("edge_ref", "idx8", "e1", "e2", "eref6")})
+    if tabs.kernel:
+        out.codetab = fused_mod.code_table(partition)
+    if tabs.basis is not None:
+        out.basis = kern.sumtable_basis(partition)
+        out.lw = kern._lam_weight_rows(partition)
+        out.lnB = kern.invar_log_plane(partition)
+    return out
+
+
+def _sharded_tables(partition, compile_one) -> _Tables:
+    """A sharded partition's tables: ``compile_one(shard 0)`` once, made
+    every other shard's by :func:`tables_for`."""
+    first = compile_one(partition.shards[0])
+    return _Tables(kernel=first.kernel, ops=first.ops,
+                   n_slots=first.n_slots,
+                   shards=[first] + [tables_for(first, s)
+                                     for s in partition.shards[1:]])
 
 
 def walk_tables(partition, ops, n_slots_min: int | None = None) -> _Tables:
@@ -263,6 +311,9 @@ def walk_tables(partition, ops, n_slots_min: int | None = None) -> _Tables:
     rows alone for the serial engine. ``n_slots_min`` fixes the CLV
     buffer from below, for either engine (a table of several trees whose
     references reach past its last written slot)."""
+    if is_sharded(partition):
+        return _sharded_tables(
+            partition, lambda s: walk_tables(s, ops, n_slots_min))
     tabs = _Tables(kernel=partition.dtype == torch.float32, ops=ops,
                    n_slots=n_slots_min or 0)
     if tabs.kernel:
@@ -281,6 +332,9 @@ def _compile_tables(partition, trav, derivs: bool = True) -> _Tables:
     """The tables of ``trav`` for ``partition``; ``derivs=False`` leaves
     out the derivative kernels' constants (the directed walk alone, as
     ``optimize/edge_grad.directed_clvs`` runs it)."""
+    if is_sharded(partition):
+        return _sharded_tables(
+            partition, lambda s: _compile_tables(s, trav, derivs))
     dev = partition.device
     tabs = walk_tables(partition, trav.ops)
     tabs.edge_ref = torch.as_tensor(trav.edge_ref, device=dev).long()
@@ -311,7 +365,20 @@ def _edge_evaluator(partition, tabs, brlens, edges):
     their evaluator ``t [K] -> (logL, d/dt, d²/dt²)``, each edge through
     its own sumtable: the fused walk, kernel 8 and kernel 9 on the
     kernel path, the serial engine and the float64 formulation on the
-    plain path. Returns (evaluator, (st, sc))."""
+    plain path. Returns (evaluator, (st, sc)). A sharded partition:
+    every shard's sumtables on its own device, the evaluator reducing
+    the shards' (logL, d/dt, d²/dt²) on the partition's device; (st,
+    sc) is None."""
+    if tabs.shards is not None:
+        shards = partition.shards
+        evs = [_edge_evaluator(s, t, brlens, edges.to(s.device))[0]
+               for s, t in zip(shards, tabs.shards)]
+
+        def reduced(t):
+            per = [ev(t.to(s.device)) for ev, s in zip(evs, shards)]
+            return tuple(reduce_shards(list(v), partition.device)
+                         for v in zip(*per))
+        return reduced, None
     if tabs.kernel:
         clvs, scalers = _directed_clvs(partition, tabs, brlens)
         st, sc = kern.edge_sumtables(partition, clvs, scalers,
@@ -364,8 +431,9 @@ def _blo_sweep(partition, tabs, edges, brlens, min_brlen, max_brlen, tol,
     Returns (new brlens, logL at the incoming brlens as a 0-dim tensor,
     read through ``edges[0]``'s sumtable)."""
     t0 = brlens[edges]
-    derivs, (st, sc) = _edge_evaluator(partition, tabs, brlens, edges)
-    fused_newton = fused_newton and tabs.kernel
+    derivs, sums = _edge_evaluator(partition, tabs, brlens, edges)
+    st, sc = sums or (None, None)
+    fused_newton = fused_newton and tabs.kernel and tabs.shards is None
     t_opt, lnl0_all = _newton_edges(partition, derivs, st, sc, t0,
                                     min_brlen, max_brlen, tol, fused_newton,
                                     tabs.lw, tabs.lnB, stats)
@@ -393,8 +461,10 @@ def _blo_sweep_multi(parts, scalers, tabs_list, lws, edges, brlens,
     λr rows with the scaler folded in) when ``fused_newton`` and every
     partition is float32 and fits (``deriv.newton_fits``); else
     :func:`minimize_newton_multi` over kernel 9 / the float64
-    formulation with the chain rule df·s, ddf·s². ``stats`` counts the
-    edges of each route (``newton_edges``, ``iterative_edges``). Returns
+    formulation with the chain rule df·s, ddf·s² (always for sharded
+    partitions, their derivatives reduced over the shards). ``stats``
+    counts the edges of each route (``newton_edges``,
+    ``iterative_edges``). Returns
     (new brlens, logL at the incoming brlens, summed over the
     partitions)."""
     t0 = brlens[edges]
@@ -412,7 +482,9 @@ def _blo_sweep_multi(parts, scalers, tabs_list, lws, edges, brlens,
             tot = v if tot is None else tuple(a + b for a, b in zip(tot, v))
         return tot
 
-    kernel10 = (fused_newton and all(tabs.kernel for tabs in tabs_list)
+    kernel10 = (fused_newton
+                and all(tabs.kernel and tabs.shards is None
+                        for tabs in tabs_list)
                 and kern.newton_fits(*parts))
     if kernel10:
         t_opt, lnl0_all, iters = kern.newton_edges_multi(
@@ -526,7 +598,8 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
                             colored: bool = True, safe: bool = False,
                             fused_newton: bool = True,
                             mem_budget: int = BLO_MEM_BUDGET,
-                            stats: dict | None = None):
+                            stats: dict | None = None,
+                            mesh=None, mesh_axis: str | None = None):
     """Optimize the branch lengths of ``tree`` under ``partition``, on
     the partition's device.
 
@@ -551,13 +624,21 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
       :func:`~pllmod_tpu_torch.optimize.blo_bounded.optimize_branch_lengths_bounded`.
     - ``stats``: optional dict, filled with ``sweeps``, ``sub_sweeps``
       and (kernel 10) ``newton_iters`` / ``newton_edges``.
+    - ``mesh`` / ``mesh_axis``: site-sharded execution (a partition not
+      yet sharded is sharded over the mesh; a sharded partition runs on
+      its own mesh): every shard's sumtables, the derivatives reduced
+      each Newton iteration; kernel 10 and the bounded sweep are off.
 
     Returns (brlens [n_edge_slots] tensor, logL float) and writes the
     lengths back into ``tree`` unless ``write_back=False``.
     """
+    if mesh is not None:
+        partition = shard_partition(partition, mesh, mesh_axis or SITES_AXIS)
+    sharded = is_sharded(partition)
+    fused_newton = fused_newton and not sharded
     if partition.eigen_lam is None:
         partition = partition.cache_eigen()
-    if (edges is None and around_edge is None
+    if (edges is None and around_edge is None and not sharded
             and _bounded_blo_auto(partition, tree, mem_budget)):
         from pllmod_tpu_torch.optimize.blo_bounded import \
             optimize_branch_lengths_bounded
@@ -646,7 +727,9 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
     - UNLINKED: each partition optimizes its own lengths with
       :func:`optimize_branch_lengths`.
 
-    LINKED and SCALED run the JAX package's host loop over
+    Under a mesh (``treeinfo.mesh``, sharded partitions) each partition's
+    derivatives are reduced over its shards every Newton iteration, and
+    kernel 10 is off. LINKED and SCALED run the JAX package's host loop over
     :func:`_blo_sweep_multi` (plain Jacobi sweeps, the best iterate
     kept, a worsening sweep retried from a half step toward it).
     ``stats``: optional dict, filled with ``sweeps`` and the Newton

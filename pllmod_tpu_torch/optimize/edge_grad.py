@@ -30,6 +30,11 @@ The packings (``with_*``, :func:`expand_sym`, :func:`rate_classes`) map
 a float64 parameter vector onto a partition differentiably: symmetry
 classes of the rates with the last rate's class pinned to 1, frequencies
 as ratios to the last state, (alpha, p-inv), free category rates.
+
+Under a site mesh (a sharded partition) the decomposition runs on every
+shard, on its device, and the shards' values are reduced
+(``engine.reduce_shards``); autograd carries the gradient back through
+the cross-device copies to the parameters on the first device.
 """
 
 from __future__ import annotations
@@ -41,7 +46,9 @@ import torch
 
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
+from pllmod_tpu_torch.ops.engine import reduce_shards
 from pllmod_tpu_torch.optimize import blo as blo_mod
+from pllmod_tpu_torch.parallel.sharding import is_sharded
 
 
 @dataclasses.dataclass
@@ -55,11 +62,14 @@ class EdgeTables:
     edges: torch.Tensor      # long [E] live edge ids
     ref_root: torch.Tensor   # long [E] the CLV facing each edge, root side
     ref_sub: torch.Tensor    # long [E] the CLV facing it, subtree side
+    shards: list | None = None
 
 
 def edge_tables(partition, tree) -> EdgeTables:
     """:class:`EdgeTables` of ``tree`` for ``partition``. An edge's root
     side is its endpoint nearer the traversal's root tip 0 (BFS depth).
+    A sharded partition: ``shards[k]`` are shard k's tables (shard 0's
+    compiled, the others' copied by ``blo.tables_for``).
 
     The root-frequency factor must ride the root side of every edge's
     contraction: both sides give the same value by reversibility
@@ -68,6 +78,15 @@ def edge_tables(partition, tree) -> EdgeTables:
     the root-sided form's partial equals the fixed-rooting ∂logL/∂P_e
     (libpll folds the frequencies into the parent side of its
     sumtables, pll.c core_update_sumtable)."""
+    if is_sharded(partition):
+        first = edge_tables(partition.shards[0], tree)
+        per = [first] + [EdgeTables(
+            tabs=blo_mod.tables_for(first.tabs, s),
+            edges=first.edges.to(s.device),
+            ref_root=first.ref_root.to(s.device),
+            ref_sub=first.ref_sub.to(s.device))
+            for s in partition.shards[1:]]
+        return dataclasses.replace(first, shards=per)
     trav = blo_mod.DirectedTraversal(tree)
     tabs = blo_mod._compile_tables(partition, trav, derivs=False)
     adj = tree.adjacency()
@@ -174,7 +193,12 @@ def edge_decomp_neg_loglh(p_theta, brlens, et: EdgeTables):
     grad) with the edge-decomposition gradient (module docstring): the
     value is the logL through the designated edge, the gradient that of
     the tree logL in every parameter of ``p_theta`` and in ``brlens``.
-    A 0-dim float64 tensor."""
+    A 0-dim float64 tensor; for a sharded ``p_theta`` the shards' values
+    reduced on its first device."""
+    if et.shards is not None:
+        return reduce_shards([edge_decomp_neg_loglh(s, brlens, e)
+                              for s, e in zip(p_theta.shards, et.shards)],
+                             p_theta.device)
     P_theta = p_theta.prob_matrices(brlens)                 # [E_all,C,S,S]
     p_const = detached(p_theta)
     with torch.no_grad():

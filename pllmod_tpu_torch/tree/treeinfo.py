@@ -21,6 +21,16 @@ on the cached buffers — through the fused kernel in place
 (``engine.fused_update_eval``) for float32, the serial engine for
 float64. ``compute_ancestral`` gives each partition's marginal ancestral
 states at its own branch lengths (``algorithm/ancestral.py``).
+
+The ``parallel_reduce_cb`` seam (treeinfo.c:215-227) is the site mesh:
+after :func:`pllmod_tpu_torch.parallel.shard_treeinfo` (``mesh`` /
+``mesh_axis`` set, every partition a ``ShardedPartition``) each shard
+evaluates through its own cached evaluator on its own device
+(``engine.shard_evaluators``; float64 shards through the serial
+engine), the incremental route keeps each shard's buffers, and the
+per-shard sums are reduced (``engine.reduce_shards``);
+``compute_loglh_persite`` joins the shards' per-pattern values in
+pattern order.
 """
 
 from __future__ import annotations
@@ -32,6 +42,8 @@ from pllmod_tpu_torch.common import (BRLEN_LINKED, BRLEN_SCALED,
                                      BRLEN_UNLINKED, PARAM_ALL)
 from pllmod_tpu_torch.ops import engine as engine_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
+from pllmod_tpu_torch.parallel.sharding import (is_sharded, join_patterns,
+                                                per_shard, shards_of)
 from pllmod_tpu_torch.profile import Counters, timed
 
 
@@ -48,6 +60,8 @@ class TreeInfo:
       params_to_optimize: [n_parts] bitmasks (PLLMOD_OPT_PARAM_*)
       counters: :class:`~pllmod_tpu_torch.profile.Counters` of the
         evaluations (CLV-op counts, host wall time)
+      mesh / mesh_axis: the site mesh and its axis after
+        :func:`pllmod_tpu_torch.parallel.shard_treeinfo`, else None
     """
 
     def __init__(self, tree, partitions, brlen_linkage: int = BRLEN_LINKED,
@@ -72,8 +86,11 @@ class TreeInfo:
         self.active_partition = -1
         self.partition_loglh = np.zeros(n)
         self.counters = Counters()
-        # per partition: the compiled evaluator and the incremental
-        # buffers, each keyed on what it was built from
+        self.mesh = None
+        self.mesh_axis = None
+        # per partition: the compiled evaluator (a list of per-shard
+        # evaluators for a sharded partition) and the incremental
+        # buffers (each shard's), each keyed on what it was built from
         self._fast_cache: dict = {}
         self._incr_cache: dict = {}
         # per partition: the edge-decomposition tables of
@@ -81,10 +98,10 @@ class TreeInfo:
         self._edge_tables: dict = {}
 
     def clear_caches(self) -> None:
-        """Drop every cached evaluator, incremental buffer and edge table
-        (after the state was replaced wholesale, as a checkpoint resume
-        does: the keys track topology and alignment identity, not a
-        swap of every partition)."""
+        """Drop every cached evaluator, incremental buffer and edge table,
+        the shards' too (after the state was replaced wholesale, as a
+        checkpoint resume or a re-sharding does: the keys track topology
+        and alignment identity, not a swap of every partition)."""
         self._fast_cache.clear()
         self._incr_cache.clear()
         self._edge_tables.clear()
@@ -167,10 +184,13 @@ class TreeInfo:
         The float32 partitions evaluate through :func:`engine.multi_eval`
         (each through its cached ``engine.compile_fast_eval`` evaluator,
         one launch each, one host sync for all); float64 partitions
-        through the serial engine. ``incremental=True`` recomputes only the op rows
-        whose branch lengths changed or that depend on one that did, on
-        the buffers cached by the previous incremental call; a topology
-        or partition change falls back to a full traversal."""
+        through the serial engine. Under a mesh every partition goes
+        through ``multi_eval``, each shard through its own evaluator on
+        its own device, the shards' logLs reduced. ``incremental=True``
+        recomputes only the op rows whose branch lengths changed or that
+        depend on one that did, on the buffers cached by the previous
+        incremental call (each shard's); a topology or partition change
+        falls back to a full traversal."""
         ops, root_info = self.tree.traversal_ops()
         ri = tuple(int(x) for x in root_info)
         n_inner = int((ops[:, 0] >= 0).sum())
@@ -178,7 +198,8 @@ class TreeInfo:
         with timed(self.counters):
             multi = [] if incremental else [
                 i for i in self.local_indices()
-                if engine_mod.use_fast_kernel(self.partitions[i])]
+                if engine_mod.use_fast_kernel(self.partitions[i])
+                or is_sharded(self.partitions[i])]
             if multi:
                 lnls = self._fast_eval_multi(multi, ops, ri)
                 for k, i in enumerate(multi):
@@ -211,7 +232,9 @@ class TreeInfo:
         entries are unweighted per-pattern values (times pattern_weights
         they sum to each partition's total). A float32 partition takes
         the fused kernel (the site vector falls out of its fused-root
-        epilogue), a float64 one the serial engine."""
+        epilogue), a float64 one the serial engine; a sharded partition
+        runs them on each shard and joins the values in pattern
+        order."""
         ops, root_info = self.tree.traversal_ops()
         ri = tuple(int(x) for x in root_info)
         persite = [None] * self.n_partitions
@@ -219,13 +242,26 @@ class TreeInfo:
         for i in self.local_indices():
             part = self.partitions[i]
             brl = self._brlens_tensor(i)
+            shards = shards_of(part)
+            tables = None
             if engine_mod.use_fast_kernel(part):
-                lnl, site = engine_mod.loglikelihood_persite_fast(
-                    part, self.tree, brl)
-            else:
-                lnl, site = engine_mod.loglikelihood_persite(part, ops, brl,
-                                                             ri)
-            persite[i] = site.cpu().numpy()
+                # one host compile, copied onto each shard's device
+                idx8, e1, e2, rinfo, ns = fused_mod.compile_fused(
+                    shards[0], self.tree, fuse_root=True)
+                tables = per_shard((idx8, e1, e2), shards)
+            lnls, sites = [], []
+            for k, s in enumerate(shards):
+                if tables is not None:
+                    i8, a, b = tables[k]
+                    lnl, site = fused_mod.loglikelihood_fused(
+                        s, i8, brl, a, b, rinfo, ns, persite=True)
+                else:
+                    lnl, site = engine_mod.loglikelihood_persite(s, ops, brl,
+                                                                 ri)
+                lnls.append(lnl)
+                sites.append(site.cpu().numpy())
+            lnl = engine_mod.reduce_shards(lnls, part.device)
+            persite[i] = join_patterns(part, sites)
             self.partition_loglh[i] = float(lnl)
             total += float(lnl)
         return total, persite
@@ -242,12 +278,18 @@ class TreeInfo:
     def _fast_eval(self, i, part, ops, ri):
         """The ``engine.compile_fast_eval`` evaluator of partition ``i``,
         cached on (topology, alignment identity): rebuilt when the
-        topology or the alignment changes."""
+        topology or the alignment changes. For a sharded partition, the
+        list of its shards' evaluators (``engine.shard_evaluators``: one
+        compile, copied onto each shard's device)."""
+        shards = shards_of(part)
         key = (ops.tobytes(), ri, part.n_tips, part.n_cats * part.states,
-               id(part.tip_states))
+               tuple(id(s.tip_states) for s in shards))
         ent = self._fast_cache.get(i)
         if ent is None or ent[0] != key:
-            ent = (key, engine_mod.compile_fast_eval(part, self.tree))
+            ev = (engine_mod.shard_evaluators(part, self.tree)
+                  if is_sharded(part)
+                  else engine_mod.compile_fast_eval(part, self.tree))
+            ent = (key, ev)
             self._fast_cache[i] = ent
         return ent[1]
 
@@ -277,30 +319,40 @@ class TreeInfo:
         number of op rows run): the fused kernel on the cached C·S×P
         buffers for float32, the serial engine for float64. Exactly the
         dirty rows run (the JAX package pads them to a power of two for
-        its compile cache)."""
+        its compile cache). A sharded partition keeps each shard's
+        buffers on its device, runs the same rows on every shard (their
+        table compiled once) and reduces the logLs."""
         fast = engine_mod.use_fast_kernel(part)
+        shards = shards_of(part)
         key = (ops.tobytes(), ri, fast)
         cache = self._incr_cache.get(i)
         brl_np = brl.cpu().numpy()
         n_inner = int((ops[:, 0] >= 0).sum())
         if cache is None or cache["key"] != key or cache["part"] is not part:
+            lnls, clvs, scalers = [], [], []
             if fast:
-                idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(part, ops)
-                Ppad, CS = part.n_patterns_padded, part.n_cats * part.states
-                clvs = torch.zeros((n_slots, CS, Ppad), dtype=torch.float32,
-                                   device=part.device)
-                scalers = torch.zeros((n_slots, 1, Ppad), dtype=torch.int32,
-                                      device=part.device)
-                lnl, clvs, scalers = engine_mod.fused_update_eval(
-                    part, self._table(part, idx8, e1, e2), brl, ri, clvs,
-                    scalers)
-            else:
-                lnl, (_, clvs, scalers) = engine_mod.loglikelihood_with_buffers(
-                    part, ops, brl, ri)
+                idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(
+                    shards[0], ops)
+                CS = part.n_cats * part.states
+            for s in shards:
+                if fast:
+                    Ppad = s.n_patterns_padded
+                    cl = torch.zeros((n_slots, CS, Ppad), dtype=torch.float32,
+                                     device=s.device)
+                    sc = torch.zeros((n_slots, 1, Ppad), dtype=torch.int32,
+                                     device=s.device)
+                    lnl, cl, sc = engine_mod.fused_update_eval(
+                        s, self._table(s, idx8, e1, e2), brl, ri, cl, sc)
+                else:
+                    lnl, (_, cl, sc) = \
+                        engine_mod.loglikelihood_with_buffers(s, ops, brl, ri)
+                lnls.append(lnl)
+                clvs.append(cl)
+                scalers.append(sc)
+            lnl = float(engine_mod.reduce_shards(lnls, part.device))
             self._incr_cache[i] = dict(key=key, part=part, brl=brl_np.copy(),
-                                       clvs=clvs, scalers=scalers,
-                                       lnl=float(lnl))
-            return float(lnl), n_inner
+                                       clvs=clvs, scalers=scalers, lnl=lnl)
+            return lnl, n_inner
 
         rows, changed = self._dirty_rows(ops, brl_np, cache["brl"],
                                          part.n_tips)
@@ -309,20 +361,24 @@ class TreeInfo:
             # other lengths in between may have overwritten the latter
             return cache["lnl"], 0
         sub = np.asarray(rows, ops.dtype).reshape(-1, 5)
-        if fast:
-            table = None
-            if len(sub):
-                idx8, e1, e2, _ = fused_mod.compile_fused_ops(
-                    part, sub, n_slots_min=cache["clvs"].shape[0])
-                table = self._table(part, idx8, e1, e2)
-            lnl, clvs, scalers = engine_mod.fused_update_eval(
-                part, table, brl, ri, cache["clvs"], cache["scalers"])
-        else:
-            lnl, clvs, scalers = engine_mod.loglikelihood_update(
-                part, sub, brl, ri, cache["clvs"], cache["scalers"])
-        cache.update(brl=brl_np.copy(), clvs=clvs, scalers=scalers,
-                     lnl=float(lnl))
-        return float(lnl), len(rows)
+        table = None
+        if fast and len(sub):
+            table = fused_mod.compile_fused_ops(
+                shards[0], sub, n_slots_min=cache["clvs"][0].shape[0])[:3]
+        lnls = []
+        for k, s in enumerate(shards):
+            if fast:
+                lnl, cl, sc = engine_mod.fused_update_eval(
+                    s, None if table is None else self._table(s, *table),
+                    brl, ri, cache["clvs"][k], cache["scalers"][k])
+            else:
+                lnl, cl, sc = engine_mod.loglikelihood_update(
+                    s, sub, brl, ri, cache["clvs"][k], cache["scalers"][k])
+            lnls.append(lnl)
+            cache["clvs"][k], cache["scalers"][k] = cl, sc
+        lnl = float(engine_mod.reduce_shards(lnls, part.device))
+        cache.update(brl=brl_np.copy(), lnl=lnl)
+        return lnl, len(rows)
 
     @staticmethod
     def _table(part, idx8, e1, e2):
@@ -335,16 +391,19 @@ class TreeInfo:
     def compute_ancestral(self, nodes=None):
         """Marginal ancestral state probabilities per partition
         (pllmod_treeinfo_compute_ancestral), each at that partition's
-        branch lengths. Returns a list of (nodes, probs [n_nodes,
-        patterns, states]) per local partition."""
+        branch lengths (a sharded partition's shards joined in pattern
+        order). Returns a list of (nodes, probs [n_nodes, patterns,
+        states]) per local partition."""
         from pllmod_tpu_torch.algorithm.ancestral import \
             ancestral_probabilities
         out = []
         for i in self.local_indices():
             t = self.tree.copy()
             t.lengths = np.asarray(self.partition_brlens(i))
-            out.append(ancestral_probabilities(self.partitions[i], t,
-                                               nodes=nodes))
+            per = [ancestral_probabilities(s, t, nodes=nodes)
+                   for s in shards_of(self.partitions[i])]
+            out.append((per[0][0], join_patterns(
+                self.partitions[i], [p for _, p in per], axis=1)))
         return out
 
     # -- brlen-scaler normalization (treeinfo.c:1101-1197) ----------------
@@ -354,9 +413,9 @@ class TreeInfo:
         mode)."""
         if self.brlen_linkage != BRLEN_SCALED:
             return
-        wsum = np.array([float(self.partitions[i].pattern_weights.sum())
-                         if self.partitions[i] is not None else 0.0
-                         for i in range(self.n_partitions)])
+        wsum = np.array([sum(float(s.pattern_weights.sum())
+                             for s in shards_of(p)) if p is not None
+                         else 0.0 for p in self.partitions])
         mean = float((self.brlen_scalers * wsum).sum() / wsum.sum())
         if mean <= 0:
             return

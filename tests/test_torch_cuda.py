@@ -1826,3 +1826,120 @@ def test_checkpointed_search_and_resume_on_card(cuda, tmp_path):
     assert res2.rounds[0] == res.rounds[0]
     assert res2.loglh >= res.loglh - 0.1
     assert ti2.partitions[0].device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the site mesh (pllmod_tpu_torch/parallel): four shards on one card, or
+# one shard a card
+# ---------------------------------------------------------------------------
+def _mesh_case(n_taxa=24, n_sites=512, seed=11):
+    part, tree = flagship.example(n_taxa, n_sites, seed=seed, device="cpu")
+    return part.cache_eigen(), tree
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+@pytest.mark.parametrize("route", ["resident", "fused"])
+def test_sharded_walk_matches_plain(cuda, route):
+    """Kernel 1 or 2 on each of four shards on one card (the launches
+    one a shard), reduced, against the same sharded evaluation on the
+    CPU (the plain versions), within 1e-6 relative."""
+    from pllmod_tpu_torch.parallel import (loglikelihood_fused_sharded,
+                                           loglikelihood_resident_sharded,
+                                           make_mesh)
+    fn = (loglikelihood_resident_sharded if route == "resident"
+          else loglikelihood_fused_sharded)
+    mod = resident if route == "resident" else fused
+    part, tree = _mesh_case()
+    before = mod.LAUNCHES
+    got = float(fn(part.to(cuda), tree, tree.lengths,
+                   make_mesh([cuda] * 4)))
+    assert mod.LAUNCHES == before + 4
+    want = float(fn(part, tree, tree.lengths, make_mesh(["cpu"] * 4)))
+    assert abs(got - want) / abs(want) < 1e-6
+
+
+def test_sharded_blo_sweep_matches_plain(cuda):
+    """One sharded Newton sweep (kernels 2, 8 and 9 on each of four
+    shards, the derivatives reduced every iteration) against the same
+    sweep on the CPU's plain versions: logL within 2e-6, lengths within
+    5e-4 relative; kernel 10 does not launch."""
+    from pllmod_tpu_torch.parallel import blo_sweep_fast_sharded, make_mesh
+    part, tree = _mesh_case()
+    before = dict(deriv.LAUNCHES)
+    new_k, l_k = blo_sweep_fast_sharded(part.to(cuda), tree, tree.lengths,
+                                        make_mesh([cuda] * 4))
+    for k in ("edge_sumtables", "edge_derivatives"):
+        n = deriv.LAUNCHES[k] - before[k]
+        assert n > 0 and n % 4 == 0
+    assert deriv.LAUNCHES["newton_edges"] == before["newton_edges"]
+    new_p, l_p = blo_sweep_fast_sharded(part, tree, tree.lengths,
+                                        make_mesh(["cpu"] * 4))
+    assert abs(float(l_k) - float(l_p)) / abs(float(l_p)) < 2e-6
+    rel = (new_k.cpu() - new_p).abs() / new_p.abs().clamp(min=1e-4)
+    assert float(rel.max()) < 5e-4
+
+
+def test_mesh_treeinfo_on_card_matches_plain(cuda):
+    """A TreeInfo sharded four ways on one card: compute_loglh (full,
+    incremental, per site) against the same sharded TreeInfo on the
+    CPU (plain versions) and the float64 serial engine; the LINKED BLO
+    launches kernels 2, 8 and 9 on every shard and kernel 10 never, and
+    ends at or above its start within 1e-6 of float64."""
+    from pllmod_tpu_torch.optimize import blo
+    from pllmod_tpu_torch.parallel import make_mesh, shard_treeinfo
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    part, tree = _mesh_case()
+    tis = {d: shard_treeinfo(TreeInfo(tree.copy(), [part.to(d)]),
+                             make_mesh([d] * 4)) for d in (cuda, "cpu")}
+    want = float(engine.tree_loglikelihood(
+        part.to(dtype=torch.float64).with_model_params(), tree,
+        schedule="scan"))
+    for ti in tis.values():
+        assert abs(ti.compute_loglh() - want) / abs(want) < 1e-6
+        ti.compute_loglh(incremental=True)
+        ti.set_branch_length(5, 0.3)
+    inc = {d: ti.compute_loglh(incremental=True) for d, ti in tis.items()}
+    assert abs(inc[cuda] - inc["cpu"]) / abs(inc["cpu"]) < 1e-6
+    site = {d: ti.compute_loglh_persite()[1][0] for d, ti in tis.items()}
+    assert np.allclose(site[cuda], site["cpu"], rtol=1e-5, atol=1e-4)
+    ti = tis[cuda]
+    start = ti.compute_loglh()
+    before = dict(deriv.LAUNCHES)
+    lnl = blo.optimize_branch_lengths_treeinfo(ti)
+    for k in ("edge_sumtables", "edge_derivatives"):
+        n = deriv.LAUNCHES[k] - before[k]
+        assert n > 0 and n % 4 == 0
+    assert deriv.LAUNCHES["newton_edges"] == before["newton_edges"]
+    assert deriv.LAUNCHES["newton_edges_multi"] == before[
+        "newton_edges_multi"]
+    assert lnl >= start
+    p64 = part.to(dtype=torch.float64).with_model_params()
+    l64 = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
+    assert abs(lnl - l64) / abs(l64) < 1e-6
+
+
+def test_mesh_over_distinct_cards(cuda):
+    """A mesh of one shard a card over two cards: compute_loglh and the
+    treeinfo BLO equal the four-shard mesh on one card within 1e-6, and
+    the dry run passes (skips on a machine with one card)."""
+    from pllmod_tpu_torch import multichip
+    from pllmod_tpu_torch.optimize import blo
+    from pllmod_tpu_torch.parallel import make_mesh, shard_treeinfo
+    from pllmod_tpu_torch.tree.treeinfo import TreeInfo
+    devs = _cards(2)
+    part, tree = _mesh_case()
+    out = {}
+    for name, d in (("cards", devs), ("one", ["cuda:0"] * 2)):
+        ti = shard_treeinfo(TreeInfo(tree.copy(), [part.to("cuda:0")]),
+                            make_mesh(d))
+        assert {str(s.device) for s in ti.partitions[0].shards} == set(d)
+        out[name] = (ti.compute_loglh(),
+                     blo.optimize_branch_lengths_treeinfo(ti))
+    for a, b in zip(out["cards"], out["one"]):
+        assert abs(a - b) / abs(b) < 1e-6
+    multichip.dryrun_multichip(2, devs)
