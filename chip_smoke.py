@@ -9,7 +9,7 @@ It builds the CUDA kernels from ``pllmod_tpu_torch/csrc`` into ``build/``
 (one ``nvcc`` a source, all six at once), holds each kernel against its
 plain torch version on the card (the fused walk at four shapes: the
 flagship's fuse_root and directed tables, protein, 64 states), and
-drives nine paths, each run with every kernel's launch count set to 0
+drives ten paths, each run with every kernel's launch count set to 0
 just before it and read just after, the launches logged by cell and
 path (``counted``):
 
@@ -100,7 +100,32 @@ path (``counted``):
    checkpointed) and its resume on phase 8's 32-taxon slice;
    ``multichip.dryrun_multichip`` (path ``mesh_dryrun``); and one shard
    against the mesh for the evaluation, the BLO call and the SPR round
-   (``--profile``: their busy shares). It prints one ``{"mesh": ...}``.
+   (``--profile``: their busy shares). It prints one ``{"mesh": ...}``;
+10. the capacity mode (``run_capacity``): the capacity cell
+   (``flagship.capacity_cell``: 10,000 taxa × 100,000 sites simulated
+   along a random tree under GTR+Γ4, float32, nothing cut; the
+   simulation runs on the host in a process of its own, started with
+   the script, beside phases 1-9, as does its ``create_partition``
+   with ``device="cpu"``: host seconds by encode, compress and tables;
+   its arrays are then copied onto the card), the ``auto``
+   evaluation (its route and slots, CAPACITY_EVALS evaluations at
+   varied lengths by CUDA events beside the host issue time, updates a
+   second, path ``auto``), ``loglikelihood_bounded_fused`` (path
+   ``bounded_fused``), both within 1e-6 of the float64 bounded
+   evaluation on the card, ``blo.optimize_branch_lengths`` routed to
+   the bounded sweep for one whole-tree sweep (``max_sweeps=1``, path
+   ``blo_bounded``: ms, slots, peak GiB, launches; at or above its start
+   and within 1e-6 of float64 at its lengths), and kernels 1, 2, 8 and
+   10 at the cell's shapes against their plain versions with their
+   bounds; the chunked BLO (``optimize_branch_lengths_chunked``, path
+   ``blo_chunked``) at the flagship width on phase 7's simulated
+   alignment beside the full and bounded drivers (within the JAX test's
+   0.05 of the full driver in float64) and one window's stacked
+   kernel-2 table bit for bit; the eight ``pllmod_tpu_torch/examples``
+   drivers, each ``main(["--device", "cuda"])`` (status and seconds;
+   output in ``build/capacity/examples``). ``--profile``: one capacity
+   evaluation and the sweep under ``profile.trace``, the top device
+   kernels of its Chrome trace. It prints one ``{"capacity": ...}``.
 
 It also times both walk kernels, forced, over a sweep of state and
 category counts (the measurements behind ``engine.fast_eval_schedule``'s
@@ -2984,6 +3009,547 @@ def run_mesh(gpu, profile: bool):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the capacity mode (10,000 taxa × 100,000 sites), the chunked
+# BLO at the flagship width, the example drivers
+# ---------------------------------------------------------------------------
+CAPACITY = dict(n_taxa=10_000, n_sites=100_000, seed=3)
+CAPACITY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "capacity")
+CAPACITY_EVALS = 10       # auto evaluations timed, at varied lengths
+CAPACITY_KERNEL_ITERS = 5  # launches timed a capacity-shape kernel
+CAPACITY_MUST = {
+    "auto": ("resident_walk", "resident_tables"),
+    "bounded_fused": ("fused_walk", "fused_tables"),
+    "blo_bounded": ("fused_walk", "edge_sumtables", "newton_edges")}
+CHUNKED_WINDOW = 16
+# chunked vs full driver, on float64 evaluations at each call's lengths:
+# the JAX package's test bar (tests/test_bounded_slots.py:72-73)
+CHUNKED_BELOW, CHUNKED_ABS = 1e-3, 0.05
+CHUNKED_MUST = ("fused_walk", "edge_sumtables", "newton_edges")
+# each demo's main(["--device", "cuda"]) and what its output must hold
+# (tests/test_examples_smoke.py's strings, and the same for the two
+# demos it does not run)
+EXAMPLES = {
+    "consensus_demo": ("splits kept",),
+    "rf_distance_demo": ("max RF",),
+    "genotype_demo": ("optimized logL",),
+    "ml_search_demo": ("parsimony starting tree", "search:", "final tree:"),
+    "protein_mixture_demo": ("37 models", "bounded"),
+    "constrained_search_demo": ("constraint satisfied: True",),
+    "partitioned_demo": ("optimized logL", "RF(ML, consensus) ="),
+    "spr_round": ("SPR round 1:", "final tree:"),
+}
+
+
+def write_capacity_cell(out_dir: str) -> None:
+    """Build the capacity cell on the host: simulate it
+    (``flagship.capacity_cell`` at CAPACITY) and run ``create_partition``
+    on its sequences with ``device="cpu"`` (host seconds by step), and
+    write it into ``out_dir``: the tree (``tree.npz``), the partition's
+    arrays (one ``.npy`` a field of ``convert.ARRAY_FIELDS``) and the
+    seconds and the partition's static fields (``cell.json``, written
+    last)."""
+    t0 = time.perf_counter()
+    seqs, _, tree = flagship.capacity_cell(**CAPACITY)
+    host = dict(simulate_s=time.perf_counter() - t0)
+    steps = {}
+    t0 = time.perf_counter()
+    part = create_partition(
+        seqs, states=4, n_rate_cats=4, alpha=flagship.CAPACITY_ALPHA,
+        subst_rates=flagship.CAPACITY_RATES, freqs=flagship.CAPACITY_FREQS,
+        device="cpu", timings=steps)
+    host["create_partition"] = dict(steps, total_s=time.perf_counter() - t0)
+    del seqs
+    t0 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    np.savez(os.path.join(out_dir, "tree.npz"), edge_nodes=tree.edge_nodes,
+             lengths=tree.lengths, n_nodes=tree.n_nodes)
+    for f in convert.ARRAY_FIELDS:
+        np.save(os.path.join(out_dir, f"{f}.npy"), getattr(part, f).numpy())
+    host["write_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "cell.json"), "w") as fh:
+        json.dump(dict(host=host, meta={f: getattr(part, f)
+                                        for f in convert.META_FIELDS}), fh)
+
+
+def start_capacity_cell():
+    """Start :func:`write_capacity_cell` into CAPACITY_DIR in a process of
+    its own: host work only, which runs beside phases 1-9 (one CPU core
+    of the card's host); returns the process."""
+    shutil.rmtree(CAPACITY_DIR, ignore_errors=True)
+    code = ("import chip_smoke; "
+            f"chip_smoke.write_capacity_cell({CAPACITY_DIR!r})")
+    return subprocess.Popen(
+        [sys.executable, "-c", code],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def load_capacity_cell(proc=None):
+    """(partition on the card, tree, host seconds by step): the cell of
+    the process of :func:`start_capacity_cell` when given, else built
+    here (:func:`write_capacity_cell`); then its arrays read back
+    (``load_s``) and copied onto the card (``card_upload_s``)."""
+    if proc is None:
+        write_capacity_cell(CAPACITY_DIR)
+    else:
+        out, err = proc.communicate(timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the capacity cell's build failed:\n"
+                               f"{err[-4000:]}")
+    with open(os.path.join(CAPACITY_DIR, "cell.json")) as fh:
+        cell = json.load(fh)
+    host = dict(cell["host"], built_beside_phases=proc is not None)
+    t0 = time.perf_counter()
+    arrays = {f: np.load(os.path.join(CAPACITY_DIR, f"{f}.npy"))
+              for f in convert.ARRAY_FIELDS}
+    t = np.load(os.path.join(CAPACITY_DIR, "tree.npz"))
+    host["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part = convert.partition_from_arrays(arrays, cell["meta"], "cuda")
+    torch.cuda.synchronize()
+    host["card_upload_s"] = time.perf_counter() - t0
+    n = CAPACITY["n_taxa"]
+    tree = Tree(n, [f"t{i}" for i in range(n)], t["edge_nodes"],
+                t["lengths"], n_nodes=int(t["n_nodes"]))
+    return part, tree, host
+
+
+def trace_top(logdir: str, n: int = 10) -> dict:
+    """The device kernels of the Chrome traces ``profile.trace`` wrote
+    into ``logdir``: total device ms, and the ``n`` largest by device
+    ms with their launches."""
+    per: dict = {}
+    for path in os.listdir(logdir):
+        with open(os.path.join(logdir, path)) as fh:
+            events = json.load(fh)["traceEvents"]
+        for e in events:
+            if e.get("cat") == "kernel":
+                row = per.setdefault(e["name"][:90], [0.0, 0])
+                row[0] += e.get("dur", 0) / 1e3
+                row[1] += 1
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:n]
+    return dict(device_ms=sum(v[0] for v in per.values()),
+                top=[dict(name=k, ms=v[0], launches=v[1]) for k, v in top])
+
+
+def capacity_kernel_rows(part, tree, brl) -> dict:
+    """Kernels 1, 2, 8 and 10 at the capacity cell's shapes, each against
+    its plain version on the same inputs (kernels 1, 2 and 8 bit for
+    bit, kernel 10 to DERIV_RTOL), timed by CUDA events over
+    CAPACITY_KERNEL_ITERS launches, with its bound: kernel 1 on the
+    ``auto`` table, kernel 2 on the bounded evaluation's serial table,
+    kernels 8 and 10 on the first emits of the bounded sweep's walk
+    (its first segments walked, all emits of a segment). Returns (the
+    rows by kernel, the host seconds of each table build)."""
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    tab = fused.code_table(part)
+    rows = {}
+    host = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        host[name] = time.perf_counter() - t0
+        return out
+
+    def held(name, kernel, plain):
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = kernel()
+        torch.cuda.synchronize()
+        return got, want, plain_ms
+
+    # kernel 1: the auto evaluation's resident table
+    idx8, e1, e2, ns = timed("compile_resident_s", lambda: resident.
+                             compile_resident(part, tree))
+    P5 = fused.pair_pmats(part, brl, e1, e2, root_row=True)
+    args = (idx8, P5, part.tip_states, tab, ns)
+    (prod_k, sc_k), (prod_p, sc_p), plain_ms = held(
+        "resident", lambda: resident.resident_walk(*args),
+        lambda: resident.resident_walk_plain(*args))
+    if not (torch.equal(prod_k, prod_p) and torch.equal(sc_k, sc_p)):
+        raise AssertionError("resident walk (capacity) differs from its "
+                             "plain version")
+    b_ms, b_by = bound(nbytes(idx8, P5, part.tip_states, tab, prod_k, sc_k),
+                       walk_flops(idx8, C, S, Ppad, tab.shape[0]))
+    rows["resident_walk"] = dict(
+        ms=time_ms(lambda: resident.resident_walk(*args),
+                   CAPACITY_KERNEL_ITERS),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        rows=len(idx8), slots=ns)
+    del prod_k, prod_p, P5
+
+    # kernel 2: the bounded evaluation's serial table (its root row last)
+    ops, (u, v, e) = timed("traversal_ops_s", tree.traversal_ops)
+    ops_b, _, slot_map = timed("bounded_slot_ops_s", lambda: clv.
+                               bounded_slot_ops(ops, part.n_tips,
+                                                root_refs=(u, v)))
+
+    def remap(x):
+        return x if x < part.n_tips else part.n_tips + int(slot_map[
+            x - part.n_tips])
+    t8, f1, f2, nsf = timed("compile_fused_ops_serial_s", lambda: fused.
+                            compile_fused_ops(part, ops_b, serial=True))
+    t8, f1, f2, _ = fused.append_root_row(t8, f1, f2, part.n_tips, remap(u),
+                                          remap(v), int(e), nsf)
+    dev = part.device
+    t8 = torch.as_tensor(t8, device=dev)
+    f1 = torch.as_tensor(f1, device=dev).long()
+    f2 = torch.as_tensor(f2, device=dev).long()
+    P5 = fused.pair_pmats(part, brl, f1, f2, root_row=True)
+    args = (t8, P5, part.tip_states, tab, nsf)
+    (clv_k, sc_k), (clv_p, sc_p), plain_ms = held(
+        "fused", lambda: fused.fused_walk(*args),
+        lambda: fused.fused_walk_plain(*args))
+    w = torch.unique(t8[:, 6].long())
+    if not (torch.equal(clv_k[w], clv_p[w]) and torch.equal(sc_k[w],
+                                                           sc_p[w])):
+        raise AssertionError("fused walk (capacity, bounded table) differs "
+                             "from its plain version")
+    b_ms, b_by = bound(nbytes(t8, P5, part.tip_states, tab)
+                       + written_bytes(t8, C, S, Ppad),
+                       walk_flops(t8, C, S, Ppad, tab.shape[0]))
+    rows["fused_walk"] = dict(
+        ms=time_ms(lambda: fused.fused_walk(*args), CAPACITY_KERNEL_ITERS),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        rows=len(t8), slots=nsf)
+    del clv_k, clv_p, P5
+
+    # kernels 8 and 10: the bounded sweep's first segment with emits,
+    # every emit of it
+    sched = timed("bounded_sweep_schedule_s", lambda: blo_bounded.
+                  BoundedSweepSchedule(tree))
+    tables = timed("bounded_compile_tables_s", lambda: sched.
+                   compile_tables(part))
+    n_slots_k = tables[-1]
+    plan = timed("bounded_pass_plan_s", lambda: blo_bounded._pass_plan(
+        part, sched, tables, None, True))
+    bufs = (torch.zeros((n_slots_k, C * S, Ppad), device=dev),
+            torch.zeros((n_slots_k, 1, Ppad), dtype=torch.int32,
+                        device=dev))
+    for walk, emits in plan:
+        if walk is not None:
+            P5 = fused.pair_pmats(part, brl, walk[1], walk[2],
+                                  root_row=False)
+            fused.fused_walk(walk[0], P5, part.tip_states, tab, n_slots_k,
+                             out=bufs)
+        if emits is not None:
+            break
+    eref, eids = emits
+    basis = deriv.sumtable_basis(part)
+    sargs = (part, *bufs, eref, basis)
+    (st, sc), (st_p, sc_p), plain_ms = held(
+        "sumtables", lambda: deriv.edge_sumtables(*sargs),
+        lambda: deriv.edge_sumtables_plain(*sargs))
+    if not (torch.equal(st, st_p) and torch.equal(sc, sc_p)):
+        raise AssertionError("edge_sumtables (capacity) differs from its "
+                             "plain version")
+    b_ms, b_by = sumtable_bound(part, eref, basis)
+    rows["edge_sumtables"] = dict(
+        ms=time_ms(lambda: deriv.edge_sumtables(*sargs),
+                   CAPACITY_KERNEL_ITERS),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+        edges=len(eref))
+    del st_p, sc_p, bufs
+    kw = dict(lw=deriv._lam_weight_rows(part),
+              lnB=deriv.invar_log_plane(part))
+    t = brl[eids]
+    nargs = (part, st, sc, t, MIN_BRANCH_LEN, MAX_BRANCH_LEN,
+             TOL_BRANCH_LEN, blo.MAX_NEWTON_ITERS)
+    got, want, plain_ms = held(
+        "newton", lambda: deriv.newton_edges(*nargs, **kw),
+        lambda: deriv.newton_edges_plain(*nargs, **kw))
+    errs = [_rel(got[0], want[0], 1e-4), _rel(got[1], want[1], 1e-2)]
+    if errs[0] > DERIV_RTOL["t"] or errs[1] > DERIV_RTOL["lnl0"]:
+        raise AssertionError(f"newton_edges (capacity) differs from its "
+                             f"plain version: {errs}")
+    iters = int(got[2].sum())
+    CS = C * S
+    b_ms, b_by = bound(nbytes(st, sc, t, kw["lw"], kw["lnB"]) + Ppad * 4
+                       + 3 * len(t) * 4, iters * Ppad * (6 * CS + SITE_OPS))
+    rows["newton_edges"] = dict(
+        ms=time_ms(lambda: deriv.newton_edges(*nargs, **kw),
+                   CAPACITY_KERNEL_ITERS),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=max(float((g - w).abs().max())
+                        for g, w in zip(got[:2], want[:2])),
+        max_rel_err=errs, edges=len(t), mean_iters=iters / len(t))
+    for name, r in rows.items():
+        print(f"{name} (capacity): {json.dumps(r)}")
+    print(f"capacity host tables (s): {json.dumps(host)}")
+    torch.cuda.empty_cache()
+    return rows, host
+
+
+def run_chunked(gpu) -> dict:
+    """The chunked BLO at the flagship width on the simulated flagship
+    alignment (``flagship.simulated``, phase 7's cell: tree-signal data,
+    whose optimum the JAX test's bar is about), beside the full and the
+    bounded drivers from the same start: each call's host ms, sweeps and
+    logL, each logL against float64 at its lengths; the chunked one
+    counted (path ``blo_chunked``) and, on float64 evaluations, at or
+    above the full driver's less CHUNKED_BELOW and within CHUNKED_ABS
+    of it; and one window's stacked kernel-2 table against its plain
+    walk, bit for bit."""
+    part, tree = flagship.simulated(**FLAGSHIP, sim_seed=SIM_SEED,
+                                    device="cuda")
+    part = part.cache_eigen()
+    part64 = f64_copy(part).cache_eigen()
+    ops, ri = tree.traversal_ops()
+
+    def f64(tr):
+        return float(engine.loglikelihood(
+            part64, ops, torch.as_tensor(tr.lengths, device="cuda"), ri))
+    row = dict(cell="flagship DNA, simulated", start_lnl=f64(tree))
+    runs = (("full", lambda tr, st: blo.optimize_branch_lengths(
+                part, tr, stats=st)),
+            ("bounded", lambda tr, st: blo_bounded.
+             optimize_branch_lengths_bounded(part, tr, stats=st)),
+            ("chunked", lambda tr, st: blo.optimize_branch_lengths_chunked(
+                part, tr, window=CHUNKED_WINDOW, stats=st)))
+    for name, fn in runs:
+        tr, stats = tree.copy(), {}
+        if name == "chunked":
+            (_, lnl), ms = counted(
+                "flagship DNA, simulated", "blo_chunked",
+                lambda: timed_host(lambda: fn(tr, stats)),
+                must=CHUNKED_MUST)[0]
+        else:
+            (_, lnl), ms = timed_host(lambda: fn(tr, stats))
+        l64 = f64(tr)
+        rel_close(lnl, l64, LOGL_RTOL, f"{name} BLO (flagship, simulated) "
+                  "vs float64")
+        row[name] = dict(ms=ms, sweeps=stats["sweeps"], lnl=lnl, f64=l64,
+                         **({"windows": stats["windows"]}
+                            if name == "chunked" else {}))
+    gap = row["chunked"]["f64"] - row["full"]["f64"]
+    print(f"chunked BLO (flagship, simulated): {json.dumps(row)}; chunked "
+          f"less full {gap!r} (float64)")
+    if gap < -CHUNKED_BELOW or abs(gap) > CHUNKED_ABS:
+        raise AssertionError(f"chunked BLO off the full driver by {gap}")
+    row["chunked_less_full"] = gap
+
+    # one window's stacked table: kernel 2 against its plain walk
+    ops_w, refs_w, _, _, n_slots = blo.compile_chunked_blo(
+        part, tree, CHUNKED_WINDOW)
+    tabs = blo._window_tables(part, ops_w[0], refs_w[0], n_slots)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32, device="cuda")
+    P5 = fused.pair_pmats(part, brl, tabs.e1, tabs.e2, root_row=False)
+    args = (tabs.idx8, P5, part.tip_states, tabs.codetab, tabs.n_slots)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    outs = {}
+    for name, walk in (("kernel", fused.fused_walk),
+                       ("plain", fused.fused_walk_plain)):
+        out = (torch.zeros((tabs.n_slots, C * S, Ppad), device="cuda"),
+               torch.zeros((tabs.n_slots, 1, Ppad), dtype=torch.int32,
+                           device="cuda"))
+        outs[name] = walk(*args, out=out)
+    torch.cuda.synchronize()
+    (k_clv, k_sc), (p_clv, p_sc) = outs["kernel"], outs["plain"]
+    if not (torch.equal(k_clv, p_clv) and torch.equal(k_sc, p_sc)):
+        raise AssertionError("kernel 2 over a chunked window's table "
+                             "differs from its plain walk")
+    row["window_table"] = dict(traversals=CHUNKED_WINDOW, rows=len(
+        tabs.idx8), slots=tabs.n_slots, bit_for_bit=True)
+    print(f"chunked window table (kernel 2 against its plain walk): "
+          f"{json.dumps(row['window_table'])}")
+    del part64, outs, k_clv, p_clv
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_examples() -> dict:
+    """Each demo of ``pllmod_tpu_torch/examples`` as ``main(["--device",
+    "cuda"])`` in this process, its output written to
+    ``build/capacity/examples/<name>.txt`` and held to EXAMPLES' strings;
+    launches counted (cell ``examples``, path the demo's name). Returns
+    each one's status (0: returned) and host seconds."""
+    import importlib
+    out_dir = os.path.join(CAPACITY_DIR, "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    rows = {}
+    for name, strings in EXAMPLES.items():
+        demo = importlib.import_module(f"pllmod_tpu_torch.examples.{name}")
+        path = os.path.join(out_dir, f"{name}.txt")
+        t0 = time.perf_counter()
+        with open(path, "w") as fh, contextlib.redirect_stdout(fh):
+            counted("examples", name, lambda: demo.main(["--device",
+                                                         "cuda"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(path) as fh:
+            text = fh.read()
+        missing = [s for s in strings if s not in text]
+        if missing:
+            raise AssertionError(f"example {name} printed no {missing}")
+        rows[name] = dict(status=0, seconds=seconds)
+        print(f"example {name}: status 0, {seconds:.1f} s")
+    return rows
+
+
+def run_capacity(gpu, profile: bool, cell_proc=None) -> dict:
+    """Phase 10: the capacity cell (``flagship.capacity_cell``: 10,000
+    taxa × 100,000 sites simulated along a random tree, GTR+Γ4, float32,
+    nothing cut; built on the host by the process of
+    :func:`start_capacity_cell` when given, else here, and copied onto
+    the card): ``create_partition`` by step; ``auto``'s route, its
+    CAPACITY_EVALS timed evaluations and updates a second;
+    ``loglikelihood_bounded_fused``; both logLs against the float64
+    bounded evaluation on the card; the BLO's route to the bounded sweep
+    and one bounded whole-tree sweep (``max_sweeps=1``); kernels 1, 2, 8
+    and 10 at the cell's shapes; then the chunked BLO at the flagship
+    width (:func:`run_chunked`) and the eight examples
+    (:func:`run_examples`). ``profile``: one capacity evaluation and the
+    sweep under ``profile.trace``, the top device kernels and the busy
+    share of the window. Returns the phase's row, with its seconds by
+    step (``steps_s``)."""
+    from pllmod_tpu_torch import profile as profile_mod
+    t_phase = time.perf_counter()
+    steps, clock = {}, [t_phase]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - clock[0]
+        clock[0] = now
+    row = dict(cell=dict(CAPACITY, model="GTR+G4 float32"), gpu=gpu,
+               steps_s=steps)
+    part, tree, row["host"] = load_capacity_cell(cell_proc)
+    step("cell")
+    part = part.cache_eigen()
+    part64 = f64_copy(part).cache_eigen()    # shares the tip codes
+    row.update(patterns=part.n_patterns, patterns_padded=(
+        part.n_patterns_padded), tip_codes_gib=nbytes(part.tip_states)
+        / 2**30)
+    print(f"capacity cell: {json.dumps(row)}")
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32, device="cuda")
+    l64, ns64 = engine.loglikelihood_bounded(
+        part64, tree, brlens=brl.double())
+    l64 = float(l64)
+    step("f64_start")
+
+    # auto: its route, CAPACITY_EVALS timed evaluations
+    t0 = time.perf_counter()
+    ev = engine.compile_fast_eval(part, tree)
+    compile_s = time.perf_counter() - t0
+    n_slots = resident.compile_resident(part, tree)[3]
+    scales = 1.0 + 1e-4 * torch.arange(CAPACITY_EVALS, device="cuda")
+    brls = brl[None, :] * scales[:, None]
+
+    def evals():
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = [ev(part, brls[i]) for i in range(CAPACITY_EVALS)]
+        stop.record()
+        issue = (time.perf_counter() - t0) * 1e3 / CAPACITY_EVALS
+        stop.synchronize()
+        return out, start.elapsed_time(stop) / CAPACITY_EVALS, issue
+    lnl_auto = float(ev(part, brl))
+    (lnls, ms, issue_ms), _ = counted("capacity", "auto", evals,
+                                      must=CAPACITY_MUST["auto"])
+    if not all(np.isfinite(float(x)) for x in lnls):
+        raise AssertionError("capacity auto evaluation: a non-finite logL")
+    rel_close(lnl_auto, l64, LOGL_RTOL, "capacity auto logL vs float64 "
+              "bounded")
+    row["auto"] = dict(
+        route=ev.schedule, n_slots=n_slots, compile_s=compile_s,
+        ms_per_eval=ms, host_issue_ms_per_eval=issue_ms, lnl=lnl_auto,
+        f64=l64, rel_to_f64=abs(lnl_auto - l64) / abs(l64),
+        clv_pattern_node_updates_per_s=(CAPACITY["n_taxa"] - 2)
+        * part.n_patterns / (ms * 1e-3))
+    print(f"capacity auto: {json.dumps(row['auto'])}")
+    step("auto")
+
+    # the bounded fused evaluation (kernel 2 on the serial table)
+    (res, host_ms), _ = counted(
+        "capacity", "bounded_fused", lambda: timed_host(
+            lambda: engine.loglikelihood_bounded_fused(part, tree)),
+        must=CAPACITY_MUST["bounded_fused"])
+    lnl_f = float(res[0])
+    _, again_ms = timed_host(lambda: engine.loglikelihood_bounded_fused(
+        part, tree))
+    rel_close(lnl_f, l64, LOGL_RTOL, "capacity bounded fused logL vs "
+              "float64 bounded")
+    row["bounded_fused"] = dict(ms=host_ms, ms_again=again_ms,
+                                n_slots=res[1], lnl=lnl_f,
+                                rel_to_f64=abs(lnl_f - l64) / abs(l64))
+    row["f64_bounded"] = dict(lnl=l64, n_slots=ns64)
+    print(f"capacity bounded fused: {json.dumps(row['bounded_fused'])}")
+    step("bounded_fused")
+
+    # the BLO's route and one bounded whole-tree sweep
+    if not blo._bounded_blo_auto(part, tree, blo.BLO_MEM_BUDGET):
+        raise AssertionError("the capacity cell's BLO does not route to "
+                             "the bounded sweep")
+    tr, stats = tree.copy(), {}
+    mem = reset_peak_memory()
+    ((_, lnl_s), sweep_ms), got = counted(
+        "capacity", "blo_bounded", lambda: timed_host(
+            lambda: blo.optimize_branch_lengths(part, tr, max_sweeps=1,
+                                                stats=stats)),
+        must=CAPACITY_MUST["blo_bounded"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if stats.get("route") != "bounded":
+        raise AssertionError(f"blo.optimize_branch_lengths took route "
+                             f"{stats.get('route')}, not the bounded sweep")
+    s64, _ = engine.loglikelihood_bounded(
+        part64, tr, brlens=torch.as_tensor(tr.lengths, device="cuda"))
+    s64 = float(s64)
+    if not s64 >= l64:
+        raise AssertionError(f"the bounded sweep ended below its start "
+                             f"(float64): {s64} < {l64}")
+    rel_close(lnl_s, s64, LOGL_RTOL, "capacity bounded sweep logL vs "
+              "float64 at its lengths")
+    row["blo_bounded"] = dict(
+        ms=sweep_ms, start_lnl=lnl_auto, start_f64=l64, lnl=lnl_s, f64=s64,
+        rel_to_f64=abs(lnl_s - s64) / abs(s64), start_gib=mem,
+        peak_gib=peak, **stats,
+        launches={k: n for k, n in got.items() if n})
+    print(f"capacity bounded sweep: {json.dumps(row['blo_bounded'])}")
+    del part64
+    torch.cuda.empty_cache()
+    step("blo_bounded_and_f64")
+
+    row["kernels"], row["host_tables"] = capacity_kernel_rows(part, tree,
+                                                              brl)
+    step("kernels")
+    if profile:
+        # the bounded schedule's structural check: a test's, O(n·depth)
+        # sets, never on the sweep's path
+        sched = blo_bounded.BoundedSweepSchedule(tree)
+        row["host_tables"]["validate_schedule_s"] = timed_host(
+            lambda: blo_bounded.validate_schedule(sched, tree))[1] / 1e3
+        del sched
+        logdir = os.path.join(CAPACITY_DIR, "trace")
+        shutil.rmtree(logdir, ignore_errors=True)
+        t0 = time.perf_counter()
+        with profile_mod.trace(logdir):
+            float(ev(part, brl))
+            blo.optimize_branch_lengths(part, tree.copy(), max_sweeps=1)
+            torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        row["profile"] = trace_top(logdir)
+        row["profile"].update(window_ms=window_ms, device_busy_share=row[
+            "profile"]["device_ms"] / window_ms)
+        print(f"capacity profile: {json.dumps(row['profile'])}")
+        step("profile")
+    del part, ev, brls
+    torch.cuda.empty_cache()
+    row["chunked"] = run_chunked(gpu)
+    step("chunked")
+    row["examples"] = run_examples()
+    step("examples")
+    row["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {row['seconds']:.1f} s")
+    return row
+
+
 def timed_host(fn):
     """(fn(), host ms)."""
     t0 = time.perf_counter()
@@ -3536,6 +4102,9 @@ def main(argv=None) -> int:
         atexit.register(parent_build.kill)
     # and the build with kernels 1 and 10's phase marks, for --profile
     phase_build = start_phase_build() if args.profile else None
+    # phase 10's cell, simulated on the host beside phases 1-9
+    cell_proc = start_capacity_cell()
+    atexit.register(cell_proc.kill)
     gpu = gpu_line()
     print(gpu)
     name, power = (s.strip() for s in gpu.split(",", 1))
@@ -3696,6 +4265,15 @@ def main(argv=None) -> int:
     # mesh; partition DP; the dry run
     torch.cuda.empty_cache()
     mesh_row = run_mesh(gpu, args.profile)
+
+    # ---- the capacity mode: 10,000 × 100,000 (auto, bounded evaluation,
+    # the bounded sweep, kernels 1, 2, 8, 10 at its shapes), the chunked
+    # BLO at the flagship width, the eight examples
+    torch.cuda.empty_cache()
+    capacity_row = run_capacity(gpu, args.profile, cell_proc)
+    for row in (res_row, fused_row, *deriv_rows):
+        if row["name"] in capacity_row["kernels"]:
+            row["capacity"] = capacity_row["kernels"][row["name"]]
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
@@ -3767,6 +4345,7 @@ def main(argv=None) -> int:
     print(json.dumps({"ancestral": anc_row}))
     print(json.dumps({"search": search_row}))
     print(json.dumps({"mesh": mesh_row}))
+    print(json.dumps({"capacity": capacity_row}))
     print(json.dumps({"sumtable_routing": sumtable_routing}))
     print(json.dumps({"kernels": kernel_rows}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -16,6 +16,9 @@ by seeded random SPR moves, so that an SPR round has moves to find.
 :func:`search_cell` is the data of the full-search cell (246 × 4465
 GTR+Γ4, the JAX package's ``tools/probe_search246.py`` recipe): a random
 tree, a model and an alignment simulated along that tree.
+:func:`capacity_cell` is the capacity mode's cell (10,000 taxa ×
+100,000 sites GTR+Γ4, after ``tools/probe_capacity_eval.py``): DNA
+simulated along a :func:`random_binary_tree`.
 """
 
 from __future__ import annotations
@@ -104,33 +107,54 @@ def simulate(rng, tree, n_sites, rates, freqs, symbols, alpha=0.7, cats=4):
 
     Each site takes one category and a root state at the first inner
     node (π); down every edge a child's state is drawn from the row of
-    P(t·r_c) = exp(Q·t·r_c) of its parent's state. Q is
-    :func:`~pllmod_tpu_torch.ops.eigen.build_q` (mean rate 1) and the
-    category rates :func:`~pllmod_tpu_torch.ops.gamma.compute_gamma_cats_host`,
-    both in float64."""
+    P(t·r_c) = exp(Q·t·r_c) of its parent's state: the count of that
+    row's cumulative probabilities a uniform draw exceeds, S − 1 at
+    most. Q is :func:`~pllmod_tpu_torch.ops.eigen.build_q` (mean rate 1)
+    and the category rates
+    :func:`~pllmod_tpu_torch.ops.gamma.compute_gamma_cats_host`, both in
+    float64.
+
+    States are held as uint8, and an inner node's states are dropped
+    once its children are drawn, so that the live host memory is the
+    tips' states and a path's worth of inner nodes (10,000 taxa ×
+    100,000 sites: 1 GB of tip states, where an int64 array a node would
+    hold 16 GB)."""
     freqs = np.asarray(freqs, np.float64)
+    S = len(freqs)
     Q = eigen_mod.build_q(torch.as_tensor(rates, dtype=torch.float64),
                           torch.as_tensor(freqs))
     cat_rates = torch.as_tensor(gamma_mod.compute_gamma_cats_host(
         alpha, cats, GAMMA_RATES_MEAN))
+    # every edge's cumulative P rows at once, [(edge, c, i), j]: the
+    # batched matrix_exp gives each matrix the bits of its own call
+    t = torch.as_tensor(np.asarray(tree.lengths, np.float64))[:, None] \
+        * cat_rates[None, :]
+    cum_all = torch.linalg.matrix_exp(Q * t[..., None, None]) \
+        .cumsum(-1).numpy().reshape(len(t), cats * S, S)
     site_cat = rng.integers(0, cats, n_sites)
+    row_base = site_cat * S                  # row of (category, state 0)
     adj = tree.adjacency()
-    seqs = {tree.n_tips: rng.choice(len(freqs), n_sites, p=freqs)}
+    inner = {tree.n_tips: rng.choice(S, n_sites, p=freqs).astype(np.uint8)}
+    tips = [None] * tree.n_tips
     stack = [(tree.n_tips, -1)]
     while stack:
         node, parent = stack.pop()
+        if node < tree.n_tips:
+            continue
+        here = row_base + inner.pop(node)
         for nbr, e in adj[node]:
             if nbr == parent:
                 continue
-            t = float(tree.lengths[e]) * cat_rates
-            cum = torch.linalg.matrix_exp(Q * t[:, None, None]) \
-                .cumsum(-1).numpy()                             # [C, S, S]
-            rows = cum[site_cat, seqs[node]]                    # [sites, S]
-            seqs[nbr] = np.minimum((rng.random((n_sites, 1)) > rows)
-                                   .sum(1), len(freqs) - 1)
+            rows = np.take(cum_all[e].T, here, axis=1)     # [S, sites]
+            u = rng.random(n_sites)
+            drawn = np.zeros(n_sites, np.uint8)
+            for j in range(S):
+                drawn += u > rows[j]
+            np.minimum(drawn, S - 1, out=drawn)
+            (tips if nbr < tree.n_tips else inner)[nbr] = drawn
             stack.append((nbr, node))
-    chars = np.array(list(symbols))
-    return ["".join(chars[seqs[t]]) for t in range(tree.n_tips)]
+    chars = np.frombuffer(symbols.encode("ascii"), np.uint8)
+    return [chars[x].tobytes().decode("ascii") for x in tips]
 
 
 def simulated_data(n_taxa=12, n_sites=256, seed=7, sim_seed=11, states=4,
@@ -209,3 +233,48 @@ def search_cell(seed=246, n_taxa=246, n_sites=4465):
     freqs = rng.dirichlet([12, 9, 9, 12])
     seqs = simulate(rng, tree, n_sites, rates, freqs, "ACGT", alpha=0.9)
     return seqs, labels, tree
+
+
+def random_binary_tree(rng, n_tips, min_len=0.01, max_len=0.9):
+    """A random unrooted binary tree on ``t0..t{n_tips-1}`` (the JAX
+    package's test recipe, ``tests/reference_impl.random_binary_tree``,
+    draw for draw): a 3-star on tips 0-2, then tip k splits an edge
+    drawn uniformly from those so far; lengths U(``min_len``,
+    ``max_len``) in edge order."""
+    labels = [f"t{i}" for i in range(n_tips)]
+    edges = [[0, n_tips], [1, n_tips], [2, n_tips]]
+    next_inner = n_tips + 1
+    for tip in range(3, n_tips):
+        e = rng.integers(len(edges))
+        u, v = edges[e]
+        w = next_inner
+        next_inner += 1
+        edges[e] = [u, w]
+        edges.append([w, v])
+        edges.append([tip, w])
+    lengths = rng.uniform(min_len, max_len, size=len(edges))
+    return Tree(n_tips, labels, np.array(edges, np.int32), lengths,
+                n_nodes=next_inner)
+
+
+# the capacity cell's model: tests/reference_impl.simulated_sequences'
+# GTR rates and frequencies, Γ4 shape 0.9 (tools/probe_capacity_eval.py)
+CAPACITY_RATES = (1.2, 2.5, 0.8, 1.1, 3.0, 1.0)
+CAPACITY_FREQS = (0.3, 0.25, 0.2, 0.25)
+CAPACITY_ALPHA = 0.9
+
+
+def capacity_cell(n_taxa=10_000, n_sites=100_000, seed=3):
+    """(sequences, labels, tree) of the capacity cell: a
+    :func:`random_binary_tree` on ``t0..t{n_taxa-1}`` with lengths
+    U(0.02, 0.4) and ``n_sites`` of DNA simulated along it
+    (:func:`simulate`) under GTR+Γ4 (:data:`CAPACITY_RATES`,
+    :data:`CAPACITY_FREQS`, :data:`CAPACITY_ALPHA`), every draw from
+    ``np.random.default_rng(seed)``, the tree's first. Sequence i
+    belongs to ``labels[i]``, tip i of ``tree``. The full size holds 1
+    GB of tip states on the host while it simulates (:func:`simulate`)."""
+    rng = np.random.default_rng(seed)
+    tree = random_binary_tree(rng, n_taxa, min_len=0.02, max_len=0.4)
+    seqs = simulate(rng, tree, n_sites, CAPACITY_RATES, CAPACITY_FREQS,
+                    "ACGT", alpha=CAPACITY_ALPHA)
+    return seqs, list(tree.labels[:n_taxa]), tree

@@ -243,6 +243,13 @@ def invariant_sites_mask(tip_code_masks, tip_states):
       tip_states: int [tips, sites] code per tip per site
     Returns:
       uint64 [sites] intersection bitmask (0 = site cannot be invariant)
+
+    The tips are reduced a block at a time, so the uint64 masks never
+    stand for the whole [tips, sites] matrix (8 GB at 10,000 taxa ×
+    100,000 sites).
     """
-    masks = tip_code_masks[tip_states]          # [tips, sites]
-    return np.bitwise_and.reduce(masks, axis=0)
+    out = np.full(tip_states.shape[1], np.iinfo(np.uint64).max, np.uint64)
+    for i in range(0, tip_states.shape[0], 256):
+        out &= np.bitwise_and.reduce(tip_code_masks[tip_states[i:i + 256]],
+                                     axis=0)
+    return out

@@ -18,6 +18,7 @@ code 0 and weight 0, so they contribute exactly zero to the logL.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -211,20 +212,32 @@ def create_partition(
     gamma_mode: int = GAMMA_RATES_MEAN,
     reversible: bool = True,
     device="cuda",
+    timings: dict | None = None,
 ) -> Partition:
     """Build a Partition from raw sequences (list of str/bytes, equal
     length) on ``device`` — pll_partition_create + pll_set_tip_states +
     pll_set_pattern_weights + pll_compress_site_patterns +
     pll_update_invariant_sites. Same arguments and arrays as
-    ``pllmod_tpu.ops.partition.create_partition``."""
+    ``pllmod_tpu.ops.partition.create_partition``. ``timings``: optional
+    dict, filled with the host seconds of each step: ``encode_s``,
+    ``compress_s``, ``tables_s`` (the padded codes, invariant sites and
+    model arrays), ``upload_s`` (the tensors' copies onto ``device``)."""
     dev = resolve_device(device)
     if charmap is None:
         if states is None:
             raise ValueError("need states or charmap")
         charmap = charmap_mod.for_states(states)
     states = charmap.states
+    clock = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[name] = now - clock[0]
+        clock[0] = now
 
     codes, code_masks = charmap.encode(sequences)   # [tips, sites]
+    step("encode_s")
     n_tips, n_sites = codes.shape
 
     if pattern_weights is None:
@@ -234,6 +247,7 @@ def create_partition(
 
     if compress:
         codes, pattern_weights = compress_patterns(codes, pattern_weights)
+    step("compress_s")
     n_patterns = codes.shape[1]
     padded = round_up(max(n_patterns, 1), pattern_pad)
 
@@ -272,7 +286,8 @@ def create_partition(
     def dev_t(x, dt=dtype):
         return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
 
-    return Partition(
+    step("tables_s")
+    part = Partition(
         tip_states=dev_t(tip_states, torch.int32),
         code_clv=dev_t(code_clv),
         pattern_weights=dev_t(w),
@@ -290,6 +305,8 @@ def create_partition(
         gamma_mode=gamma_mode,
         reversible=reversible,
     )
+    step("upload_s")
+    return part
 
 
 def make_asc_partition(partition) -> Partition:

@@ -3,7 +3,8 @@
 - :mod:`pllmod_tpu_torch.optimize.newton` — vectorized bracketed
   Newton-Raphson (``pllmod_opt_minimize_newton_multi``)
 - :mod:`pllmod_tpu_torch.optimize.blo` — branch-length optimization on
-  all edges at once from directed CLVs
+  all edges at once from directed CLVs, and the chunked memory-bounded
+  BLO by windows of edge-rooted bounded traversals
 - :mod:`pllmod_tpu_torch.optimize.blo_bounded` — memory-bounded whole-tree
   BLO
 - :mod:`pllmod_tpu_torch.optimize.brent` — lock-step Brent 1-D
@@ -19,6 +20,19 @@
   PARAM_* combination (``pllmod_opt_optimize_onedim/multidim``)
 """
 
+from pllmod_tpu_torch.optimize.newton import (  # noqa: F401
+    minimize_newton_multi,
+)
+from pllmod_tpu_torch.optimize.blo import (  # noqa: F401
+    DirectedTraversal,
+    compile_chunked_blo,
+    optimize_branch_lengths,
+    optimize_branch_lengths_chunked,
+)
+from pllmod_tpu_torch.optimize.blo_bounded import (  # noqa: F401
+    BoundedSweepSchedule,
+    optimize_branch_lengths_bounded,
+)
 from pllmod_tpu_torch.optimize.brent import minimize_brent_multi  # noqa: F401
 from pllmod_tpu_torch.optimize.em import em_rates_weights  # noqa: F401
 from pllmod_tpu_torch.optimize.lbfgsb import minimize_lbfgsb  # noqa: F401

@@ -60,6 +60,16 @@ iteration sums the shards' derivatives (kernel 9 for float32) with
 launch and cannot reduce across shards, so it is off under a mesh
 (blo.py:741-742); so is the memory-bounded sweep, as in the JAX
 package.
+
+The chunked, memory-bounded BLO (:func:`optimize_branch_lengths_chunked`,
+``blo.py:1059-1240`` in the JAX package) needs no directed buffer: one
+bounded-slot edge-rooted traversal per edge
+(:func:`compile_chunked_blo`), W of them stacked into one table a
+window (:func:`_window_tables`, each traversal in its own slot range, as
+SPR stacks its candidates' remainder trees), run through the same
+engine switch (``edge_grad.directed_clvs``: kernel 2 for float32, the
+serial engine for float64) and the same sumtable, Newton and SAFE steps
+as a sweep (:func:`_blo_window`).
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ from pllmod_tpu_torch.common import (BRLEN_SCALED, BRLEN_UNLINKED,
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import deriv as kern
 from pllmod_tpu_torch.ops import derivatives as deriv_mod
+from pllmod_tpu_torch.ops import engine as engine_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
 from pllmod_tpu_torch.ops.engine import reduce_shards, tables_on
 from pllmod_tpu_torch.optimize.newton import minimize_newton_multi
@@ -305,21 +316,25 @@ def _sharded_tables(partition, compile_one) -> _Tables:
                                      for s in partition.shards[1:]])
 
 
-def walk_tables(partition, ops, n_slots_min: int | None = None) -> _Tables:
+def walk_tables(partition, ops, n_slots_min: int | None = None,
+                serial: bool = False) -> _Tables:
     """The directed walk's tables of the op rows ``ops`` (rows with out
     slot −1 skipped) for ``partition``: kernel 2's table for float32, the
     rows alone for the serial engine. ``n_slots_min`` fixes the CLV
     buffer from below, for either engine (a table of several trees whose
-    references reach past its last written slot)."""
+    references reach past its last written slot). ``serial=True`` keeps
+    the rows' order in kernel 2's table, as slot-recycled rows need
+    (``fused.compile_fused_ops(serial=True)``); the serial engine runs
+    rows in order either way."""
     if is_sharded(partition):
         return _sharded_tables(
-            partition, lambda s: walk_tables(s, ops, n_slots_min))
+            partition, lambda s: walk_tables(s, ops, n_slots_min, serial))
     tabs = _Tables(kernel=partition.dtype == torch.float32, ops=ops,
                    n_slots=n_slots_min or 0)
     if tabs.kernel:
         dev = partition.device
         idx8, e1, e2, n_slots = fused_mod.compile_fused_ops(
-            partition, ops, n_slots_min=n_slots_min)
+            partition, ops, n_slots_min=n_slots_min, serial=serial)
         tabs.idx8 = torch.as_tensor(idx8, device=dev)
         tabs.e1 = torch.as_tensor(e1, device=dev).long()
         tabs.e2 = torch.as_tensor(e2, device=dev).long()
@@ -379,8 +394,9 @@ def _edge_evaluator(partition, tabs, brlens, edges):
             return tuple(reduce_shards(list(v), partition.device)
                          for v in zip(*per))
         return reduced, None
+    from pllmod_tpu_torch.optimize.edge_grad import directed_clvs
+    clvs, scalers, _ = directed_clvs(partition, tabs, brlens)
     if tabs.kernel:
-        clvs, scalers = _directed_clvs(partition, tabs, brlens)
         st, sc = kern.edge_sumtables(partition, clvs, scalers,
                                      tabs.eref6[edges], tabs.basis)
 
@@ -388,8 +404,6 @@ def _edge_evaluator(partition, tabs, brlens, edges):
             return kern.edge_derivatives_k(partition, st, sc, t, tabs.lw,
                                            tabs.lnB)
     else:
-        P = partition.prob_matrices(brlens)
-        clvs, scalers = clv_mod.update_partials(partition, P, tabs.ops)
         eigen = partition.eigen()
         st, sc = _edge_sumtables(partition, clvs, scalers,
                                  tabs.edge_ref[edges], eigen)
@@ -622,8 +636,9 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
     - ``mem_budget``: bytes; whole-tree smoothing of a float32 partition
       whose directed buffers would exceed it runs
       :func:`~pllmod_tpu_torch.optimize.blo_bounded.optimize_branch_lengths_bounded`.
-    - ``stats``: optional dict, filled with ``sweeps``, ``sub_sweeps``
-      and (kernel 10) ``newton_iters`` / ``newton_edges``.
+    - ``stats``: optional dict, filled with ``route`` (``"directed"``, or
+      ``"bounded"`` for the memory-bounded sweep), ``sweeps``,
+      ``sub_sweeps`` and (kernel 10) ``newton_iters`` / ``newton_edges``.
     - ``mesh`` / ``mesh_axis``: site-sharded execution (a partition not
       yet sharded is sharded over the mesh; a sharded partition runs on
       its own mesh): every shard's sumtables, the derivatives reduced
@@ -646,7 +661,7 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
             partition, tree, max_sweeps=max_sweeps, tolerance=tolerance,
             min_brlen=min_brlen, max_brlen=max_brlen,
             newton_tol=newton_tol, write_back=write_back,
-            colored=colored, fused_newton=fused_newton)
+            colored=colored, fused_newton=fused_newton, stats=stats)
     trav = DirectedTraversal(tree)
     tabs = _compile_tables(partition, trav)
     mask_np = trav.edge_mask.copy()
@@ -671,7 +686,8 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
     brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
                              dtype=partition.dtype, device=dev)
     if stats is not None:
-        stats.update(sweeps=0, sub_sweeps=0, newton_edges=0,
+        stats.update(route="directed", sweeps=0, sub_sweeps=0,
+                     newton_edges=0,
                      newton_iters=torch.zeros((), dtype=torch.int64,
                                               device=dev))
 
@@ -703,6 +719,190 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
         best_lnl, best_brlens = final_lnl, brlens
     if stats is not None:
         stats["newton_iters"] = int(stats["newton_iters"])
+    if write_back:
+        tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+    return best_brlens, best_lnl
+
+
+def compile_chunked_blo(partition, tree, window: int):
+    """Host-side schedule of :func:`optimize_branch_lengths_chunked`
+    (``blo.compile_chunked_blo``): one bounded-slot edge-rooted traversal
+    (:func:`~pllmod_tpu_torch.ops.clv.bounded_slot_ops` with the root
+    edge's endpoints pinned) per live edge, stacked into windows of
+    ``window`` edges. Windows never mix edge colors
+    (:func:`_edge_colors`), so each window is a true block Gauss-Seidel
+    step; each color class is padded to a multiple of ``window`` with
+    masked rows (a copy of the first live edge's traversal).
+
+    Returns numpy (ops_w [nWin, W, n_ops, 5], refs_w [nWin, W, 2],
+    edge_ids [nWin, W], masks [nWin, W], n_slots), the JAX package's
+    arrays."""
+    n_tips = tree.n_tips
+    live = []                      # edge id per row; -1 = padding row
+    for cmask in _edge_colors(tree):
+        cls = [int(e) for e in np.nonzero(cmask)[0]]
+        live.extend(cls + [-1] * ((-len(cls)) % window))
+    row_live = np.asarray([e >= 0 for e in live])
+    pad_src = next(e for e in live if e >= 0)
+    live = [pad_src if e < 0 else e for e in live]
+    cache: dict[int, tuple] = {}
+    n_slots = 0
+    for e in live:
+        if e in cache:
+            continue
+        ops, (u, v, _e) = tree.traversal_ops(root_edge=e)
+        ops_b, ns, slot_map = clv_mod.bounded_slot_ops(
+            np.asarray(ops), n_tips, root_refs=(int(u), int(v)))
+
+        def remap(x):
+            x = int(x)
+            return x if x < n_tips else n_tips + int(slot_map[x - n_tips])
+
+        cache[e] = (np.asarray(ops_b, np.int32), (remap(u), remap(v)))
+        n_slots = max(n_slots, ns)
+    n_win = len(live) // window
+    ops_w = np.stack([cache[e][0] for e in live])
+    refs_w = np.asarray([cache[e][1] for e in live], np.int32)
+    shape = (n_win, window)
+    return (ops_w.reshape(*shape, *ops_w.shape[1:]),
+            refs_w.reshape(*shape, 2),
+            np.asarray(live, np.int32).reshape(shape),
+            row_live.reshape(shape), n_slots)
+
+
+def _window_tables(partition, ops_w, refs_w, n_slots: int,
+                   consts=None) -> _Tables:
+    """One window's tables: its W bounded traversals stacked into one
+    table, traversal k in slots [k·n_slots, (k+1)·n_slots) (only the
+    slots are offset: the edge ids are the tree's, shared by all W), in
+    the rows' own order (:func:`walk_tables`, ``serial=True``: kernel 2
+    for float32, the serial engine for float64); ``edge_ref`` / ``eref6``
+    hold the W facing-CLV pairs. ``consts``: the partition's (basis, lw,
+    lnB) for the derivative kernels, computed once by the caller; without
+    them the tables serve the walk alone."""
+    W = ops_w.shape[0]
+    n_tips = partition.n_tips
+    off = (np.arange(W, dtype=np.int64) * n_slots)[:, None]
+    ops = ops_w.astype(np.int64)
+    ops[..., 0] += off
+    for col in (1, 3):
+        ops[..., col] += np.where(ops[..., col] >= n_tips, off, 0)
+    refs = refs_w.astype(np.int64)
+    refs += np.where(refs >= n_tips, off, 0)
+    tabs = walk_tables(partition, ops.reshape(-1, 5), W * n_slots,
+                       serial=True)
+    dev = partition.device
+    tabs.edge_ref = torch.as_tensor(refs, device=dev)
+    if tabs.kernel:
+        tabs.eref6 = kern.compile_edge_refs(refs, np.ones(W, bool), n_tips,
+                                            dev)
+        if consts is not None:
+            tabs.basis, tabs.lw, tabs.lnB = consts
+    return tabs
+
+
+def _blo_window(partition, tabs, edge_ids, win_mask, brlens, min_brlen,
+                max_brlen, tol, safe: bool = False):
+    """One Gauss-Seidel WINDOW step of the memory-bounded BLO
+    (``blo._blo_window``): the window's stacked traversals give the two
+    CLVs facing each of its W edges, their sumtables (kernel 8 for
+    float32) and one batched Newton (Jacobi within the window, every
+    edge against its own sumtable at the incoming lengths:
+    :func:`_newton_edges`, kernel 10 where ``deriv.newton_fits``, else
+    :func:`minimize_newton_multi` over kernel 9 or the float64
+    formulation). ``safe``: the per-edge SAFE revert (:func:`_safe_accept`).
+    The masked write-back goes through a scratch row: padding rows all
+    land on it, never on a live edge.
+
+    Args:
+      tabs: :func:`_window_tables`; edge_ids: long [W] edge ids into
+        ``brlens``; win_mask: bool [W] live rows
+    Returns (new brlens, logL at the incoming brlens as a 0-dim tensor,
+    through the window's first row)."""
+    rows = torch.arange(len(edge_ids), device=brlens.device)
+    t_w = brlens[edge_ids]
+    derivs, sums = _edge_evaluator(partition, tabs, brlens, rows)
+    fused_newton = tabs.kernel and kern.newton_fits(partition)
+    t_opt, lnl0_all = _newton_edges(partition, derivs, *sums, t_w, min_brlen,
+                                    max_brlen, tol, fused_newton, tabs.lw,
+                                    tabs.lnB)
+    if safe:
+        l_old = derivs(t_w)[0] if fused_newton else lnl0_all
+        t_opt = _safe_accept(t_w, t_opt, l_old, derivs(t_opt)[0])
+    E = brlens.shape[0]
+    b_ext = torch.cat([brlens, brlens.new_zeros(1)])
+    b_ext[torch.where(win_mask, edge_ids, E)] = t_opt.to(brlens.dtype)
+    return b_ext[:E], lnl0_all[0].to(brlens.dtype)
+
+
+def optimize_branch_lengths_chunked(partition, tree, window: int = 16,
+                                    max_sweeps: int = 32,
+                                    tolerance: float = 1e-4,
+                                    min_brlen: float = MIN_BRANCH_LEN,
+                                    max_brlen: float = MAX_BRANCH_LEN,
+                                    newton_tol: float = TOL_BRANCH_LEN,
+                                    write_back: bool = True,
+                                    safe: bool = False,
+                                    stats: dict | None = None):
+    """Memory-bounded branch-length optimization by windows of edges
+    (``blo.optimize_branch_lengths_chunked``), on the partition's device.
+
+    Sweeps run the windows of :func:`compile_chunked_blo` Gauss-Seidel
+    style, each window a batched Jacobi step (:func:`_blo_window`), so
+    that the live CLV memory is W × the bounded slot count (O((W + log
+    n)·P·C·S) in the JAX package's words), never the 3(n−2) directed
+    buffer. Every edge costs one O(n) bounded traversal a sweep. Sweeps
+    stop when the logL at sweep start changes by less than
+    ``tolerance``; the best sweep-start lengths are kept and the final
+    iterate is scored (``engine.loglikelihood_bounded_fused``, kernel 2,
+    for float32; ``engine.loglikelihood_bounded`` for float64).
+    ``stats``: optional dict, filled with ``sweeps`` and ``windows``.
+
+    Returns (brlens [n_edge_slots] tensor, logL float) and writes the
+    lengths back into ``tree`` unless ``write_back=False``.
+    """
+    if partition.eigen_lam is None:
+        partition = partition.cache_eigen()
+    ops_w, refs_w, edge_ids, masks, n_slots = compile_chunked_blo(
+        partition, tree, window)
+    dev = partition.device
+    consts = None
+    if partition.dtype == torch.float32:
+        consts = (kern.sumtable_basis(partition),
+                  kern._lam_weight_rows(partition),
+                  kern.invar_log_plane(partition))
+    windows = [(_window_tables(partition, o, r, n_slots, consts),
+                torch.as_tensor(e, device=dev).long(),
+                torch.as_tensor(m, device=dev))
+               for o, r, e, m in zip(ops_w, refs_w, edge_ids, masks)]
+    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
+                             dtype=partition.dtype, device=dev)
+    if stats is not None:
+        stats.update(sweeps=0, windows=len(windows))
+    best_brlens, best_lnl = brlens, -np.inf
+    lnl_prev = None
+    for _ in range(max_sweeps):
+        if stats is not None:
+            stats["sweeps"] += 1
+        brlens_start = brlens
+        lnl_sweep = None
+        for tabs, eids, mask in windows:
+            brlens, lnl0 = _blo_window(partition, tabs, eids, mask, brlens,
+                                       min_brlen, max_brlen, newton_tol,
+                                       safe=safe)
+            if lnl_sweep is None:
+                lnl_sweep = float(lnl0)   # logL at sweep-START brlens
+        if lnl_sweep > best_lnl:
+            best_lnl, best_brlens = lnl_sweep, brlens_start
+        if lnl_prev is not None and abs(lnl_sweep - lnl_prev) < tolerance:
+            break
+        lnl_prev = lnl_sweep
+    final = (engine_mod.loglikelihood_bounded_fused
+             if partition.dtype == torch.float32
+             else engine_mod.loglikelihood_bounded)
+    final_lnl = float(final(partition, tree, brlens=brlens)[0])
+    if final_lnl >= best_lnl:
+        best_lnl, best_brlens = final_lnl, brlens
     if write_back:
         tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
     return best_brlens, best_lnl

@@ -526,7 +526,8 @@ def optimize_branch_lengths_bounded(partition, tree, seg_rows: int = 256,
                                     newton_tol: float = TOL_BRANCH_LEN,
                                     write_back: bool = True,
                                     colored: bool = True,
-                                    fused_newton: bool = True):
+                                    fused_newton: bool = True,
+                                    stats: dict | None = None):
     """Memory-bounded whole-tree BLO at O(n log n) work per sweep, on the
     partition's device (a float32 partition: the fused walk).
 
@@ -539,7 +540,10 @@ def optimize_branch_lengths_bounded(partition, tree, seg_rows: int = 256,
 
     ``colored=True`` (default): each sweep runs as 3-4 edge-color passes
     with mutually consistent CLVs (block Gauss-Seidel); ``False`` runs
-    the cheaper single-pass per-segment Gauss-Seidel.
+    the cheaper single-pass per-segment Gauss-Seidel. ``stats``: optional
+    dict, filled with ``route`` (``"bounded"``), ``sweeps`` (polish
+    sweeps included), ``passes`` and the schedule's ``n_slots``,
+    ``n_rows`` and ``n_emits``.
 
     Returns (brlens [n_edge_slots] tensor, logL float); writes back into
     ``tree`` unless ``write_back=False``.
@@ -568,8 +572,14 @@ def optimize_branch_lengths_bounded(partition, tree, seg_rows: int = 256,
     consts = dict(basis=kern.sumtable_basis(partition),
                   lw=kern._lam_weight_rows(partition),
                   lnB=kern.invar_log_plane(partition))
+    if stats is not None:
+        stats.update(route="bounded", sweeps=0, passes=len(plans),
+                     n_slots=sched.n_slots, n_rows=sched.n_rows,
+                     n_emits=sched.n_emits)
 
     def sweep(brl):
+        if stats is not None:
+            stats["sweeps"] += 1
         lnl_first = None
         for plan in plans:
             brl, lnl0 = _bounded_sweep(

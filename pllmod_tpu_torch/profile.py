@@ -1,7 +1,9 @@
-"""Work counters — the port's copy of ``pllmod_tpu.profile``'s
-:class:`Counters` and :func:`timed` (the reference's ``treeinfo->counter``
-CLV-op accumulator, treeinfo.c:1017). Importing the JAX package's module
-would run its ``__init__``, which imports JAX.
+"""Observability — the port's ``pllmod_tpu.profile``: work counters
+(:class:`Counters` and :func:`timed`, copies of the JAX package's: the
+reference's ``treeinfo->counter`` CLV-op accumulator, treeinfo.c:1017)
+and :func:`trace`, the profiler context, over ``torch.profiler`` where
+the JAX package's is over ``jax.profiler``. Importing the JAX package's
+module would run its ``__init__``, which imports JAX.
 """
 
 from __future__ import annotations
@@ -9,6 +11,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+
+import torch
 
 
 @dataclasses.dataclass
@@ -42,3 +46,23 @@ def timed(counters: Counters):
         yield counters
     finally:
         counters.wall_s += time.perf_counter() - t0
+
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "/tmp/pllmod_trace"):
+    """Profile the block with ``torch.profiler`` (``profile.trace``):
+    host (CPU) activity always, the card's (CUDA) activity where torch
+    sees one. On exit the trace is written into ``logdir`` as a Chrome
+    trace (``torch.profiler.tensorboard_trace_handler``: one
+    ``<host>_<pid>.<ms>.pt.trace.json`` a block, which chrome://tracing,
+    Perfetto and TensorBoard's profiler plugin read). Yields ``logdir``,
+    as the JAX package's does. Nothing starts at import."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield logdir

@@ -1943,3 +1943,79 @@ def test_mesh_over_distinct_cards(cuda):
     for a, b in zip(out["cards"], out["one"]):
         assert abs(a - b) / abs(b) < 1e-6
     multichip.dryrun_multichip(2, devs)
+
+
+# ---------------------------------------------------------------------------
+# the capacity mode: the chunked BLO's window tables and driver, and a
+# bounded evaluation and sweep at 2,000 taxa × 16,384 sites
+# ---------------------------------------------------------------------------
+def test_chunked_window_table_matches_plain(cuda):
+    """Kernel 2 over each window's stacked table (W bounded traversals,
+    each in its own slot range) against its plain walk, bit for bit on
+    every slot."""
+    part, tree = _example(4, 4, cuda, n_taxa=32)
+    ops_w, refs_w, _, _, ns = blo.compile_chunked_blo(part, tree, 8)
+    C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
+    for w in range(len(ops_w)):
+        tabs = blo._window_tables(part, ops_w[w], refs_w[w], ns)
+        P5 = fused.pair_pmats(part, _brl(tree, part), tabs.e1, tabs.e2,
+                              root_row=False)
+        args = (tabs.idx8, P5, part.tip_states, tabs.codetab, tabs.n_slots)
+        outs = [(torch.zeros((tabs.n_slots, C * S, Ppad), device=cuda),
+                 torch.zeros((tabs.n_slots, 1, Ppad), dtype=torch.int32,
+                             device=cuda)) for _ in range(2)]
+        k_clv, k_sc = fused.fused_walk(*args, out=outs[0])
+        p_clv, p_sc = fused.fused_walk_plain(*args, out=outs[1])
+        assert torch.equal(k_clv, p_clv) and torch.equal(k_sc, p_sc)
+
+
+def test_chunked_blo_on_card_matches_float64(cuda):
+    """The chunked BLO at 32 taxa on the card (kernels 2, 8 and 10; the
+    final score on kernel 2) against the same driver in float64 on the
+    card (the serial engine): logL within 1e-5, and within 1e-6 of the
+    float64 serial engine at its own lengths."""
+    part, tree = flagship.simulated(32, 2048, seed=3, sim_seed=11,
+                                    device=cuda)
+    part = part.cache_eigen()
+    part64 = part.to(dtype=torch.float64).with_model_params().cache_eigen()
+    before = (fused.LAUNCHES, deriv.LAUNCHES["edge_sumtables"],
+              deriv.LAUNCHES["newton_edges"])
+    tr = tree.copy()
+    _, lnl = blo.optimize_branch_lengths_chunked(part, tr, window=8)
+    after = (fused.LAUNCHES, deriv.LAUNCHES["edge_sumtables"],
+             deriv.LAUNCHES["newton_edges"])
+    assert all(a > b for a, b in zip(after, before))
+    _, l64 = blo.optimize_branch_lengths_chunked(part64, tree.copy(),
+                                                 window=8)
+    assert abs(lnl - l64) / abs(l64) < 1e-5
+    ops, ri = tr.traversal_ops()
+    at = float(engine.loglikelihood(part64, ops, torch.as_tensor(
+        tr.lengths, device=cuda), ri))
+    assert abs(lnl - at) / abs(at) < 1e-6
+
+
+def test_bounded_2000_taxa_on_card_matches_float64(cuda):
+    """The capacity recipe at 2,000 taxa × 16,384 sites: the auto
+    evaluation and the bounded fused evaluation within 1e-6 of the
+    float64 bounded evaluation on the card; one bounded whole-tree sweep
+    (kernels 2, 8, 10) at or above its start in float64, within 1e-6 of
+    float64 at its lengths."""
+    seqs, _, tree = flagship.capacity_cell(2000, 16384, seed=3)
+    part = create_partition(
+        seqs, states=4, alpha=flagship.CAPACITY_ALPHA,
+        subst_rates=flagship.CAPACITY_RATES, freqs=flagship.CAPACITY_FREQS,
+        device=cuda).cache_eigen()
+    part64 = part.to(dtype=torch.float64).with_model_params().cache_eigen()
+    l64, _ = engine.loglikelihood_bounded(part64, tree)
+    l64 = float(l64)
+    for got in (engine.tree_loglikelihood(part, tree),
+                engine.loglikelihood_bounded_fused(part, tree)[0]):
+        assert abs(float(got) - l64) / abs(l64) < 1e-6
+    tr = tree.copy()
+    before = dict(deriv.LAUNCHES)
+    _, lnl = blo_bounded.optimize_branch_lengths_bounded(part, tr,
+                                                         max_sweeps=1)
+    assert deriv.LAUNCHES["newton_edges"] > before["newton_edges"]
+    s64 = float(engine.loglikelihood_bounded(part64, tr)[0])
+    assert s64 >= l64
+    assert abs(lnl - s64) / abs(s64) < 1e-6

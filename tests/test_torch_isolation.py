@@ -71,6 +71,14 @@ def test_import_loads_no_jax():
             "import pllmod_tpu_torch.tree.show\n"
             "import pllmod_tpu_torch.binary\n"
             "import pllmod_tpu_torch.algorithm.search\n"
+            "import pllmod_tpu_torch.examples.consensus_demo\n"
+            "import pllmod_tpu_torch.examples.constrained_search_demo\n"
+            "import pllmod_tpu_torch.examples.genotype_demo\n"
+            "import pllmod_tpu_torch.examples.ml_search_demo\n"
+            "import pllmod_tpu_torch.examples.partitioned_demo\n"
+            "import pllmod_tpu_torch.examples.protein_mixture_demo\n"
+            "import pllmod_tpu_torch.examples.rf_distance_demo\n"
+            "import pllmod_tpu_torch.examples.spr_round\n"
             "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
             "print(sorted(new & %r))\n" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=_ROOT,
