@@ -222,6 +222,7 @@ from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded, edge_grad
 from pllmod_tpu_torch.optimize.em import em_rates_weights
 from pllmod_tpu_torch.parallel import is_sharded
+from pllmod_tpu_torch.profile import LAUNCHES
 from pllmod_tpu_torch.tree import splits
 from pllmod_tpu_torch.tree.topology import Tree
 from pllmod_tpu_torch.tree.treeinfo import TreeInfo
@@ -388,24 +389,33 @@ def compare(name, got, want):
 LAUNCH_LOG: dict = {}     # kernel -> cell -> path -> launches
 
 
+# this script's name of each key of the launch registry
+# (profile.LAUNCHES, counted by _build.launch)
+COUNT_NAMES = {
+    "pllmod_resident_walk": "resident_walk",
+    "pllmod_fused_walk": "fused_walk",
+    "pllmod_edge_sumtables": "edge_sumtables",
+    "pllmod_edge_derivs": "edge_derivatives",
+    "pllmod_newton_edges": "newton_edges",
+    "pllmod_newton_edges_multi": "newton_edges_multi",
+    "pllmod_child_pass": "child_pass",
+    "pllmod_child2_pass": "child2_pass",
+    "pllmod_level_combined": "level_combined",
+    "pllmod_grouped_walk": "grouped_walk",
+    "pllmod_packed_walk": "packed_walk",
+    "pllmod_fused_tables": "tables_pass",
+}
+
+
 def read_counts() -> dict:
-    """Every kernel wrapper's launch count (the walks' pre-passes as
-    ``resident_tables`` and ``fused_tables``)."""
-    return dict(resident_walk=resident.LAUNCHES,
-                resident_tables=resident.TABLE_LAUNCHES,
-                fused_walk=fused.LAUNCHES,
-                fused_tables=fused.TABLE_LAUNCHES, **deriv.LAUNCHES,
-                **levels.LAUNCHES, grouped_walk=grouped.LAUNCHES,
-                **packed.LAUNCHES)
+    """Every kernel's launch count from the registry, under this
+    script's names (each walk's pre-pass runs inside the walk's own
+    launch; ``tables_pass`` is the fused pre-pass launched alone)."""
+    return {short: LAUNCHES[key] for key, short in COUNT_NAMES.items()}
 
 
 def zero_counts() -> None:
-    resident.LAUNCHES = resident.TABLE_LAUNCHES = 0
-    fused.LAUNCHES = fused.TABLE_LAUNCHES = 0
-    grouped.LAUNCHES = 0
-    for d in (deriv.LAUNCHES, levels.LAUNCHES, packed.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    LAUNCHES.clear()
 
 
 def counted(cell: str, path: str, fn, must=()):
@@ -1316,17 +1326,17 @@ def run_partitioned(parts, parts64, tree):
     ti.compute_loglh(incremental=True)
     edge = int(np.nonzero(tree.edge_nodes[:, 0] >= 0)[0][5])
     ti.set_branch_length(edge, float(ti.tree.lengths[edge]) * 1.5)
-    before = ti.counters.clv_updates, fused.LAUNCHES
+    before = ti.counters.clv_updates, LAUNCHES["pllmod_fused_walk"]
     inc, inc_ms, _ = _events_ms(lambda: ti.compute_loglh(incremental=True))
     rows = (ti.counters.clv_updates - before[0]) // sum(
-        p.n_patterns_padded for p in parts)
+        p.n_patterns for p in parts)
     full = ti.compute_loglh()
     rel_close(inc, full, LOGL_RTOL, "incremental compute_loglh vs full")
     n_inner = tree.n_tips - 2
-    if not 0 < rows < n_inner or fused.LAUNCHES == before[1]:
+    launched = LAUNCHES["pllmod_fused_walk"] - before[1]
+    if not 0 < rows < n_inner or not launched:
         raise AssertionError(f"the incremental path ran {rows} rows of "
-                             f"{n_inner} on {fused.LAUNCHES - before[1]} "
-                             "fused launches")
+                             f"{n_inner} on {launched} fused launches")
     out.update(incremental_rows=rows, inner_rows=n_inner,
                ms_incremental=inc_ms)
     total, persite = ti.compute_loglh_persite()
@@ -2160,7 +2170,7 @@ TRIPLET_RTOL, TRIPLET_ATOL = 1e-3, 0.1 * spr.TRIPLET_TOL
 ANC_ATOL = 1e-5           # ancestral probabilities vs float64; site sums
 # every kernel an SPR round must launch: kernel 1 (compute_loglh), kernel
 # 2 (full-tree and K-candidate directed CLVs), kernels 8-10 (the BLO)
-SPR_MUST = ("resident_walk", "fused_walk", "fused_tables", "edge_sumtables",
+SPR_MUST = ("resident_walk", "fused_walk", "edge_sumtables",
             "edge_derivatives", "newton_edges")
 SPR_ROUNDS = (("fast", dict(radius_min=1, radius_max=10)),
               ("thorough", dict(thorough=True, radius_min=1, radius_max=5)))
@@ -2379,7 +2389,7 @@ def run_spr(gpu, profile: bool):
         nodes, probs = ancestral.ancestral_probabilities(part, final)
         return nodes, probs, (time.perf_counter() - t0) * 1e3
     (nodes, probs, ms), got = counted("flagship SPR", "ancestral", anc,
-                                      must=("fused_walk", "fused_tables"))
+                                      must=("fused_walk",))
     _, probs64 = ancestral.ancestral_probabilities(f64_copy(part), final)
     n = part.n_patterns
     sum_err = float(np.abs(probs[:, :n].sum(-1) - 1.0).max())
@@ -3019,8 +3029,8 @@ CAPACITY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 CAPACITY_EVALS = 10       # auto evaluations timed, at varied lengths
 CAPACITY_KERNEL_ITERS = 5  # launches timed a capacity-shape kernel
 CAPACITY_MUST = {
-    "auto": ("resident_walk", "resident_tables"),
-    "bounded_fused": ("fused_walk", "fused_tables"),
+    "auto": ("resident_walk",),
+    "bounded_fused": ("fused_walk",),
     "blo_bounded": ("fused_walk", "edge_sumtables", "newton_edges")}
 CHUNKED_WINDOW = 16
 # chunked vs full driver, on float64 evaluations at each call's lengths:
@@ -4160,8 +4170,7 @@ def main(argv=None) -> int:
             logl = float(engine.tree_loglikelihood(part, tr))
             ms[label], _ = timed_main_path(part, tr, label)
             return logl
-        must = (("resident_walk", "resident_tables") if want == "resident"
-                else ("fused_walk", "fused_tables"))
+        must = ("resident_walk",) if want == "resident" else ("fused_walk",)
         logl, _ = counted(label, "loglikelihood", drive, must=must)
         rel_close(logl, float(engine.tree_loglikelihood(part64, tr)),
                   LOGL_RTOL, f"main path logL ({label})")
@@ -4172,8 +4181,8 @@ def main(argv=None) -> int:
     for row, prow in zip(deriv_rows, check_deriv(prot, ptree, "protein")):
         row["protein"] = {k: v for k, v in prow.items() if k not in (
             "name", "route", "source", "replaces")}
-    blo_kernels = ("fused_walk", "fused_tables", "edge_sumtables",
-                   "edge_derivatives", "newton_edges")
+    blo_kernels = ("fused_walk", "edge_sumtables", "edge_derivatives",
+                   "newton_edges")
     full, _ = counted("flagship DNA", "blo", lambda: run_blo(
         dna, tree, dna64, "flagship DNA")[0], must=blo_kernels)
     blo_rows = [full]
@@ -4244,8 +4253,8 @@ def main(argv=None) -> int:
     partitioned, _ = counted(
         "partitioned", "treeinfo",
         lambda: run_partitioned((dna, prot2), (dna64, prot2_64), tree),
-        must=("fused_walk", "fused_tables", "resident_walk",
-              "resident_tables", "edge_sumtables", "newton_edges_multi"))
+        must=("fused_walk", "resident_walk", "edge_sumtables",
+              "newton_edges_multi"))
     del prot2_64
 
     # ---- model-parameter optimization: the CLI's eval --opt, protein
@@ -4277,10 +4286,6 @@ def main(argv=None) -> int:
     kernel_rows = [with_launches(r) for r in (
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
-    for row, tables in ((res_row, "resident_tables"),
-                        (fused_row, "fused_tables")):
-        row["table_launches"] = with_launches(
-            dict(name=tables))["launches_by_cell_and_path"]
     print(f"launches: {json.dumps(LAUNCH_LOG)}")
 
     # ---- the other schedules of each cell, forced, end to end (the

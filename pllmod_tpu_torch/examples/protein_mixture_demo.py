@@ -64,7 +64,7 @@ def main(argv=None):
     ti.set_branch_length(2, 0.3)
     ti.compute_loglh(incremental=True)
     partial_ops = (ti.counters.clv_updates - before) // \
-        ti.partitions[0].n_patterns_padded
+        ti.partitions[0].n_patterns
     print(f"incremental: brlen change recomputed {partial_ops} of "
           f"{n - 2} CLV ops")
 

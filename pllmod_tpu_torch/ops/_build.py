@@ -22,6 +22,8 @@ import subprocess
 import threading
 import types
 
+from pllmod_tpu_torch.profile import LAUNCHES
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("pruning", "fused", "deriv", "levels", "grouped",
@@ -671,9 +673,11 @@ def check_tensors(name: str, specs) -> None:
                              f"got {tuple(t.shape)}")
 
 
-def launch(name: str, device, *args) -> None:
+def launch(name: str, device, *args, key: str | None = None) -> None:
     """Call the C entry point ``name`` on ``device``'s current stream
-    (appended as the last argument); raise if the launch failed."""
+    (appended as the last argument); raise if the launch failed. Every
+    launch of the port is counted here, in ``profile.LAUNCHES`` under
+    ``key`` (by default ``name``)."""
     import torch
     fn = getattr(load(), name)
     with torch.cuda.device(device):
@@ -681,6 +685,7 @@ def launch(name: str, device, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[key or name] += 1
 
 
 @functools.lru_cache(maxsize=None)

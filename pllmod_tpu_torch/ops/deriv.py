@@ -2,7 +2,8 @@
 counterpart of ``pllmod_tpu.ops.pallas_deriv``.
 
 Three CUDA kernels (``csrc/deriv.cu``), each with its wrapper, its plain
-torch version and a launch count in :data:`LAUNCHES`:
+torch version, each launch counted in ``profile.LAUNCHES`` under its
+entry point's name:
 
 - :func:`edge_sumtables` (kernel 8, ``pllmod_edge_sumtables``): per-edge
   sumtables ``st [E, C·S, Ppad]`` float32 and summed scalers
@@ -15,7 +16,8 @@ torch version and a launch count in :data:`LAUNCHES`:
   :func:`pllmod_tpu_torch.optimize.newton.minimize_newton_multi`) over K
   partitions that share the edge lengths, with its logL at the start
   lengths and its iteration count; :func:`newton_edges` is its
-  single-partition form (one kernel, one launch count per form).
+  single-partition form (one kernel, counted per form: K > 1 under
+  ``pllmod_newton_edges_multi``).
 
 The float64 formulation (:mod:`pllmod_tpu_torch.ops.derivatives`) is the
 yardstick. On a CPU tensor a wrapper runs its plain version; on a CUDA
@@ -37,9 +39,6 @@ from pllmod_tpu_torch.ops.clv import LN2
 from pllmod_tpu_torch.ops.derivatives import invariant_term
 from pllmod_tpu_torch.optimize.newton import newton_step
 
-# launches of each kernel (counted by its wrapper where it launches)
-LAUNCHES = {"edge_sumtables": 0, "edge_derivatives": 0, "newton_edges": 0,
-            "newton_edges_multi": 0}
 TINY = 1e-37             # float32 floor of a site likelihood
 LN_ZERO = -1e30          # log of a zero p-inv term
 
@@ -207,7 +206,6 @@ def edge_sumtables(partition, clvs, scalers, eref6, basis=None, *,
                       codes.data_ptr(), partition.n_tips, basis.data_ptr(),
                       tabs.data_ptr(), n_codes, st.data_ptr(), sc.data_ptr(),
                       Ppad, C, S, tile or 0, int(simple))
-        LAUNCHES["edge_sumtables"] += 1
     return st, sc
 
 
@@ -266,7 +264,6 @@ def edge_derivatives_k(partition, st, sc, t, lw=None, lnB=None):
                       sc.data_ptr(), lw.data_ptr(), lnB.data_ptr(),
                       pw.data_ptr(), t.data_ptr(), out.data_ptr(), E, CS,
                       Ppad)
-        LAUNCHES["edge_derivatives"] += 1
     return out[:, 0], out[:, 1], out[:, 2]
 
 
@@ -417,9 +414,10 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
     Returns:
       (t_opt [E] float32, lnl0 [E] float32 — each edge's summed logL at
       ``t0`` — and iters [E] int32)
-    CUDA tensors launch kernel 10 (counted as "newton_edges" for K = 1,
-    "newton_edges_multi" above) in the design of :func:`newton_config`
-    (``force`` as there); CPU tensors run the plain version.
+    CUDA tensors launch kernel 10 (counted as "pllmod_newton_edges" for
+    K = 1, "pllmod_newton_edges_multi" above) in the design of
+    :func:`newton_config` (``force`` as there); CPU tensors run the plain
+    version.
     """
     inputs = _multi_inputs(partitions, scalers, lws, lnBs)
     dev = sts[0].device
@@ -465,9 +463,8 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
                       ctypes.addressof(dims), t0.data_ptr(), float(xmin),
                       float(xmax), float(tol), int(max_iters),
                       t_opt.data_ptr(), lnl0.data_ptr(), iters.data_ptr(),
-                      E, int(force))
-        LAUNCHES["newton_edges" if len(rows) == 1
-                 else "newton_edges_multi"] += 1
+                      E, int(force),
+                      key=name if len(rows) == 1 else f"{name}_multi")
     return t_opt, lnl0, iters
 
 

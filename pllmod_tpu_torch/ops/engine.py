@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
@@ -389,9 +390,11 @@ def tables_on(obj, device):
 
 def _bound(schedule, run, tables):
     """The evaluator ``ev(part, brlens) = run(part, brlens, *tables)``,
-    carrying its schedule, its function and its device tables."""
+    carrying its schedule, its function and its device tables; each call
+    is the span ``pllmod.eval``."""
     def ev(part, brl):
-        return run(part, brl, *tables)
+        with profile.span("pllmod.eval"):
+            return run(part, brl, *tables)
     ev.schedule, ev.run, ev.tables = schedule, run, tables
     return ev
 

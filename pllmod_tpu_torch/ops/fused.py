@@ -31,13 +31,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.common import ERROR_UNSUPPORTED, PllModError
 from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
-
-LAUNCHES = 0            # launches of the fused walk (counted by fused_walk)
-TABLE_LAUNCHES = 0      # launches of its pre-pass, one a walk
 
 
 def compile_fused_ops(partition, ops, pad_to: int | None = None,
@@ -213,7 +211,6 @@ def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None,
     ``pallas_clv.update_partials_fused``. CUDA tensors launch the
     kernel (at pattern tile ``tile``, by default ``_build.fused_tile``'s);
     CPU tensors run the plain version."""
-    global LAUNCHES, TABLE_LAUNCHES
     if P5.device.type == "cpu":
         return fused_walk_plain(idx8, P5, tip_codes, codetab, n_slots, out)
     _, _, C, S, _ = P5.shape
@@ -232,8 +229,6 @@ def fused_walk(idx8, P5, tip_codes, codetab, n_slots: int, out=None,
                              f"[{n_slots}, 1, {Ppad}]")
     _build.launch_walk("pllmod_fused_walk", idx8, P5, tip_codes, codetab,
                        clvs, scalers, n_slots, tile)
-    LAUNCHES += 1
-    TABLE_LAUNCHES += 1
     return clvs, scalers
 
 
@@ -347,15 +342,19 @@ def loglikelihood_fused(partition, idx8, brlens, e1, e2, root_info,
                         n_slots: int, persite: bool = False):
     """Full-tree logL through the fused kernel; the table must come from
     :func:`compile_fused` with ``fuse_root=True``. ``persite=True``
-    returns (total, per-pattern logL)."""
+    returns (total, per-pattern logL). The spans ``pllmod.eval.pmats``,
+    ``.walk`` and ``.root``."""
     if partition.dtype != torch.float32:
         raise PllModError(ERROR_UNSUPPORTED,
                           "the fused kernel runs float32 partitions only "
                           f"(got {partition.dtype}); use schedule='scan'")
     if len(root_info) != 4:
         raise ValueError("loglikelihood_fused needs a fuse_root table")
-    P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
-    clvs, scalers = fused_walk(idx8, P5, partition.tip_states,
-                               code_table(partition), n_slots)
-    return root_from_prod_slot(partition, clvs, scalers, root_info[3],
-                               persite)
+    with profile.span("pllmod.eval.pmats"):
+        P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
+    with profile.span("pllmod.eval.walk"):
+        clvs, scalers = fused_walk(idx8, P5, partition.tip_states,
+                                   code_table(partition), n_slots)
+    with profile.span("pllmod.eval.root"):
+        return root_from_prod_slot(partition, clvs, scalers, root_info[3],
+                                   persite)

@@ -40,8 +40,6 @@ from pllmod_tpu_torch.ops.fused import code_table
 from pllmod_tpu_torch.ops.levels import root_loglikelihood_csp
 from pllmod_tpu_torch.ops.packed import window_offsets
 
-LAUNCHES = 0        # launches of the grouped kernel (counted by grouped_walk)
-
 
 def walk_order(side_meta, dst_meta):
     """The group-window walk's member order and windows of a grouped
@@ -261,7 +259,6 @@ def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab, order=None,
       (zero in the plain version). CUDA tensors launch the kernel; CPU
       tensors run the plain version.
     """
-    global LAUNCHES
     if PQ.device.type == "cpu":
         return grouped_walk_plain(side_meta, dst_meta, PQ, tip_codes, codetab)
     nG, Q, C, S, _ = PQ.shape
@@ -291,7 +288,6 @@ def grouped_walk(side_meta, dst_meta, PQ, tip_codes, codetab, order=None,
          tip_codes.data_ptr(), n_tips, codetab.data_ptr(), n_codes,
          bufs.data_ptr(), sbufs.data_ptr()),
         (order.data_ptr(), windows.data_ptr(), windows.shape[0] - 1))
-    LAUNCHES += 1
     return bufs, sbufs
 
 

@@ -12,7 +12,8 @@ matrices are per child, ``[W, C, S, S]`` float32 (the JAX kernels'
 block-diagonal ``[C·S, C·S]`` forms only feed the TPU's matrix unit).
 
 Three CUDA kernels (``csrc/levels.cu``), each with its wrapper, its plain
-torch version and a launch count in :data:`LAUNCHES`:
+torch version, each launch counted in ``profile.LAUNCHES`` under its
+entry point's name:
 
 - :func:`child_pass` (kernel 3, ``pllmod_child_pass``): ``P·child`` for
   one child (side 0 or 1) of every row of a level, ``[W, C·S, Ppad]``,
@@ -56,8 +57,6 @@ from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
 from pllmod_tpu_torch.ops.fused import code_table
 
-# launches of each kernel (counted by its wrapper where it launches)
-LAUNCHES = {"child_pass": 0, "child2_pass": 0, "level_combined": 0}
 # the per-level step of update_partials_pallas: kernel 3 then kernel 4
 # (the JAX driver), level_update (kernel 3 twice + torch combine), or
 # level_update_combined (kernel 5)
@@ -234,7 +233,6 @@ def child_pass(idx, side: int, clvs, scalers, tip_codes, codetab, P,
                       n_slots, tip_codes.data_ptr(), tip_codes.shape[0],
                       codetab.data_ptr(), codetab.shape[0], out.data_ptr(),
                       sc.data_ptr(), Ppad, C, S, T)
-        LAUNCHES["child_pass"] += 1
     return out, sc
 
 
@@ -305,7 +303,6 @@ def child2_pass(idx, clvs, scalers, tip_codes, codetab, P, left, s1,
                       codetab.data_ptr(), codetab.shape[0], left.data_ptr(),
                       s1.data_ptr(), offset, Ppad, C, S, T,
                       None if mats is None else mats.data_ptr())
-        LAUNCHES["child2_pass"] += 1
     return clvs, scalers
 
 
@@ -334,7 +331,6 @@ def level_update_combined(clvs, scalers, idx, tip_codes, codetab, P1, P2,
                       tip_codes.shape[0], codetab.data_ptr(),
                       codetab.shape[0], offset, Ppad, C, S, T,
                       None if mats is None else mats.data_ptr())
-        LAUNCHES["level_combined"] += 1
     return clvs, scalers
 
 

@@ -38,8 +38,6 @@ from pllmod_tpu_torch.ops.fused import code_table
 from pllmod_tpu_torch.ops.levels import (level_combined_plain,
                                          root_loglikelihood_csp)
 
-LAUNCHES = {"packed_walk": 0}   # counted by packed_walk where it launches
-
 
 def window_offsets(reads) -> np.ndarray:
     """Row offsets [n_windows + 1] (int32) of a walk's rows cut into
@@ -238,7 +236,6 @@ def packed_walk(idxm, e1, e2, P, tip_codes, codetab, G: int, windows=None,
          E, tip_codes.data_ptr(), n_tips, codetab.data_ptr(), n_codes,
          clvs.data_ptr(), scalers.data_ptr()),
         (windows.data_ptr(), windows.shape[0] - 1))
-    LAUNCHES["packed_walk"] += 1
     return clvs, scalers
 
 

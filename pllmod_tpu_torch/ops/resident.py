@@ -24,14 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.common import ERROR_UNSUPPORTED, PllModError
 from pllmod_tpu_torch.ops import _build
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
 from pllmod_tpu_torch.ops.fused import code_table, pair_pmats
-
-LAUNCHES = 0        # launches of the resident kernel (counted by resident_walk)
-TABLE_LAUNCHES = 0  # launches of its pre-pass, one a walk
 
 
 def resident_slot_bound(n_tips: int) -> int:
@@ -92,7 +90,6 @@ def resident_walk(idx8, P5, tip_codes, codetab, n_slots: int,
     int32). CUDA tensors launch the kernel (at pattern tile ``tile``, by
     default ``_build.resident_tile``'s); CPU tensors run the plain
     version."""
-    global LAUNCHES, TABLE_LAUNCHES
     if P5.device.type == "cpu":
         return resident_walk_plain(idx8, P5, tip_codes, codetab, n_slots)
     _, _, C, S, _ = P5.shape
@@ -101,8 +98,6 @@ def resident_walk(idx8, P5, tip_codes, codetab, n_slots: int,
     scaler = torch.empty((1, Ppad), dtype=torch.int32, device=P5.device)
     _build.launch_walk("pllmod_resident_walk", idx8, P5, tip_codes, codetab,
                        prod, scaler, n_slots, tile)
-    LAUNCHES += 1
-    TABLE_LAUNCHES += 1
     return prod, scaler
 
 
@@ -118,7 +113,8 @@ def resident_walk_plain(idx8, P5, tip_codes, codetab, n_slots: int):
 
 def loglikelihood_resident(partition, idx8, brlens, e12, n_slots: int):
     """Full-tree edge logL: per-row P-matrices → resident kernel → the
-    p-inv / rate-weight epilogue (pallas_resident.py:610-613)."""
+    p-inv / rate-weight epilogue (pallas_resident.py:610-613), the spans
+    ``pllmod.eval.pmats``, ``.walk`` and ``.root``."""
     if partition.dtype != torch.float32:
         raise PllModError(ERROR_UNSUPPORTED,
                           "the resident kernel runs float32 partitions "
@@ -126,9 +122,12 @@ def loglikelihood_resident(partition, idx8, brlens, e12, n_slots: int):
                           "schedule='scan'")
     e1, e2 = e12
     C, S = partition.n_cats, partition.states
-    P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
-    prod, rsc = resident_walk(idx8, P5, partition.tip_states,
-                              code_table(partition), n_slots)
-    per_cat = prod.to(partition.dtype).reshape(C, S, -1).sum(dim=1)
-    lnl = lk_mod._site_lnl(partition, per_cat.T, rsc[0])
-    return torch.sum(lnl * partition.pattern_weights)
+    with profile.span("pllmod.eval.pmats"):
+        P5 = pair_pmats(partition, brlens, e1, e2, root_row=True)
+    with profile.span("pllmod.eval.walk"):
+        prod, rsc = resident_walk(idx8, P5, partition.tip_states,
+                                  code_table(partition), n_slots)
+    with profile.span("pllmod.eval.root"):
+        per_cat = prod.to(partition.dtype).reshape(C, S, -1).sum(dim=1)
+        lnl = lk_mod._site_lnl(partition, per_cat.T, rsc[0])
+        return torch.sum(lnl * partition.pattern_weights)

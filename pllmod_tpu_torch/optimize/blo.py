@@ -79,6 +79,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.common import (BRLEN_SCALED, BRLEN_UNLINKED,
                                      MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
@@ -213,6 +214,19 @@ class DirectedTraversal:
                     so[(v, u)] = int(sd[e, 1])
             self._slot_of = so
         return self._slot_of
+
+
+def _host(value, to=float):
+    """``to(value)``: a readback of a device value, which the host waits
+    for; the span ``pllmod.blo.wait``."""
+    with profile.span("pllmod.blo.wait"):
+        return to(value)
+
+
+def _host_lengths(brlens) -> np.ndarray:
+    """The lengths ``brlens`` as a float64 numpy array on the host (a
+    readback: :func:`_host`)."""
+    return _host(brlens, lambda b: b.detach().cpu().double().numpy().copy())
 
 
 def _edge_colors(tree, edge_mask=None):
@@ -397,16 +411,18 @@ def _edge_evaluator(partition, tabs, brlens, edges):
     from pllmod_tpu_torch.optimize.edge_grad import directed_clvs
     clvs, scalers, _ = directed_clvs(partition, tabs, brlens)
     if tabs.kernel:
-        st, sc = kern.edge_sumtables(partition, clvs, scalers,
-                                     tabs.eref6[edges], tabs.basis)
+        with profile.span("pllmod.blo.sumtables"):
+            st, sc = kern.edge_sumtables(partition, clvs, scalers,
+                                         tabs.eref6[edges], tabs.basis)
 
         def derivs(t):
             return kern.edge_derivatives_k(partition, st, sc, t, tabs.lw,
                                            tabs.lnB)
     else:
         eigen = partition.eigen()
-        st, sc = _edge_sumtables(partition, clvs, scalers,
-                                 tabs.edge_ref[edges], eigen)
+        with profile.span("pllmod.blo.sumtables"):
+            st, sc = _edge_sumtables(partition, clvs, scalers,
+                                     tabs.edge_ref[edges], eigen)
 
         def derivs(t):
             return deriv_mod.edge_derivatives_batch(partition, st, sc, t,
@@ -414,6 +430,7 @@ def _edge_evaluator(partition, tabs, brlens, edges):
     return derivs, (st, sc)
 
 
+@profile.spanned("pllmod.blo.newton")
 def _newton_edges(partition, derivs, st, sc, t0, min_brlen, max_brlen,
                   tol, fused_newton: bool, lw=None, lnB=None, stats=None):
     """The bracketed Newton of every edge from ``t0`` against its own
@@ -438,6 +455,7 @@ def _newton_edges(partition, derivs, st, sc, t0, min_brlen, max_brlen,
     return t_opt, derivs(t0)[0]
 
 
+@profile.spanned("pllmod.blo.subsweep")
 def _blo_sweep(partition, tabs, edges, brlens, min_brlen, max_brlen, tol,
                fused_newton: bool = True, safe: bool = False, stats=None):
     """One batched BLO (sub-)sweep over the edge ids ``edges`` (long
@@ -500,24 +518,27 @@ def _blo_sweep_multi(parts, scalers, tabs_list, lws, edges, brlens,
                 and all(tabs.kernel and tabs.shards is None
                         for tabs in tabs_list)
                 and kern.newton_fits(*parts))
-    if kernel10:
-        t_opt, lnl0_all, iters = kern.newton_edges_multi(
-            parts, [st for _, (st, _) in evals], [sc for _, (_, sc) in evals],
-            t0, scalers, min_brlen, max_brlen, tol, MAX_NEWTON_ITERS, lws,
-            [tabs.lnB for tabs in tabs_list])
-        t_opt = t_opt.to(t0.dtype)
-        if stats is not None:
-            stats["newton_iters"] += iters.sum()
-            stats["newton_edges"] += len(t0)
-    else:
-        def deriv_fn(t):
-            return summed(t)[1:]
+    with profile.span("pllmod.blo.newton"):
+        if kernel10:
+            t_opt, lnl0_all, iters = kern.newton_edges_multi(
+                parts, [st for _, (st, _) in evals],
+                [sc for _, (_, sc) in evals], t0, scalers, min_brlen,
+                max_brlen, tol, MAX_NEWTON_ITERS, lws,
+                [tabs.lnB for tabs in tabs_list])
+            t_opt = t_opt.to(t0.dtype)
+            if stats is not None:
+                stats["newton_iters"] += iters.sum()
+                stats["newton_edges"] += len(t0)
+        else:
+            def deriv_fn(t):
+                return summed(t)[1:]
 
-        t_opt = minimize_newton_multi(deriv_fn, t0, min_brlen, max_brlen,
-                                      tol=tol, max_iters=MAX_NEWTON_ITERS)
-        lnl0_all = summed(t0)[0]
-        if stats is not None:
-            stats["iterative_edges"] += len(t0)
+            t_opt = minimize_newton_multi(deriv_fn, t0, min_brlen,
+                                          max_brlen, tol=tol,
+                                          max_iters=MAX_NEWTON_ITERS)
+            lnl0_all = summed(t0)[0]
+            if stats is not None:
+                stats["iterative_edges"] += len(t0)
     if safe:
         l_old = summed(t0)[0] if kernel10 else lnl0_all
         t_opt = _safe_accept(t0, t_opt, l_old, summed(t_opt)[0])
@@ -526,6 +547,7 @@ def _blo_sweep_multi(parts, scalers, tabs_list, lws, edges, brlens,
     return new, lnl0_all[0].to(brlens.dtype)
 
 
+@profile.spanned("pllmod.blo.final")
 def _lnl_at(partition, tabs, brlens, edge: int):
     """Tree logL at ``brlens`` (0-dim tensor) through the sumtable of the
     live edge ``edge`` (kernel 9 on the kernel path)."""
@@ -542,12 +564,14 @@ def smooth(sweep, polish, brlens, max_sweeps: int, tolerance: float):
     logL is retried from a half step toward the best iterate; then
     :data:`N_POLISH` damped half-step ``polish`` sweeps from where it
     ended settle the oscillation that simultaneous updates can leave
-    around the joint optimum. Returns (best brlens, best logL, the last
+    around the joint optimum. Each sweep and polish sweep is the span
+    ``pllmod.blo.sweep``. Returns (best brlens, best logL, the last
     iterate, which no sweep has scored)."""
     best_brlens, best_lnl = brlens, -np.inf
     lnl_prev = None
     for _ in range(max_sweeps):
-        new_brlens, lnl_here = sweep(brlens)
+        with profile.span("pllmod.blo.sweep"):
+            new_brlens, lnl_here = sweep(brlens)
         if lnl_here > best_lnl:
             best_lnl, best_brlens = lnl_here, brlens
         if lnl_prev is not None and lnl_here < lnl_prev - 1e-9:
@@ -560,7 +584,8 @@ def smooth(sweep, polish, brlens, max_sweeps: int, tolerance: float):
             break
         lnl_prev = lnl_here
     for _ in range(N_POLISH):
-        new_brlens, lnl_here = polish(brlens)
+        with profile.span("pllmod.blo.sweep"):
+            new_brlens, lnl_here = polish(brlens)
         if lnl_here > best_lnl:
             best_lnl, best_brlens = lnl_here, brlens
         brlens = 0.5 * (brlens + new_brlens)
@@ -601,6 +626,7 @@ def _edges_within_radius(tree, edge: int, radius: int):
     return sorted(seen_edges)
 
 
+@profile.spanned("pllmod.blo")
 def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
                             tolerance: float = 1e-4,
                             min_brlen: float = MIN_BRANCH_LEN,
@@ -644,6 +670,11 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
       its own mesh): every shard's sumtables, the derivatives reduced
       each Newton iteration; kernel 10 and the bounded sweep are off.
 
+    Each call is the span ``pllmod.blo``; its children name the driver's
+    steps (``pllmod.blo.prep``, ``.sweep``, ``.subsweep``, ``.walk``,
+    ``.sumtables``, ``.newton``, ``.final`` and ``.wait``, the host's
+    readbacks).
+
     Returns (brlens [n_edge_slots] tensor, logL float) and writes the
     lengths back into ``tree`` unless ``write_back=False``.
     """
@@ -662,34 +693,37 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
             min_brlen=min_brlen, max_brlen=max_brlen,
             newton_tol=newton_tol, write_back=write_back,
             colored=colored, fused_newton=fused_newton, stats=stats)
-    trav = DirectedTraversal(tree)
-    tabs = _compile_tables(partition, trav)
-    mask_np = trav.edge_mask.copy()
-    if around_edge is not None:
-        edges = _edges_within_radius(tree, around_edge,
-                                     radius if radius is not None else 1)
-    if edges is not None:
-        sel = np.zeros_like(mask_np)
-        sel[np.asarray(list(edges), int)] = True
-        mask_np &= sel
     dev = partition.device
 
     def ids(mask):
         return torch.as_tensor(np.nonzero(mask)[0], device=dev)
 
-    # color classes emptied by an edge subset are dropped
-    masks = ([cm for m in _edge_colors(tree, mask_np)
-              if (cm := m & mask_np).any()] if colored else []) or [mask_np]
-    sweep_sets = [ids(m) for m in masks]
-    all_edges = ids(mask_np)
-    first_edge = int(np.nonzero(mask_np)[0][0])
-    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
-                             dtype=partition.dtype, device=dev)
-    if stats is not None:
-        stats.update(route="directed", sweeps=0, sub_sweeps=0,
-                     newton_edges=0,
-                     newton_iters=torch.zeros((), dtype=torch.int64,
-                                              device=dev))
+    with profile.span("pllmod.blo.prep"):
+        trav = DirectedTraversal(tree)
+        tabs = _compile_tables(partition, trav)
+        mask_np = trav.edge_mask.copy()
+        if around_edge is not None:
+            edges = _edges_within_radius(
+                tree, around_edge, radius if radius is not None else 1)
+        if edges is not None:
+            sel = np.zeros_like(mask_np)
+            sel[np.asarray(list(edges), int)] = True
+            mask_np &= sel
+        # color classes emptied by an edge subset are dropped
+        masks = ([cm for m in _edge_colors(tree, mask_np)
+                  if (cm := m & mask_np).any()] if colored else []) \
+            or [mask_np]
+        sweep_sets = [ids(m) for m in masks]
+        all_edges = ids(mask_np)
+        first_edge = int(np.nonzero(mask_np)[0][0])
+        brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen,
+                                         max_brlen),
+                                 dtype=partition.dtype, device=dev)
+        if stats is not None:
+            stats.update(route="directed", sweeps=0, sub_sweeps=0,
+                         newton_edges=0,
+                         newton_iters=torch.zeros((), dtype=torch.int64,
+                                                  device=dev))
 
     def sub_sweep(brl, sel):
         if stats is not None:
@@ -705,22 +739,22 @@ def optimize_branch_lengths(partition, tree, max_sweeps: int = 32,
         for sel in sweep_sets:
             brl, lnl_sub = sub_sweep(brl, sel)
             if lnl_start is None:
-                lnl_start = float(lnl_sub)   # logL at sweep-START brl
+                lnl_start = _host(lnl_sub)   # logL at sweep-START brl
         return brl, lnl_start
 
     def polish(brl):
         new, lnl = sub_sweep(brl, all_edges)
-        return new, float(lnl)
+        return new, _host(lnl)
 
     best_brlens, best_lnl, brlens = smooth(sweep, polish, brlens,
                                            max_sweeps, tolerance)
-    final_lnl = float(_lnl_at(partition, tabs, brlens, first_edge))
+    final_lnl = _host(_lnl_at(partition, tabs, brlens, first_edge))
     if final_lnl >= best_lnl:
         best_lnl, best_brlens = final_lnl, brlens
     if stats is not None:
-        stats["newton_iters"] = int(stats["newton_iters"])
+        stats["newton_iters"] = _host(stats["newton_iters"], int)
     if write_back:
-        tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+        tree.lengths = _host_lengths(best_brlens)
     return best_brlens, best_lnl
 
 
@@ -801,6 +835,7 @@ def _window_tables(partition, ops_w, refs_w, n_slots: int,
     return tabs
 
 
+@profile.spanned("pllmod.blo.subsweep")
 def _blo_window(partition, tabs, edge_ids, win_mask, brlens, min_brlen,
                 max_brlen, tol, safe: bool = False):
     """One Gauss-Seidel WINDOW step of the memory-bounded BLO
@@ -835,6 +870,7 @@ def _blo_window(partition, tabs, edge_ids, win_mask, brlens, min_brlen,
     return b_ext[:E], lnl0_all[0].to(brlens.dtype)
 
 
+@profile.spanned("pllmod.blo")
 def optimize_branch_lengths_chunked(partition, tree, window: int = 16,
                                     max_sweeps: int = 32,
                                     tolerance: float = 1e-4,
@@ -863,20 +899,22 @@ def optimize_branch_lengths_chunked(partition, tree, window: int = 16,
     """
     if partition.eigen_lam is None:
         partition = partition.cache_eigen()
-    ops_w, refs_w, edge_ids, masks, n_slots = compile_chunked_blo(
-        partition, tree, window)
     dev = partition.device
-    consts = None
-    if partition.dtype == torch.float32:
-        consts = (kern.sumtable_basis(partition),
-                  kern._lam_weight_rows(partition),
-                  kern.invar_log_plane(partition))
-    windows = [(_window_tables(partition, o, r, n_slots, consts),
-                torch.as_tensor(e, device=dev).long(),
-                torch.as_tensor(m, device=dev))
-               for o, r, e, m in zip(ops_w, refs_w, edge_ids, masks)]
-    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
-                             dtype=partition.dtype, device=dev)
+    with profile.span("pllmod.blo.prep"):
+        ops_w, refs_w, edge_ids, masks, n_slots = compile_chunked_blo(
+            partition, tree, window)
+        consts = None
+        if partition.dtype == torch.float32:
+            consts = (kern.sumtable_basis(partition),
+                      kern._lam_weight_rows(partition),
+                      kern.invar_log_plane(partition))
+        windows = [(_window_tables(partition, o, r, n_slots, consts),
+                    torch.as_tensor(e, device=dev).long(),
+                    torch.as_tensor(m, device=dev))
+                   for o, r, e, m in zip(ops_w, refs_w, edge_ids, masks)]
+        brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen,
+                                         max_brlen),
+                                 dtype=partition.dtype, device=dev)
     if stats is not None:
         stats.update(sweeps=0, windows=len(windows))
     best_brlens, best_lnl = brlens, -np.inf
@@ -886,12 +924,13 @@ def optimize_branch_lengths_chunked(partition, tree, window: int = 16,
             stats["sweeps"] += 1
         brlens_start = brlens
         lnl_sweep = None
-        for tabs, eids, mask in windows:
-            brlens, lnl0 = _blo_window(partition, tabs, eids, mask, brlens,
-                                       min_brlen, max_brlen, newton_tol,
-                                       safe=safe)
-            if lnl_sweep is None:
-                lnl_sweep = float(lnl0)   # logL at sweep-START brlens
+        with profile.span("pllmod.blo.sweep"):
+            for tabs, eids, mask in windows:
+                brlens, lnl0 = _blo_window(partition, tabs, eids, mask,
+                                           brlens, min_brlen, max_brlen,
+                                           newton_tol, safe=safe)
+                if lnl_sweep is None:
+                    lnl_sweep = _host(lnl0)   # logL at sweep-START brlens
         if lnl_sweep > best_lnl:
             best_lnl, best_brlens = lnl_sweep, brlens_start
         if lnl_prev is not None and abs(lnl_sweep - lnl_prev) < tolerance:
@@ -900,11 +939,13 @@ def optimize_branch_lengths_chunked(partition, tree, window: int = 16,
     final = (engine_mod.loglikelihood_bounded_fused
              if partition.dtype == torch.float32
              else engine_mod.loglikelihood_bounded)
-    final_lnl = float(final(partition, tree, brlens=brlens)[0])
+    with profile.span("pllmod.blo.final"):
+        final_lnl = final(partition, tree, brlens=brlens)[0]
+    final_lnl = _host(final_lnl)
     if final_lnl >= best_lnl:
         best_lnl, best_brlens = final_lnl, brlens
     if write_back:
-        tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+        tree.lengths = _host_lengths(best_brlens)
     return best_brlens, best_lnl
 
 
@@ -936,7 +977,8 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
     routes' counts (``newton_edges`` / ``newton_iters`` for kernel 10,
     ``iterative_edges`` for :func:`minimize_newton_multi`). Returns the
     total logL; the treeinfo's lengths (the tree's, or ``brlens`` in
-    UNLINKED mode) are updated.
+    UNLINKED mode) are updated. A LINKED or SCALED call is the span
+    ``pllmod.blo``; an UNLINKED one is its partitions' calls.
     """
     tree = treeinfo.tree
     if treeinfo.brlen_linkage == BRLEN_UNLINKED:
@@ -954,6 +996,16 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
             total += lnl
         return total
 
+    with profile.span("pllmod.blo"):
+        return _blo_shared(treeinfo, max_sweeps, tolerance, min_brlen,
+                           max_brlen, newton_tol, safe, fused_newton, stats)
+
+
+def _blo_shared(treeinfo, max_sweeps, tolerance, min_brlen, max_brlen,
+                newton_tol, safe, fused_newton, stats):
+    """LINKED and SCALED :func:`optimize_branch_lengths_treeinfo`: the
+    Jacobi sweeps over the shared lengths (the arguments as there)."""
+    tree = treeinfo.tree
     idxs = list(treeinfo.local_indices())
     for i in idxs:
         if treeinfo.partitions[i].eigen_lam is None:
@@ -964,14 +1016,17 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
     else:
         scalers = tuple(1.0 for _ in idxs)
     dtype, dev = parts[0].dtype, parts[0].device
-    trav = DirectedTraversal(tree)
-    tabs_list = [_compile_tables(p, trav) for p in parts]
-    lws = [kern._lam_weight_rows(p, scale=s)
-           for p, s in zip(parts, scalers)]
-    edges = torch.as_tensor(np.nonzero(trav.edge_mask)[0], device=dev)
-    first_edge = int(edges[0])
-    brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen, max_brlen),
-                             dtype=dtype, device=dev)
+    with profile.span("pllmod.blo.prep"):
+        trav = DirectedTraversal(tree)
+        tabs_list = [_compile_tables(p, trav) for p in parts]
+        lws = [kern._lam_weight_rows(p, scale=s)
+               for p, s in zip(parts, scalers)]
+        live = np.nonzero(trav.edge_mask)[0]
+        edges = torch.as_tensor(live, device=dev)
+        first_edge = int(live[0])
+        brlens = torch.as_tensor(np.clip(tree.lengths, min_brlen,
+                                         max_brlen),
+                                 dtype=dtype, device=dev)
     if stats is not None:
         stats.update(sweeps=0, newton_edges=0, iterative_edges=0,
                      newton_iters=torch.zeros((), dtype=torch.int64,
@@ -982,11 +1037,13 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
     for _ in range(max_sweeps):
         if stats is not None:
             stats["sweeps"] += 1
-        new_brlens, lnl_here = _blo_sweep_multi(
-            parts, scalers, tabs_list, lws, edges, brlens, min_brlen,
-            max_brlen, newton_tol, fused_newton=fused_newton, safe=safe,
-            stats=stats)
-        lnl_here = float(lnl_here)
+        with profile.span("pllmod.blo.sweep"):
+            with profile.span("pllmod.blo.subsweep"):
+                new_brlens, lnl_here = _blo_sweep_multi(
+                    parts, scalers, tabs_list, lws, edges, brlens,
+                    min_brlen, max_brlen, newton_tol,
+                    fused_newton=fused_newton, safe=safe, stats=stats)
+            lnl_here = _host(lnl_here)
         if lnl_here > best_lnl:
             best_lnl, best_brlens = lnl_here, brlens
         if lnl_prev is not None:
@@ -1001,11 +1058,11 @@ def optimize_branch_lengths_treeinfo(treeinfo, max_sweeps: int = 32,
         brlens = new_brlens
 
     # the final iterate's logL, summed over the partitions
-    final = sum(float(_lnl_at(part, tabs, brlens * s, first_edge))
+    final = sum(_host(_lnl_at(part, tabs, brlens * s, first_edge))
                 for part, s, tabs in zip(parts, scalers, tabs_list))
     if final >= best_lnl:
         best_lnl, best_brlens = final, brlens
     if stats is not None:
-        stats["newton_iters"] = int(stats["newton_iters"])
-    tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+        stats["newton_iters"] = _host(stats["newton_iters"], int)
+    tree.lengths = _host_lengths(best_brlens)
     return best_lnl

@@ -36,13 +36,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.common import (ERROR_UNSUPPORTED, MAX_BRANCH_LEN,
                                      MIN_BRANCH_LEN, TOL_BRANCH_LEN,
                                      PllModError)
 from pllmod_tpu_torch.ops import deriv as kern
 from pllmod_tpu_torch.ops import engine as engine_mod
 from pllmod_tpu_torch.ops import fused as fused_mod
-from pllmod_tpu_torch.optimize.blo import _edge_colors, _newton_edges, smooth
+from pllmod_tpu_torch.optimize.blo import (_edge_colors, _host,
+                                          _host_lengths, _newton_edges,
+                                          smooth)
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +473,7 @@ def _pass_plan(partition, sched, tables, cmask, gauss_seidel: bool):
     return plan
 
 
+@profile.spanned("pllmod.blo.subsweep")
 def _bounded_sweep(partition, plan, n_slots: int, brlens, min_brlen,
                    max_brlen, tol, fused_newton: bool, gauss_seidel: bool,
                    basis, lw, lnB):
@@ -496,15 +500,17 @@ def _bounded_sweep(partition, plan, n_slots: int, brlens, min_brlen,
     for walk, emits in plan:
         if walk is not None:
             idx8, e1, e2 = walk
-            P5 = fused_mod.pair_pmats(partition,
-                                      brl if gauss_seidel else brl_frozen,
-                                      e1, e2, root_row=False)
-            fused_mod.fused_walk(idx8, P5, partition.tip_states, codetab,
-                                 n_slots, out=bufs)
+            with profile.span("pllmod.blo.walk"):
+                P5 = fused_mod.pair_pmats(
+                    partition, brl if gauss_seidel else brl_frozen, e1, e2,
+                    root_row=False)
+                fused_mod.fused_walk(idx8, P5, partition.tip_states,
+                                     codetab, n_slots, out=bufs)
         if emits is None:
             continue
         eref, eids = emits
-        st, sc = kern.edge_sumtables(partition, *bufs, eref, basis)
+        with profile.span("pllmod.blo.sumtables"):
+            st, sc = kern.edge_sumtables(partition, *bufs, eref, basis)
         t_new, lnl0_all = _newton_edges(
             partition,
             lambda t: kern.edge_derivatives_k(partition, st, sc, t, lw, lnB),
@@ -554,24 +560,25 @@ def optimize_branch_lengths_bounded(partition, tree, seg_rows: int = 256,
                           f"partitions only (got {partition.dtype})")
     if partition.eigen_lam is None:
         partition = partition.cache_eigen()
-    sched = BoundedSweepSchedule(tree, seg_rows=seg_rows,
-                                 seg_emits=seg_emits)
-    tables = sched.compile_tables(partition)
-    n_slots_k = tables[-1]
     dev = partition.device
-    brlens = torch.as_tensor(np.clip(np.asarray(tree.lengths, np.float64),
-                                     min_brlen, max_brlen),
-                             dtype=partition.dtype, device=dev)
-    E = len(tree.edge_nodes)
-    if colored:
-        cmasks = [m for m in _edge_colors(tree) if m.any()]
-    else:
-        cmasks = [np.ones(E, bool)]
-    plans = [_pass_plan(partition, sched, tables, cm, not colored)
-             for cm in cmasks]
-    consts = dict(basis=kern.sumtable_basis(partition),
-                  lw=kern._lam_weight_rows(partition),
-                  lnB=kern.invar_log_plane(partition))
+    with profile.span("pllmod.blo.prep"):
+        sched = BoundedSweepSchedule(tree, seg_rows=seg_rows,
+                                     seg_emits=seg_emits)
+        tables = sched.compile_tables(partition)
+        n_slots_k = tables[-1]
+        brlens = torch.as_tensor(
+            np.clip(np.asarray(tree.lengths, np.float64), min_brlen,
+                    max_brlen), dtype=partition.dtype, device=dev)
+        E = len(tree.edge_nodes)
+        if colored:
+            cmasks = [m for m in _edge_colors(tree) if m.any()]
+        else:
+            cmasks = [np.ones(E, bool)]
+        plans = [_pass_plan(partition, sched, tables, cm, not colored)
+                 for cm in cmasks]
+        consts = dict(basis=kern.sumtable_basis(partition),
+                      lw=kern._lam_weight_rows(partition),
+                      lnB=kern.invar_log_plane(partition))
     if stats is not None:
         stats.update(route="bounded", sweeps=0, passes=len(plans),
                      n_slots=sched.n_slots, n_rows=sched.n_rows,
@@ -587,18 +594,19 @@ def optimize_branch_lengths_bounded(partition, tree, seg_rows: int = 256,
                 newton_tol, fused_newton=fused_newton,
                 gauss_seidel=not colored, **consts)
             if lnl_first is None:
-                lnl_first = float(lnl0)
+                lnl_first = _host(lnl0)
         return brl, lnl_first          # logL at sweep-START brl
 
     best_brlens, best_lnl, brlens = smooth(sweep, sweep, brlens, max_sweeps,
                                            tolerance)
     # the final iterate was optimized but never scored: exact bounded
     # evaluation (the same O(log n)-slot memory regime)
-    final_lnl, _ = engine_mod.loglikelihood_bounded_fused(
-        partition, tree, brlens=brlens)
-    final_lnl = float(final_lnl)
+    with profile.span("pllmod.blo.final"):
+        final_lnl, _ = engine_mod.loglikelihood_bounded_fused(
+            partition, tree, brlens=brlens)
+    final_lnl = _host(final_lnl)
     if final_lnl >= best_lnl:
         best_lnl, best_brlens = final_lnl, brlens
     if write_back:
-        tree.lengths = best_brlens.detach().cpu().double().numpy().copy()
+        tree.lengths = _host_lengths(best_brlens)
     return best_brlens, best_lnl

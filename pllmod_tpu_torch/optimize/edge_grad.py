@@ -44,6 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from pllmod_tpu_torch import profile
 from pllmod_tpu_torch.ops import clv as clv_mod
 from pllmod_tpu_torch.ops import likelihood as lk_mod
 from pllmod_tpu_torch.ops.engine import reduce_shards
@@ -146,6 +147,7 @@ def root_per_cat(clv_root, freqs_per_cat, right):
     return (clv_root * freqs_per_cat[:, :, None] * right).sum(-2)
 
 
+@profile.spanned("pllmod.blo.walk")
 def directed_clvs(partition, tabs, brlens=None, P=None):
     """The directed CLVs of the tables ``tabs`` (``blo._compile_tables``
     or ``blo.walk_tables``) at the lengths ``brlens`` (a tensor indexed
@@ -153,7 +155,8 @@ def directed_clvs(partition, tabs, brlens=None, P=None):
     kernel 2's walk for a float32 partition, the serial engine for
     float64 (a buffer of ``tabs.n_slots`` + 1 slots when the tables fix
     it). Returns (clvs, scalers, gather), ``gather`` the matching one of
-    :func:`gather_csp` / :func:`gather_std`."""
+    :func:`gather_csp` / :func:`gather_std`. Each call is the span
+    ``pllmod.blo.walk``."""
     if tabs.kernel:
         clvs, scalers = blo_mod._directed_clvs(partition, tabs, brlens, P=P)
         return clvs, scalers, gather_csp

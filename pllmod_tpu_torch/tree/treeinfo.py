@@ -59,7 +59,9 @@ class TreeInfo:
       brlen_scalers: [n_parts] multipliers (SCALED mode)
       params_to_optimize: [n_parts] bitmasks (PLLMOD_OPT_PARAM_*)
       counters: :class:`~pllmod_tpu_torch.profile.Counters` of the
-        evaluations (CLV-op counts, host wall time)
+        evaluations (CLV-op counts: inner rows × unpadded patterns, the
+        unit of ``clv_updates_per_s``; host wall time, readbacks
+        included)
       mesh / mesh_axis: the site mesh and its axis after
         :func:`pllmod_tpu_torch.parallel.shard_treeinfo`, else None
     """
@@ -206,7 +208,7 @@ class TreeInfo:
                     self.partition_loglh[i] = float(lnls[k])
                     total += float(lnls[k])
                     self.counters.add_traversal(
-                        n_inner, self.partitions[i].n_patterns_padded)
+                        n_inner, self.partitions[i].n_patterns)
             for i in self.local_indices():
                 if i in multi:
                     continue
@@ -218,7 +220,7 @@ class TreeInfo:
                 else:
                     lnl = float(engine_mod.loglikelihood(part, ops, brl, ri))
                     n_run = n_inner
-                self.counters.add_traversal(n_run, part.n_patterns_padded)
+                self.counters.add_traversal(n_run, part.n_patterns)
                 self.partition_loglh[i] = lnl
                 total += lnl
         return total

@@ -26,9 +26,16 @@ from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine,
                                   fused, grouped, levels, resident)
 from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded
+from pllmod_tpu_torch.profile import LAUNCHES
 from pllmod_tpu_torch.tree.topology import Tree
 
 pytestmark = pytest.mark.cuda
+
+# the registry's keys (profile.LAUNCHES) of kernels 3-5 and 8-10
+LEVEL_KERNELS = ("pllmod_child_pass", "pllmod_child2_pass",
+                 "pllmod_level_combined")
+DERIV_KERNELS = ("pllmod_edge_sumtables", "pllmod_edge_derivs",
+                 "pllmod_newton_edges", "pllmod_newton_edges_multi")
 
 # (states, cats): C·S = 16, 4, 80 (the main path's shapes), then the other
 # register tiles (S ≤ 8, 16, 32, 64) and pattern tiles (C = 8: 32 patterns,
@@ -65,9 +72,9 @@ def test_resident_kernel_matches_plain(cuda, states, cats):
     idx8, e1, e2, ns = resident.compile_resident(part, tree)
     P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
     args = (idx8, P5, part.tip_states, fused.code_table(part), ns)
-    before = resident.LAUNCHES
+    before = LAUNCHES["pllmod_resident_walk"]
     prod_k, sc_k = resident.resident_walk(*args)
-    assert resident.LAUNCHES == before + 1
+    assert LAUNCHES["pllmod_resident_walk"] == before + 1
     prod_p, sc_p = resident.resident_walk_plain(*args)
     assert torch.equal(prod_k, prod_p)
     assert torch.equal(sc_k, sc_p)
@@ -79,9 +86,9 @@ def test_fused_kernel_matches_plain(cuda, states, cats):
     idx8, e1, e2, _, ns = fused.compile_fused(part, tree, fuse_root=True)
     P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
     args = (idx8, P5, part.tip_states, fused.code_table(part), ns)
-    before = fused.LAUNCHES
+    before = LAUNCHES["pllmod_fused_walk"]
     clv_k, sc_k = fused.fused_walk(*args)
-    assert fused.LAUNCHES == before + 1
+    assert LAUNCHES["pllmod_fused_walk"] == before + 1
     clv_p, sc_p = fused.fused_walk_plain(*args)
     assert torch.equal(clv_k, clv_p)
     assert torch.equal(sc_k, sc_p)
@@ -94,9 +101,11 @@ def test_auto_schedule_matches_float64_scan(cuda, states, cats):
     part, tree = _example(states, cats, cuda)
     want = float(engine.tree_loglikelihood(part.to(dtype=torch.float64),
                                            tree, schedule="scan"))
-    before = resident.LAUNCHES + fused.LAUNCHES
+    before = (LAUNCHES["pllmod_resident_walk"]
+              + LAUNCHES["pllmod_fused_walk"])
     got = float(engine.tree_loglikelihood(part, tree))
-    assert resident.LAUNCHES + fused.LAUNCHES == before + 1
+    assert (LAUNCHES["pllmod_resident_walk"]
+            + LAUNCHES["pllmod_fused_walk"]) == before + 1
     assert abs(got - want) / abs(want) < 1e-6
 
 
@@ -193,7 +202,7 @@ def test_deriv_kernels_match_plain(cuda, states, cats):
     live = torch.as_tensor(blo.DirectedTraversal(tree).edge_mask,
                            device=cuda)
     args = (part, clvs, scalers, tabs.eref6, tabs.basis)
-    before = dict(deriv.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in DERIV_KERNELS}
     st, sc = deriv.edge_sumtables(*args)
     st_p, sc_p = deriv.edge_sumtables_plain(*args)
     assert torch.equal(st[live], st_p[live])
@@ -211,9 +220,9 @@ def test_deriv_kernels_match_plain(cuda, states, cats):
     torch.cuda.synchronize()
     assert _rel(nk[0][live], npl[0][live], 1e-4) < 5e-4
     assert _rel(nk[1][live], npl[1][live], 1e-2) < 2e-6
-    assert {k: deriv.LAUNCHES[k] - before[k] for k in before} == \
-        {"edge_sumtables": 1, "edge_derivatives": 1, "newton_edges": 1,
-         "newton_edges_multi": 0}
+    assert {k: LAUNCHES[k] - before[k] for k in before} == \
+        {"pllmod_edge_sumtables": 1, "pllmod_edge_derivs": 1,
+         "pllmod_newton_edges": 1, "pllmod_newton_edges_multi": 0}
 
 
 @pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (5, 4)])
@@ -223,16 +232,18 @@ def test_blo_on_card_matches_float64(cuda, states, cats):
     the path launched."""
     part, tree = _example(states, cats, cuda)
     start = float(engine.tree_loglikelihood(part, tree))
-    before = dict(deriv.LAUNCHES), fused.LAUNCHES
+    before = ({k: LAUNCHES[k] for k in DERIV_KERNELS},
+              LAUNCHES["pllmod_fused_walk"])
     _, lnl = blo.optimize_branch_lengths(part, tree)
     assert lnl >= start
     want = float(engine.tree_loglikelihood(part.to(dtype=torch.float64),
                                            tree, schedule="scan"))
     assert abs(lnl - want) / abs(want) < 1e-6
     # kernels 8, 9 and 10 (one partition: its K = 1 form)
-    assert all(deriv.LAUNCHES[k] > before[0][k] for k in
-               ("edge_sumtables", "edge_derivatives", "newton_edges"))
-    assert fused.LAUNCHES > before[1]
+    assert all(LAUNCHES[k] > before[0][k] for k in
+               ("pllmod_edge_sumtables", "pllmod_edge_derivs",
+                "pllmod_newton_edges"))
+    assert LAUNCHES["pllmod_fused_walk"] > before[1]
 
 
 @pytest.mark.parametrize("mode", ["safe", "local", "iterative", "bounded"])
@@ -319,7 +330,7 @@ def _check_level_kernels(part, tree, root_edge=None):
     tc, tab = part.tip_states, fused.code_table(part)
     C, S = part.n_cats, part.states
     want = _level_walk_plain(idx, P1, P2, tc, tab, lvls, offsets, ns, C, S)
-    before = dict(levels.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in LEVEL_KERNELS}
     for step in ("child2", "combined"):
         got = levels.update_partials_pallas(part, P, lvls, offsets, ns, step)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -335,8 +346,9 @@ def _check_level_kernels(part, tree, root_edge=None):
         levels.level_combined_plain(idx[s], *p5, tc, tab, P1[s], P2[s], off)
         assert torch.equal(k5[0], p5[0]) and torch.equal(k5[1], p5[1])
     n = len(lvls)
-    assert {k: levels.LAUNCHES[k] - before[k] for k in before} == \
-        {"child_pass": 3 * n, "child2_pass": n, "level_combined": 2 * n}
+    assert {k: LAUNCHES[k] - before[k] for k in before} == \
+        {"pllmod_child_pass": 3 * n, "pllmod_child2_pass": n,
+         "pllmod_level_combined": 2 * n}
 
 
 def _check_grouped_kernel(part, tree, root_edge=None, group=0, **walk):
@@ -347,10 +359,10 @@ def _check_grouped_kernel(part, tree, root_edge=None, group=0, **walk):
     PQ = grouped.grouped_pmats(part, _brl(tree, part), sched.e_sides)
     args = (sched.side_meta, sched.dst_meta, PQ, part.tip_states,
             fused.code_table(part))
-    before = grouped.LAUNCHES
+    before = LAUNCHES["pllmod_grouped_walk"]
     bufs, sbufs = grouped.grouped_walk(*args, sched.order, sched.windows,
                                        **walk)
-    assert grouped.LAUNCHES == before + 1
+    assert LAUNCHES["pllmod_grouped_walk"] == before + 1
     want_b, want_s = grouped.grouped_walk_plain(*args)
     dg, dq = sched.dst_meta[..., 0].long(), sched.dst_meta[..., 1].long()
     assert torch.equal(bufs[dg, dq], want_b[dg, dq])
@@ -495,7 +507,7 @@ def test_level_kernels_repeated_launches(cuda, states, cats, tile):
         levels.level_scratch_floats(m, cats, states, tab.shape[0],
                                     part.n_patterns_padded, len(lv), tile)
         for m in _build.LEVEL_MODES for lv in lvls), device=cuda)
-    before = dict(levels.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in LEVEL_KERNELS}
     for _ in range(20):
         for kernel in ("child2", "combined"):
             clvs = torch.full_like(want[0], float("nan"))
@@ -513,8 +525,9 @@ def test_level_kernels_repeated_launches(cuda, states, cats, tile):
                                                  scratch=scratch)
             assert torch.equal(clvs, want[0]) and torch.equal(sc, want[1])
     n = 20 * len(sl)
-    assert levels.LAUNCHES["child2_pass"] - before["child2_pass"] == n
-    assert levels.LAUNCHES["level_combined"] - before["level_combined"] == n
+    assert LAUNCHES["pllmod_child2_pass"] - before["pllmod_child2_pass"] == n
+    assert (LAUNCHES["pllmod_level_combined"]
+            - before["pllmod_level_combined"]) == n
 
 
 def test_level_scratch_is_checked(cuda):
@@ -551,7 +564,8 @@ def test_level_schedules_on_card_match_float64(cuda, states, cats):
     want = float(engine.tree_loglikelihood(part.to(dtype=torch.float64),
                                            tree, schedule="scan"))
     lvls, offsets, ri, ns = engine.compile_schedule(part, tree)
-    before = dict(levels.LAUNCHES), grouped.LAUNCHES
+    before = ({k: LAUNCHES[k] for k in LEVEL_KERNELS},
+              LAUNCHES["pllmod_grouped_walk"])
     got = [float(engine.tree_loglikelihood(part, tree, schedule="pallas")),
            float(engine.tree_loglikelihood(part, tree, schedule="levels"))]
     for step in ("split", "combined"):
@@ -561,8 +575,8 @@ def test_level_schedules_on_card_match_float64(cuda, states, cats):
         part, _brl(tree, part), grouped.GroupedSchedule(part, tree))))
     for g in got:
         assert abs(g - want) / abs(want) < 1e-6
-    assert all(levels.LAUNCHES[k] > before[0][k] for k in before[0])
-    assert grouped.LAUNCHES == before[1] + 1
+    assert all(LAUNCHES[k] > before[0][k] for k in before[0])
+    assert LAUNCHES["pllmod_grouped_walk"] == before[1] + 1
 
 
 def test_level_and_grouped_wrappers_raise(cuda):
@@ -626,9 +640,9 @@ def _check_packed_kernel(part, tree, root_edge=None, group=0, **walk):
     P = part.prob_matrices(_brl(tree, part)).contiguous()
     args = (sched.idxm, sched.e1, sched.e2, P, part.tip_states,
             fused.code_table(part), sched.G)
-    before = packed.LAUNCHES["packed_walk"]
+    before = LAUNCHES["pllmod_packed_walk"]
     clvs, sc = packed.packed_walk(*args, sched.windows, **walk)
-    assert packed.LAUNCHES["packed_walk"] == before + 1
+    assert LAUNCHES["pllmod_packed_walk"] == before + 1
     want = packed.packed_walk_plain(*args)
     assert torch.equal(clvs, want[0]) and torch.equal(sc, want[1])
     got = float(packed.loglikelihood_packed(part, _brl(tree, part), sched))
@@ -716,10 +730,11 @@ def test_newton_kernel_over_partitions(cuda, shapes):
                            device=cuda)
     t0 = _brl(tree, parts[0])
     args = (parts, sts, scs, t0, scalers, 1e-4, 100.0, 1e-4, 10)
-    key = "newton_edges" if len(parts) == 1 else "newton_edges_multi"
-    before = deriv.LAUNCHES[key]
+    key = ("pllmod_newton_edges" if len(parts) == 1
+           else "pllmod_newton_edges_multi")
+    before = LAUNCHES[key]
     got = deriv.newton_edges_multi(*args)
-    assert deriv.LAUNCHES[key] == before + 1
+    assert LAUNCHES[key] == before + 1
     want = deriv.newton_edges_multi_plain(*args)
     torch.cuda.synchronize()
     assert _rel(got[0][live], want[0][live], 1e-4) < 5e-4
@@ -759,24 +774,26 @@ def test_treeinfo_on_card(cuda, linkage):
             brlens=torch.as_tensor(ti.partition_brlens(i)),
             schedule="scan")) for i, p in enumerate((dna, prot)))
 
-    before = resident.LAUNCHES + fused.LAUNCHES
+    before = (LAUNCHES["pllmod_resident_walk"]
+              + LAUNCHES["pllmod_fused_walk"])
     lnl = ti.compute_loglh()
-    assert resident.LAUNCHES + fused.LAUNCHES == before + 2
+    assert (LAUNCHES["pllmod_resident_walk"]
+            + LAUNCHES["pllmod_fused_walk"]) == before + 2
     assert abs(lnl - f64_total()) / abs(lnl) < 1e-6
     ti.compute_loglh(incremental=True)
     ti.set_branch_length(3, 0.123)
     rows = ti.counters.clv_updates
     inc = ti.compute_loglh(incremental=True)
     assert ti.counters.clv_updates - rows < \
-        (tree.n_tips - 2) * (dna.n_patterns_padded + prot.n_patterns_padded)
+        (tree.n_tips - 2) * (dna.n_patterns + prot.n_patterns)
     assert abs(inc - ti.compute_loglh()) / abs(inc) < 1e-6
     start = ti.compute_loglh()
-    before = deriv.LAUNCHES["newton_edges_multi"]
+    before = LAUNCHES["pllmod_newton_edges_multi"]
     lnl = blo.optimize_branch_lengths_treeinfo(ti)
     assert lnl >= start
     assert abs(lnl - f64_total()) / abs(lnl) < 1e-6
     if mode != BRLEN_UNLINKED:
-        assert deriv.LAUNCHES["newton_edges_multi"] > before
+        assert LAUNCHES["pllmod_newton_edges_multi"] > before
 
 
 # ---------------------------------------------------------------------------
@@ -794,11 +811,10 @@ def _walk_equal(idx8, P5, tc, tab, ns, out=None, tile=None):
     bit (``out``: prior buffers, written in place by both)."""
     got_out = None if out is None else [t.clone() for t in out]
     want_out = None if out is None else [t.clone() for t in out]
-    before = fused.LAUNCHES, fused.TABLE_LAUNCHES
+    before = LAUNCHES["pllmod_fused_walk"]
     clv_k, sc_k = fused.fused_walk(idx8, P5, tc, tab, ns, out=got_out,
                                    tile=tile)
-    assert (fused.LAUNCHES, fused.TABLE_LAUNCHES) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert LAUNCHES["pllmod_fused_walk"] == before + 1
     clv_p, sc_p = fused.fused_walk_plain(idx8, P5, tc, tab, ns, out=want_out)
     written = torch.unique(idx8[:, 6].long())
     if out is None:     # slots no row writes are unset in the kernel's
@@ -1059,9 +1075,9 @@ def _balanced(n):
 def _resident_equal(idx8, P5, tc, tab, ns, tile=None):
     """Kernel 1 against its plain version: the root product and the
     scaler row bit for bit."""
-    before = resident.LAUNCHES
+    before = LAUNCHES["pllmod_resident_walk"]
     prod_k, sc_k = resident.resident_walk(idx8, P5, tc, tab, ns, tile=tile)
-    assert resident.LAUNCHES == before + 1
+    assert LAUNCHES["pllmod_resident_walk"] == before + 1
     prod_p, sc_p = resident.resident_walk_plain(idx8, P5, tc, tab, ns)
     assert torch.equal(prod_k, prod_p)
     assert torch.equal(sc_k, sc_p)
@@ -1217,13 +1233,13 @@ def _sumtable_config_lib(C, S, n_codes, Ppad, E, T=0):
 
 
 def _sumtables_equal(part, clvs, scalers, eref, basis, **force):
-    before = deriv.LAUNCHES["edge_sumtables"]
+    before = LAUNCHES["pllmod_edge_sumtables"]
     st, sc = deriv.edge_sumtables(part, clvs, scalers, eref, basis, **force)
     st_p, sc_p = deriv.edge_sumtables_plain(part, clvs, scalers, eref, basis)
     torch.cuda.synchronize()
     assert torch.equal(st, st_p), force
     assert torch.equal(sc, sc_p), force
-    assert deriv.LAUNCHES["edge_sumtables"] == before + 1
+    assert LAUNCHES["pllmod_edge_sumtables"] == before + 1
 
 
 def _n_codes(part):
@@ -1505,7 +1521,7 @@ def test_group_walk_wrappers_raise(cuda):
     gs = grouped.GroupedSchedule(part, tree)
     PQ = grouped.grouped_pmats(part, _brl(tree, part), gs.e_sides)
     gargs = (gs.side_meta, gs.dst_meta, PQ, tc, tab)
-    before = packed.LAUNCHES["packed_walk"], grouped.LAUNCHES
+    before = LAUNCHES["pllmod_packed_walk"], LAUNCHES["pllmod_grouped_walk"]
     with pytest.raises(ValueError, match="no launch configuration"):
         packed.packed_walk(*pargs, ps.windows, tile=128, lanes=8)
     with pytest.raises(ValueError, match="no launch configuration"):
@@ -1515,7 +1531,8 @@ def test_group_walk_wrappers_raise(cuda):
         packed.packed_walk(*pargs, ps.windows.cpu())
     with pytest.raises(ValueError, match="CUDA device"):
         grouped.grouped_walk(*gargs, gs.order.cpu(), gs.windows)
-    assert (packed.LAUNCHES["packed_walk"], grouped.LAUNCHES) == before
+    assert (LAUNCHES["pllmod_packed_walk"],
+            LAUNCHES["pllmod_grouped_walk"]) == before
 
 
 # ---------------------------------------------------------------------------
@@ -1560,9 +1577,9 @@ def test_edge_decomposition_on_card_matches_float64(cuda, states, cats):
               "alpha_pinv": np.array([0.6, 0.15]),
               "cats": np.linspace(0.2, 2.0, cats)}
     for name, build in _decomp_families().items():
-        before = fused.LAUNCHES
+        before = LAUNCHES["pllmod_fused_walk"]
         f32, g32 = _decomp_vg(part, tree, build, points[name])
-        assert fused.LAUNCHES == before + 1, name
+        assert LAUNCHES["pllmod_fused_walk"] == before + 1, name
         f64, g64 = _decomp_vg(part64, tree, build, points[name])
         assert abs(f32 - f64) / abs(f64) < 1e-6, name
         rel_g = np.abs(g32 - g64) / (np.abs(g64) + 1e-2 * np.abs(g64).max())
@@ -1580,11 +1597,12 @@ def test_em_estep_on_card_matches_serial_engine(cuda, states, cats):
     part, tree = _example(states, cats, cuda)
     out = {}
     for p in (part, part.to(dtype=torch.float64)):
-        before = fused.LAUNCHES
+        before = LAUNCHES["pllmod_fused_walk"]
         with torch.no_grad():
             lh, sc = om.site_cat_likelihood(p, tree, _brl(tree, p).to(
                 p.dtype))
-        assert fused.LAUNCHES == before + (p.dtype == torch.float32)
+        assert LAUNCHES["pllmod_fused_walk"] == \
+            before + (p.dtype == torch.float32)
         mix = lh.double()[:p.n_patterns] * p.rate_weights.double()
         site = mix.sum(1)
         ln = torch.log(site) + sc.double()[:p.n_patterns] * clv.LN2
@@ -1645,10 +1663,12 @@ def test_opt_model_on_card_matches_float64(cuda):
     part, tree = _example(4, 4, cuda)
     ti = TreeInfo(tree.copy(), [part], params_to_optimize=PARAM_ALL)
     start = ti.compute_loglh()
-    before = fused.LAUNCHES, resident.LAUNCHES
+    before = (LAUNCHES["pllmod_fused_walk"],
+              LAUNCHES["pllmod_resident_walk"])
     lnl = om.opt_model(ti)
     assert lnl >= start
-    assert fused.LAUNCHES > before[0] and resident.LAUNCHES > before[1]
+    assert LAUNCHES["pllmod_fused_walk"] > before[0]
+    assert LAUNCHES["pllmod_resident_walk"] > before[1]
     p64 = ti.partitions[0].to(dtype=torch.float64).with_model_params()
     want = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
     assert abs(lnl - want) / abs(want) < 1e-6
@@ -1686,9 +1706,9 @@ def test_spr_batch_table_matches_plain(cuda, states, cats):
         return (torch.zeros((ns, C * S, Ppad), device=cuda),
                 torch.zeros((ns, 1, Ppad), dtype=torch.int32, device=cuda))
     args = (idx8, P5, part.tip_states, fused.code_table(part), ns)
-    before = fused.LAUNCHES
+    before = LAUNCHES["pllmod_fused_walk"]
     k_clv, k_sc = fused.fused_walk(*args, out=zeros())
-    assert fused.LAUNCHES == before + 1
+    assert LAUNCHES["pllmod_fused_walk"] == before + 1
     p_clv, p_sc = fused.fused_walk_plain(*args, out=zeros())
     assert ns == 16 * (3 * (40 - 2) + 2)
     assert torch.equal(k_clv, p_clv)
@@ -1757,12 +1777,13 @@ def test_spr_round_on_card_matches_float64(cuda, monkeypatch):
             def no_plain(*a, **k):
                 raise AssertionError("a plain walk ran on the card")
             monkeypatch.setattr(clv, "walk_rows_plain", no_plain)
-            before = fused.LAUNCHES, deriv.LAUNCHES["newton_edges"]
+            before = (LAUNCHES["pllmod_fused_walk"],
+                      LAUNCHES["pllmod_newton_edges"])
         lnl, n, _ = spr.spr_round(ti)
         if dt == torch.float32:
             monkeypatch.undo()
-            assert fused.LAUNCHES > before[0]
-            assert deriv.LAUNCHES["newton_edges"] > before[1]
+            assert LAUNCHES["pllmod_fused_walk"] > before[0]
+            assert LAUNCHES["pllmod_newton_edges"] > before[1]
         assert lnl >= lnl0 and n > 0
         out[dt] = (lnl, ti)
     lnl32, ti32 = out[torch.float32]
@@ -1802,11 +1823,12 @@ def test_checkpointed_search_and_resume_on_card(cuda, tmp_path):
         seen.append(rec)
 
     seen = []
-    before = fused.LAUNCHES, deriv.LAUNCHES["newton_edges"]
+    before = (LAUNCHES["pllmod_fused_walk"],
+              LAUNCHES["pllmod_newton_edges"])
     ti = TreeInfo(start.copy(), [part], params_to_optimize=mask)
     res = ml_search(ti, checkpoint_path=ck, on_round=on_round, **kw)
-    assert fused.LAUNCHES > before[0]
-    assert deriv.LAUNCHES["newton_edges"] > before[1]
+    assert LAUNCHES["pllmod_fused_walk"] > before[0]
+    assert LAUNCHES["pllmod_newton_edges"] > before[1]
     best = res.start_loglh
     for r in res.rounds:
         assert r.loglh >= best - 1e-3
@@ -1853,12 +1875,13 @@ def test_sharded_walk_matches_plain(cuda, route):
                                            make_mesh)
     fn = (loglikelihood_resident_sharded if route == "resident"
           else loglikelihood_fused_sharded)
-    mod = resident if route == "resident" else fused
+    kernel = ("pllmod_resident_walk" if route == "resident"
+              else "pllmod_fused_walk")
     part, tree = _mesh_case()
-    before = mod.LAUNCHES
+    before = LAUNCHES[kernel]
     got = float(fn(part.to(cuda), tree, tree.lengths,
                    make_mesh([cuda] * 4)))
-    assert mod.LAUNCHES == before + 4
+    assert LAUNCHES[kernel] == before + 4
     want = float(fn(part, tree, tree.lengths, make_mesh(["cpu"] * 4)))
     assert abs(got - want) / abs(want) < 1e-6
 
@@ -1870,13 +1893,13 @@ def test_sharded_blo_sweep_matches_plain(cuda):
     5e-4 relative; kernel 10 does not launch."""
     from pllmod_tpu_torch.parallel import blo_sweep_fast_sharded, make_mesh
     part, tree = _mesh_case()
-    before = dict(deriv.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in DERIV_KERNELS}
     new_k, l_k = blo_sweep_fast_sharded(part.to(cuda), tree, tree.lengths,
                                         make_mesh([cuda] * 4))
-    for k in ("edge_sumtables", "edge_derivatives"):
-        n = deriv.LAUNCHES[k] - before[k]
+    for k in ("pllmod_edge_sumtables", "pllmod_edge_derivs"):
+        n = LAUNCHES[k] - before[k]
         assert n > 0 and n % 4 == 0
-    assert deriv.LAUNCHES["newton_edges"] == before["newton_edges"]
+    assert LAUNCHES["pllmod_newton_edges"] == before["pllmod_newton_edges"]
     new_p, l_p = blo_sweep_fast_sharded(part, tree, tree.lengths,
                                         make_mesh(["cpu"] * 4))
     assert abs(float(l_k) - float(l_p)) / abs(float(l_p)) < 2e-6
@@ -1909,14 +1932,14 @@ def test_mesh_treeinfo_on_card_matches_plain(cuda):
     assert np.allclose(site[cuda], site["cpu"], rtol=1e-5, atol=1e-4)
     ti = tis[cuda]
     start = ti.compute_loglh()
-    before = dict(deriv.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in DERIV_KERNELS}
     lnl = blo.optimize_branch_lengths_treeinfo(ti)
-    for k in ("edge_sumtables", "edge_derivatives"):
-        n = deriv.LAUNCHES[k] - before[k]
+    for k in ("pllmod_edge_sumtables", "pllmod_edge_derivs"):
+        n = LAUNCHES[k] - before[k]
         assert n > 0 and n % 4 == 0
-    assert deriv.LAUNCHES["newton_edges"] == before["newton_edges"]
-    assert deriv.LAUNCHES["newton_edges_multi"] == before[
-        "newton_edges_multi"]
+    assert LAUNCHES["pllmod_newton_edges"] == before["pllmod_newton_edges"]
+    assert LAUNCHES["pllmod_newton_edges_multi"] == before[
+        "pllmod_newton_edges_multi"]
     assert lnl >= start
     p64 = part.to(dtype=torch.float64).with_model_params()
     l64 = float(engine.tree_loglikelihood(p64, ti.tree, schedule="scan"))
@@ -1978,12 +2001,14 @@ def test_chunked_blo_on_card_matches_float64(cuda):
                                     device=cuda)
     part = part.cache_eigen()
     part64 = part.to(dtype=torch.float64).with_model_params().cache_eigen()
-    before = (fused.LAUNCHES, deriv.LAUNCHES["edge_sumtables"],
-              deriv.LAUNCHES["newton_edges"])
+    before = (LAUNCHES["pllmod_fused_walk"],
+              LAUNCHES["pllmod_edge_sumtables"],
+              LAUNCHES["pllmod_newton_edges"])
     tr = tree.copy()
     _, lnl = blo.optimize_branch_lengths_chunked(part, tr, window=8)
-    after = (fused.LAUNCHES, deriv.LAUNCHES["edge_sumtables"],
-             deriv.LAUNCHES["newton_edges"])
+    after = (LAUNCHES["pllmod_fused_walk"],
+             LAUNCHES["pllmod_edge_sumtables"],
+             LAUNCHES["pllmod_newton_edges"])
     assert all(a > b for a, b in zip(after, before))
     _, l64 = blo.optimize_branch_lengths_chunked(part64, tree.copy(),
                                                  window=8)
@@ -2012,10 +2037,10 @@ def test_bounded_2000_taxa_on_card_matches_float64(cuda):
                 engine.loglikelihood_bounded_fused(part, tree)[0]):
         assert abs(float(got) - l64) / abs(l64) < 1e-6
     tr = tree.copy()
-    before = dict(deriv.LAUNCHES)
+    before = {k: LAUNCHES[k] for k in DERIV_KERNELS}
     _, lnl = blo_bounded.optimize_branch_lengths_bounded(part, tr,
                                                          max_sweeps=1)
-    assert deriv.LAUNCHES["newton_edges"] > before["newton_edges"]
+    assert LAUNCHES["pllmod_newton_edges"] > before["pllmod_newton_edges"]
     s64 = float(engine.loglikelihood_bounded(part64, tr)[0])
     assert s64 >= l64
     assert abs(lnl - s64) / abs(s64) < 1e-6

@@ -24,6 +24,7 @@ from pllmod_tpu_torch.common import (MAX_BRANCH_LEN, MIN_BRANCH_LEN,
                                      TOL_BRANCH_LEN)
 from pllmod_tpu_torch.ops import _build, deriv, derivatives
 from pllmod_tpu_torch.optimize import blo, newton
+from pllmod_tpu_torch.profile import LAUNCHES
 from tests.test_torch_partition import ODD5
 from tests.torch_cases import make_case, to_torch
 from tests.torch_cases import one_torch_thread  # noqa: F401 (autouse)
@@ -96,10 +97,10 @@ def test_sumtables_match_jax_kernel(directed):
     """Kernel 8's plain version on JAX's directed buffers."""
     case = directed["case"]
     eref6 = torch.as_tensor(np.array(directed["eref6"]))
-    before = dict(deriv.LAUNCHES)
+    before = dict(LAUNCHES)
     st, sc = deriv.edge_sumtables(case.tpart, directed["clvs"],
                                   directed["scalers"], eref6)
-    assert deriv.LAUNCHES == before          # CPU tensors: the plain path
+    assert LAUNCHES == before                # CPU tensors: the plain path
     want_st, want_sc = np.asarray(directed["st"]), np.asarray(directed["sc"])
     live = directed["trav"].edge_mask
     np.testing.assert_array_equal(sc.numpy()[live], want_sc[live])
