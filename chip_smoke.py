@@ -173,16 +173,22 @@ more with their phase marks (``-DPLLMOD_PHASES``, ``csrc/common.cuh``)
 and prints the mean cycles of each phase of a row of kernel 1, of a
 step of kernels 6 and 7 and of a row's tile of kernels 4 and 5
 (flagship, protein), of a work item of kernel 8 and of a Newton
-iteration of kernel 10 (their all-edge shapes), with the marked build's
-ms a launch beside the library's. ``--parent DIR`` builds the kernels of
-another checkout at DIR (an earlier commit, unpacked with ``git
+iteration of kernel 10 (their all-edge shapes), and of a row of kernel 1
+at the 246 x 4465 and capacity shapes (``kernel1_shapes``; its thread
+kind: the consumers' wait on the ring entry, children and maxima,
+rescale, stores, and the producer warp's wait and copy issue), with the
+marked build's ms a launch beside the library's. Kernel 1's launches
+are logged by kind too (``profile.RESIDENT_LAUNCHES``: tile, global,
+thread). ``--parent DIR`` builds the kernels of another checkout at DIR (an earlier commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists) beside this tree's
 and times its kernels 1-8 and 10 (each entry point from the
 library that defines it there, with its own signature) beside this
 tree's on the same inputs, outputs held equal (kernel 10 within
 DERIV_RTOL), in turns (parent, this tree, this tree, parent), by device
-time; kernels 3-7 at the flagship and protein cells, kernels 8 and
-10 at every shape the BLO launches: all edges and each edge-color class
+time; kernel 1 at the flagship, 246 x 4465 and capacity (10,000 x
+100,000) shapes, each at its own checkout's tile
+(``kernel1_against_parent``), kernels 3-7 at the flagship and protein
+cells, kernels 8 and 10 at every shape the BLO launches: all edges and each edge-color class
 of the flagship and protein cells, and kernel 10 on the two-partition
 sweep. It then times the ``pallas`` and ``combined`` evaluations of both
 checkouts at the flagship and protein cells in turns, each turn a
@@ -222,6 +228,9 @@ from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded, edge_grad
 from pllmod_tpu_torch.optimize.em import em_rates_weights
 from pllmod_tpu_torch.parallel import is_sharded
+# kernel 1's count by kind is read at call time: eval_turn runs this file
+# on another checkout's package, which may not have it
+from pllmod_tpu_torch import profile as port_profile
 from pllmod_tpu_torch.profile import LAUNCHES
 from pllmod_tpu_torch.tree import splits
 from pllmod_tpu_torch.tree.topology import Tree
@@ -387,6 +396,7 @@ def compare(name, got, want):
 # launch counts: every kernel's, by cell and path
 # ---------------------------------------------------------------------------
 LAUNCH_LOG: dict = {}     # kernel -> cell -> path -> launches
+KIND_LOG: dict = {}       # kernel 1's kind -> cell -> path -> launches
 
 
 # this script's name of each key of the launch registry
@@ -416,6 +426,7 @@ def read_counts() -> dict:
 
 def zero_counts() -> None:
     LAUNCHES.clear()
+    port_profile.RESIDENT_LAUNCHES.clear()
 
 
 def counted(cell: str, path: str, fn, must=()):
@@ -430,6 +441,9 @@ def counted(cell: str, path: str, fn, must=()):
         if n:
             paths = LAUNCH_LOG.setdefault(k, {}).setdefault(cell, {})
             paths[path] = paths.get(path, 0) + n
+    for kind, n in port_profile.RESIDENT_LAUNCHES.items():
+        paths = KIND_LOG.setdefault(kind, {}).setdefault(cell, {})
+        paths[path] = paths.get(path, 0) + n
     missed = [k for k in must if got[k] == 0]
     if missed:
         raise AssertionError(f"{path} ({cell}) did not launch {missed}")
@@ -1531,6 +1545,10 @@ def profile_window(label, fn, calls: int) -> dict:
 PHASE_DEFINES = ("PLLMOD_PHASES",)    # csrc/common.cuh PHASE_MARK
 RESIDENT_PHASES = ("wait", "issue", "children", "product_max", "barrier",
                    "rescale_store")
+# kernel 1's thread kind: consumer thread 0's row (marks 0-4), and the
+# producer warp's lane 0 filling that row's entry (marks 5-7)
+RESIDENT_THREAD_PHASES = ("wait_full", "children_max", "rescale", "stores")
+RESIDENT_PRODUCER_PHASES = ("producer_wait_empty", "producer_issue")
 NEWTON_PHASES = ("coefficients", "sums", "reduce_push", "cluster_sync",
                  "newton_step")
 SUMTABLE_PHASES = ("barrier", "loads", "products", "stores")  # + staging
@@ -1557,7 +1575,7 @@ def start_phase_build():
 
 
 def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
-                  names, once=None) -> None:
+                  names, once=None, side=()) -> None:
     """Where a row of kernel 1, a step of kernel 6 or 7, a Newton
     iteration of kernel 10 or a row's tile of kernel 4 or 5 spends its
     cycles: ``fn`` (one launch through the port's wrapper) run through
@@ -1570,7 +1588,8 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
     against the port's own library, timed in turns (library, marked,
     marked, library) with the marks recording. ``once``: the name of a
     phase the kernel runs once, before its loop, marked in row 127 (kernel
-    8's staging)."""
+    8's staging). ``side``: the phases of a second marked thread, between
+    marks len(names) + 1 and 7 of a row (kernel 1's producer warp)."""
     clk = torch.zeros(128 * 8, dtype=torch.int64, device="cuda")
     set_buffer(clk.data_ptr())
     t = []
@@ -1588,11 +1607,46 @@ def phase_profile(marked, set_buffer, label, kernel, fn, rows: int,
     c = c[cut:len(c) - cut] if len(c) > 2 * cut else c
     d = np.diff(c[:, :len(names) + 1], axis=1).mean(axis=0)
     extra = {once: float(c_all[127, 1] - c_all[127, 0])} if once else {}
+    if side:
+        first = len(names) + 1
+        extra.update(zip(side, map(float, np.diff(
+            c[:, first:first + len(side) + 1], axis=1).mean(axis=0))))
     print(json.dumps(dict(
         phases=label, kernel=kernel, rows=rows, library_ms=[t[0], t[3]],
         marked_ms=[t[1], t[2]],
         cycles=float((c[:, len(names)] - c[:, 0]).mean()),
         **{n: float(v) for n, v in zip(names, d)}, **extra)))
+
+
+def resident_phase_profile(marked, set_buffer, label, args) -> None:
+    """:func:`phase_profile` of kernel 1 on ``args`` (resident_walk's),
+    with the phases of its kind at this shape."""
+    idx8, P5, tc, tab, ns = args
+    _, _, C, S, _ = P5.shape
+    T, cf = _build.walk_launch_config("pllmod_resident_walk", C, S,
+                                      tab.shape[0], ns, tc.shape[1])
+    thread = cf["kind"] == "thread"
+    phase_profile(marked, set_buffer, f"{label}, {cf['kind']} kind, tile "
+                  f"{T}", "resident_walk",
+                  lambda: resident.resident_walk(*args), len(idx8),
+                  RESIDENT_THREAD_PHASES if thread else RESIDENT_PHASES,
+                  side=RESIDENT_PRODUCER_PHASES if thread else ())
+
+
+def kernel1_phase_profiles(build, shapes) -> None:
+    """:func:`resident_phase_profile` of kernel 1 at each of ``shapes``
+    (:func:`kernel1_shapes`), with the build that
+    :func:`start_phase_build` started."""
+    import ctypes
+    paths = build.result()
+    marked = _build.entry_points({"pruning": paths["pruning"]})
+    setter = ctypes.CDLL(paths["pruning"]).pllmod_phase_buffer
+
+    def set_buffer(ptr):
+        if setter(ctypes.c_void_p(ptr)):
+            raise RuntimeError("pllmod_phase_buffer failed")
+    for label, args in shapes:
+        resident_phase_profile(marked, set_buffer, label, args)
 
 
 def run_phase_profiles(build, cells) -> None:
@@ -1611,14 +1665,10 @@ def run_phase_profiles(build, cells) -> None:
             if f(ctypes.c_void_p(ptr)):
                 raise RuntimeError("pllmod_phase_buffer failed")
     for label, part, tree in cells:
-        idx8, e1, e2, ns = resident.compile_resident(part, tree)
+        resident_phase_profile(marked, set_buffer, label,
+                               resident_args(part, tree))
         brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
                               device=part.device)
-        args = (idx8, fused.pair_pmats(part, brl, e1, e2, root_row=True),
-                part.tip_states, fused.code_table(part), ns)
-        phase_profile(marked, set_buffer, label, "resident_walk",
-                      lambda: resident.resident_walk(*args), len(idx8),
-                      RESIDENT_PHASES)
         # kernels 6 and 7: the cycles of a step (R rows of a window)
         C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
         tab = fused.code_table(part)
@@ -3572,7 +3622,7 @@ def timed_host(fn):
 # --parent: kernels 1-8 and 10 against another checkout's, by device
 # time
 # ---------------------------------------------------------------------------
-PARENT_KERNELS = ("pllmod_resident_walk", "pllmod_fused_walk",
+PARENT_KERNELS = ("pllmod_fused_walk",
                   "pllmod_child_pass", "pllmod_child2_pass",
                   "pllmod_level_combined", "pllmod_level_config",
                   "pllmod_edge_sumtables", "pllmod_newton_edges",
@@ -3623,10 +3673,126 @@ def _call(fn, label, *args):
         raise RuntimeError(f"parent {label}: error {err}")
 
 
+def parent_build_module(parent: str):
+    """The ``ops/_build`` module of the checkout at ``parent`` (its own
+    launch configurations and tile rules, its libraries under its own
+    ``build/``), loaded beside this tree's."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", os.path.join(parent, "pllmod_tpu_torch", "ops",
+                                     "_build.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# kernel 1's capacity shape: 10,000 taxa x 100,000 sites (padded to
+# 100,096), the five codes of the capacity cell's arrays (gap, A, C, G, T)
+KERNEL1_CAPACITY = dict(n_taxa=10_000, n_sites=100_000, seed=3)
+
+
+def resident_args(part, tree, tip_codes=None, codetab=None) -> tuple:
+    """resident_walk's arguments for ``tree`` with ``part``'s model: its
+    resident table, the P-matrices at the tree's lengths, and the tip
+    codes and code table (by default ``part``'s)."""
+    from types import SimpleNamespace
+    tc = part.tip_states if tip_codes is None else tip_codes
+    tab = fused.code_table(part) if codetab is None else codetab
+    idx8, e1, e2, ns = resident.compile_resident(
+        SimpleNamespace(n_tips=tc.shape[0], device=tc.device), tree)
+    brl = torch.as_tensor(tree.lengths, dtype=torch.float32,
+                          device=tc.device)
+    return (idx8, fused.pair_pmats(part, brl, e1, e2, root_row=True), tc,
+            tab, ns)
+
+
+def kernel1_shapes(dna, tree) -> list:
+    """(label, resident_walk's arguments) of kernel 1 at three DNA +G4
+    shapes: the flagship cell (``dna``, ``tree``), the search cell's 246 ×
+    4465 (:func:`flagship.search_cell`, its own partition) and the
+    capacity shape (KERNEL1_CAPACITY: a :func:`flagship.random_binary_tree`
+    with lengths U(0.02, 0.4), tip codes drawn on the card from the five
+    codes, the flagship cell's P-matrices; kernel 1's time does not
+    depend on the values)."""
+    seqs, _, tr246 = flagship.search_cell()
+    p246 = create_partition(seqs, states=4, alpha=0.9,
+                            device="cuda").cache_eigen()
+    cap = KERNEL1_CAPACITY
+    rng = np.random.default_rng(cap["seed"])
+    trc = flagship.random_binary_tree(rng, cap["n_taxa"], 0.02, 0.4)
+    gen = torch.Generator(device="cuda").manual_seed(cap["seed"])
+    ppad = -(-cap["n_sites"] // 128) * 128
+    codes = torch.randint(0, 5, (cap["n_taxa"], ppad), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    tab5 = torch.cat([torch.ones(1, 4), torch.eye(4)]).to("cuda")
+    return [("flagship DNA", resident_args(dna, tree)),
+            ("246 x 4465", resident_args(p246, tr246)),
+            ("capacity", resident_args(dna, trc, codes, tab5))]
+
+
+def kernel1_against_parent(parent: str, shapes) -> list:
+    """Kernel 1 of the checkout at ``parent`` (its library and its own
+    tile rule, :func:`parent_build_module`) beside this tree's at each of
+    ``shapes`` (:func:`kernel1_shapes`): both held bit for bit to the
+    plain version, device ms a launch in turns (parent, this tree, this
+    tree, parent) over 20 launches (5 where the plain version takes more
+    than a second), and the bound. Returns a row a shape."""
+    pb = parent_build_module(parent)
+    fn = pb.entry_points(pb.build(("pruning",))).pllmod_resident_walk
+    rows = []
+    for label, args in shapes:
+        idx8, P5, tc, tab, ns = args
+        _, _, C, S, _ = P5.shape
+        n_codes, Ppad = tab.shape[0], tc.shape[1]
+        Tp, cfp = pb.walk_launch_config("pllmod_resident_walk", C, S,
+                                        n_codes, ns, Ppad)
+        T, cf = _build.walk_launch_config("pllmod_resident_walk", C, S,
+                                          n_codes, ns, Ppad)
+        mats = torch.empty((len(idx8), 2, cfp["Q"]), device="cuda")
+        out = (torch.empty((C * S, Ppad), device="cuda"),
+               torch.empty((1, Ppad), dtype=torch.int32, device="cuda"))
+
+        def theirs():
+            _call(fn, "resident walk", idx8.data_ptr(), len(idx8),
+                  P5.data_ptr(), tc.data_ptr(), tab.data_ptr(), n_codes,
+                  out[0].data_ptr(), out[1].data_ptr(), Ppad, C, S, ns, Tp,
+                  mats.data_ptr())
+
+        def mine():
+            return resident.resident_walk(*args)
+        t0 = time.perf_counter()
+        want = resident.resident_walk_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        theirs()
+        got = mine()
+        for a, b, who in ((got, want, "this tree's"), (out, want,
+                                                       "the parent's")):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                raise AssertionError(f"kernel 1 ({label}): {who} kernel "
+                                     "differs from the plain version")
+        del want, got
+        n = 5 if plain_ms > 1e3 else 20
+        t = [device_ms(f, n) for f in (theirs, mine, mine, theirs)]
+        b_ms, b_by = bound(nbytes(idx8, P5, tc, tab, *out),
+                           walk_flops(idx8, C, S, Ppad, n_codes))
+        rows.append(dict(
+            kernel="resident_walk", shape=label, rows=len(idx8), slots=ns,
+            patterns=Ppad, kind=cf["kind"], tile=T, threads=cf["threads"],
+            smem=cf["smem"], parent_kind=cfp["kind"], parent_tile=Tp,
+            parent_ms=[t[0], t[3]], ms=[t[1], t[2]],
+            speedup=(t[0] + t[3]) / (t[1] + t[2]), bound_ms=b_ms,
+            bound_by=b_by, plain_ms=plain_ms))
+        print(f"kernel 1 against the parent: {rows[-1]}")
+        del mats, out
+    return rows
+
+
 def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
-    """Kernels 1-8 and 10 of another checkout (its C entry points,
-    :func:`parent_libs`) beside this tree's on the same inputs: kernels
-    1-8 bit for bit (kernel 7 on the positions its members write, kernels
+    """Kernels 2-8 and 10 of another checkout (its C entry points,
+    :func:`parent_libs`) beside this tree's on the same inputs (kernel 1:
+    :func:`kernel1_against_parent`): kernels
+    2-8 bit for bit (kernel 7 on the positions its members write, kernels
     4 and 5 on the whole buffers after every level), kernel 10 within
     DERIV_RTOL; device ms a
     launch timed in turns (parent, this tree, this tree, parent).
@@ -3662,46 +3828,6 @@ def parent_compare(proc, cells, newton_shapes, sumtable_shapes) -> list:
         tab = fused.code_table(part)
         C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
         n_codes = tab.shape[0]
-        # kernel 1, where the slots fit both. A parent from before the
-        # walk's pre-pass (14 arguments) runs at pattern_tile, its shared
-        # memory the code table, the category maxima, the slots and their
-        # scaler rows; a later one takes this tree's tile and the
-        # pre-pass's scratch
-        ri8, re1, re2, rns = resident.compile_resident(part, tree)
-        fn1 = libs["pllmod_resident_walk"]
-        if len(fn1.argtypes) == 14:
-            Tp = _build.pattern_tile(C)
-            parent_fits = 4 * (n_codes * S + C * Tp
-                               + rns * (C * S + 1) * Tp) \
-                <= _build.SMEM_PER_BLOCK
-            scratch = ()
-        else:
-            parent_fits = True
-        if parent_fits and _build.resident_tile(C, S, n_codes, rns,
-                                                Ppad) is not None:
-            if len(fn1.argtypes) != 14:
-                Tp, rcf = _build.walk_launch_config(
-                    "pllmod_resident_walk", C, S, n_codes, rns, Ppad)
-                mats1 = torch.empty((len(ri8), 2, rcf["Q"]),
-                                    device=part.device)
-                scratch = (mats1.data_ptr(),)
-            rP5 = fused.pair_pmats(part, brl, re1, re2, root_row=True)
-            rargs = (ri8, rP5, part.tip_states, tab, rns)
-            theirs_r = (torch.empty((C * S, Ppad), device=part.device),
-                        torch.empty((1, Ppad), dtype=torch.int32,
-                                    device=part.device))
-
-            def theirs1():
-                _call(fn1, "resident walk",
-                      ri8.data_ptr(), len(ri8), rP5.data_ptr(),
-                      part.tip_states.data_ptr(), tab.data_ptr(), n_codes,
-                      theirs_r[0].data_ptr(), theirs_r[1].data_ptr(), Ppad,
-                      C, S, rns, Tp, *scratch)
-            theirs1()
-            ab(f"resident_walk ({label})",
-               lambda: resident.resident_walk(*rargs), theirs1,
-               equal(lambda: resident.resident_walk(*rargs),
-                     lambda: theirs_r, f"resident_walk ({label})"), 10)
         # kernel 2
         tables = [(label, *fused.compile_fused(part, tree,
                                                fuse_root=True)[:3], True)]
@@ -4287,6 +4413,7 @@ def main(argv=None) -> int:
         res_row, fused_row, *deriv_rows, *level_rows["flagship DNA"],
         packed_row, multi_row)]
     print(f"launches: {json.dumps(LAUNCH_LOG)}")
+    print(f"kernel 1 launches by kind: {json.dumps(KIND_LOG)}")
 
     # ---- the other schedules of each cell, forced, end to end (the
     # 64-state cell's resident slots do not fit)
@@ -4318,6 +4445,17 @@ def main(argv=None) -> int:
                            TreeInfo(tree.copy(), [dna, prot2])), 1)
         run_phase_profiles(phase_build, [("flagship DNA", dna, tree),
                                          ("protein", prot, ptree)])
+    # kernel 1 at the flagship, 246 x 4465 and capacity shapes: against
+    # the parent's, and the phases of a row at the latter two
+    k1_shapes = (kernel1_shapes(dna, tree) if args.profile or args.parent
+                 else [])
+    if args.profile:
+        kernel1_phase_profiles(phase_build, k1_shapes[1:])
+    if parent_build is not None:
+        print(json.dumps({"kernel1_against_parent": kernel1_against_parent(
+            args.parent, k1_shapes + [("protein",
+                                       resident_args(prot, ptree))])}))
+    del k1_shapes
     if parent_build is not None:
         print(json.dumps({"parent_compare": parent_compare(
             parent_build, [("flagship DNA", dna, tree),

@@ -153,20 +153,24 @@ __device__ __forceinline__ void store_scaled(float* dst, size_t stride,
 // (chip_smoke.py --profile builds pruning.cu and deriv.cu so, beside the
 // libraries the port loads), PHASE_INIT reads the buffer that
 // pllmod_phase_buffer set once, for CTA 0's thread 0 (a null pointer for
-// every other thread), and PHASE_MARK(w, i) stores that thread's
-// clock64() as mark i (< 8) of iteration w (< 128) there. Without the
-// define both are empty and the kernels are those the port runs.
+// every other thread; PHASE_INIT_FOR(cond): for CTA 0's threads where
+// cond holds, which then mark disjoint marks of an iteration), and
+// PHASE_MARK(w, i) stores that thread's clock64() as mark i (< 8) of
+// iteration w (< 128) there. Without the define all three are empty and
+// the kernels are those the port runs.
 #ifdef PLLMOD_PHASES
 __device__ long long* g_phase_clk;
 extern "C" int pllmod_phase_buffer(long long* clk) {
   return (int)cudaMemcpyToSymbol(g_phase_clk, &clk, sizeof(clk));
 }
-#define PHASE_INIT                              \
+#define PHASE_INIT_FOR(cond)                    \
   long long* const phase_clk_ =                 \
-      blockIdx.x == 0 && threadIdx.x == 0 ? g_phase_clk : nullptr;
+      blockIdx.x == 0 && (cond) ? g_phase_clk : nullptr;
+#define PHASE_INIT PHASE_INIT_FOR(threadIdx.x == 0)
 #define PHASE_MARK(w, i) \
   if (phase_clk_ && (w) < 128) phase_clk_[8 * (w) + (i)] = clock64();
 #else
+#define PHASE_INIT_FOR(cond)
 #define PHASE_INIT
 #define PHASE_MARK(w, i)
 #endif

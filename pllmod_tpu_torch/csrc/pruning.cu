@@ -39,6 +39,29 @@
 // resident_config) so that the grid fills the card where the slots allow:
 // at protein (512 taxa, 4096 patterns, C*S = 80) T = 32, 128 CTAs.
 //
+// The thread kind (kThread: up to 4 states, at most kThreadMaxC
+// categories) takes the barrier off the row chain. A consumer thread owns
+// every category and state of its pattern column, so a pattern's maximum
+// over categories is taken in its registers, and the CTA has no
+// __syncthreads a row: a warp waits only for its row's ring entry. One
+// producer warp, which does no arithmetic, fills the ring: for each row,
+// once the consumer warps have released the entry (an "empty" mbarrier,
+// one arrival a consumer warp), one lane writes the idx8 row into it and
+// issues the bulk copies of the row's two tables and its tip codes on the
+// entry's "full" mbarrier. In a post-order walk the row before a row with
+// an inner child is that child's own row (75 % of the rows of a random
+// 10,000-taxon tree), so the producer marks in the entry whether the next
+// row takes this row's output, and the consumer then keeps that output in
+// registers: it is never stored to its slot nor loaded back. The slot
+// layout and the arithmetic are the tile kind's; a thread still reads
+// only slot values and scaler rows that it wrote, so slots may alias
+// without a barrier. Where the tile's patterns are not 16-byte aligned, a
+// consumer loads its own tip codes from device memory. In the tile kind,
+// thread 0 issued each row's copies inline and the row's barrier passed
+// that delay to every warp (PERF.md: 45 % of a DNA row's marked cycles);
+// at 10,000 taxa x 100,000 sites the thread kind takes 15.9 ms a launch
+// against the tile kind's 26.5 (PERF.md §6, NVIDIA H100 80GB HBM3).
+//
 // Measured on the H100 (chip_smoke.py; PERF.md): building a row's tip
 // tables inside the CTA, which saves the pre-pass's launch, put ~1000
 // cycles of table arithmetic on every row's chain at DNA; the pre-pass
@@ -69,6 +92,15 @@ constexpr int kThreads = 256;      // __launch_bounds__ of the walk
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4, kOut = 6;
 constexpr int kMetaRows = 16;      // the ring of idx8 rows
 constexpr int kNB = 4;             // ring entries (a power of two)
+// the thread kind: the most categories a thread holds (C x 4 floats of a
+// child in registers, three such a thread: 100 registers at C = 4, 139 at
+// C = 8), its patterns a thread (2 measured slower, PERF.md), its ring
+// entries (a power of two) and the ints of an entry's idx8 row
+constexpr int kThreadMaxC = 8;
+constexpr int kThreadRP = 1;
+constexpr int kThreadNB = 4;
+constexpr int kRowInts = 8;
+constexpr int kWarp = 32;
 
 int ladder(int S) {
   return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
@@ -80,7 +112,7 @@ __host__ __device__ constexpr long long round4(long long n) {
 }
 
 // A launch configuration; ops/_build.py::resident_config mirrors it.
-enum Kind { kTile = 0, kGlobal = 1 };
+enum Kind { kTile = 0, kGlobal = 1, kThread = 2 };
 struct Config {
   int kind, rp, sp, threads;
   long long q;      // floats of one row side's table
@@ -95,7 +127,28 @@ int wide_tile(int C) {
   return T;
 }
 
-// The configuration at pattern tile T, or false where none fits: the tile
+// The thread kind's configuration at pattern tile T (whole consumer
+// warps of kThreadRP patterns a thread, and the producer warp), or false
+// where its ring of kThreadNB entries (an idx8 row, the row's two tables,
+// two rows of tip codes) and the slots do not fit a block.
+bool thread_config(int C, int S, int n_codes, int n_slots, int T,
+                   Config* cf) {
+  constexpr int rp = kThreadRP, sp = 4;
+  if (T % (kWarp * rp)) return false;
+  const long long threads = T / rp + kWarp;
+  if (threads > kThreads) return false;
+  const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
+  const long long ring = kRowInts + 2 * q + 2LL * T;
+  const long long smem =
+      4 * (4LL * kThreadNB + kThreadNB * ring +
+           (long long)n_slots * C * S * T + (long long)n_slots * T);
+  if (smem > (long long)common::kSmemOptin) return false;
+  *cf = Config{kThread, rp, sp, (int)threads, q, ring, smem};
+  return true;
+}
+
+// The configuration at pattern tile T, or false where none fits: the
+// thread kind up to 4 states and kThreadMaxC categories; else the tile
 // kind where a ring of 4 entries of tables fits beside the slots, else,
 // at the widest tile, the global kind (tables read from mats, a ring of
 // codes).
@@ -104,6 +157,8 @@ bool walk_config(int C, int S, int n_codes, int n_slots, int T,
   if (C < 1 || S < 1 || S > 64 || n_codes < 1 || n_slots < 1 || T < 1)
     return false;
   const int maxs = ladder(S), rp = maxs <= 4 ? 2 : 1, sp = maxs;
+  if (maxs == 4 && C <= kThreadMaxC)
+    return thread_config(C, S, n_codes, n_slots, T, cf);
   if (T % rp) return false;
   const long long threads = (long long)C * (T / rp);
   if (threads > kThreads) return false;
@@ -328,6 +383,290 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
   // the ring's last copies (issued past the end: none) have all landed
 }
 
+// The thread kind: C categories (exact), EXACT: S == 4. Consumer thread
+// tid < nc owns patterns pl = tid * RP .. pl + RP - 1 of the tile; the
+// last warp is the producer. The entry's idx8 row carries, in place of
+// its flag column, 1 + the side of the next row that takes this row's
+// output (0: none), which the producer computes.
+template <int C, bool EXACT>
+__global__ void __launch_bounds__(kThreads) thread_kernel(WalkArgs a) {
+  constexpr int MAXS = 4, RP = kThreadRP, NB = kThreadNB;
+  extern __shared__ __align__(16) float smem[];
+  const int T = a.T, S = EXACT ? MAXS : a.S, CS = C * S, nW = a.nW,
+            SP = a.SP, Q = (int)a.Q, R = (int)a.ring, n_codes = a.n_codes;
+  const int tid = threadIdx.x, nc = T / RP;
+  const int p0 = blockIdx.x * T;
+  // the tip codes come by bulk copy where their rows are 16-byte aligned
+  // (T is a multiple of 32), else each consumer loads its own
+  const bool vec = a.Ppad % 4 == 0;
+  auto* full = reinterpret_cast<unsigned long long*>(smem);   // [NB]
+  auto* empty = full + NB;                                    // [NB]
+  // [NB][R]: the idx8 row, the two tables (Q each), two rows of T codes
+  float* ring = smem + 4 * NB;
+  float* slots = ring + NB * R;                               // [NS][CS][T]
+  int* ssc = reinterpret_cast<int*>(slots + (size_t)a.n_slots * CS * T);
+  const int codes_at = kRowInts + 2 * Q;   // codes' offset in an entry
+
+  if (tid == 0) {
+    for (int i = 0; i < NB; ++i) {
+      tile::mbar_init(full + i, 1);
+      tile::mbar_init(empty + i, nc / kWarp);
+    }
+    tile::mbar_fence_init();
+  }
+  __syncthreads();  // the only CTA barrier: the mbarriers' initialization
+  PHASE_INIT_FOR(tid == 0 || tid == nc)
+  auto slot = [&](int v) { return min(max(v, 0), a.n_slots - 1); };
+
+  if (tid >= nc) {
+    // the producer warp: lane l loads idx8 row r + l of each 32 rows, and
+    // lane 0 fills row r's entry once the consumers have released it
+    const int lane = tid - nc;
+    const int valid = min(T, a.Ppad - p0);
+    const int4* rows = reinterpret_cast<const int4*>(a.idx8);
+    int4 lo = make_int4(0, 0, 0, 0), hi = lo;
+    for (int r = 0; r < nW; ++r) {
+      if ((r & (kWarp - 1)) == 0 && r + lane < nW) {
+        lo = rows[2 * (r + lane)];
+        hi = rows[2 * (r + lane) + 1];
+      }
+      const int src = r & (kWarp - 1), nxt = (src + 1) & (kWarp - 1);
+      int4 m0, m1, n0;  // row r's idx8 row, and row r + 1's sides
+      m0.x = __shfl_sync(~0u, lo.x, src);
+      m0.y = __shfl_sync(~0u, lo.y, src);
+      m0.z = __shfl_sync(~0u, lo.z, src);
+      m0.w = __shfl_sync(~0u, lo.w, src);
+      m1.x = __shfl_sync(~0u, hi.x, src);
+      m1.y = __shfl_sync(~0u, hi.y, src);
+      m1.z = __shfl_sync(~0u, hi.z, src);
+      n0.x = __shfl_sync(~0u, lo.x, nxt);
+      n0.y = __shfl_sync(~0u, lo.y, nxt);
+      n0.z = __shfl_sync(~0u, lo.z, nxt);
+      n0.w = __shfl_sync(~0u, lo.w, nxt);
+      if (lane == 0) {
+        PHASE_MARK(r, 5)
+        if (nxt == 0 && r + 1 < nW) n0 = rows[2 * (r + 1)];
+        // the entry's last int (the idx8 row's flag, unread here): 1 + the
+        // side of row r + 1 that takes row r's output, or 0
+        const int out = slot(m1.z);
+        m1.w = r + 1 >= nW                        ? 0
+               : !n0.z && slot(n0.x) == out      ? 1
+               : !n0.w && slot(n0.y) == out      ? 2
+                                                 : 0;
+        const int e = r & (NB - 1);
+        if (r >= NB) tile::mbar_wait(empty + e, (unsigned)(r / NB - 1) & 1u);
+        PHASE_MARK(r, 6)
+        float* en = ring + e * R;
+        reinterpret_cast<int4*>(en)[0] = m0;
+        reinterpret_cast<int4*>(en)[1] = m1;
+        const int is_tip[2] = {m0.z, m0.w}, tip[2] = {m1.x, m1.y};
+        unsigned bytes = 0;
+        for (int k = 0; k < 2; ++k) {
+          bytes += 4u * C * (is_tip[k] ? n_codes : S) * SP;
+          if (vec && is_tip[k]) bytes += 4u * valid;
+        }
+        tile::mbar_expect(full + e, bytes);
+        for (int k = 0; k < 2; ++k) {
+          tile::bulk_copy(en + kRowInts + k * Q,
+                          a.mats + ((size_t)2 * r + k) * a.Q,
+                          4u * C * (is_tip[k] ? n_codes : S) * SP, full + e);
+          if (vec && is_tip[k])
+            tile::bulk_copy(en + codes_at + k * T,
+                            a.codes + (size_t)tip[k] * a.Ppad + p0,
+                            4u * valid, full + e);
+        }
+        PHASE_MARK(r, 7)
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  const int pl = tid * RP, p = p0 + pl;
+  // the previous row's output, where this row takes it as its side
+  // take - 1 (in a post-order walk the row before a row with an inner
+  // child is that child's own row): its rescaled values and its scaler
+  // stay in registers, never stored to nor loaded from its slot
+  float fw[C][MAXS][RP];
+  int fwsc[RP], take = 0;
+  for (int w = 0; w < nW; ++w) {
+    PHASE_MARK(w, 0)
+    const int e = w & (NB - 1);
+    tile::mbar_wait(full + e, (unsigned)(w / NB) & 1u);
+    PHASE_MARK(w, 1)
+    const float* en = ring + e * R;
+    const int4 m0 = reinterpret_cast<const int4*>(en)[0];
+    const int4 m1 = reinterpret_cast<const int4*>(en)[1];
+    const int is_tip[2] = {m0.z, m0.w}, tip[2] = {m1.x, m1.y};
+    const int sl[2] = {slot(m0.x), slot(m0.y)}, out = slot(m1.z);
+    const int give = m1.w;  // 1 + the side of the next row that takes ours
+    // the children's scalers (a tip's is 0) and tip codes, clamped to the
+    // table as tile::lookup does
+    int st[RP], code[2][RP];
+#pragma unroll
+    for (int q = 0; q < RP; ++q) st[q] = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (is_tip[k]) {
+        const int* src =
+            vec ? reinterpret_cast<const int*>(en + codes_at) + k * T + pl
+                : a.codes + (size_t)tip[k] * a.Ppad + p;
+#pragma unroll
+        for (int q = 0; q < RP; ++q)
+          code[k][q] = min(max(vec || p + q < a.Ppad ? src[q] : 0, 0),
+                           n_codes - 1);
+      } else if (take == k + 1) {
+#pragma unroll
+        for (int q = 0; q < RP; ++q) st[q] += fwsc[q];
+      } else {
+#pragma unroll
+        for (int q = 0; q < RP; ++q) st[q] += ssc[sl[k] * T + pl + q];
+      }
+    }
+    // child k's values of every category: a lookup, or the product of its
+    // column (from its slot, or forwarded) in j = 0..S-1 order, each
+    // product and sum rounded separately (tile::product's arithmetic)
+    auto child = [&](int k, float(&acc)[C][MAXS][RP]) {
+      const float* tb = en + kRowInts + k * Q;
+      if (is_tip[k]) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int q = 0; q < RP; ++q) {
+            float v[MAXS];
+            tile::load_vec<MAXS>(v, tb + (c * n_codes + code[k][q]) * SP);
+#pragma unroll
+            for (int i = 0; i < MAXS; ++i) acc[c][i][q] = v[i];
+          }
+      } else if (take == k + 1) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float* Mc = tb + c * S * SP;
+          float pv[MAXS];
+          tile::load_vec<MAXS>(pv, Mc);
+#pragma unroll
+          for (int i = 0; i < MAXS; ++i)
+#pragma unroll
+            for (int q = 0; q < RP; ++q)
+              acc[c][i][q] = __fmul_rn(pv[i], fw[c][0][q]);
+#pragma unroll
+          for (int j = 1; j < MAXS; ++j)
+            if (EXACT || j < S) {
+              tile::load_vec<MAXS>(pv, Mc + j * SP);
+#pragma unroll
+              for (int i = 0; i < MAXS; ++i)
+#pragma unroll
+                for (int q = 0; q < RP; ++q)
+                  acc[c][i][q] = __fadd_rn(acc[c][i][q],
+                                           __fmul_rn(pv[i], fw[c][j][q]));
+            }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          tile::product<MAXS, RP, MAXS, EXACT>(
+              tb + c * S * SP, slots + ((size_t)sl[k] * CS + c * S) * T, S,
+              SP, T, 0, pl, acc[c]);
+      }
+    };
+    // o = child 0 x child 1, and the maximum over states, then over
+    // categories in order c = 0..C-1 (the tile kind's order)
+    float o[C][MAXS][RP], v[C][MAXS][RP], mm[RP];
+    child(0, o);
+    child(1, v);
+    // the entry is read: release it to the producer, a lane a warp
+    __syncwarp();
+    if ((tid & (kWarp - 1)) == 0) tile::mbar_arrive(empty + e);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      float m[RP];
+#pragma unroll
+      for (int q = 0; q < RP; ++q) m[q] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i)
+#pragma unroll
+        for (int q = 0; q < RP; ++q) {
+          o[c][i][q] = __fmul_rn(o[c][i][q], v[c][i][q]);
+          if (EXACT || i < S) m[q] = fmaxf(m[q], o[c][i][q]);
+        }
+#pragma unroll
+      for (int q = 0; q < RP; ++q) mm[q] = c ? fmaxf(mm[q], m[q]) : m[q];
+    }
+    PHASE_MARK(w, 2)
+    float scale[RP];
+#pragma unroll
+    for (int q = 0; q < RP; ++q) {
+      const int ex = common::max_exponent(mm[q]);
+      scale[q] = __int_as_float((127 - ex) << 23);
+      st[q] += ex;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i)
+#pragma unroll
+        for (int q = 0; q < RP; ++q)
+          fw[c][i][q] = __fmul_rn(o[c][i][q], scale[q]);
+    PHASE_MARK(w, 3)
+    if (w == nW - 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int i = 0; i < MAXS; ++i)
+          if (EXACT || i < S)
+#pragma unroll
+            for (int q = 0; q < RP; ++q)
+              if (p + q < a.Ppad)
+                a.clv_out[(size_t)(c * S + i) * a.Ppad + p + q] =
+                    fw[c][i][q];
+#pragma unroll
+      for (int q = 0; q < RP; ++q)
+        if (p + q < a.Ppad) a.sc_out[p + q] = st[q];
+    } else if (!give) {
+      float* dst = slots + (size_t)out * CS * T + pl;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int i = 0; i < MAXS; ++i)
+          if (EXACT || i < S)
+#pragma unroll
+            for (int q = 0; q < RP; ++q) dst[(c * S + i) * T + q] = fw[c][i][q];
+#pragma unroll
+      for (int q = 0; q < RP; ++q) ssc[out * T + pl + q] = st[q];
+    }
+#pragma unroll
+    for (int q = 0; q < RP; ++q) fwsc[q] = st[q];
+    take = give;
+    PHASE_MARK(w, 4)
+  }
+}
+
+template <int C>
+int launch_thread_c(const WalkArgs& a, const Config& cf,
+                    cudaStream_t stream) {
+  const dim3 grid((a.Ppad + a.T - 1) / a.T), block(cf.threads);
+  if (a.S == 4)
+    return common::launch_kernel(thread_kernel<C, true>, grid, block,
+                                 (size_t)cf.smem, stream, a);
+  return common::launch_kernel(thread_kernel<C, false>, grid, block,
+                               (size_t)cf.smem, stream, a);
+}
+
+int launch_thread(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
+  static_assert(kThreadMaxC == 8, "one instantiation a category count");
+  switch (a.C) {
+    case 1: return launch_thread_c<1>(a, cf, stream);
+    case 2: return launch_thread_c<2>(a, cf, stream);
+    case 3: return launch_thread_c<3>(a, cf, stream);
+    case 4: return launch_thread_c<4>(a, cf, stream);
+    case 5: return launch_thread_c<5>(a, cf, stream);
+    case 6: return launch_thread_c<6>(a, cf, stream);
+    case 7: return launch_thread_c<7>(a, cf, stream);
+    case 8: return launch_thread_c<8>(a, cf, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int MAXS, bool EXACT>
 int launch_x(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
   constexpr int RP = MAXS <= 4 ? 2 : 1;
@@ -348,8 +687,9 @@ int launch_t(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
 }  // namespace
 
 // The walk's configuration at pattern tile T: out[0..6] = kind (0 tile,
-// 1 global), RP, SP, threads, Q, ring, shared memory bytes; returns 1, or
-// 0 where none fits. ops/_build.py computes the same without the library.
+// 1 global, 2 thread), RP, SP, threads, Q, ring, shared memory bytes;
+// returns 1, or 0 where none fits. ops/_build.py computes the same without
+// the library.
 extern "C" int pllmod_resident_config(int C, int S, int n_codes,
                                       int n_slots, int T, long long* out) {
   Config cf;
@@ -377,6 +717,7 @@ extern "C" int pllmod_resident_walk(
   if (err) return err;
   WalkArgs a{idx8, nW, mats, codes, n_codes, prod, scaler,
              Ppad, C, S, n_slots, T, cf.sp, cf.q, cf.ring};
+  if (cf.kind == kThread) return launch_thread(a, cf, st);
   return common::dispatch_states(
       S, [&](auto m) { return launch_t<decltype(m)::value>(a, cf, st); });
 }

@@ -88,6 +88,13 @@ __device__ __forceinline__ void mbar_expect(unsigned long long* bar,
       : "memory");
 }
 
+// arrive on bar (one of its expected arrivals, no transaction bytes)
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_ptr(bar))
+               : "memory");
+}
+
 // wait until the phase of bar with this parity has completed
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
                                           unsigned parity) {

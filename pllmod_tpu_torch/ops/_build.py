@@ -22,7 +22,7 @@ import subprocess
 import threading
 import types
 
-from pllmod_tpu_torch.profile import LAUNCHES
+from pllmod_tpu_torch.profile import LAUNCHES, RESIDENT_LAUNCHES
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
@@ -236,25 +236,58 @@ def pattern_tile(n_cats: int) -> int:
 
 RESIDENT_META_ROWS = 16    # the resident walk's ring of idx8 rows
 RESIDENT_NB = 4            # its ring entries
-RESIDENT_KINDS = ("tile", "global")
+RESIDENT_KINDS = ("tile", "global", "thread")
+# the thread kind: the most categories a thread holds, its patterns a
+# thread, its ring entries and the ints of an entry's idx8 row
+RESIDENT_THREAD_MAX_C = 8
+RESIDENT_THREAD_RP = 1
+RESIDENT_THREAD_NB = 4
+RESIDENT_ROW_INTS = 8
+WARP = 32
+
+
+def _thread_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
+    """The thread kind's configuration at pattern tile T (csrc/pruning.cu
+    thread_config), or None: whole consumer warps of RESIDENT_THREAD_RP
+    patterns a thread and one producer warp; a ring of RESIDENT_THREAD_NB
+    entries (an idx8 row, the row's two tables, two rows of tip codes)
+    after their full and empty mbarriers, then the slots and their scaler
+    rows."""
+    rp, sp = RESIDENT_THREAD_RP, 4
+    threads = T // rp + WARP
+    if T % (WARP * rp) or threads > MAX_THREADS:
+        return None
+    q = C * max(S, n_codes) * sp
+    ring = RESIDENT_ROW_INTS + 2 * q + 2 * T
+    smem = 4 * (4 * RESIDENT_THREAD_NB + RESIDENT_THREAD_NB * ring
+                + n_slots * C * S * T + n_slots * T)
+    if smem > SMEM_PER_BLOCK:
+        return None
+    return dict(kind="thread", RP=rp, SP=sp, threads=threads, Q=q,
+                ring=ring, smem=smem)
 
 
 def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
     """The resident walk's launch configuration at pattern tile T
     (csrc/pruning.cu walk_config), or None where none fits: a dict of
-    kind, RP (patterns a thread: 2 up to 4 states, else 1), SP (a table
-    row's stride), threads, Q (floats of one row side's table from the
-    pre-pass), ring (floats of a ring entry) and smem (bytes). The tile
-    kind where a ring of 4 entries (a row's two tables and its tip codes)
-    fits beside the live slots, ``n_slots × C·S × T`` floats and their
-    scaler rows; else, at the widest tile (:func:`pattern_tile`) alone,
-    the global kind (tables read from the pre-pass's scratch in device
-    memory, a ring of tip codes), which keeps small 64-state trees
-    resident."""
+    kind, RP (patterns a thread), SP (a table row's stride), threads, Q
+    (floats of one row side's table from the pre-pass), ring (floats of a
+    ring entry) and smem (bytes). Up to 4 states and
+    RESIDENT_THREAD_MAX_C categories the thread kind (a thread owns every
+    category of its patterns, no CTA barrier a row; a producer warp fills
+    the ring: :func:`_thread_config`), at the tiles where it fits. Else
+    (RP 2 up to 4 states, else 1) the tile kind where a ring of 4 entries
+    (a row's two tables and its tip codes) fits beside the live slots,
+    ``n_slots × C·S × T`` floats and their scaler rows; else, at the
+    widest tile (:func:`pattern_tile`) alone, the global kind (tables
+    read from the pre-pass's scratch in device memory, a ring of tip
+    codes), which keeps small 64-state trees resident."""
     if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1
             or n_slots < 1 or T < 1):
         return None
     maxs = _ladder(S)
+    if maxs == 4 and C <= RESIDENT_THREAD_MAX_C:
+        return _thread_config(C, S, n_codes, n_slots, T)
     rp = 2 if maxs <= 4 else 1
     if T % rp or C * (T // rp) > MAX_THREADS:
         return None
@@ -273,13 +306,33 @@ def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
     return dict(kind="global", ring=codes, smem=smem, **base)
 
 
+def waves(cf: dict, T: int, Ppad: int) -> int:
+    """Waves of the grid of a walk at pattern tile T with launch
+    configuration ``cf`` over Ppad patterns (:func:`ctas_per_sm` CTAs an
+    SM at once)."""
+    grid = -(-Ppad // T)
+    return -(-grid // (SMS * ctas_per_sm(cf["threads"], cf["smem"])))
+
+
 def resident_tile(C: int, S: int, n_codes: int, n_slots: int, Ppad: int):
-    """The resident walk's pattern tile: among the tiles of TILES where
-    the tile kind fits, the largest whose grid fills the card at up to
-    two CTAs an SM (at least 95 % of 132 × min(2, the CTAs an SM holds):
-    protein at 4096 patterns takes T = 32, 128 CTAs, one an SM), else the
-    smallest; where the tile kind fits at no tile, the widest tile if the
-    global kind fits there; None where the live slots fit at no tile."""
+    """The resident walk's pattern tile. The thread kind: among the tiles
+    where it fits, those whose grid runs in the fewest waves, and of
+    them the largest whose grid gives 95 % of the SMs a CTA, else the
+    smallest (10,000 × 100,000 DNA +G4, 7 slots: T = 128, 782 CTAs, 3
+    an SM, two waves). The tile kind: among the tiles where it fits, the
+    largest whose grid fills the card at up to two CTAs an SM (at least
+    95 % of 132 × min(2, the CTAs an SM holds): protein at 4096 patterns
+    takes T = 32, 128 CTAs, one an SM), else the smallest; where the
+    tile kind fits at no tile, the widest tile if the global kind fits
+    there; None where the live slots fit at no tile."""
+    threads = [(T, waves(cf, T, Ppad)) for T in TILES
+               if (cf := resident_config(C, S, n_codes, n_slots, T))
+               and cf["kind"] == "thread"]
+    if threads:
+        least = min(n for _, n in threads)
+        fewest = [T for T, n in threads if n == least]
+        return next((T for T in fewest if -(-Ppad // T) >= 0.95 * SMS),
+                    fewest[-1])
     staged = [(T, cf) for T in TILES
               if (cf := resident_config(C, S, n_codes, n_slots, T))
               and cf["kind"] == "tile"]
@@ -720,8 +773,10 @@ def launch_walk(name, idx8, P5, tip_codes, codetab, clv_out, sc_out,
                 n_slots: int, tile: int | None = None) -> None:
     """Check the inputs of a row-walk kernel and launch it on the current
     stream at pattern tile ``tile`` (by default the walk's own choice,
-    :func:`walk_launch_config`), with the scratch of its pre-pass. Raises
-    on anything the kernel does not take."""
+    :func:`walk_launch_config`), with the scratch of its pre-pass; a
+    resident walk's launch is counted by kind in
+    ``profile.RESIDENT_LAUNCHES`` too. Raises on anything the kernel
+    does not take."""
     import torch
     nW = idx8.shape[0]
     _, _, C, S, _ = P5.shape
@@ -740,3 +795,5 @@ def launch_walk(name, idx8, P5, tip_codes, codetab, clv_out, sc_out,
            tip_codes.data_ptr(), codetab.data_ptr(), n_codes,
            clv_out.data_ptr(), sc_out.data_ptr(), Ppad, C, S, n_slots, T,
            mats.data_ptr())
+    if name == "pllmod_resident_walk":
+        RESIDENT_LAUNCHES[cf["kind"]] += 1

@@ -258,10 +258,11 @@ def fast_eval_schedule(partition, n_slots: int) -> str:
     Rule: ``"resident"`` where the resident kernel's ``n_slots`` live
     slots (the compiled tree's own count,
     :func:`resident.compile_resident`) and a ring of four rows' tables
-    fit a block's shared memory at its pattern tile (the tile kind of
-    ``_build.resident_config`` at ``_build.resident_tile``) and its grid
-    either runs in one wave (every CTA resident at once) or keeps at
-    least RESIDENT_MIN_WARPS warps on each SM; ``"fused"`` otherwise.
+    fit a block's shared memory at its pattern tile (the tile or thread
+    kind of ``_build.resident_config`` at ``_build.resident_tile``) and
+    its grid either runs in one wave (every CTA resident at once) or
+    keeps at least RESIDENT_MIN_WARPS warps on each SM; ``"fused"``
+    otherwise.
     Each resident thread carries one pattern column through every row,
     a chain of dependent rows: in one wave the walk takes one chain,
     whatever its warps; over several waves an SM runs one chain a wave,
@@ -287,7 +288,7 @@ def fast_eval_schedule(partition, n_slots: int) -> str:
     T = _build.resident_tile(C, S, n_codes, n_slots, Ppad)
     cf = None if T is None else _build.resident_config(C, S, n_codes,
                                                        n_slots, T)
-    if cf is None or cf["kind"] != "tile":
+    if cf is None or cf["kind"] == "global":
         return "fused"
     k = _build.ctas_per_sm(cf["threads"], cf["smem"])
     one_wave = -(-Ppad // T) <= _build.SMS * k

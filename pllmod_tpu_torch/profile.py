@@ -5,7 +5,8 @@ system:
   package's: the reference's ``treeinfo->counter`` CLV-op accumulator,
   treeinfo.c:1017);
 - the launch registry :data:`LAUNCHES`: every C entry point's launches,
-  counted in one place, ``ops/_build.launch``;
+  counted in one place, ``ops/_build.launch``; beside it
+  :data:`RESIDENT_LAUNCHES`, kernel 1's launches by kind;
 - spans (:func:`span`, :func:`spanned`) at the layer boundaries of the
   evaluator and the BLO driver: while a ``torch.profiler`` session runs,
   each span is a ``record_function`` event in the profiler's trace, on
@@ -83,8 +84,12 @@ class Span:
 
 # the recorder (the spans in the order entered) and the launch registry
 # (launches by C entry point, kernel 10's K > 1 form under its own key,
-# counted by ops/_build.launch alone); reset() empties both
+# counted by ops/_build.launch alone); beside the registry, the resident
+# walk's launches by kind (ops/_build.RESIDENT_KINDS: "tile", "global",
+# "thread"; counted by ops/_build.launch_walk), which LAUNCHES.total()
+# does not count again; reset() empties all three
 SPANS, LAUNCHES = [], collections.Counter()
+RESIDENT_LAUNCHES = collections.Counter()
 _OPEN: list[int] = []         # indices of the spans entered, not yet left
 
 
@@ -166,11 +171,13 @@ def summary() -> dict:
 
 
 def reset() -> None:
-    """Clear the recorder and zero :data:`LAUNCHES` (between spans: a span
-    open across a reset is not recorded)."""
+    """Clear the recorder and zero :data:`LAUNCHES` and
+    :data:`RESIDENT_LAUNCHES` (between spans: a span open across a reset
+    is not recorded)."""
     SPANS.clear()
     _OPEN.clear()
     LAUNCHES.clear()
+    RESIDENT_LAUNCHES.clear()
 
 
 @contextlib.contextmanager

@@ -26,7 +26,7 @@ from pllmod_tpu_torch.ops import (_build, charmap, clv, deriv, engine,
                                   fused, grouped, levels, resident)
 from pllmod_tpu_torch.ops.partition import create_partition
 from pllmod_tpu_torch.optimize import blo, blo_bounded
-from pllmod_tpu_torch.profile import LAUNCHES
+from pllmod_tpu_torch.profile import LAUNCHES, RESIDENT_LAUNCHES
 from pllmod_tpu_torch.tree.topology import Tree
 
 pytestmark = pytest.mark.cuda
@@ -1074,22 +1074,33 @@ def _balanced(n):
 
 def _resident_equal(idx8, P5, tc, tab, ns, tile=None):
     """Kernel 1 against its plain version: the root product and the
-    scaler row bit for bit."""
+    scaler row bit for bit, launched once, of the kind its configuration
+    names (the thread kind up to 4 states and 8 categories). Returns that
+    kind."""
+    _, _, C, S, _ = P5.shape
+    T, cf = _build.walk_launch_config("pllmod_resident_walk", C, S,
+                                      tab.shape[0], ns, tc.shape[1], tile)
+    assert (cf["kind"] == "thread") == (S <= 4 and C <= 8)
     before = LAUNCHES["pllmod_resident_walk"]
+    kinds = RESIDENT_LAUNCHES.copy()
     prod_k, sc_k = resident.resident_walk(idx8, P5, tc, tab, ns, tile=tile)
     assert LAUNCHES["pllmod_resident_walk"] == before + 1
+    kinds[cf["kind"]] += 1
+    assert RESIDENT_LAUNCHES == kinds
     prod_p, sc_p = resident.resident_walk_plain(idx8, P5, tc, tab, ns)
     assert torch.equal(prod_k, prod_p)
     assert torch.equal(sc_k, sc_p)
+    return cf["kind"]
 
 
-@pytest.mark.parametrize("cats", (1, 4, 8))
-@pytest.mark.parametrize("states", RESIDENT_STATES)
+@pytest.mark.parametrize("cats", (1, 2, 4, 8))
+@pytest.mark.parametrize("states", RESIDENT_STATES + (2, 3))
 def test_resident_walk_trees_tiles_and_ragged(cuda, states, cats):
     """Kernel 1 bit for bit on a caterpillar (the most live slots) and a
     balanced tree, at its own tile and every other tile where the slots
     fit, and at 100 and 101 patterns (bulk copies of the tip codes with a
-    ragged last tile, and the threads' own loads)."""
+    ragged last tile, and the threads' own loads); the thread kind at up
+    to 4 states (S < 4: the guarded state loops)."""
     part, _ = _example(states, cats, cuda, n_taxa=16, n_sites=256)
     tab = fused.code_table(part)
     n_codes = tab.shape[0]
@@ -1118,8 +1129,58 @@ def _resident_config_lib(C, S, n_codes, n_slots, T):
     return got
 
 
-@pytest.mark.parametrize("states", RESIDENT_STATES + (2, 8, 64))
-@pytest.mark.parametrize("cats", (1, 4, 8, 32))
+@pytest.mark.parametrize("cats", (1, 2, 4, 8))
+@pytest.mark.parametrize("states", (2, 3, 4))
+def test_resident_thread_kind_slots(cuda, states, cats):
+    """Kernel 1's thread kind bit for bit from 1 live slot (3 to 6 taxa)
+    to the 12-slot bound of 512 taxa (a 64-taxon tree's rows with more
+    slots reserved), out slots aliasing a child's slot (slot recycling),
+    at 256 and a ragged 200 patterns (a last tile of 8 patterns)."""
+    trees = []
+    for n in (3, 4, 5, 6, 64):
+        part, tree = _example(states, cats, cuda, n_taxa=n, n_sites=256)
+        trees += [(part, tree, None)]
+    trees += [(part, tree, ns) for ns in (5, 9, 12)]
+    slots, aliased = set(), 0
+    for part, tree, ns_min in trees:
+        tab = fused.code_table(part)
+        idx8, e1, e2, ns = resident.compile_resident(part, tree,
+                                                     n_slots_min=ns_min)
+        rows = idx8[:-1].cpu().numpy()
+        aliased += int(sum(((r[2] == 0) & (r[0] == r[6]))
+                           | ((r[3] == 0) & (r[1] == r[6])) for r in rows))
+        slots.add(ns)
+        P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
+        for Ppad in (256, 200):
+            tc = part.tip_states[:, :Ppad].contiguous()
+            assert _resident_equal(idx8, P5, tc, tab, ns) == "thread"
+    assert {1, 5, 9, 12} <= slots and aliased > 0
+
+
+def test_resident_thread_kind_wide(cuda):
+    """Kernel 1's thread kind bit for bit at 3,000 taxa × 2,048 patterns
+    (DNA +G4, the capacity cell's five codes drawn on the card), at its
+    own tile and every tile where it fits."""
+    part, _ = _example(4, 4, cuda)
+    rng = np.random.default_rng(5)
+    tree = flagship.random_binary_tree(rng, 3000, 0.02, 0.4)
+    from types import SimpleNamespace
+    idx8, e1, e2, ns = resident.compile_resident(
+        SimpleNamespace(n_tips=3000, device=cuda), tree)
+    P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tc = torch.randint(0, 5, (3000, 2048), dtype=torch.int32, device=cuda,
+                       generator=gen)
+    tab = torch.cat([torch.ones(1, 4), torch.eye(4)]).to(cuda)
+    tiles = [T for T in _build.TILES
+             if _build.resident_config(4, 4, 5, ns, T)]
+    assert tiles
+    for T in [None] + tiles:
+        assert _resident_equal(idx8, P5, tc, tab, ns, tile=T) == "thread"
+
+
+@pytest.mark.parametrize("states", RESIDENT_STATES + (2, 3, 8, 64))
+@pytest.mark.parametrize("cats", (1, 2, 4, 8, 32))
 def test_resident_config_matches_library(cuda, states, cats):
     """The Python mirror of the resident walk's launch configuration is
     what the library computes, at every tile and slot count."""

@@ -262,6 +262,27 @@ def test_routing_rule_at_the_sweep_shapes(states, cats, n_slots, ppad,
     assert engine.auto_schedule(part, n_slots) == want
 
 
+@pytest.mark.parametrize("states", [2, 3, 4])
+@pytest.mark.parametrize("cats", [1, 2, 4, 8])
+def test_routing_takes_the_thread_kind_as_resident(states, cats):
+    """Kernel 1's thread kind (up to 4 states and 8 categories) routes to
+    the resident walk at every width from a few patterns to the capacity
+    cell's 100,096 (two waves), its tree's slots up to the 12-slot bound
+    of 512 taxa."""
+    from types import SimpleNamespace
+    for ppad in (128, 4480, 16384, 100_096):
+        part = SimpleNamespace(n_cats=cats, states=states,
+                               code_clv=torch.zeros(states + 1, states),
+                               dtype=torch.float32, n_patterns_padded=ppad)
+        for n_slots in (1, 7, 12):
+            T = _build.resident_tile(cats, states, states + 1, n_slots,
+                                     ppad)
+            cf = _build.resident_config(cats, states, states + 1, n_slots,
+                                        T)
+            assert cf["kind"] == "thread"
+            assert engine.fast_eval_schedule(part, n_slots) == "resident"
+
+
 @pytest.mark.parametrize("schedule", ["resident", "fused"])
 def test_forced_kernel_on_float64_raises(schedule):
     case = _case(4, 4)

@@ -100,7 +100,7 @@ def test_resident_tile_fills_the_card_at_protein():
     """At the protein cell's shape (512 taxa: up to 12 live slots, 4096
     patterns, 20 states +G4) the tile gives at least 95 % of 132 SMs a
     CTA and its slots fit; at the flagship's (128 taxa, 16384 patterns,
-    DNA +G4) two CTAs an SM."""
+    DNA +G4) the thread kind gives 95 % of them a CTA in one wave."""
     for ns in range(6, resident.resident_slot_bound(512) + 1):
         T = _build.resident_tile(4, 20, 21, ns, 4096)
         cf = _build.resident_config(4, 20, 21, ns, T)
@@ -110,29 +110,51 @@ def test_resident_tile_fills_the_card_at_protein():
     ns = resident.resident_slot_bound(128)
     T = _build.resident_tile(4, 4, 5, ns, 16384)
     cf = _build.resident_config(4, 4, 5, ns, T)
-    assert cf["kind"] == "tile" and cf["RP"] == 2
-    assert 16384 // T >= 0.95 * _build.SMS * 2
+    assert cf["kind"] == "thread" and cf["RP"] == _build.RESIDENT_THREAD_RP
+    assert 16384 // T >= 0.95 * _build.SMS
+    assert _build.waves(cf, T, 16384) == 1
 
 
-@pytest.mark.parametrize("states", [2, 4, 5, 8, 10, 16, 20, 32, 64])
+def _thread_kind_expected(cats, states):
+    return states <= 4 and cats <= _build.RESIDENT_THREAD_MAX_C
+
+
+@pytest.mark.parametrize("states", [2, 3, 4, 5, 8, 10, 16, 20, 32, 64])
 def test_resident_config_across_the_state_ladder(states):
     """Every configuration fits a block (threads and shared memory), and
-    its shared memory is the sum of its parts: the ring's mbarriers and
-    idx8 rows, four ring entries, the category maxima and the slots with
-    their scaler rows; a ring entry holds the row's two tables and its tip
-    codes (the tile kind) or the codes alone (the global kind)."""
+    its shared memory is the sum of its parts. The tile and global kinds:
+    the ring's mbarriers and idx8 rows, four ring entries, the category
+    maxima and the slots with their scaler rows; a ring entry holds the
+    row's two tables and its tip codes (the tile kind) or the codes alone
+    (the global kind). The thread kind (up to 4 states and 8 categories,
+    nowhere else): the full and empty mbarriers of its ring entries, the
+    entries (an idx8 row, two tables, two rows of codes) and the slots
+    with their scaler rows, whole consumer warps and a producer warp."""
     seen = set()
-    for cats in (1, 4, 8, 32):
-        for ns in (3, 9, 12):
+    for cats in (1, 2, 4, 8, 9, 32):
+        for ns in (1, 3, 9, 12):
             for T in _build.TILES:
                 cf = _build.resident_config(cats, states, states + 1, ns, T)
                 if cf is None:
                     continue
                 seen.add(cf["kind"])
-                # the global kind at the widest tile only
-                assert cf["kind"] == "tile" or T == _build.pattern_tile(cats)
+                assert (cf["kind"] == "thread") == \
+                    _thread_kind_expected(cats, states)
                 assert cf["threads"] <= _build.MAX_THREADS
                 assert cf["smem"] <= _build.SMEM_PER_BLOCK
+                if cf["kind"] == "thread":
+                    rp, nb = cf["RP"], _build.RESIDENT_THREAD_NB
+                    assert rp == _build.RESIDENT_THREAD_RP
+                    assert T % (32 * rp) == 0
+                    assert cf["threads"] == T // rp + 32
+                    assert cf["SP"] == 4
+                    assert cf["Q"] == cats * (states + 1) * 4
+                    assert cf["ring"] == 8 + 2 * cf["Q"] + 2 * T
+                    assert cf["smem"] == 4 * (4 * nb + nb * cf["ring"]
+                                              + ns * (cats * states + 1) * T)
+                    continue
+                # the global kind at the widest tile only
+                assert cf["kind"] == "tile" or T == _build.pattern_tile(cats)
                 assert cf["threads"] == cats * T // cf["RP"]
                 codes = -(-2 * T // 4) * 4
                 assert cf["ring"] == codes + (2 * cf["Q"]
@@ -140,9 +162,89 @@ def test_resident_config_across_the_state_ladder(states):
                 fixed = (8 + 128 + -(-2 * cats * T // 4) * 4
                          + ns * (cats * states + 1) * T)
                 assert cf["smem"] == 4 * (fixed + 4 * cf["ring"])
-    assert "tile" in seen and seen <= {"tile", "global"}
+    assert "tile" in seen and seen <= {"tile", "global", "thread"}
+    assert ("thread" in seen) == (states <= 4)
     # a slot set that fits no tile is refused, not rerouted
     assert _build.resident_tile(4, states, states + 1, 4000, 4096) is None
+
+
+# the resident walk's configuration and tile rule before the thread kind,
+# copied here: every shape beyond 4 states or 8 categories keeps them
+def _tile_kind_config(C, S, n_codes, n_slots, T):
+    maxs = _build._ladder(S)
+    rp = 2 if maxs <= 4 else 1
+    if T % rp or C * (T // rp) > 256:
+        return None
+    q = C * max(S, n_codes) * maxs
+    fixed = (8 + 128 + -(-2 * C * T // 4) * 4 + n_slots * C * S * T
+             + n_slots * T)
+    codes = -(-2 * T // 4) * 4
+    base = dict(RP=rp, SP=maxs, threads=C * (T // rp), Q=q)
+    smem = 4 * (fixed + 4 * (2 * q + codes))
+    if smem <= 232_448:
+        return dict(kind="tile", ring=2 * q + codes, smem=smem, **base)
+    smem = 4 * (fixed + 4 * codes)
+    if T != _build.pattern_tile(C) or smem > 232_448:
+        return None
+    return dict(kind="global", ring=codes, smem=smem, **base)
+
+
+def _tile_kind_tile(C, S, n_codes, n_slots, Ppad):
+    staged = [(T, cf) for T in (128, 64, 32, 16, 8, 4, 2, 1)
+              if (cf := _tile_kind_config(C, S, n_codes, n_slots, T))
+              and cf["kind"] == "tile"]
+    for T, cf in staged:
+        k = min(2, 2048 // cf["threads"], 233_472 // (cf["smem"] + 1024))
+        if -(-Ppad // T) >= 0.95 * 132 * k:
+            return T
+    if staged:
+        return staged[-1][0]
+    T = _build.pattern_tile(C)
+    return T if _tile_kind_config(C, S, n_codes, n_slots, T) else None
+
+
+@pytest.mark.parametrize("states", [5, 8, 16, 20, 32, 64, 2, 4])
+def test_other_shapes_keep_the_tile_rule(states):
+    """Beyond 4 states, and beyond 8 categories at up to 4 states, the
+    configuration at every tile and the tile at every width are those of
+    the tile and global kinds as they were before the thread kind."""
+    for cats in ((1, 4, 8, 32) if states > 4 else (9, 16, 32)):
+        for n_codes in (states + 1, 16):
+            for ns in (3, 7, 12):
+                for T in _build.TILES:
+                    assert _build.resident_config(cats, states, n_codes, ns,
+                                                  T) == \
+                        _tile_kind_config(cats, states, n_codes, ns, T)
+                for Ppad in (128, 4096, 16384, 100_096):
+                    assert _build.resident_tile(cats, states, n_codes, ns,
+                                                Ppad) == \
+                        _tile_kind_tile(cats, states, n_codes, ns, Ppad)
+
+
+@pytest.mark.parametrize("n_codes,n_slots", [(5, 7), (5, 6), (16, 7)])
+def test_resident_tile_two_waves_at_capacity(n_codes, n_slots):
+    """At 10,000 taxa × 100,096 padded patterns (DNA +G4; the capacity
+    cell's five codes, or the sixteen of an IUPAC code table) the thread
+    kind runs in two waves, each all but full: three CTAs of 128 patterns
+    an SM, 782 CTAs, 1.97 of the 132 × 3 a wave holds."""
+    T = _build.resident_tile(4, 4, n_codes, n_slots, 100_096)
+    cf = _build.resident_config(4, 4, n_codes, n_slots, T)
+    assert cf["kind"] == "thread" and T == 128
+    k = _build.ctas_per_sm(cf["threads"], cf["smem"])
+    assert k == 3 and _build.waves(cf, T, 100_096) == 2
+    assert 100_096 / T / (_build.SMS * k) > 1.95
+    # no tile of the thread kind takes fewer waves
+    assert all(_build.waves(c, t, 100_096) >= 2 for t in _build.TILES
+               if (c := _build.resident_config(4, 4, n_codes, n_slots, t)))
+
+
+@pytest.mark.parametrize("Ppad,want", [(4480, 32), (16384, 128), (128, 32),
+                                       (100, 32)])
+def test_resident_tile_thread_kind_fills_the_card(Ppad, want):
+    """In one wave the thread kind takes the widest tile whose grid gives
+    95 % of the SMs a CTA, else the narrowest (the 246 × 4465 cell's 4480
+    patterns: 140 CTAs of 32)."""
+    assert _build.resident_tile(4, 4, 16, 7, Ppad) == want
 
 
 def test_walk_launch_config_is_cached_per_shape():

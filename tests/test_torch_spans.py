@@ -112,9 +112,11 @@ def test_reset_empties_the_recorder_and_the_registry(case, tmp_path):
     with profile.trace(str(tmp_path)):
         _blo(*case)
     profile.LAUNCHES["pllmod_fused_walk"] += 1
+    profile.RESIDENT_LAUNCHES["thread"] += 1
     assert profile.SPANS and profile.LAUNCHES.total() == 1
     profile.reset()
     assert profile.SPANS == [] and not profile.LAUNCHES
+    assert not profile.RESIDENT_LAUNCHES
     assert profile.summary() == {}
 
 
@@ -129,7 +131,7 @@ def test_cpu_tensors_launch_nothing(tmp_path):
     assert {"pllmod.eval", "pllmod.eval.pmats", "pllmod.eval.walk",
             "pllmod.eval.root", "pllmod.blo.newton"} <= set(got)
     assert all(row["launches"] == 0 for row in got.values())
-    assert not profile.LAUNCHES
+    assert not profile.LAUNCHES and not profile.RESIDENT_LAUNCHES
 
 
 def test_trace_writes_a_fresh_directory(case):
@@ -183,3 +185,5 @@ def test_eval_span_holds_one_resident_launch(cuda, tmp_path):
         float(ev(part, brl))
     assert profile.summary()["pllmod.eval"]["launches"] == 1
     assert dict(profile.LAUNCHES) == {"pllmod_resident_walk": 1}
+    # DNA +G4: kernel 1's thread kind, counted beside the registry
+    assert dict(profile.RESIDENT_LAUNCHES) == {"thread": 1}
