@@ -139,7 +139,8 @@ bit for bit (the measurements behind ``_build.group_walk_tile``'s and
 ``_build.level_tile``'s rules). It prints the flagship metric with
 every timed schedule's ms/eval (``pallas``, and ``combined``: kernel 5
 a level), one ``{"blo": [...]}``, one
-``{"routing": [...]}``, one ``{"sumtable_routing": [...]}`` and one
+``{"routing": [...], "supermatrix": {...}}`` (``supermatrix``: both
+walks forced in turns at the 1KITE supermatrix's shape), one ``{"sumtable_routing": [...]}`` and one
 ``{"edge_decomposition": ...}``, one ``{"opt_model": [...]}`` (each run's
 logL against float64, host ms by family, (value, grad) calls, Brent
 iterations, launches by kernel; ``--profile``: its device busy share),
@@ -274,11 +275,16 @@ SWEEP_SIZES = [(128, 16384), (64, 4096)]
 # the tree's own slots only); a 512-taxon tree needs at most 12 slots
 # (resident.resident_slot_bound), a random 2048-taxon tree 7; and a
 # 16-taxon 64-state tree, whose few slots fit the resident walk's global
-# kind only
+# kind only; and the 1KITE amino-acid supermatrix's shape (phylobench's
+# aa144: 144 taxa x 413,459 sites, 20 states +G4), tens of waves of kernel 1
 SLOT_SWEEP = [(512, 4096, 16, 4, True), (512, 4096, 20, 4, True),
               (512, 4096, 32, 4, True), (512, 4096, 64, 1, True),
               (2048, 4096, 20, 4, False), (2048, 4096, 32, 4, False),
-              (16, 4096, 64, 4, False)]
+              (16, 4096, 64, 4, False), (144, 413_459, 20, 4, False)]
+# the supermatrix's shape on the aa144 configuration's tree recipe (a
+# random binary tree, lengths U(0.02, 0.4)): both walks forced, in turns
+SUPERMATRIX = dict(n_taxa=144, n_sites=413_459, seed=19, states=20)
+SUPERMATRIX_TURNS = 2
 
 
 def gpu_line() -> str:
@@ -1885,6 +1891,40 @@ def routing_sweep():
         out += sweep_rows(part, tree, n_taxa, counts)
         del part
         torch.cuda.empty_cache()
+    return out
+
+
+def supermatrix_cell():
+    """(partition, tree) at SUPERMATRIX's shape: a :func:`flagship.example`
+    alignment of its size (uncompressed: 413,568 padded patterns) on a
+    :func:`flagship.random_binary_tree` with lengths U(0.02, 0.4), the
+    recipe of the aa144 configuration's tree."""
+    sm = SUPERMATRIX
+    part, _ = flagship.example(sm["n_taxa"], sm["n_sites"], seed=sm["seed"],
+                               states=sm["states"], device="cuda")
+    tree = flagship.random_binary_tree(np.random.default_rng(sm["seed"]),
+                                       sm["n_taxa"], 0.02, 0.4)
+    return part.cache_eigen(), tree
+
+
+def supermatrix_turns() -> dict:
+    """Kernel 1 (the resident walk at its rule's tile and kind) and kernel
+    2 (the fused walk, fuse_root), both forced, at the supermatrix's shape
+    on the tree's own slots (:func:`supermatrix_cell`):
+    :func:`sweep_rows` SUPERMATRIX_TURNS times, so that each walk is
+    timed in turns with the other. Returns the rows, each walk's device
+    ms a launch, which was faster by the sums and what ``auto`` picks."""
+    part, tree = supermatrix_cell()
+    rows = [r for _ in range(SUPERMATRIX_TURNS)
+            for r in sweep_rows(part, tree, SUPERMATRIX["n_taxa"])]
+    res = [r["resident_ms"] for r in rows]
+    fus = [r["fused_ms"] for r in rows]
+    faster = "resident" if sum(res) < sum(fus) else "fused"
+    out = dict(rows=rows, resident_ms=res, fused_ms=fus, faster=faster,
+               auto=rows[0]["auto"], auto_is_faster=rows[0]["auto"] == faster)
+    print(f"supermatrix: {out}")
+    del part
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4452,9 +4492,12 @@ def main(argv=None) -> int:
     if args.profile:
         kernel1_phase_profiles(phase_build, k1_shapes[1:])
     if parent_build is not None:
+        sm_part, sm_tree = supermatrix_cell()
         print(json.dumps({"kernel1_against_parent": kernel1_against_parent(
-            args.parent, k1_shapes + [("protein",
-                                       resident_args(prot, ptree))])}))
+            args.parent, k1_shapes + [
+                ("protein", resident_args(prot, ptree)),
+                ("aa144 supermatrix", resident_args(sm_part, sm_tree))])}))
+        del sm_part, sm_tree
     del k1_shapes
     if parent_build is not None:
         print(json.dumps({"parent_compare": parent_compare(
@@ -4468,6 +4511,7 @@ def main(argv=None) -> int:
     del cells, dna64, prot64, wide64
     torch.cuda.empty_cache()
     routing = routing_sweep()
+    supermatrix = supermatrix_turns()
     sumtable_routing = sumtable_routing_sweep()
 
     n_inner = FLAGSHIP["n_taxa"] - 2
@@ -4481,7 +4525,7 @@ def main(argv=None) -> int:
     print(json.dumps({"packed": {k: dict(zip(("ms", "host_issue_ms"), v))
                                  for k, v in packed_ms.items()},
                       "partitioned": partitioned}))
-    print(json.dumps({"routing": routing}))
+    print(json.dumps({"routing": routing, "supermatrix": supermatrix}))
     print(json.dumps({"edge_decomposition": decomp_rows}))
     print(json.dumps({"opt_model": opt_rows}))
     print(json.dumps({"spr": spr_rows, "spr_scorer_checks": spr_scorer}))
