@@ -180,7 +180,7 @@ kind: the consumers' wait on the ring entry, children and maxima,
 rescale, stores, and the producer warp's wait and copy issue), with the
 marked build's ms a launch beside the library's. Kernel 1's launches
 are logged by kind too (``profile.RESIDENT_LAUNCHES``: tile, global,
-thread). ``--parent DIR`` builds the kernels of another checkout at DIR (an earlier commit, unpacked with ``git
+thread, split). ``--parent DIR`` builds the kernels of another checkout at DIR (an earlier commit, unpacked with ``git
 archive`` into a directory that ``.gitignore`` lists) beside this tree's
 and times its kernels 1-8 and 10 (each entry point from the
 library that defines it there, with its own signature) beside this

@@ -62,6 +62,35 @@
 // at 10,000 taxa x 100,000 sites the thread kind takes 15.9 ms a launch
 // against the tile kind's 26.5 (PERF.md §6, NVIDIA H100 80GB HBM3).
 //
+// The split kind (kSplit: the ladder's 20-state step, protein, where C * T
+// fills whole warps and T is even) is the tile kind with a row's work cut
+// finer. At the 1KITE supermatrix's shape (144 taxa x 413,568 patterns,
+// C*S = 80, T = 64) the tile kind is bound by the shared-memory data path,
+// not by latency: its matrix loads are broadcasts, but the path moves 128
+// bytes a cycle whatever the addresses, and five 16-byte loads a step j
+// feed only 20 products and 20 sums. A consumer thread owns two patterns
+// and 10 of their 20 output states (RI = 10, RP = 2): a step loads five
+// 8-byte matrix pairs and one 8-byte slot pair for 20 products and 20
+// sums, 11 data-path cycles a warp against 21. Its partner, lane l + 16
+// of the same warp, owns the other 10 states: their matrix loads hit two
+// addresses in distinct banks and their slot loads one; their maximum
+// over states meets by a shuffle, so red keeps C maxima a pattern; and a
+// thread reads child states that its partner stored, which a __syncwarp
+// orders, where halves in different warps would need a named barrier a
+// row. A producer warp after the consumers issues the ring's copies off
+// the row chain (the tile kind's thread 0 issues them inline, and the
+// row's barrier passes that delay to every warp); it waits on a row's
+// entry, whose copy brought the idx8 row it reads next, and passes each
+// row's CTA barrier, the one the maxima need, which also frees the entry
+// it fills next. Budget: the tile kind's shared memory (141 KB at 4
+// slots, one CTA an SM), 256 consumers and the producer, about 110 of
+// the 224 registers that 288 threads allow, none spilled. Each output
+// still sums j = 0..S-1 in order, rounded separately, so the bits are
+// the tile kind's and the plain walk's. About 12.3 ms a launch there
+// against the tile kind's 16.1, the 3.0 ms bound (operations) and about
+// 6.0 ms at the issue rate of separately rounded products and sums
+// (PERF.md §6, NVIDIA H100 80GB HBM3).
+//
 // Measured on the H100 (chip_smoke.py; PERF.md): building a row's tip
 // tables inside the CTA, which saves the pre-pass's launch, put ~1000
 // cycles of table arithmetic on every row's chain at DNA; the pre-pass
@@ -101,6 +130,13 @@ constexpr int kThreadRP = 1;
 constexpr int kThreadNB = 4;
 constexpr int kRowInts = 8;
 constexpr int kWarp = 32;
+// the split kind: the ladder step it takes, its threads a (category,
+// pattern) column, its patterns a thread, and its __launch_bounds__ (at
+// most kThreads consumers, and the producer warp)
+constexpr int kSplitMaxS = 20;
+constexpr int kSplitH = 2;
+constexpr int kSplitRP = 2;
+constexpr int kSplitThreads = kThreads + kWarp;
 
 int ladder(int S) {
   return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
@@ -112,7 +148,7 @@ __host__ __device__ constexpr long long round4(long long n) {
 }
 
 // A launch configuration; ops/_build.py::resident_config mirrors it.
-enum Kind { kTile = 0, kGlobal = 1, kThread = 2 };
+enum Kind { kTile = 0, kGlobal = 1, kThread = 2, kSplit = 3 };
 struct Config {
   int kind, rp, sp, threads;
   long long q;      // floats of one row side's table
@@ -149,9 +185,10 @@ bool thread_config(int C, int S, int n_codes, int n_slots, int T,
 
 // The configuration at pattern tile T, or false where none fits: the
 // thread kind up to 4 states and kThreadMaxC categories; else the tile
-// kind where a ring of 4 entries of tables fits beside the slots, else,
-// at the widest tile, the global kind (tables read from mats, a ring of
-// codes).
+// kind where a ring of 4 entries of tables fits beside the slots (at the
+// 20-state step the split kind in its place, where C * T fills whole
+// warps and T is even), else, at the widest tile, the global kind
+// (tables read from mats, a ring of codes).
 bool walk_config(int C, int S, int n_codes, int n_slots, int T,
                  Config* cf) {
   if (C < 1 || S < 1 || S > 64 || n_codes < 1 || n_slots < 1 || T < 1)
@@ -169,7 +206,12 @@ bool walk_config(int C, int S, int n_codes, int n_slots, int T,
   const long long codes = round4(2LL * T);
   long long smem = 4 * (fixed + kNB * (2 * q + codes));
   if (smem <= (long long)common::kSmemOptin) {
-    *cf = Config{kTile, rp, sp, (int)threads, q, 2 * q + codes, smem};
+    if (maxs == kSplitMaxS && T % kSplitRP == 0 && C * T % kWarp == 0)
+      *cf = Config{kSplit, kSplitRP, sp,
+                   (int)(kSplitH * C * (T / kSplitRP) + kWarp), q,
+                   2 * q + codes, smem};
+    else
+      *cf = Config{kTile, rp, sp, (int)threads, q, 2 * q + codes, smem};
     return true;
   }
   smem = 4 * (fixed + kNB * codes);
@@ -191,22 +233,38 @@ struct WalkArgs {
   long long Q, ring;
 };
 
-// EXACT: S == MAXS, so that the state loops need no guard.
+// EXACT: S == MAXS, so that the state loops need no guard. The split
+// kind (KIND == kSplit) runs kSplitH threads a column, each RI states,
+// and a producer warp after them that issues the ring's copies.
 template <int MAXS, int RP, int KIND, bool EXACT>
-__global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
+__device__ __forceinline__ void walk_rows(const WalkArgs& a) {
   extern __shared__ __align__(16) float smem[];
+  constexpr bool SPLIT = KIND == kSplit;
+  constexpr int H = SPLIT ? kSplitH : 1, RI = MAXS / H, HW = kWarp / 2;
   const int T = a.T, C = a.C, S = EXACT ? MAXS : a.S, CS = C * S,
             nW = a.nW, SP = a.SP;
   // entry of row r issued at row r - D; the idx8 row r + F with it
   constexpr int D = kNB - 1, F = 2 * D;
   const int Q = (int)a.Q, R = (int)a.ring, n_codes = a.n_codes;
   const int tid = threadIdx.x, npg = T / RP;
-  const int c = tid / npg, pl = (tid - c * npg) * RP;
+  // thread (h, c, pl): states i0 .. i0 + RI - 1 of category c and
+  // patterns pl .. pl + RP - 1; the split kind's two halves of a column
+  // are lanes l and l + HW of one warp
+  const int h = SPLIT ? (tid & (kWarp - 1)) / HW : 0;
+  const int col = SPLIT ? tid / kWarp * HW + (tid & (HW - 1)) : tid;
+  const int c = col / npg, pl = (col - c * npg) * RP, i0 = h * RI;
+  const bool owner = c == 0 && h == 0;  // keeps the column's scaler
   const int p0 = blockIdx.x * T, p = p0 + pl;
+  // who issues the ring's copies (its first thread) and loads unaligned
+  // tip codes: the split kind's producer warp, after its H * C * npg
+  // consumers, else the whole CTA (thread 0 issues)
+  const int lead = SPLIT ? H * C * npg : 0;
+  const bool loads = !SPLIT || tid >= lead;
+  const int n_load = SPLIT ? kWarp : (int)blockDim.x;
   // the tip codes come by bulk copy where their rows are 16-byte aligned,
   // else by the issuing threads' own loads
   const bool vec = (T % 4 == 0) && (a.Ppad % 4 == 0);
-  const int PR = KIND == kTile ? 2 * Q : 0;  // codes' offset in an entry
+  const int PR = KIND != kGlobal ? 2 * Q : 0;  // codes' offset in an entry
   auto* bars = reinterpret_cast<unsigned long long*>(smem);  // [kNB]
   int* meta = reinterpret_cast<int*>(smem + 2 * kNB);  // [16][8] rows
   float* ring = smem + 2 * kNB + 8 * kMetaRows;        // [kNB][R]
@@ -221,25 +279,25 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
     return reinterpret_cast<int*>(entry(r) + PR) + k * T;
   };
   auto table = [&](int r, int k) -> const float* {
-    return KIND == kTile ? entry(r) + k * Q
+    return KIND != kGlobal ? entry(r) + k * Q
                          : a.mats + ((size_t)2 * r + k) * a.Q;
   };
   // row r's ring entry (its tables, its tip codes) and the idx8 row r + D
   // (= the row issued at r - D, plus F): bulk copies on the entry's
-  // mbarrier, issued by thread 0; without 16-byte alignment the codes
-  // are loaded by the threads of the CTA, visible after the barrier of
+  // mbarrier, issued by thread `lead`; without 16-byte alignment the
+  // codes are loaded by the loading threads, visible after the barrier of
   // the row that issues them
   auto issue = [&](int r) {
-    if (r >= nW) return;
+    if (r >= nW || !loads) return;
     const int* row = row_of(r);
     float* e = entry(r);
     unsigned long long* bar = bars + (r & (kNB - 1));
     const int valid = min(T, a.Ppad - p0);
-    if (tid == 0) {
+    if (tid == lead) {
       unsigned bytes = 0;
       const int m = r + D;  // rows before F are loaded up front
       const bool fetch_meta = m >= F && m < nW;
-      if (KIND == kTile)
+      if (KIND != kGlobal)
         for (int k = 0; k < 2; ++k)
           bytes += 4u * C * (row[kIsTip + k] ? n_codes : S) * SP;
       if (vec)
@@ -247,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
           if (row[kIsTip + k]) bytes += 4u * valid;
       if (fetch_meta) bytes += 32;
       tile::mbar_expect(bar, bytes);
-      if (KIND == kTile)
+      if (KIND != kGlobal)
         for (int k = 0; k < 2; ++k)
           tile::bulk_copy(e + k * Q, a.mats + ((size_t)2 * r + k) * a.Q,
                           4u * C * (row[kIsTip + k] ? n_codes : S) * SP,
@@ -264,7 +322,7 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
       for (int k = 0; k < 2; ++k)
         if (row[kIsTip + k]) {
           const int* src = a.codes + (size_t)row[kTip + k] * a.Ppad + p0;
-          for (int x = tid; x < valid; x += blockDim.x)
+          for (int x = tid - lead; x < valid; x += n_load)
             codes_of(r, k)[x] = src[x];
         }
   };
@@ -282,33 +340,44 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
   for (int d = 0; d < D; ++d) issue(d);
   __syncthreads();  // the codes the threads loaded
 
+  if (SPLIT && tid >= lead) {
+    // the producer warp: row w's entry carries the idx8 row w + D that
+    // issue reads; row w + D's entry is the one row w - 1 read, free
+    // since that row's barrier; then this row's barrier
+    for (int w = 0; w < nW; ++w) {
+      arrive(w);
+      issue(w + D);
+      __syncthreads();
+    }
+    return;
+  }
   PHASE_INIT
   for (int w = 0; w < nW; ++w) {
     PHASE_MARK(w, 0)
     arrive(w);
     PHASE_MARK(w, 1)
-    issue(w + D);
+    if (!SPLIT) issue(w + D);
     PHASE_MARK(w, 2)
     const int* row = row_of(w);
-    float o[MAXS][RP], o2[MAXS][RP];
+    float o[RI][RP], o2[RI][RP];
     int sc[2][RP];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      float(&acc)[MAXS][RP] = k ? o2 : o;
+      float(&acc)[RI][RP] = k ? o2 : o;
       const float* tb = table(w, k);
       if (row[kIsTip + k]) {
-        tile::lookup<MAXS, RP>(tb + c * n_codes * SP, codes_of(w, k),
-                               n_codes, SP, 0, pl, acc);
+        tile::lookup<RI, RP>(tb + c * n_codes * SP, codes_of(w, k),
+                             n_codes, SP, i0, pl, acc);
 #pragma unroll
         for (int q = 0; q < RP; ++q) sc[k][q] = 0;
       } else {
         const int s = slot(row[kSlot + k]);
-        tile::product<MAXS, RP, MAXS, EXACT>(tb + c * S * SP,
-                                      slots + ((size_t)s * CS + c * S) * T,
-                                      S, SP, T, 0, pl, acc);
+        tile::product<RI, RP, MAXS, EXACT>(tb + c * S * SP,
+                                    slots + ((size_t)s * CS + c * S) * T,
+                                    S, SP, T, i0, pl, acc);
 #pragma unroll
         for (int q = 0; q < RP; ++q)
-          sc[k][q] = c == 0 ? ssc[s * T + pl + q] : 0;
+          sc[k][q] = owner ? ssc[s * T + pl + q] : 0;
       }
     }
     PHASE_MARK(w, 3)
@@ -316,15 +385,21 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
 #pragma unroll
     for (int q = 0; q < RP; ++q) m[q] = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < MAXS; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int q = 0; q < RP; ++q) {
         o[i][q] = __fmul_rn(o[i][q], o2[i][q]);
-        if (i < S) m[q] = fmaxf(m[q], o[i][q]);
+        if (i0 + i < S) m[q] = fmaxf(m[q], o[i][q]);
       }
+    // a column's maximum over its two halves' states meets in registers
     float* rd = red + (w & 1) * C * T;
+    if constexpr (SPLIT)
 #pragma unroll
-    for (int q = 0; q < RP; ++q) rd[c * T + pl + q] = m[q];
+      for (int q = 0; q < RP; ++q)
+        m[q] = fmaxf(m[q], __shfl_xor_sync(~0u, m[q], HW));
+    if (h == 0)
+#pragma unroll
+      for (int q = 0; q < RP; ++q) rd[c * T + pl + q] = m[q];
     PHASE_MARK(w, 4)
     __syncthreads();
     PHASE_MARK(w, 5)
@@ -348,24 +423,24 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
       st[q] = sc[0][q] + sc[1][q] + e;
     }
     if (w == nW - 1) {
-      float* dst = a.clv_out + (size_t)(c * S) * a.Ppad + p;
+      float* dst = a.clv_out + (size_t)(c * S + i0) * a.Ppad + p;
 #pragma unroll
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S)
+      for (int i = 0; i < RI; ++i)
+        if (i0 + i < S)
 #pragma unroll
           for (int q = 0; q < RP; ++q)
             if (p + q < a.Ppad)
               dst[(size_t)i * a.Ppad + q] = __fmul_rn(o[i][q], scale[q]);
-      if (c == 0)
+      if (owner)
 #pragma unroll
         for (int q = 0; q < RP; ++q)
           if (p + q < a.Ppad) a.sc_out[p + q] = st[q];
     } else {
       const int out = slot(row[kOut]);
-      float* dst = slots + ((size_t)out * CS + c * S) * T + pl;
+      float* dst = slots + ((size_t)out * CS + c * S + i0) * T + pl;
 #pragma unroll
-      for (int i = 0; i < MAXS; ++i)
-        if (i < S) {
+      for (int i = 0; i < RI; ++i)
+        if (i0 + i < S) {
           if constexpr (RP == 2) {
             *reinterpret_cast<float2*>(dst + i * T) =
                 make_float2(__fmul_rn(o[i][0], scale[0]),
@@ -374,13 +449,26 @@ __global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
             dst[i * T] = __fmul_rn(o[i][0], scale[0]);
           }
         }
-      if (c == 0)
+      if (owner)
 #pragma unroll
         for (int q = 0; q < RP; ++q) ssc[out * T + pl + q] = st[q];
+      // a later row reads every state of a child column, half of them
+      // stored by the other half-warp
+      if constexpr (SPLIT) __syncwarp();
     }
     PHASE_MARK(w, 6)
   }
   // the ring's last copies (issued past the end: none) have all landed
+}
+
+template <int MAXS, int RP, int KIND, bool EXACT>
+__global__ void __launch_bounds__(kThreads) resident_kernel(WalkArgs a) {
+  walk_rows<MAXS, RP, KIND, EXACT>(a);
+}
+
+template <bool EXACT>
+__global__ void __launch_bounds__(kSplitThreads, 1) split_kernel(WalkArgs a) {
+  walk_rows<kSplitMaxS, kSplitRP, kSplit, EXACT>(a);
 }
 
 // The thread kind: C categories (exact), EXACT: S == 4. Consumer thread
@@ -671,6 +759,10 @@ template <int MAXS, bool EXACT>
 int launch_x(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
   constexpr int RP = MAXS <= 4 ? 2 : 1;
   const dim3 grid((a.Ppad + a.T - 1) / a.T), block(cf.threads);
+  if constexpr (MAXS == kSplitMaxS)
+    if (cf.kind == kSplit)
+      return common::launch_kernel(split_kernel<EXACT>, grid, block,
+                                   (size_t)cf.smem, stream, a);
   if (cf.kind == kTile)
     return common::launch_kernel(resident_kernel<MAXS, RP, kTile, EXACT>,
                                  grid, block, (size_t)cf.smem, stream, a);
@@ -687,9 +779,9 @@ int launch_t(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
 }  // namespace
 
 // The walk's configuration at pattern tile T: out[0..6] = kind (0 tile,
-// 1 global, 2 thread), RP, SP, threads, Q, ring, shared memory bytes;
-// returns 1, or 0 where none fits. ops/_build.py computes the same without
-// the library.
+// 1 global, 2 thread, 3 split), RP, SP, threads, Q, ring, shared memory
+// bytes; returns 1, or 0 where none fits. ops/_build.py computes the same
+// without the library.
 extern "C" int pllmod_resident_config(int C, int S, int n_codes,
                                       int n_slots, int T, long long* out) {
   Config cf;

@@ -175,9 +175,12 @@ __device__ __forceinline__ void load_vec(float (&v)[N], const float* p) {
       const float4 t = *reinterpret_cast<const float4*>(p + k);
       v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
     }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x; v[1] = t.y;
+  } else if constexpr (N % 2 == 0) {
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + k);
+      v[k] = t.x; v[k + 1] = t.y;
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < N; ++k) v[k] = p[k];

@@ -236,7 +236,7 @@ def pattern_tile(n_cats: int) -> int:
 
 RESIDENT_META_ROWS = 16    # the resident walk's ring of idx8 rows
 RESIDENT_NB = 4            # its ring entries
-RESIDENT_KINDS = ("tile", "global", "thread")
+RESIDENT_KINDS = ("tile", "global", "thread", "split")
 # the thread kind: the most categories a thread holds, its patterns a
 # thread, its ring entries and the ints of an entry's idx8 row
 RESIDENT_THREAD_MAX_C = 8
@@ -244,6 +244,11 @@ RESIDENT_THREAD_RP = 1
 RESIDENT_THREAD_NB = 4
 RESIDENT_ROW_INTS = 8
 WARP = 32
+# the split kind: the ladder step it takes, its threads a (category,
+# pattern) column and its patterns a thread
+RESIDENT_SPLIT_MAXS = 20
+RESIDENT_SPLIT_H = 2
+RESIDENT_SPLIT_RP = 2
 
 
 def _thread_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
@@ -281,7 +286,21 @@ def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
     ``n_slots × C·S × T`` floats and their scaler rows; else, at the
     widest tile (:func:`pattern_tile`) alone, the global kind (tables
     read from the pre-pass's scratch in device memory, a ring of tip
-    codes), which keeps small 64-state trees resident."""
+    codes), which keeps small 64-state trees resident.
+
+    At the ladder's 20-state step (17 to 20 states) the split kind takes
+    the tile kind's place wherever its threads fill whole warps (C·T a
+    multiple of 32, T even): the same ring, slots and shared memory, and
+    C·T consumer threads and a producer warp. A consumer owns 10 of a
+    (category, pattern pair) column's 20 output states, its partner (the
+    lane 16 away in the same warp) the other 10; two patterns a thread
+    halve the shared-memory bytes a product, which bound the tile kind,
+    the halves' maxima meet by a shuffle and their stores by a
+    ``__syncwarp``, and the producer warp issues the ring's copies off
+    the row chain. At the 1KITE supermatrix's shape (144 taxa, 413,568
+    patterns, 3–5 live slots, +G4) it runs T = 64, 288 threads, one CTA
+    an SM: 12.31 ms a launch against the tile kind's 16.06 (PERF.md §6,
+    NVIDIA H100 80GB HBM3)."""
     if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1
             or n_slots < 1 or T < 1):
         return None
@@ -299,6 +318,11 @@ def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
     base = dict(RP=rp, SP=sp, threads=C * (T // rp), Q=q)
     smem = 4 * (fixed + RESIDENT_NB * (2 * q + codes))
     if smem <= SMEM_PER_BLOCK:
+        srp = RESIDENT_SPLIT_RP
+        if maxs == RESIDENT_SPLIT_MAXS and T % srp == 0 and C * T % WARP == 0:
+            return dict(base, kind="split", RP=srp,
+                        threads=RESIDENT_SPLIT_H * C * (T // srp) + WARP,
+                        ring=2 * q + codes, smem=smem)
         return dict(kind="tile", ring=2 * q + codes, smem=smem, **base)
     smem = 4 * (fixed + RESIDENT_NB * codes)
     if T != pattern_tile(C) or smem > SMEM_PER_BLOCK:
@@ -319,12 +343,13 @@ def resident_tile(C: int, S: int, n_codes: int, n_slots: int, Ppad: int):
     where it fits, those whose grid runs in the fewest waves, and of
     them the largest whose grid gives 95 % of the SMs a CTA, else the
     smallest (10,000 × 100,000 DNA +G4, 7 slots: T = 128, 782 CTAs, 3
-    an SM, two waves). The tile kind: among the tiles where it fits, the
-    largest whose grid fills the card at up to two CTAs an SM (at least
-    95 % of 132 × min(2, the CTAs an SM holds): protein at 4096 patterns
-    takes T = 32, 128 CTAs, one an SM), else the smallest; where the
-    tile kind fits at no tile, the widest tile if the global kind fits
-    there; None where the live slots fit at no tile."""
+    an SM, two waves). The tile kind (or the split kind in its place):
+    among the tiles where it fits, the largest whose grid fills the card
+    at up to two CTAs an SM (at least 95 % of 132 × min(2, the CTAs an
+    SM holds): protein at 4096 patterns takes T = 32, 128 CTAs, one an
+    SM), else the smallest; where the tile kind fits at no tile, the
+    widest tile if the global kind fits there; None where the live slots
+    fit at no tile."""
     threads = [(T, waves(cf, T, Ppad)) for T in TILES
                if (cf := resident_config(C, S, n_codes, n_slots, T))
                and cf["kind"] == "thread"]
@@ -335,7 +360,7 @@ def resident_tile(C: int, S: int, n_codes: int, n_slots: int, Ppad: int):
                     fewest[-1])
     staged = [(T, cf) for T in TILES
               if (cf := resident_config(C, S, n_codes, n_slots, T))
-              and cf["kind"] == "tile"]
+              and cf["kind"] in ("tile", "split")]
     for T, cf in staged:
         k = min(2, ctas_per_sm(cf["threads"], cf["smem"]))
         if -(-Ppad // T) >= 0.95 * SMS * k:

@@ -258,11 +258,14 @@ def fast_eval_schedule(partition, n_slots: int) -> str:
     Rule: ``"resident"`` where the resident kernel's ``n_slots`` live
     slots (the compiled tree's own count,
     :func:`resident.compile_resident`) and a ring of four rows' tables
-    fit a block's shared memory at its pattern tile (the tile or thread
-    kind of ``_build.resident_config`` at ``_build.resident_tile``) and
-    its grid either runs in one wave (every CTA resident at once) or
-    keeps at least RESIDENT_MIN_WARPS warps on each SM; ``"fused"``
-    otherwise.
+    fit a block's shared memory at its pattern tile (the tile, split or
+    thread kind of ``_build.resident_config`` at
+    ``_build.resident_tile``) and its grid either runs in one wave (every
+    CTA resident at once) or keeps at least RESIDENT_MIN_WARPS warps that
+    compute on each SM; ``"fused"`` otherwise. The split kind's producer
+    warp does no arithmetic and is not counted, so at 17 to 20 states the
+    rule routes every shape as it did the tile kind's C·T threads, where
+    it was measured.
     Each resident thread carries one pattern column through every row,
     a chain of dependent rows: in one wave the walk takes one chain,
     whatever its warps; over several waves an SM runs one chain a wave,
@@ -292,7 +295,8 @@ def fast_eval_schedule(partition, n_slots: int) -> str:
         return "fused"
     k = _build.ctas_per_sm(cf["threads"], cf["smem"])
     one_wave = -(-Ppad // T) <= _build.SMS * k
-    warps = -(-cf["threads"] // 32) * k
+    compute = cf["threads"] - (_build.WARP if cf["kind"] == "split" else 0)
+    warps = -(-compute // 32) * k
     return ("resident" if one_wave or warps >= RESIDENT_MIN_WARPS
             else "fused")
 

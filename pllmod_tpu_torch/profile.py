@@ -86,7 +86,7 @@ class Span:
 # (launches by C entry point, kernel 10's K > 1 form under its own key,
 # counted by ops/_build.launch alone); beside the registry, the resident
 # walk's launches by kind (ops/_build.RESIDENT_KINDS: "tile", "global",
-# "thread"; counted by ops/_build.launch_walk), which LAUNCHES.total()
+# "thread", "split"; counted by ops/_build.launch_walk), which LAUNCHES.total()
 # does not count again; reset() empties all three
 SPANS, LAUNCHES = [], collections.Counter()
 RESIDENT_LAUNCHES = collections.Counter()

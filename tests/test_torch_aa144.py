@@ -113,7 +113,7 @@ def test_auto_at_the_supermatrix_shape(seed):
     """``fast_eval_schedule`` at 144 × 413,459 (413,568 padded patterns),
     20 states +Γ4, on the configuration's tree drawn from ``seed`` (its
     own live slots), computed from ``_build`` without a card: the walk
-    measured faster there."""
+    measured faster there, of the split kind."""
     n = CONFIG["n_taxa"]
     edges, lengths = random_binary_tree(
         np.random.default_rng(seed), n, CONFIG["tree"]["min_len"],
@@ -129,7 +129,7 @@ def test_auto_at_the_supermatrix_shape(seed):
     T = _build.resident_tile(4, 20, AA_CODES, n_slots,
                              part.n_patterns_padded)
     assert _build.resident_config(4, 20, AA_CODES, n_slots, T)["kind"] \
-        == "tile"
+        == "split"
     assert engine.fast_eval_schedule(part, n_slots) == SUPERMATRIX_FASTER
     assert engine.auto_schedule(part, n_slots) == SUPERMATRIX_FASTER
 

@@ -66,8 +66,56 @@ def _brl(tree, part):
                            device=part.device)
 
 
-@pytest.mark.parametrize("states,cats", SHAPES)
-def test_resident_kernel_matches_plain(cuda, states, cats):
+# kernel 1's split kind (the 20-state step): id -> (states, cats, taxa,
+# tree: the example's own, a caterpillar or a balanced tree; live slots
+# reserved; patterns kept, for a ragged last tile; tiles forced beside the
+# rule's, each of the split kind)
+SPLIT_CASES = {
+    "split-slots3": (20, 4, 16, "caterpillar", 3, None, (64, 32)),
+    "split-slots4": (20, 4, 16, "caterpillar", 4, None, (64, 32)),
+    "split-slots5": (20, 4, 16, "caterpillar", 5, None, (64, 32)),
+    "split-ragged": (20, 4, 16, "balanced", None, (100, 101), (64, 16)),
+    "split-all-tips": (20, 4, 4, "balanced", None, None, (64,)),
+    "split-S18": (18, 4, 24, "own", None, None, (64, 32)),
+    "split-C1": (20, 1, 24, "own", None, None, (64,)),
+    "split-C8": (20, 8, 24, "own", None, None, (32, 8)),
+    "split-144": (20, 4, 144, "own", None, (1000,), (64,)),
+}
+
+
+def _split_matches_plain(cuda, states, cats, n_taxa, shape, n_slots, ppads,
+                         tiles):
+    """Kernel 1 bit for bit against the plain walk at the rule's tile, and
+    of the split kind at each of ``tiles``."""
+    part, tree = _example(states, cats, cuda, n_taxa=n_taxa,
+                          n_sites=max(ppads or (512,)))
+    if shape != "own":
+        tree = (_caterpillar if shape == "caterpillar" else _balanced)(
+            n_taxa)
+        tree.lengths[:] = np.linspace(0.02, 0.4, len(tree.lengths))
+    idx8, e1, e2, ns = resident.compile_resident(part, tree,
+                                                 n_slots_min=n_slots)
+    assert n_slots is None or ns == n_slots
+    rows = idx8.cpu().numpy()
+    if shape == "balanced":
+        assert ((rows[:, 2] != 0) & (rows[:, 3] != 0)).any()
+    P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
+    tab = fused.code_table(part)
+    for Ppad in ppads or (part.n_patterns_padded,):
+        tc = part.tip_states[:, :Ppad].contiguous()
+        _resident_equal(idx8, P5, tc, tab, ns)
+        for T in tiles:
+            assert _resident_equal(idx8, P5, tc, tab, ns, tile=T) == "split"
+
+
+@pytest.mark.parametrize("states,cats,split", [
+    pytest.param(s, c, None, id=f"{s}-{c}") for s, c in SHAPES] + [
+    pytest.param(*case[:2], case, id=name)
+    for name, case in SPLIT_CASES.items()])
+def test_resident_kernel_matches_plain(cuda, states, cats, split):
+    if split is not None:
+        _split_matches_plain(cuda, *split)
+        return
     part, tree = _example(states, cats, cuda)
     idx8, e1, e2, ns = resident.compile_resident(part, tree)
     P5 = fused.pair_pmats(part, _brl(tree, part), e1, e2, root_row=True)
@@ -111,7 +159,8 @@ def test_auto_schedule_matches_float64_scan(cuda, states, cats):
 
 @pytest.mark.parametrize("resident_walk", [True, False])
 @pytest.mark.parametrize("states,cats,n_slots", [
-    (4, 4, 10), (20, 4, 4), (20, 4, 10), (64, 4, 4), (4, 32, 17), (5, 1, 9)])
+    (4, 4, 10), (20, 4, 4), (20, 4, 10), (64, 4, 4), (4, 32, 17), (5, 1, 9),
+    (20, 4, 3), (20, 4, 5), (18, 8, 4), (20, 1, 12)])
 def test_smem_formula_matches_library(cuda, states, cats, n_slots,
                                       resident_walk):
     """The shared memory the routing rule counts is what a launch
@@ -1075,12 +1124,13 @@ def _balanced(n):
 def _resident_equal(idx8, P5, tc, tab, ns, tile=None):
     """Kernel 1 against its plain version: the root product and the
     scaler row bit for bit, launched once, of the kind its configuration
-    names (the thread kind up to 4 states and 8 categories). Returns that
-    kind."""
+    names (the thread kind up to 4 states and 8 categories, the split
+    kind only from 17 to 20 states). Returns that kind."""
     _, _, C, S, _ = P5.shape
     T, cf = _build.walk_launch_config("pllmod_resident_walk", C, S,
                                       tab.shape[0], ns, tc.shape[1], tile)
     assert (cf["kind"] == "thread") == (S <= 4 and C <= 8)
+    assert cf["kind"] != "split" or 17 <= S <= 20
     before = LAUNCHES["pllmod_resident_walk"]
     kinds = RESIDENT_LAUNCHES.copy()
     prod_k, sc_k = resident.resident_walk(idx8, P5, tc, tab, ns, tile=tile)

@@ -204,7 +204,7 @@ def test_auto_routing_rule():
         shape = (part.n_cats, part.states, part.code_clv.shape[0], ns)
         T = _build.resident_tile(*shape, part.n_patterns_padded)
         fits = T is not None and \
-            _build.resident_config(*shape, T)["kind"] == "tile"
+            _build.resident_config(*shape, T)["kind"] in ("tile", "split")
         assert fits == (engine.auto_schedule(part, ns) == "resident")
 
 
@@ -281,6 +281,40 @@ def test_routing_takes_the_thread_kind_as_resident(states, cats):
                                         T)
             assert cf["kind"] == "thread"
             assert engine.fast_eval_schedule(part, n_slots) == "resident"
+
+
+def _tile_kind_route(C, S, n_slots, ppad):
+    """The routing rule as it read the tile kind at 17 to 20 states, before
+    the split kind: C·T threads a CTA at the same tile and shared memory."""
+    T = _build.resident_tile(C, S, S + 1, n_slots, ppad)
+    cf = None if T is None else _build.resident_config(C, S, S + 1,
+                                                       n_slots, T)
+    if cf is None or cf["kind"] == "global":
+        return "fused"
+    threads = C * T if cf["kind"] == "split" else cf["threads"]
+    k = min(32, 2048 // threads,
+            _build.SMEM_PER_SM // (cf["smem"] + 1024))
+    one_wave = -(-ppad // T) <= _build.SMS * k
+    return ("resident" if one_wave or -(-threads // 32) * k >= 4
+            else "fused")
+
+
+@pytest.mark.parametrize("states", [17, 18, 19, 20])
+def test_routing_at_the_split_kind_keeps_the_tile_rule(states):
+    """At the 20-state step, where the split kind replaces the tile kind,
+    ``auto`` routes every shape as the rule routed the tile kind: the
+    split kind's producer warp is not counted among the warps that hide
+    the row chain's latency."""
+    from types import SimpleNamespace
+    for cats in (1, 2, 4, 6, 8, 16):
+        for n_slots in (1, 3, 5, 9, 12, 19, 30):
+            for ppad in (128, 1024, 4096, 16384, 131_072, 413_568):
+                part = SimpleNamespace(
+                    n_cats=cats, states=states,
+                    code_clv=torch.zeros(states + 1, states),
+                    dtype=torch.float32, n_patterns_padded=ppad)
+                assert engine.fast_eval_schedule(part, n_slots) == \
+                    _tile_kind_route(cats, states, n_slots, ppad)
 
 
 @pytest.mark.parametrize("schedule", ["resident", "fused"])

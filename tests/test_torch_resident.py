@@ -104,7 +104,7 @@ def test_resident_tile_fills_the_card_at_protein():
     for ns in range(6, resident.resident_slot_bound(512) + 1):
         T = _build.resident_tile(4, 20, 21, ns, 4096)
         cf = _build.resident_config(4, 20, 21, ns, T)
-        assert T in (32, 16) and cf["kind"] == "tile"
+        assert T in (32, 16) and cf["kind"] == "split"
         k = min(2, _build.ctas_per_sm(cf["threads"], cf["smem"]))
         assert -(-4096 // T) >= 0.95 * _build.SMS * k
     ns = resident.resident_slot_bound(128)
@@ -115,22 +115,50 @@ def test_resident_tile_fills_the_card_at_protein():
     assert _build.waves(cf, T, 16384) == 1
 
 
+@pytest.mark.parametrize("ns", [3, 4, 5])
+def test_resident_tile_takes_the_split_kind_at_the_supermatrix(ns):
+    """At the 1KITE supermatrix's shape (144 taxa: 3-5 live slots,
+    413,568 padded patterns, 20 states +G4, 21 codes) the split kind
+    runs the parent's tile, 64 patterns, in the tile kind's shared
+    memory: 256 consumer threads (two a column of two patterns) and a
+    producer warp, one CTA an SM in 49 waves; every other launch field is
+    the tile kind's."""
+    T = _build.resident_tile(4, 20, 21, ns, 413_568)
+    cf = _build.resident_config(4, 20, 21, ns, T)
+    tile = _tile_kind_config(4, 20, 21, ns, T)
+    assert T == 64 == _tile_kind_tile(4, 20, 21, ns, 413_568)
+    assert cf["kind"] == "split" and tile["kind"] == "tile"
+    assert cf["RP"] == 2 and cf["threads"] == 256 + 32
+    assert {k: v for k, v in cf.items() if k not in ("kind", "RP",
+                                                     "threads")} == \
+        {k: v for k, v in tile.items() if k not in ("kind", "RP",
+                                                    "threads")}
+    assert _build.ctas_per_sm(cf["threads"], cf["smem"]) == 1
+    assert _build.waves(cf, T, 413_568) == 49
+
+
 def _thread_kind_expected(cats, states):
     return states <= 4 and cats <= _build.RESIDENT_THREAD_MAX_C
 
 
-@pytest.mark.parametrize("states", [2, 3, 4, 5, 8, 10, 16, 20, 32, 64])
+@pytest.mark.parametrize("states", [2, 3, 4, 5, 8, 10, 16, 20, 32, 64, 17,
+                                    18])
 def test_resident_config_across_the_state_ladder(states):
     """Every configuration fits a block (threads and shared memory), and
     its shared memory is the sum of its parts. The tile and global kinds:
     the ring's mbarriers and idx8 rows, four ring entries, the category
     maxima and the slots with their scaler rows; a ring entry holds the
     row's two tables and its tip codes (the tile kind) or the codes alone
-    (the global kind). The thread kind (up to 4 states and 8 categories,
-    nowhere else): the full and empty mbarriers of its ring entries, the
-    entries (an idx8 row, two tables, two rows of codes) and the slots
-    with their scaler rows, whole consumer warps and a producer warp."""
+    (the global kind). The split kind (the 20-state step, 17 to 20
+    states, nowhere else): the tile kind's parts, two patterns a thread,
+    two threads a column and a producer warp, where that fills whole
+    warps. The thread kind (up to 4 states and
+    8 categories, nowhere else): the full and empty mbarriers of its
+    ring entries, the entries (an idx8 row, two tables, two rows of
+    codes) and the slots with their scaler rows, whole consumer warps
+    and a producer warp."""
     seen = set()
+    split = _build._ladder(states) == _build.RESIDENT_SPLIT_MAXS
     for cats in (1, 2, 4, 8, 9, 32):
         for ns in (1, 3, 9, 12):
             for T in _build.TILES:
@@ -140,7 +168,8 @@ def test_resident_config_across_the_state_ladder(states):
                 seen.add(cf["kind"])
                 assert (cf["kind"] == "thread") == \
                     _thread_kind_expected(cats, states)
-                assert cf["threads"] <= _build.MAX_THREADS
+                assert cf["threads"] <= _build.MAX_THREADS + (
+                    32 if cf["kind"] == "split" else 0)
                 assert cf["smem"] <= _build.SMEM_PER_BLOCK
                 if cf["kind"] == "thread":
                     rp, nb = cf["RP"], _build.RESIDENT_THREAD_NB
@@ -154,16 +183,26 @@ def test_resident_config_across_the_state_ladder(states):
                                               + ns * (cats * states + 1) * T)
                     continue
                 # the global kind at the widest tile only
-                assert cf["kind"] == "tile" or T == _build.pattern_tile(cats)
-                assert cf["threads"] == cats * T // cf["RP"]
+                assert cf["kind"] != "global" or T == _build.pattern_tile(cats)
+                if cf["kind"] == "split":
+                    assert split and cf["RP"] == 2
+                    assert T % 2 == 0 and cats * T % 32 == 0
+                    assert cf["threads"] == 2 * cats * T // 2 + 32
+                else:
+                    assert cf["threads"] == cats * T // cf["RP"]
+                    assert cf["kind"] != "tile" or not split or \
+                        T % 2 or cats * T % 32
                 codes = -(-2 * T // 4) * 4
                 assert cf["ring"] == codes + (2 * cf["Q"]
-                                              if cf["kind"] == "tile" else 0)
+                                              if cf["kind"] != "global"
+                                              else 0)
                 fixed = (8 + 128 + -(-2 * cats * T // 4) * 4
                          + ns * (cats * states + 1) * T)
                 assert cf["smem"] == 4 * (fixed + 4 * cf["ring"])
-    assert "tile" in seen and seen <= {"tile", "global", "thread"}
+    assert seen & {"tile", "split"}
+    assert seen <= {"tile", "global", "thread", "split"}
     assert ("thread" in seen) == (states <= 4)
+    assert ("split" in seen) == split
     # a slot set that fits no tile is refused, not rerouted
     assert _build.resident_tile(4, states, states + 1, 4000, 4096) is None
 
@@ -189,10 +228,11 @@ def _tile_kind_config(C, S, n_codes, n_slots, T):
     return dict(kind="global", ring=codes, smem=smem, **base)
 
 
-def _tile_kind_tile(C, S, n_codes, n_slots, Ppad):
+def _tile_kind_tile(C, S, n_codes, n_slots, Ppad, config=None):
+    config = config or _tile_kind_config
     staged = [(T, cf) for T in (128, 64, 32, 16, 8, 4, 2, 1)
-              if (cf := _tile_kind_config(C, S, n_codes, n_slots, T))
-              and cf["kind"] == "tile"]
+              if (cf := config(C, S, n_codes, n_slots, T))
+              and cf["kind"] in ("tile", "split")]
     for T, cf in staged:
         k = min(2, 2048 // cf["threads"], 233_472 // (cf["smem"] + 1024))
         if -(-Ppad // T) >= 0.95 * 132 * k:
@@ -200,25 +240,44 @@ def _tile_kind_tile(C, S, n_codes, n_slots, Ppad):
     if staged:
         return staged[-1][0]
     T = _build.pattern_tile(C)
-    return T if _tile_kind_config(C, S, n_codes, n_slots, T) else None
+    return T if config(C, S, n_codes, n_slots, T) else None
 
 
-@pytest.mark.parametrize("states", [5, 8, 16, 20, 32, 64, 2, 4])
+def _split_kind_config(C, S, n_codes, n_slots, T):
+    """At the 20-state step: where the tile kind fits and its C·T threads
+    fill whole warps (T even), its configuration with two patterns a
+    thread, two threads a column and a producer warp; else the
+    configuration before the split kind."""
+    cf = _tile_kind_config(C, S, n_codes, n_slots, T)
+    if cf is None or cf["kind"] != "tile" or T % 2 or C * T % 32:
+        return cf
+    return dict(cf, kind="split", RP=2, threads=C * T + 32)
+
+
+@pytest.mark.parametrize("states", [5, 8, 16, 20, 32, 64, 2, 4, 12, 17, 18,
+                                    24])
 def test_other_shapes_keep_the_tile_rule(states):
     """Beyond 4 states, and beyond 8 categories at up to 4 states, the
     configuration at every tile and the tile at every width are those of
-    the tile and global kinds as they were before the thread kind."""
+    the tile and global kinds as they were before the thread kind. At
+    the 20-state step (17 to 20 states) the split kind takes the tile
+    kind's place wherever it fills whole warps, in the same shared
+    memory, and the tile is the one the tile kind had."""
+    want = _split_kind_config if states in (17, 18, 19, 20) \
+        else _tile_kind_config
     for cats in ((1, 4, 8, 32) if states > 4 else (9, 16, 32)):
         for n_codes in (states + 1, 16):
             for ns in (3, 7, 12):
                 for T in _build.TILES:
                     assert _build.resident_config(cats, states, n_codes, ns,
                                                   T) == \
-                        _tile_kind_config(cats, states, n_codes, ns, T)
+                        want(cats, states, n_codes, ns, T)
                 for Ppad in (128, 4096, 16384, 100_096):
-                    assert _build.resident_tile(cats, states, n_codes, ns,
-                                                Ppad) == \
-                        _tile_kind_tile(cats, states, n_codes, ns, Ppad)
+                    T = _build.resident_tile(cats, states, n_codes, ns, Ppad)
+                    assert T == _tile_kind_tile(cats, states, n_codes, ns,
+                                                Ppad, want)
+                    assert T == _tile_kind_tile(cats, states, n_codes, ns,
+                                                Ppad)
 
 
 @pytest.mark.parametrize("n_codes,n_slots", [(5, 7), (5, 6), (16, 7)])
