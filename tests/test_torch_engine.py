@@ -317,6 +317,81 @@ def test_routing_at_the_split_kind_keeps_the_tile_rule(states):
                     _tile_kind_route(cats, states, n_slots, ppad)
 
 
+# The benchmark cells' launch decisions (phylobench/configs), recorded from
+# the configuration functions as they stood when csrc/configs.h became
+# their one home: each launch keeps its kind, tile, threads, shared memory
+# and table strides. dna10k.eval: 10,000 taxa, 100,096 padded patterns,
+# the five codes of the array loader, the live slots of the cell's own
+# tree (7 for seed 1; 8 for some seeds); aa144.eval: 144 taxa, 413,568
+# padded patterns, the text loader's 21 codes, 3 to 5 slots; dna246.blo:
+# 246 × 4465 through the text loader (16 codes, 4480 padded patterns),
+# kernel 2's walk, kernel 8 over all 489 edges and over the edge-colour
+# classes of a 246-taxon tree, kernel 10 for one partition.
+DNA10K_THREAD = dict(kind="thread", RP=1, SP=4, threads=160, Q=80, ring=424)
+AA144_SPLIT = dict(kind="split", RP=2, SP=20, threads=288, Q=1680,
+                   ring=3488)
+DNA10K_PINS = {7: dict(DNA10K_THREAD, smem=67776),
+               8: dict(DNA10K_THREAD, smem=76480)}
+AA144_PINS = {3: dict(AA144_SPLIT, smem=120608),
+              4: dict(AA144_SPLIT, smem=141344),
+              5: dict(AA144_SPLIT, smem=162080)}
+DNA246_FUSED = dict(kind="thread", RI=4, RP=2, IG=1, SP=4, NB=3, threads=32,
+                    Q=256, smem=6912, depth=2, lookback=2)
+DNA246_SUMTABLE = dict(T=128, RI=4, IG=1, SP=4, threads=128, smem=39680)
+DNA246_NEWTON = dict(kind="cluster", N=2, smem=172160)
+
+
+def _eval_cell_pins(states, n_codes, ppad, tile, pins):
+    from types import SimpleNamespace
+    for n_slots, want in pins.items():
+        part = SimpleNamespace(n_cats=4, states=states,
+                               code_clv=torch.zeros(n_codes, states),
+                               dtype=torch.float32, n_patterns_padded=ppad)
+        T = _build.resident_tile(4, states, n_codes, n_slots, ppad)
+        assert T == tile
+        assert _build.resident_config(4, states, n_codes, n_slots, T) == want
+        assert _build.walk_launch_config("pllmod_resident_walk", 4, states,
+                                         n_codes, n_slots, ppad) == (T, want)
+        assert engine.fast_eval_schedule(part, n_slots) == "resident"
+        assert engine.auto_schedule(part, n_slots) == "resident"
+
+
+@pytest.mark.parametrize("cell", ["dna10k.eval", "aa144.eval",
+                                  "dna246.blo"])
+def test_launch_decisions_at_the_benchmark_cells(cell):
+    """Each benchmark cell's kernels launch in the configurations they had
+    when the configurations moved to csrc/configs.h: kernel 1's thread
+    kind at T 128 for dna10k.eval, its split kind at T 64 (256 consumers
+    and a producer warp) for aa144.eval, and for dna246.blo kernel 2's
+    thread walk at T 16, kernel 8's tiled kernel at T 128 and kernel 10's
+    two-CTA cluster."""
+    from types import SimpleNamespace
+    if cell == "dna10k.eval":
+        from phylobench.data import seed63
+        from phylobench.model import random_binary_tree
+        from pllmod_tpu_torch.ops import resident
+        n = 10_000
+        edges, lengths = random_binary_tree(
+            np.random.default_rng(seed63(1)), n, 0.02, 0.4)
+        tree = Tree(n, [f"t{i}" for i in range(n)], edges, lengths,
+                    n_nodes=2 * n - 2)
+        assert resident.compile_resident(
+            SimpleNamespace(n_tips=n, device="cpu"), tree)[3] == 7
+        _eval_cell_pins(4, 5, 100_096, 128, DNA10K_PINS)
+    elif cell == "aa144.eval":
+        _eval_cell_pins(20, 21, 413_568, 64, AA144_PINS)
+    else:
+        assert _build.fused_tile(4, 4, 16, 4480) == 16
+        assert _build.walk_launch_config("pllmod_fused_walk", 4, 4, 16, 500,
+                                         4480) == (16, DNA246_FUSED)
+        for E in (489, 182, 153, 141, 13):
+            assert _build.sumtable_config(4, 4, 16, 4480, E) == \
+                DNA246_SUMTABLE
+        from pllmod_tpu_torch.ops import deriv
+        assert deriv.newton_config([16], [4480]) == DNA246_NEWTON
+        assert deriv.newton_fits(SimpleNamespace(n_cats=4, states=4))
+
+
 @pytest.mark.parametrize("schedule", ["resident", "fused"])
 def test_forced_kernel_on_float64_raises(schedule):
     case = _case(4, 4)
