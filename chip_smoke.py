@@ -734,20 +734,15 @@ def sumtable_bound(part, eref, basis):
 
 def sumtable_design(part, E: int) -> dict:
     """Kernel 8's configuration for E edges at this partition's shape
-    (``_build.sumtable_config``), held equal to the library's
-    ``pllmod_sumtable_config``, with the CTAs an SM the card reports."""
-    import ctypes
+    (``_build.sumtable_config``), with the CTAs an SM the card reports for
+    it (the library's ``pllmod_sumtable_occupancy``)."""
     C, S, Ppad = part.n_cats, part.states, part.n_patterns_padded
     n_codes = part.code_clv.shape[0]
-    out = (ctypes.c_longlong * 7)()
-    ok = _build.load().pllmod_sumtable_config(C, S, n_codes, Ppad, E, 0, out)
-    want = _build.sumtable_config(C, S, n_codes, Ppad, E)
-    keys = ("T", "RI", "IG", "SP", "threads", "smem")
-    got = dict(zip(keys, list(out)[:6])) if ok else None
-    if got != want:
-        raise AssertionError(f"kernel 8's configuration {got} is not its "
-                             f"mirror's {want}")
-    return dict(got, ctas_per_sm=out[6]) if got else dict(kind="simple")
+    cf = _build.sumtable_config(C, S, n_codes, Ppad, E)
+    if cf is None:
+        return dict(kind="simple")
+    return dict(cf, ctas_per_sm=_build.load().pllmod_sumtable_occupancy(
+        C, S, n_codes, Ppad, E, 0))
 
 
 def sumtable_composite_ms(part, clvs, eref, basis) -> float:
@@ -773,24 +768,9 @@ def sumtable_composite_ms(part, clvs, eref, basis) -> float:
 
 
 def newton_design(parts) -> dict:
-    """Kernel 10's design for these partitions (``deriv.newton_config``)
-    with the occupancy the card reports for it (the library's
-    ``pllmod_newton_config``: clusters resident at once, or CTAs an SM for
-    the streaming kernel)."""
-    import ctypes
-    cs = [p.n_cats * p.states for p in parts]
-    ppads = [p.n_patterns_padded for p in parts]
-    dims = (ctypes.c_longlong * (2 * len(cs)))(
-        *[v for c, q in zip(cs, ppads) for v in (c, q)])
-    out = (ctypes.c_longlong * 4)()
-    if not _build.load().pllmod_newton_config(len(cs), dims, 0, out):
-        raise AssertionError(f"kernel 10 takes no design at C·S {cs}")
-    want = deriv.newton_config(cs, ppads)
-    got = dict(kind=deriv.NEWTON_KINDS[out[0]], N=out[1], smem=out[2])
-    if got != want:
-        raise AssertionError(f"kernel 10's design {got} is not its mirror's "
-                             f"{want}")
-    return dict(got, occupancy=out[3])
+    """Kernel 10's design for these partitions (``deriv.newton_config``)."""
+    return deriv.newton_config([p.n_cats * p.states for p in parts],
+                               [p.n_patterns_padded for p in parts])
 
 
 # ---------------------------------------------------------------------------
@@ -3664,7 +3644,7 @@ def timed_host(fn):
 # ---------------------------------------------------------------------------
 PARENT_KERNELS = ("pllmod_fused_walk",
                   "pllmod_child_pass", "pllmod_child2_pass",
-                  "pllmod_level_combined", "pllmod_level_config",
+                  "pllmod_level_combined",
                   "pllmod_edge_sumtables", "pllmod_newton_edges",
                   "pllmod_packed_walk", "pllmod_grouped_walk")
 

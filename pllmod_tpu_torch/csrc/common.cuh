@@ -16,13 +16,9 @@
 
 #include <type_traits>
 
+#include "configs.h"
+
 namespace common {
-
-constexpr int kMaxThreads = 256;       // __launch_bounds__ of the walks
-constexpr size_t kSmemOptin = 232448;  // H100: shared memory a block may opt into
-
-// Whether `floats` 4-byte words fit one block's shared memory.
-inline bool fits_smem(size_t floats) { return 4 * floats <= kSmemOptin; }
 
 // Call f(std::integral_constant<int, MAXS>{}) with the narrowest register
 // tile MAXS in {4, 8, 16, 20, 32, 64} that holds S states; returns f's

@@ -33,8 +33,8 @@
 //    16-byte load of M serving 4 patterns, tile::lookup for a tip side;
 //    the sides meet in registers (one __fmul_rn an output) and leave as
 //    16-byte streaming stores. The tile is a rule of the shapes
-//    (sumtable_config, mirrored by ops/_build.py::sumtable_config; the
-//    rule is chip_smoke.py's kernel-8 sweep). Where the rule takes no
+//    (sumtable_config in csrc/configs.h; the rule is chip_smoke.py's
+//    kernel-8 sweep). Where the rule takes no
 //    tile (C*S beyond one copy's 256 rows, tables beyond a block's
 //    shared memory as at 64 states x 4 categories, CTAs of under 4
 //    warps, fewer items than SMs), the simple kernel runs
@@ -99,6 +99,7 @@ namespace {
 
 using common::kMaxThreads;
 using common::kSmemOptin;
+using namespace deriv;
 constexpr int kDerivThreads = 512;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kTiny = 1e-37f;
@@ -207,80 +208,6 @@ int launch_sumtable_t(const SumtableArgs& a, cudaStream_t stream) {
                                smem, stream, a);
 }
 
-// The tiled kernel. Its launch configuration (ops/_build.py::
-// sumtable_config mirrors it): pattern tile T, states a thread RI (4 where
-// the register tile is 4 or 20 states, else 8), i-groups IG = ceil(S /
-// RI), padded states SP = IG * RI and threads C * IG * T / 4. Shared
-// memory, in floats from a 128-byte aligned base (128 bytes of slack
-// align it): the ring's two mbarriers in the first 32, the two bases M
-// [2][C][S][SP] and tables PT [2][C][n_codes][SP], then from a multiple
-// of 32 two stages of 2 xs + 4 T floats, rounded up to 32: the CLV tiles X
-// [C*S][T] at 0 and xs = C*S*T rounded up to 32 (128-byte aligned, as a
-// tensor copy's destination must be), codes [2][T], scalers [2][T].
-constexpr int kSumRP = 4;                          // patterns a thread
-constexpr int kSumNB = 2;                          // ring stages
-constexpr int kSumTiles[7] = {256, 128, 64, 32, 16, 8, 4};
-constexpr int kSumBoxRows = 256;    // a tensor copy's box: C*S at most
-constexpr int kSumMinThreads = 128; // the rule's least CTA (4 warps)
-constexpr int kSumMinItems = 132;   // the rule's least grid: H100's SMs
-
-struct SumConfig {
-  int T, ri, ig, sp, threads;
-  long long smem;
-};
-
-template <int MAXS>
-__host__ __device__ constexpr int sum_ri() {
-  return (MAXS == 4 || MAXS == 20) ? 4 : 8;
-}
-
-// floats before the ring; floats of one side's CLV tile; of a stage
-__host__ __device__ inline int sum_ring_offset(int C, int S, int n_codes,
-                                               int SP) {
-  return tile::round_up(32 + 2 * C * S * SP + 2 * C * n_codes * SP, 32);
-}
-__host__ __device__ inline int sum_side_floats(int C, int S, int T) {
-  return tile::round_up(C * S * T, 32);
-}
-__host__ __device__ inline int sum_stage_floats(int C, int S, int T) {
-  return tile::round_up(2 * sum_side_floats(C, S, T) + 4 * T, 32);
-}
-
-// The configuration for nE edges, or false where the tiled kernel takes
-// none (the simple kernel then runs). T: 0 for the rule, else forced.
-// The rule (chip_smoke.py's kernel-8 sweep measured it): where C*S fits
-// one tensor copy's box (256 rows), the widest tile T that divides Ppad
-// with at most 256 threads and whose two stages fit a block's shared
-// memory; the simple kernel instead where that CTA has fewer than 4
-// warps or the launch fewer items than the card has SMs, as there the
-// persistent CTAs' staging and first copies are not paid back.
-bool sumtable_config(int C, int S, int n_codes, int Ppad, int nE,
-                     int T_force, SumConfig* cf) {
-  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || Ppad < 1 ||
-      C * S > kSumBoxRows)
-    return false;
-  int ri = 0;
-  common::dispatch_states(S, [&](auto m) {
-    ri = sum_ri<decltype(m)::value>();
-    return 0;
-  });
-  const int ig = (S + ri - 1) / ri, sp = ig * ri;
-  const long long fixed = sum_ring_offset(C, S, n_codes, sp);
-  for (int T : kSumTiles) {
-    if ((T_force && T != T_force) || Ppad % T) continue;
-    const long long threads = (long long)C * ig * (T / kSumRP);
-    const long long smem =
-        4 * (fixed + kSumNB * (long long)sum_stage_floats(C, S, T)) + 128;
-    if (threads > kMaxThreads || smem > (long long)kSmemOptin) continue;
-    if (!T_force && (threads < kSumMinThreads ||
-                     (long long)nE * (Ppad / T) < kSumMinItems))
-      return false;
-    *cf = SumConfig{T, ri, ig, sp, (int)threads, smem};
-    return true;
-  }
-  return false;
-}
-
 // A 2-D tensor copy (global -> shared) of the box at column x, row y of
 // `map`, its completion counted in bytes on bar.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -302,7 +229,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 sumtable_tile_kernel(SumtableArgs a, const __grid_constant__ CUtensorMap
                                          clv_map) {
   extern __shared__ __align__(128) float sum_smem[];
-  constexpr int RI = sum_ri<MAXS>(), RP = kSumRP;
+  constexpr int RI = sum_ri(MAXS), RP = kSumRP;
   const int T = a.T, C = a.C, S = EXACT ? MAXS : a.S, CS = C * S;
   const int SP = a.SP, IG = a.IG, Ppad = a.Ppad;
   const int n_codes = a.n_codes, tid = threadIdx.x, nthr = blockDim.x;
@@ -600,10 +527,6 @@ __device__ __forceinline__ void edge_sums(const DerivArgs& a, int e,
   block_sum3(s_l, s_d, s_dd, red);
 }
 
-size_t deriv_smem_bytes(int CS) {
-  return (size_t)3 * CS * sizeof(float) + 3 * 32 * sizeof(double);
-}
-
 __global__ void __launch_bounds__(kDerivThreads)
 edge_deriv_kernel(DerivArgs a, const float* t, float* out) {
   extern __shared__ double dsmem[];
@@ -735,56 +658,8 @@ newton_edge_kernel(const PartDesc* parts, int K, int nE, const float* t0,
 // memory and none waits for a remote load); after one cluster.sync() an
 // iteration, thread 0 of every CTA adds the N partials in rank order and
 // applies the same Newton step, so that every CTA holds the same x and
-// stop flag without a broadcast.
-constexpr int kClusterMax = 16;
-constexpr int kClusterSizes[4] = {2, 4, 8, 16};
-constexpr int kRedDoubles = 96;                    // block_sum3's scratch
-// every CTA's partials: [2 parities][16 ranks][3]
-constexpr int kPartDoubles = 2 * kClusterMax * 3;
-
-__host__ __device__ inline long long slice_len(long long Ppad, int N) {
-  return ((Ppad + N - 1) / N + 3) / 4 * 4;
-}
-
-__host__ __device__ inline long long round4ll(long long n) {
-  return (n + 3) / 4 * 4;
-}
-
-// A kernel-10 launch: kind 0 the streaming kernel above (one CTA an edge,
-// rows re-read every iteration), 1 a cluster of n CTAs an edge;
-// ops/deriv.py::newton_config mirrors it.
-struct NewtonConfig {
-  int kind, n;
-  long long smem;
-};
-
-// dims: (C*S, Ppad) of each of the K partitions. force: 0 the rule (the
-// smallest cluster whose slices fit, else streaming), 1 streaming, or a
-// cluster size. False where nothing fits.
-bool newton_config(int K, const long long* dims, int force,
-                   NewtonConfig* cf) {
-  if (K < 1) return false;
-  long long total_cs = 0;
-  for (int k = 0; k < K; ++k) total_cs += dims[2 * k];
-  const long long fixed = 8LL * (kRedDoubles + kPartDoubles) +
-                          16 * total_cs + 4 * round4ll(2 * total_cs);
-  for (int n : kClusterSizes) {
-    if (force != 0 && force != n) continue;
-    long long smem = fixed;
-    for (int k = 0; k < K; ++k)
-      smem += 4 * (dims[2 * k] + 3) * slice_len(dims[2 * k + 1], n);
-    if (smem <= (long long)kSmemOptin) {
-      *cf = NewtonConfig{1, n, smem};
-      return true;
-    }
-  }
-  const long long smem = (long long)deriv_smem_bytes((int)total_cs);
-  if ((force == 0 || force == 1) && smem <= (long long)kSmemOptin) {
-    *cf = NewtonConfig{0, 1, smem};
-    return true;
-  }
-  return false;
-}
+// stop flag without a broadcast. The cluster's size and shared memory are
+// configs.h's (deriv::newton_config).
 
 // A thread's sums over its patterns of one CTA's slice of one partition:
 // st [CS][sl], the first n patterns valid, coef4[k] = (w e^{lr t}, . lr,
@@ -837,7 +712,7 @@ newton_cluster_kernel(const PartDesc* parts, int K, int total_cs, int nE,
   double* part = dsmem + kRedDoubles;             // [2][16][3]
   float4* coef = reinterpret_cast<float4*>(part + kPartDoubles);  // [sum CS]
   float* lws = reinterpret_cast<float*>(coef + total_cs);  // lw rows
-  float* data = lws + round4ll(2 * total_cs);   // per partition: st [CS]
+  float* data = lws + common::round4(2 * total_cs);   // per partition: st [CS]
                                                 // [slice], sc, lnB, pw
   __shared__ float s_x;
   __shared__ int s_stop;
@@ -997,34 +872,31 @@ int prepare_deriv(const void* kern, int CS, size_t& smem) {
 
 // Every entry point returns the CUDA error code of its launch (0 = queued).
 
-// Kernel 8's tiled configuration for nE edges at these shapes (T: 0 for
-// the rule, else forced): out[0..6] = T, RI, IG, SP, threads, shared
-// memory bytes, and the CTAs an SM the card reports for it
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 where the query
-// failed). Returns 1, or 0 where the tiled kernel takes none (the simple
-// kernel runs). ops/_build.py::sumtable_config mirrors out[0..5].
-extern "C" int pllmod_sumtable_config(int C, int S, int n_codes, int Ppad,
-                                      int nE, int T, long long* out) {
+// Kernel 8's tiled kernel for nE edges (T: 0 for the rule, else forced):
+// the CTAs an SM the card holds of it at its configuration
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, the count that sizes its
+// persistent grid), or -1 where the tiled kernel takes no configuration
+// or the query failed.
+extern "C" int pllmod_sumtable_occupancy(int C, int S, int n_codes, int Ppad,
+                                         int nE, int T) {
   SumConfig cf;
-  if (!sumtable_config(C, S, n_codes, Ppad, nE, T, &cf)) return 0;
-  const long long v[6] = {cf.T, cf.ri, cf.ig, cf.sp, cf.threads, cf.smem};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  out[6] = -1;
-  int occ = 0;
+  if (!sumtable_config(C, S, n_codes, Ppad, nE, T, &cf)) return -1;
+  int occ = -1;
   common::dispatch_states(S, [&](auto m) {
     constexpr int MAXS = decltype(m)::value;
     auto kern = S == MAXS ? sumtable_tile_kernel<MAXS, true>
                           : sumtable_tile_kernel<MAXS, false>;
+    int n = 0;
     if (cudaFuncSetAttribute(kern,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)cf.smem) == cudaSuccess &&
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &occ, kern, cf.threads, (size_t)cf.smem) == cudaSuccess)
-      out[6] = occ;
+            &n, kern, cf.threads, (size_t)cf.smem) == cudaSuccess)
+      occ = n;
     return 0;
   });
   cudaGetLastError();
-  return 1;
+  return occ;
 }
 
 // tile: 0 for the rule (sumtable_config, else the simple kernel), else
@@ -1070,44 +942,6 @@ extern "C" int pllmod_edge_derivs(
   edge_deriv_kernel<<<nE, kDerivThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(a, t, out);
   return (int)cudaGetLastError();
-}
-
-// kernel 10's configuration for K partitions of dims (C*S, Ppad) [2K]
-// (host) and force (0 the rule, 1 streaming, else a cluster size):
-// out[0..3] = kind (0 streaming, 1 cluster), CTAs an edge, shared memory
-// bytes, and the occupancy the card reports (clusters resident at once
-// for the cluster kind, cudaOccupancyMaxActiveClusters; CTAs an SM for
-// the streaming kind). Returns 1, or 0 where nothing fits (out[3] = -1
-// where the query failed). ops/deriv.py::newton_config mirrors out[0..2].
-extern "C" int pllmod_newton_config(int K, const long long* dims, int force,
-                                    long long* out) {
-  NewtonConfig nc;
-  if (!newton_config(K, dims, force, &nc)) return 0;
-  out[0] = nc.kind;
-  out[1] = nc.n;
-  out[2] = nc.smem;
-  out[3] = -1;
-  int occ = 0;
-  if (nc.kind == 1) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    if (prepare_cluster(1, nc, nullptr, &cfg, &attr) == 0 &&
-        cudaOccupancyMaxActiveClusters(
-            &occ, (const void*)newton_cluster_kernel, &cfg) == cudaSuccess)
-      out[3] = occ;
-  } else {
-    int total_cs = 0;
-    for (int k = 0; k < K; ++k) total_cs += (int)dims[2 * k];
-    size_t smem;
-    if (prepare_deriv((const void*)newton_edge_kernel, total_cs, smem) ==
-            0 &&
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &occ, (const void*)newton_edge_kernel, kDerivThreads,
-            (size_t)nc.smem) == cudaSuccess)
-      out[3] = occ;
-  }
-  cudaGetLastError();
-  return 1;
 }
 
 // parts: a device array of K descriptors (PartDesc); dims: their (C*S,

@@ -68,82 +68,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // __launch_bounds__ of both kernels
+using namespace fused;
+
 // [nW, 8] idx8 columns
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4, kOut = 6;
-// the walk keeps the idx8 rows it is about to use in a ring of 4 rows in
-// shared memory, each fetched by cp.async two rows ahead
-constexpr int kMetaRows = 4, kMetaBytes = kMetaRows * 8 * 4;
-constexpr int kThreadMeta = 8;  // the thread walk's ring of idx8 rows
-
-// The staged tile walk's register tile (beyond 8 states): RI states x RP
-// patterns a thread for the state ladder's MAXS; the fallback tile is
-// (MAXS, 1).
-constexpr int tile_ri(int maxs) { return maxs == 20 ? 4 : 8; }
-constexpr int kTileRP = 4;
-
-int ladder(int S) {
-  return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
-       : S <= 32 ? 32 : 64;
-}
-
-// A launch configuration; ops/_build.py::fused_config mirrors it.
-enum Kind { kThread = 0, kTile = 1, kFallback = 2 };
-struct Config {
-  int kind, ri, rp, ig, sp, nb, threads;
-  long long q;       // floats of one row side's matrix or tip table
-  long long smem;    // dynamic shared memory (bytes)
-  int depth;         // children fetched before the row before ends: the
-                     // sides of a row that may be forwarded
-};
-
-// The configuration of a walk at pattern tile T, or false where none
-// fits. Up to 8 states the thread walk (one thread a category and
-// pattern; its tables staged in three row buffers where they fit, nb = 3,
-// else read from device memory, nb = 0). Beyond, the staged tile walk
-// where its threads and at least one stage buffer with the matrices fit
-// (the deepest ring of 3, 2 or 1 buffers that fits), else the fallback
-// tile with the matrices in device memory.
-bool walk_config(int C, int S, int n_codes, int T, Config* cf) {
-  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || T < 1) return false;
-  const long long rows = S > n_codes ? S : n_codes;
-  if (ladder(S) <= 8) {
-    const int rpt = ladder(S) <= 4 ? 2 : 1;  // thread_rpt
-    const long long threads = (long long)C * (T / rpt);
-    if (T % rpt || threads > kThreads) return false;
-    const int sp = tile::round_up(S, 4);
-    const long long q = C * rows * sp,
-                    red = tile::round_up(2 * C * T, 4) + 8 * kThreadMeta;
-    const int nb = 4 * (6 * q + red) <= (long long)common::kSmemOptin ? 3 : 0;
-    *cf = Config{kThread, ladder(S), rpt, 1, sp, nb, (int)threads, q,
-                 4 * (nb ? 6 * q + red : red), 2};
-    return true;
-  }
-  int ri = tile_ri(ladder(S)), rp = kTileRP;
-  for (int stage = 1; stage >= 0; --stage) {
-    if (!stage) {
-      ri = ladder(S);
-      rp = 1;
-    }
-    const int ig = (S + ri - 1) / ri, sp = ig * ri;
-    if (T % rp) continue;
-    const long long threads = (long long)C * ig * (T / rp);
-    if (threads > kThreads) continue;
-    const long long q = C * rows * sp;
-    const long long sb = tile::round_up(
-        (int)((stage ? q : 0) + (long long)C * S * T + 2LL * T), 4);
-    for (int nb = 3; nb >= 1; --nb) {
-      const long long smem =
-          4 * (nb * sb + tile::round_up(C * ig * T, 4)) + kMetaBytes;
-      if (smem <= (long long)common::kSmemOptin) {
-        *cf = Config{stage ? kTile : kFallback, ri, rp, ig, sp, nb,
-                     (int)threads, q, smem, nb - 1};
-        return true;
-      }
-    }
-  }
-  return false;
-}
 
 // ---------------------------------------------------------------------------
 // the walk
@@ -613,21 +541,6 @@ int launch_tables(const int* idx8, int nW, const float* P5,
 }
 
 }  // namespace
-
-// The walk's configuration at pattern tile T: out[0..9] = kind (0 thread,
-// 1 tile, 2 fallback), RI, RP, IG, SP, NB, threads, Q (floats of one row
-// side in mats), shared memory bytes, depth; returns 1, or 0 where no
-// configuration fits. ops/_build.py computes the same without the
-// library.
-extern "C" int pllmod_fused_config(int C, int S, int n_codes, int T,
-                                   long long* out) {
-  Config cf;
-  if (!walk_config(C, S, n_codes, T, &cf)) return 0;
-  const long long v[10] = {cf.kind, cf.ri, cf.rp, cf.ig, cf.sp, cf.nb,
-                           cf.threads, cf.q, cf.smem, cf.depth};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
-  return 1;
-}
 
 // The pre-pass alone (the walk launches it itself): mats [nW, 2, Q].
 extern "C" int pllmod_fused_tables(const int* idx8, int nW, const float* P5,

@@ -25,7 +25,7 @@
 // step waits on a lookup chain in device memory (reading the policy's
 // tables at each step cost ~1500 cycles a step at the flagship and
 // protein on the H100, chip_smoke.py's phase marks). Two designs, by the
-// state count (walk_config; ops/_build.py group_walk_config mirrors it):
+// state count (walk_config, csrc/configs.h):
 //
 //  * thread_walk, up to 8 states: thread (l, c, pg) owns category c of
 //    RPT adjacent patterns (2 up to 4 states: one vector load or store a
@@ -78,103 +78,9 @@
 
 namespace group_walk {
 
-constexpr int kThreads = 512;  // __launch_bounds__ of the walks
-
-inline int ladder(int S) {
-  return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
-       : S <= 32 ? 32 : 64;
-}
-
-inline long long round4(long long n) { return (n + 3) / 4 * 4; }
-inline long long round32(long long n) { return (n + 31) / 32 * 32; }
-
-// the tile walk's stage buffers start 128-byte aligned (tensor copies'
-// destinations) in a block of kAlign bytes of slack, followed by its
-// maxima, its ring and kBarBytes of mbarriers (one a stage buffer)
-constexpr int kAlign = 128, kBarBytes = 16;
-
-// The ring of step tables: a lane's entry is kMeta ints, (tip, pos, side)
-// of its row's two children (tip -1 for an inner child), its output
-// position and the row (-1 where the lane has no row in the step).
-constexpr int kMaxLanes = 8;
-constexpr int kRing = 4;
-constexpr int kMeta = 8;
+// a lane's entry in the ring of step tables (configs.h kMeta ints): the
+// columns of its row's two children, its output position and the row
 constexpr int kTip = 0, kPos = 2, kSide = 4, kOut = 6, kRow = 7;
-
-inline long long ring_ints(int R) { return (long long)kRing * R * kMeta; }
-
-// A launch configuration; ops/_build.py::group_walk_config mirrors it.
-enum Kind { kThread = 0, kTile = 1, kWide = 2 };
-struct Config {
-  int kind, ri, rp, ig, sp, threads;
-  long long q;     // floats of one side's matrix or tip table in mats
-  long long smem;  // dynamic shared memory (bytes)
-  int staged;      // the tile walk stages each side's table beside its
-                   // child (else reads it from mats)
-};
-
-// The configuration at pattern tile T and R row lanes (at most
-// kMaxLanes), or false where none fits:
-// up to 8 states the thread walk (category maxima [2][R][C][T] and the
-// ring of step tables in shared memory); beyond, the tile walk (two stage
-// buffers of R rows x 2 sides, each the side's table [Q] where staged and
-// X [C*S][T], both 128-byte aligned, scalers [T] and codes [T], the
-// maxima of two steps [2][R][C*IG][T], the ring and the mbarriers) where
-// its threads fit, else the wide kind; each staged where that fits a
-// block.
-inline bool walk_config(int C, int S, int n_codes, int T, int R,
-                        Config* cf) {
-  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || T < 1 || R < 1 ||
-      R > kMaxLanes)
-    return false;
-  const int maxs = ladder(S);
-  const long long rows = S > n_codes ? S : n_codes;
-  if (maxs <= 8) {
-    const int rpt = maxs <= 4 ? 2 : 1;
-    if (T % rpt) return false;
-    const long long threads = (long long)R * C * (T / rpt);
-    const long long smem = 4 * (round4(2LL * R * C * T) + ring_ints(R));
-    if (threads > kThreads || smem > (long long)common::kSmemOptin)
-      return false;
-    *cf = Config{kThread, maxs, rpt, 1, maxs, (int)threads,
-                 (long long)C * rows * maxs, smem, 0};
-    return true;
-  }
-  for (int wide = 0; wide < 2; ++wide) {
-    const int ri = wide ? maxs : (maxs == 20 ? 4 : 8), rp = wide ? 1 : 4;
-    if (T % rp) continue;
-    const int ig = (S + ri - 1) / ri, sp = ig * ri;
-    const long long threads = (long long)R * C * ig * (T / rp);
-    if (threads > kThreads) continue;
-    const long long q = (long long)C * rows * sp;
-    for (int staged = 1; staged >= 0; --staged) {
-      const long long sb = round32(round32(staged ? q : 0) +
-                                   (long long)C * S * T + 2LL * T);
-      const long long smem =
-          4 * (4LL * R * sb + round4(2LL * R * C * ig * T) +
-               ring_ints(R)) +
-          kBarBytes + kAlign;
-      if (smem <= (long long)common::kSmemOptin) {
-        *cf = Config{wide ? kWide : kTile, ri, rp, ig, sp, (int)threads, q,
-                     smem, staged};
-        return true;
-      }
-    }
-  }
-  return false;
-}
-
-// out[0..8] = kind, RI, RP, IG, SP, threads, Q, shared memory bytes,
-// staged.
-inline int config_query(int C, int S, int n_codes, int T, int R,
-                        long long* out) {
-  Config cf;
-  if (!walk_config(C, S, n_codes, T, R, &cf)) return 0;
-  const long long v[9] = {cf.kind, cf.ri, cf.rp, cf.ig, cf.sp, cf.threads,
-                          cf.q, cf.smem, cf.staged};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
-  return 1;
-}
 
 struct WalkArgs {
   const int* windows;  // [n_windows + 1] row offsets (clamped to n_rows)

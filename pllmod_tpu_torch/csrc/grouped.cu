@@ -82,16 +82,6 @@ struct GroupedRows {
 
 }  // namespace
 
-// The walk's configuration at pattern tile T and R row lanes (csrc/
-// group_walk.cuh walk_config): out[0..8] = kind (0 thread, 1 tile, 2
-// wide), RI, RP, IG, SP, threads, Q, shared memory bytes, staged; returns
-// 1, or 0 where none fits. ops/_build.py::group_walk_config computes the
-// same.
-extern "C" int pllmod_grouped_config(int C, int S, int n_codes, int T, int R,
-                                     long long* out) {
-  return group_walk::config_query(C, S, n_codes, T, R, out);
-}
-
 // The pre-pass into mats [nG * Q, Q'] and the row table into rowtab
 // [nG * G, 8] (scratch of the caller), then the walk of the members in
 // order [nG * G] over windows [n_windows + 1] (walk-row offsets) at tile

@@ -86,8 +86,7 @@
 // state counts, or a table of many codes), the simple kernel
 // (level_simple) runs: thread (c, p), all S states of its column in
 // registers, the row's matrices and the code table staged where they fit.
-// Both are chosen by level_config, mirrored by ops/_build.py::
-// level_config.
+// Both are chosen by level_config (csrc/configs.h).
 //
 // Phase marks (csrc/common.cuh PHASE_MARK, built with -DPLLMOD_PHASES
 // only): level_tiled's tile 0 of each row w records at its start, after
@@ -107,6 +106,7 @@
 namespace {
 
 using common::kMaxThreads;
+using namespace levels;
 
 // [W, 6] row columns: slot1, slot2, is_tip1, is_tip2, tip1, tip2
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4;
@@ -114,51 +114,6 @@ constexpr int kSlot = 0, kIsTip = 2, kTip = 4;
 // ---------------------------------------------------------------------------
 // the child pass (kernel 3)
 // ---------------------------------------------------------------------------
-constexpr int kChildRP = 4;  // patterns a thread (one 16-byte vector)
-
-// states a thread for the state ladder's MAXS
-template <int MAXS>
-constexpr int child_ri() { return (MAXS == 4 || MAXS == 20) ? 4 : 8; }
-
-// A launch configuration of the child pass; ops/_build.py::child_config
-// mirrors it.
-struct ChildConfig {
-  int ri, ig, sp, cb, lookup, threads, mrows;
-  long long smem;
-};
-
-// The configuration at pattern tile T (a multiple of 4), or false: CB
-// categories a CTA (as many as the 256 threads and shared memory allow),
-// tip children as lookups where n_codes <= T. Shared memory a category:
-// mrows = S (+ n_codes with the lookup) rows of SP floats (the transposed
-// matrix, then the tip table) and the child's S x T tile.
-bool child_config(int C, int S, int n_codes, int T, ChildConfig* cf) {
-  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || T < 4 || T % kChildRP)
-    return false;
-  int ri = 0;
-  common::dispatch_states(S, [&](auto m) {
-    ri = child_ri<decltype(m)::value>();
-    return 0;
-  });
-  const int ig = (S + ri - 1) / ri, sp = ig * ri;
-  const int per_c = ig * (T / kChildRP);
-  if (per_c > kMaxThreads) return false;
-  for (int lookup = n_codes <= T ? 1 : 0; lookup >= 0; --lookup) {
-    const int mrows = S + (lookup ? n_codes : 0);
-    const long long unit = (long long)mrows * sp + (long long)S * T;
-    const long long room = (long long)common::kSmemOptin / 4 - 2LL * T;
-    long long cb = kMaxThreads / per_c;
-    if (cb > C) cb = C;
-    if (cb > room / unit) cb = room / unit;
-    if (cb >= 1) {
-      *cf = ChildConfig{ri, ig, sp, (int)cb, lookup, (int)cb * per_c, mrows,
-                        4 * (cb * unit + 2LL * T)};
-      return true;
-    }
-  }
-  return false;
-}
-
 struct ChildArgs {
   const int* idx;        // [W, 6]
   int side;
@@ -268,12 +223,6 @@ __global__ void __launch_bounds__(kMaxThreads) child_kernel(ChildArgs a) {
 // ---------------------------------------------------------------------------
 // the second-child pass (kernel 4) and the combined level pass (kernel 5)
 // ---------------------------------------------------------------------------
-// Kernel 4 takes one side of each row (the row's child 1), kernel 5 two
-// (children 0 and 1): SIDES = mode + 1.
-enum Mode { kChild2 = 0, kCombined = 1 };
-enum LevelKind { kSimple = 0, kTiled = 1 };
-constexpr int kLevelThreads = 512;  // __launch_bounds__ of level_tiled
-constexpr int kLevelRP = 4;         // patterns a thread of level_tiled
 // level_tiled's stores of the block and scaler row: streaming (1,
 // st.global.cs) or write-back (0); scripts/level_stores_ab.py builds the
 // other and times both
@@ -319,63 +268,6 @@ struct LevelSides {
     return (s % kSides ? P1 : P0) + (s / kSides) * msz;
   }
 };
-
-// A launch configuration of kernels 4 and 5; ops/_build.py::level_config
-// mirrors it.
-struct LevelConfig {
-  int kind, ri, ig, sp;
-  long long q;  // floats of a side's table (level_tiled; 0 for level_simple)
-  int threads;
-  long long smem;
-};
-
-// Shared memory of level_simple beside its category maxima [C][T]: the
-// code table and the row's matrices.
-size_t stage_floats(int mode, int C, int S, int n_codes) {
-  return (size_t)n_codes * S + (size_t)(mode + 1) * C * S * S;
-}
-
-// The configuration at pattern tile T, or false where none fits:
-// level_tiled where T is a multiple of 4 and its C * IG * T / 4 threads
-// and shared memory fit (a side's region, a tip's table [Q], Q = C *
-// max(S, n_codes) * SP, or an inner child's matrix [C*S*SP] and tile
-// [C*S][T]; the maxima [C * IG][T]; the tip codes [sides][T]); else
-// level_simple where its C * T threads fit (RI = the register tile MAXS,
-// its matrices and code table staged where they fit a block).
-bool level_config(int mode, int C, int S, int n_codes, int T,
-                  LevelConfig* cf) {
-  if ((mode != kChild2 && mode != kCombined) || C < 1 || S < 1 || S > 64 ||
-      n_codes < 1 || T < 1)
-    return false;
-  const long long sides = mode + 1;
-  int ri = 0, maxs = 0;
-  common::dispatch_states(S, [&](auto m) {
-    maxs = decltype(m)::value;
-    ri = child_ri<decltype(m)::value>();
-    return 0;
-  });
-  const int ig = (S + ri - 1) / ri, sp = ig * ri;
-  if (T % kLevelRP == 0) {
-    const long long threads = (long long)C * ig * (T / kLevelRP);
-    const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
-    const long long inner = (long long)C * S * (sp + T);
-    const long long smem = 4 * (sides * (q > inner ? q : inner) +
-                                (long long)C * ig * T + sides * T);
-    if (threads <= kLevelThreads && smem <= (long long)common::kSmemOptin) {
-      *cf = LevelConfig{kTiled, ri, ig, sp, q, (int)threads, smem};
-      return true;
-    }
-  }
-  if ((long long)C * T <= kMaxThreads) {
-    const size_t stage = stage_floats(mode, C, S, n_codes);
-    const size_t red = (size_t)C * T;
-    const bool staged = common::fits_smem(red + stage);
-    *cf = LevelConfig{kSimple, maxs, 1, S, 0, C * T,
-                      (long long)(4 * (red + (staged ? stage : 0)))};
-    return true;
-  }
-  return false;
-}
 
 // Registers: RI = 4 (up to 4 and at 20 states) is held to 64 a thread,
 // two 512-thread CTAs' worth an SM, so that three 320-thread protein CTAs
@@ -665,7 +557,7 @@ int launch_level(LevelArgs a, int W, float* mats, cudaStream_t stream) {
     // load their rows and issue their child copies while the pre-pass
     // runs, and wait for its tables at griddepcontrol.wait
     if (cf.kind == kTiled)
-      return common::launch_kernel(level_tiled<MAXS, child_ri<MAXS>(), MODE>,
+      return common::launch_kernel(level_tiled<MAXS, child_ri(MAXS), MODE>,
                                    grid, block, (size_t)cf.smem, stream, a,
                                    true);
     const bool staged = cf.smem > 4LL * a.C * a.T;
@@ -697,24 +589,10 @@ extern "C" int pllmod_child_pass(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return common::dispatch_states(S, [&](auto m) {
     return common::launch_kernel(
-        child_kernel<decltype(m)::value, child_ri<decltype(m)::value>()>,
+        child_kernel<decltype(m)::value, child_ri(decltype(m)::value)>,
         grid, block,
         (size_t)cf.smem, st, a);
   });
-}
-
-// The child pass's configuration at pattern tile T: out[0..7] = RI, IG,
-// SP, CB, lookup, threads, matrix rows a category, shared memory bytes;
-// returns 1, or 0 where none fits. ops/_build.py computes the same
-// without the library.
-extern "C" int pllmod_child_config(int C, int S, int n_codes, int T,
-                                   long long* out) {
-  ChildConfig cf;
-  if (!child_config(C, S, n_codes, T, &cf)) return 0;
-  const long long v[8] = {cf.ri, cf.ig, cf.sp, cf.cb, cf.lookup, cf.threads,
-                          cf.mrows, cf.smem};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
-  return 1;
 }
 
 // Kernels 4 and 5 take the scratch of their pre-pass, mats [W * sides,
@@ -741,18 +619,4 @@ extern "C" int pllmod_level_combined(
               nullptr, 0, 0, 0};
   return launch_level<kCombined>(a, W, mats,
                                  static_cast<cudaStream_t>(stream));
-}
-
-// Kernel 4's (mode 0) or 5's (mode 1) configuration at pattern tile T:
-// out[0..6] = kind (0 simple, 1 tiled), RI, IG, SP, Q, threads, shared
-// memory bytes; returns 1, or 0 where none fits. ops/_build.py computes
-// the same without the library.
-extern "C" int pllmod_level_config(int mode, int C, int S, int n_codes,
-                                   int T, long long* out) {
-  LevelConfig cf;
-  if (!level_config(mode, C, S, n_codes, T, &cf)) return 0;
-  const long long v[7] = {cf.kind, cf.ri, cf.ig,      cf.sp,
-                          cf.q,    cf.threads, cf.smem};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
-  return 1;
 }

@@ -34,10 +34,10 @@
 // alone (wide_tile: every CTA reads every row's tables, so the fewest
 // CTAs); it keeps small 64-state trees resident, and is the slower walk
 // there (chip_smoke.py's routing sweep), so ops/engine.py's rule routes
-// such trees to the fused walk. The pattern tile is
-// chosen per shape (ops/_build.py resident_tile, walk_config mirrored by
-// resident_config) so that the grid fills the card where the slots allow:
-// at protein (512 taxa, 4096 patterns, C*S = 80) T = 32, 128 CTAs.
+// such trees to the fused walk. The pattern tile is chosen per shape
+// (ops/_build.py resident_tile over walk_config of csrc/configs.h) so
+// that the grid fills the card where the slots allow: at protein (512
+// taxa, 4096 patterns, C*S = 80) T = 32, 128 CTAs.
 //
 // The thread kind (kThread: up to 4 states, at most kThreadMaxC
 // categories) takes the barrier off the row chain. A consumer thread owns
@@ -58,9 +58,7 @@
 // without a barrier. Where the tile's patterns are not 16-byte aligned, a
 // consumer loads its own tip codes from device memory. In the tile kind,
 // thread 0 issued each row's copies inline and the row's barrier passed
-// that delay to every warp (PERF.md: 45 % of a DNA row's marked cycles);
-// at 10,000 taxa x 100,000 sites the thread kind takes 15.9 ms a launch
-// against the tile kind's 26.5 (PERF.md §6, NVIDIA H100 80GB HBM3).
+// that delay to every warp (PERF.md §6 has the measurements).
 //
 // The split kind (kSplit: the ladder's 20-state step, protein, where C * T
 // fills whole warps and T is even) is the tile kind with a row's work cut
@@ -86,10 +84,7 @@
 // slots, one CTA an SM), 256 consumers and the producer, about 110 of
 // the 224 registers that 288 threads allow, none spilled. Each output
 // still sums j = 0..S-1 in order, rounded separately, so the bits are
-// the tile kind's and the plain walk's. About 12.3 ms a launch there
-// against the tile kind's 16.1, the 3.0 ms bound (operations) and about
-// 6.0 ms at the issue rate of separately rounded products and sums
-// (PERF.md §6, NVIDIA H100 80GB HBM3).
+// the tile kind's and the plain walk's (PERF.md §6 has the measurements).
 //
 // Measured on the H100 (chip_smoke.py; PERF.md): building a row's tip
 // tables inside the CTA, which saves the pre-pass's launch, put ~1000
@@ -116,110 +111,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // __launch_bounds__ of the walk
+using namespace resident;
+
 // [nW, 8] idx8 columns
 constexpr int kSlot = 0, kIsTip = 2, kTip = 4, kOut = 6;
-constexpr int kMetaRows = 16;      // the ring of idx8 rows
-constexpr int kNB = 4;             // ring entries (a power of two)
-// the thread kind: the most categories a thread holds (C x 4 floats of a
-// child in registers, three such a thread: 100 registers at C = 4, 139 at
-// C = 8), its patterns a thread (2 measured slower, PERF.md), its ring
-// entries (a power of two) and the ints of an entry's idx8 row
-constexpr int kThreadMaxC = 8;
-constexpr int kThreadRP = 1;
-constexpr int kThreadNB = 4;
-constexpr int kRowInts = 8;
-constexpr int kWarp = 32;
-// the split kind: the ladder step it takes, its threads a (category,
-// pattern) column, its patterns a thread, and its __launch_bounds__ (at
-// most kThreads consumers, and the producer warp)
-constexpr int kSplitMaxS = 20;
-constexpr int kSplitH = 2;
-constexpr int kSplitRP = 2;
+// the split kind's __launch_bounds__: at most kThreads consumers, and the
+// producer warp
 constexpr int kSplitThreads = kThreads + kWarp;
-
-int ladder(int S) {
-  return S <= 4 ? 4 : S <= 8 ? 8 : S <= 16 ? 16 : S <= 20 ? 20
-       : S <= 32 ? 32 : 64;
-}
-
-__host__ __device__ constexpr long long round4(long long n) {
-  return (n + 3) / 4 * 4;
-}
-
-// A launch configuration; ops/_build.py::resident_config mirrors it.
-enum Kind { kTile = 0, kGlobal = 1, kThread = 2, kSplit = 3 };
-struct Config {
-  int kind, rp, sp, threads;
-  long long q;      // floats of one row side's table
-  long long ring;   // floats of one ring entry
-  long long smem;   // dynamic shared memory (bytes)
-};
-
-// The widest pattern tile of C categories: C * T <= kThreads.
-int wide_tile(int C) {
-  int T = 64;
-  while (T > 1 && C * T > kThreads) T /= 2;
-  return T;
-}
-
-// The thread kind's configuration at pattern tile T (whole consumer
-// warps of kThreadRP patterns a thread, and the producer warp), or false
-// where its ring of kThreadNB entries (an idx8 row, the row's two tables,
-// two rows of tip codes) and the slots do not fit a block.
-bool thread_config(int C, int S, int n_codes, int n_slots, int T,
-                   Config* cf) {
-  constexpr int rp = kThreadRP, sp = 4;
-  if (T % (kWarp * rp)) return false;
-  const long long threads = T / rp + kWarp;
-  if (threads > kThreads) return false;
-  const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
-  const long long ring = kRowInts + 2 * q + 2LL * T;
-  const long long smem =
-      4 * (4LL * kThreadNB + kThreadNB * ring +
-           (long long)n_slots * C * S * T + (long long)n_slots * T);
-  if (smem > (long long)common::kSmemOptin) return false;
-  *cf = Config{kThread, rp, sp, (int)threads, q, ring, smem};
-  return true;
-}
-
-// The configuration at pattern tile T, or false where none fits: the
-// thread kind up to 4 states and kThreadMaxC categories; else the tile
-// kind where a ring of 4 entries of tables fits beside the slots (at the
-// 20-state step the split kind in its place, where C * T fills whole
-// warps and T is even), else, at the widest tile, the global kind
-// (tables read from mats, a ring of codes).
-bool walk_config(int C, int S, int n_codes, int n_slots, int T,
-                 Config* cf) {
-  if (C < 1 || S < 1 || S > 64 || n_codes < 1 || n_slots < 1 || T < 1)
-    return false;
-  const int maxs = ladder(S), rp = maxs <= 4 ? 2 : 1, sp = maxs;
-  if (maxs == 4 && C <= kThreadMaxC)
-    return thread_config(C, S, n_codes, n_slots, T, cf);
-  if (T % rp) return false;
-  const long long threads = (long long)C * (T / rp);
-  if (threads > kThreads) return false;
-  const long long q = (long long)C * (S > n_codes ? S : n_codes) * sp;
-  const long long fixed = 2 * kNB + 8 * kMetaRows + round4(2LL * C * T) +
-                          (long long)n_slots * C * S * T +
-                          (long long)n_slots * T;
-  const long long codes = round4(2LL * T);
-  long long smem = 4 * (fixed + kNB * (2 * q + codes));
-  if (smem <= (long long)common::kSmemOptin) {
-    if (maxs == kSplitMaxS && T % kSplitRP == 0 && C * T % kWarp == 0)
-      *cf = Config{kSplit, kSplitRP, sp,
-                   (int)(kSplitH * C * (T / kSplitRP) + kWarp), q,
-                   2 * q + codes, smem};
-    else
-      *cf = Config{kTile, rp, sp, (int)threads, q, 2 * q + codes, smem};
-    return true;
-  }
-  smem = 4 * (fixed + kNB * codes);
-  if (T != wide_tile(C) || smem > (long long)common::kSmemOptin)
-    return false;
-  *cf = Config{kGlobal, rp, sp, (int)threads, q, codes, smem};
-  return true;
-}
 
 struct WalkArgs {
   const int* idx8;       // [nW, 8]
@@ -269,7 +167,7 @@ __device__ __forceinline__ void walk_rows(const WalkArgs& a) {
   int* meta = reinterpret_cast<int*>(smem + 2 * kNB);  // [16][8] rows
   float* ring = smem + 2 * kNB + 8 * kMetaRows;        // [kNB][R]
   float* red = ring + kNB * R;                         // [2][C][T]
-  float* slots = red + (int)round4(2 * C * T);         // [NS][CS][T]
+  float* slots = red + (int)common::round4(2 * C * T);         // [NS][CS][T]
   int* ssc = reinterpret_cast<int*>(slots + (size_t)a.n_slots * CS * T);
 
   auto row_of = [&](int r) { return meta + 8 * (r & (kMetaRows - 1)); };
@@ -777,20 +675,6 @@ int launch_t(const WalkArgs& a, const Config& cf, cudaStream_t stream) {
 }
 
 }  // namespace
-
-// The walk's configuration at pattern tile T: out[0..6] = kind (0 tile,
-// 1 global, 2 thread, 3 split), RP, SP, threads, Q, ring, shared memory
-// bytes; returns 1, or 0 where none fits. ops/_build.py computes the same
-// without the library.
-extern "C" int pllmod_resident_config(int C, int S, int n_codes,
-                                      int n_slots, int T, long long* out) {
-  Config cf;
-  if (!walk_config(C, S, n_codes, n_slots, T, &cf)) return 0;
-  const long long v[7] = {cf.kind, cf.rp, cf.sp, cf.threads, cf.q, cf.ring,
-                          cf.smem};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
-  return 1;
-}
 
 // The resident walk at pattern tile T: the pre-pass into mats [nW, 2, Q]
 // (scratch of the caller), then the walk. Returns the CUDA error code of

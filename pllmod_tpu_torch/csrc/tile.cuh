@@ -24,11 +24,9 @@
 
 #include <type_traits>
 
-namespace tile {
+#include "configs.h"
 
-__host__ __device__ constexpr int round_up(int n, int k) {
-  return (n + k - 1) / k * k;
-}
+namespace tile {
 
 __device__ __forceinline__ unsigned smem_ptr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

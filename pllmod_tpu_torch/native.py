@@ -9,7 +9,9 @@ the file the JAX package builds and loads. The compiler writes a
 temporary file in the same directory, which ``os.replace`` moves into
 place, and an ``fcntl.flock`` on ``build/pllmod_native.lock`` is held
 from the freshness check to the load: processes that start together
-build the library once, and none loads a half-written file. Entry points
+build the library once, and none loads a half-written file
+(:func:`load_host_library`, which also builds the kernels' launch
+configurations, ``ops/_build.configs``). Entry points
 this package uses so far:
 
 - :func:`compress_patterns` — site-pattern dedup (pll_compress_site_patterns)
@@ -53,26 +55,49 @@ _lib = None
 _tried = False
 
 
+def host_library_path(stem: str, files, flags, build_dir: str) -> str:
+    """``build_dir/<stem>-<hash>.so``: the hash covers the flags and the
+    bytes of ``files`` (the source and the headers it includes)."""
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for path in files:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(build_dir, f"{stem}-{digest.hexdigest()[:12]}.so")
+
+
+def load_host_library(stem: str, source: str, flags, build_dir: str,
+                      headers=()) -> ctypes.CDLL:
+    """The library of ``source`` compiled by ``g++ flags`` into
+    ``build_dir`` (:func:`host_library_path` of the source, ``headers``
+    and the flags), compiled first if it is missing, loaded. The compiler
+    writes a temporary file that ``os.replace`` moves into place, under an
+    ``fcntl.flock`` on ``build_dir/<stem>.lock`` held from the freshness
+    check to the load. Raises OSError where g++ cannot run or the
+    library cannot be written or loaded, subprocess.CalledProcessError
+    (its ``stderr`` the compiler's) where the source does not compile."""
+    os.makedirs(build_dir, exist_ok=True)
+    path = host_library_path(stem, (source, *headers), flags, build_dir)
+    with open(os.path.join(build_dir, f"{stem}.lock"), "a") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                try:
+                    subprocess.run(["g++", *flags, "-o", tmp, source],
+                                   check=True, capture_output=True,
+                                   text=True, timeout=120)
+                    os.replace(tmp, path)
+                finally:
+                    with contextlib.suppress(OSError):
+                        os.remove(tmp)
+            return ctypes.CDLL(path)
+        finally:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+
+
 def library_path(build_dir: str = BUILD_DIR) -> str:
     """Where the library of this source and these flags lives."""
-    digest = hashlib.sha1(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(build_dir,
-                        f"pllmod_native-{digest.hexdigest()[:12]}.so")
-
-
-def _compile(path: str) -> bool:
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC], check=True,
-                       capture_output=True, timeout=120)
-        os.replace(tmp, path)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        with contextlib.suppress(OSError):
-            os.remove(tmp)
-        return False
+    return host_library_path("pllmod_native", (_SRC,), _FLAGS, build_dir)
 
 
 def load_library(build_dir: str = BUILD_DIR):
@@ -81,16 +106,10 @@ def load_library(build_dir: str = BUILD_DIR):
     ``g++``, or the source does not compile."""
     if not os.path.exists(_SRC) or shutil.which("g++") is None:
         return None
-    os.makedirs(build_dir, exist_ok=True)
-    path = library_path(build_dir)
-    with open(os.path.join(build_dir, "pllmod_native.lock"), "a") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        try:
-            if not os.path.exists(path) and not _compile(path):
-                return None
-            lib = ctypes.CDLL(path)
-        finally:
-            fcntl.flock(lk, fcntl.LOCK_UN)
+    try:
+        lib = load_host_library("pllmod_native", _SRC, _FLAGS, build_dir)
+    except (OSError, subprocess.SubprocessError):
+        return None
     lib.pllmod_compress_patterns.restype = ctypes.c_int64
     lib.pllmod_newick_parse.restype = ctypes.c_int
     lib.pllmod_newick_extract.restype = ctypes.c_int

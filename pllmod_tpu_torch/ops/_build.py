@@ -2,12 +2,13 @@
 
 ``nvcc`` compiles each source into its own shared library with a plain
 C interface under ``build/`` at the repository root, named by a hash of
-the source, the headers they share (``csrc/common.cuh``,
-``csrc/tile.cuh``, ``csrc/tables.cuh``, ``csrc/group_walk.cuh``) and the
-flags,
-on first use; the sources that lack a library are
-compiled all at once, one ``nvcc`` each. ctypes loads them. Nothing here
-runs at import time: the CPU-only tests import every module.
+the source, the headers they share (``csrc/configs.h``,
+``csrc/common.cuh``, ``csrc/tile.cuh``, ``csrc/tables.cuh``,
+``csrc/group_walk.cuh``) and the flags, on first use; the sources that
+lack a library are compiled all at once, one ``nvcc`` each. ctypes loads
+them. The kernels' launch configurations come from ``csrc/configs.h``
+too, built for the host by ``g++`` (:func:`configs`). Nothing here runs
+at import time: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
@@ -22,20 +23,22 @@ import subprocess
 import threading
 import types
 
+from pllmod_tpu_torch import native
 from pllmod_tpu_torch.profile import LAUNCHES, RESIDENT_LAUNCHES
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("pruning", "fused", "deriv", "levels", "grouped",
                         "packed")}
-# the shared headers (common.cuh is included by every source, tile.cuh by
-# pruning.cu, fused.cu, levels.cu and group_walk.cuh, tables.cuh, the
-# walks' pre-pass, by pruning.cu, fused.cu and group_walk.cuh, and
-# group_walk.cuh, the group-window walk, by packed.cu and grouped.cu);
-# every library's hash covers all four
+# the shared headers (configs.h, the launch configurations, and
+# common.cuh are included by every source, tile.cuh by pruning.cu,
+# fused.cu, levels.cu, deriv.cu and group_walk.cuh, tables.cuh, the
+# walks' pre-pass, by pruning.cu, fused.cu, levels.cu and group_walk.cuh,
+# and group_walk.cuh, the group-window walk, by packed.cu and grouped.cu);
+# every library's hash covers all five
 HEADERS = tuple(os.path.join(_PKG, "csrc", h)
-                for h in ("common.cuh", "tile.cuh", "tables.cuh",
-                          "group_walk.cuh"))
+                for h in ("configs.h", "common.cuh", "tile.cuh",
+                          "tables.cuh", "group_walk.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,26 +50,23 @@ _WALK_ARGS = [_VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I]
 ENTRY_POINTS = {
     # the resident walk: its arguments, then the scratch of its pre-pass
     "pllmod_resident_walk": ("pruning", _WALK_ARGS + [_VP, _VP], _I),
-    "pllmod_resident_config": ("pruning", [_I] * 5 + [_VP], _I),
     # the fused walk: its arguments, then the scratch of its pre-pass
     "pllmod_fused_walk": ("fused", _WALK_ARGS + [_VP, _VP], _I),
     "pllmod_fused_tables": ("fused", [_VP, _I, _VP, _VP, _I, _VP, _I, _I, _I,
                                       _VP], _I),
-    "pllmod_fused_config": ("fused", [_I] * 4 + [_VP], _I),
-    "pllmod_child_config": ("levels", [_I] * 4 + [_VP], _I),
     # kernel 8: ..., Ppad, C, S, the forced tile (0: the rule), whether to
     # force the simple kernel
     "pllmod_edge_sumtables": ("deriv", [_VP, _I, _VP, _VP, _I, _VP, _I, _VP,
                                         _VP, _I, _VP, _VP] + [_I] * 5
                               + [_VP], _I),
-    # kernel 8's tiled configuration: C, S, n_codes, Ppad, E, forced tile
-    "pllmod_sumtable_config": ("deriv", [_I] * 6 + [_VP], _I),
+    # the CTAs an SM the card holds of kernel 8's tiled kernel: C, S,
+    # n_codes, Ppad, E, forced tile
+    "pllmod_sumtable_occupancy": ("deriv", [_I] * 6, _I),
     "pllmod_edge_derivs": ("deriv", [_VP] * 7 + [_I] * 3 + [_VP], _I),
     # kernel 10: descriptors (device), K, their (C·S, Ppad) on the host,
     # ..., the forced design (0: the rule)
     "pllmod_newton_edges": ("deriv", [_VP, _I, _VP, _VP, _F, _F, _F, _I, _VP,
                                       _VP, _VP, _I, _I, _VP], _I),
-    "pllmod_newton_config": ("deriv", [_I, _VP, _I, _VP], _I),
     "pllmod_child_pass": ("levels", [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _I,
                                      _VP, _I, _VP, _VP] + [_I] * 4 + [_VP],
                           _I),
@@ -77,20 +77,15 @@ ENTRY_POINTS = {
     "pllmod_level_combined": ("levels", [_VP, _I] + [_VP] * 4 + [_I, _VP, _I,
                                                                  _VP]
                               + [_I] * 6 + [_VP, _VP], _I),
-    # kernels 4 and 5's configuration: mode (0 kernel 4, 1 kernel 5), C, S,
-    # n_codes, T
-    "pllmod_level_config": ("levels", [_I] * 5 + [_VP], _I),
     # kernels 6 and 7: their tables, ..., the tile T and lanes R, the
     # walk's windows (and kernel 7's member order), the scratch of the
     # pre-pass and of the row table
     "pllmod_grouped_walk": ("grouped", [_VP, _VP, _I, _I, _VP, _VP, _I, _VP,
                                         _I, _VP, _VP] + [_I] * 5
                             + [_VP, _VP, _I, _VP, _VP, _VP], _I),
-    "pllmod_grouped_config": ("grouped", [_I] * 5 + [_VP], _I),
     "pllmod_packed_walk": ("packed", [_VP, _VP, _VP, _I, _VP, _I, _VP, _I,
                                       _VP, _I, _VP, _VP] + [_I] * 5
                            + [_VP, _I, _VP, _VP, _VP], _I),
-    "pllmod_packed_config": ("packed", [_I] * 5 + [_VP], _I),
 }
 
 _lock = threading.Lock()
@@ -196,32 +191,77 @@ def using(lib: types.SimpleNamespace):
 
 
 # ---------------------------------------------------------------------------
-# Launch checks, the kernels' launch configurations and the row-walk
-# launch shared by the two walk wrappers (ops/resident.py, ops/fused.py).
-# The numbers below are those of csrc/pruning.cu, csrc/fused.cu,
-# csrc/levels.cu and csrc/group_walk.cuh; the card tests hold
-# resident_config, fused_config, child_config, level_config and
-# group_walk_config against the libraries' own.
+# The kernels' launch configurations: csrc/configs.h computes them, for
+# the kernels (included by every CUDA source) and for the host (built from
+# csrc/configs.cpp by g++ into the library that configs() loads). The
+# readers below return each as a dict, cached per shape; the tile rules
+# and the row-walk launch shared by the two walk wrappers (ops/resident.py,
+# ops/fused.py) choose among them.
 # ---------------------------------------------------------------------------
+CONFIGS_SOURCE = os.path.join(_PKG, "csrc", "configs.cpp")
+CONFIGS_HEADER = os.path.join(_PKG, "csrc", "configs.h")
+CONFIGS_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+# the host library's entry points: name -> argument types before the
+# long long out[] that each fills
+_CONFIG_ARGS = {
+    "pllmod_resident_config": [_I] * 5,
+    "pllmod_fused_config": [_I] * 4,
+    "pllmod_child_config": [_I] * 4,
+    "pllmod_level_config": [_I] * 5,
+    "pllmod_group_walk_config": [_I] * 5,
+    "pllmod_sumtable_config": [_I] * 6,
+    "pllmod_newton_config": [_I, _VP, _I],
+}
+_configs = None
+
 MAX_STATES = 64            # widest register tile the kernels instantiate
 MAX_THREADS = 256          # __launch_bounds__ of the kernels
 SMEM_PER_BLOCK = 232_448   # H100: shared memory one block may opt into
 SMS = 132                  # H100 SXM streaming multiprocessors
 SMEM_PER_SM = 233_472      # shared memory of one SM (228 KB)
+WARP = 32
 LEVEL_CTAS = 0.95 * SMS    # a per-level kernel's grid: about one CTA an SM
 TILES = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
-def _ladder(S: int) -> int:
-    """The register tile MAXS that holds S states (common::dispatch_states)."""
-    for m in (4, 8, 16, 20, 32, 64):
-        if S <= m:
-            return m
-    raise ValueError(f"the kernels take at most {MAX_STATES} states, got {S}")
+def configs() -> ctypes.CDLL:
+    """The host library of the launch configurations, built on first use
+    (``native.load_host_library``: ``build/pllmod_configs-<hash>.so``, the
+    hash over csrc/configs.cpp, csrc/configs.h and the flags). Raises
+    where g++ is missing or the source does not compile."""
+    global _configs
+    with _lock:
+        if _configs is None:
+            if shutil.which("g++") is None:
+                raise RuntimeError(
+                    "g++ not found: the kernels' launch configurations "
+                    "(csrc/configs.cpp) are built with g++")
+            try:
+                lib = native.load_host_library(
+                    "pllmod_configs", CONFIGS_SOURCE, CONFIGS_FLAGS,
+                    BUILD_DIR, headers=(CONFIGS_HEADER,))
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(f"g++ failed on csrc/configs.cpp:\n"
+                                   f"{e.stderr}") from e
+            for name, argtypes in _CONFIG_ARGS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes + [_VP]
+                fn.restype = _I
+            _configs = lib
+        return _configs
 
 
-def _round_up(n: int, k: int) -> int:
-    return -(-n // k) * k
+def query_config(name: str, keys, kinds, *args):
+    """The configuration that the host library's ``name`` returns at
+    ``args`` as a dict of ``keys`` (its "kind" named by ``kinds``), or
+    None where none fits."""
+    out = (ctypes.c_longlong * len(keys))()
+    if not getattr(configs(), name)(*args, out):
+        return None
+    cf = dict(zip(keys, out))
+    if kinds:
+        cf["kind"] = kinds[cf["kind"]]
+    return cf
 
 
 def pattern_tile(n_cats: int) -> int:
@@ -234,100 +274,26 @@ def pattern_tile(n_cats: int) -> int:
                      f"categories, got {n_cats}")
 
 
-RESIDENT_META_ROWS = 16    # the resident walk's ring of idx8 rows
-RESIDENT_NB = 4            # its ring entries
 RESIDENT_KINDS = ("tile", "global", "thread", "split")
-# the thread kind: the most categories a thread holds, its patterns a
-# thread, its ring entries and the ints of an entry's idx8 row
-RESIDENT_THREAD_MAX_C = 8
-RESIDENT_THREAD_RP = 1
-RESIDENT_THREAD_NB = 4
-RESIDENT_ROW_INTS = 8
-WARP = 32
-# the split kind: the ladder step it takes, its threads a (category,
-# pattern) column and its patterns a thread
-RESIDENT_SPLIT_MAXS = 20
-RESIDENT_SPLIT_H = 2
-RESIDENT_SPLIT_RP = 2
+RESIDENT_THREAD_RP = 1     # the thread kind's patterns a thread
 
 
-def _thread_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
-    """The thread kind's configuration at pattern tile T (csrc/pruning.cu
-    thread_config), or None: whole consumer warps of RESIDENT_THREAD_RP
-    patterns a thread and one producer warp; a ring of RESIDENT_THREAD_NB
-    entries (an idx8 row, the row's two tables, two rows of tip codes)
-    after their full and empty mbarriers, then the slots and their scaler
-    rows."""
-    rp, sp = RESIDENT_THREAD_RP, 4
-    threads = T // rp + WARP
-    if T % (WARP * rp) or threads > MAX_THREADS:
-        return None
-    q = C * max(S, n_codes) * sp
-    ring = RESIDENT_ROW_INTS + 2 * q + 2 * T
-    smem = 4 * (4 * RESIDENT_THREAD_NB + RESIDENT_THREAD_NB * ring
-                + n_slots * C * S * T + n_slots * T)
-    if smem > SMEM_PER_BLOCK:
-        return None
-    return dict(kind="thread", RP=rp, SP=sp, threads=threads, Q=q,
-                ring=ring, smem=smem)
-
-
+@functools.lru_cache(maxsize=None)
 def resident_config(C: int, S: int, n_codes: int, n_slots: int, T: int):
     """The resident walk's launch configuration at pattern tile T
-    (csrc/pruning.cu walk_config), or None where none fits: a dict of
-    kind, RP (patterns a thread), SP (a table row's stride), threads, Q
-    (floats of one row side's table from the pre-pass), ring (floats of a
-    ring entry) and smem (bytes). Up to 4 states and
-    RESIDENT_THREAD_MAX_C categories the thread kind (a thread owns every
-    category of its patterns, no CTA barrier a row; a producer warp fills
-    the ring: :func:`_thread_config`), at the tiles where it fits. Else
-    (RP 2 up to 4 states, else 1) the tile kind where a ring of 4 entries
-    (a row's two tables and its tip codes) fits beside the live slots,
-    ``n_slots × C·S × T`` floats and their scaler rows; else, at the
-    widest tile (:func:`pattern_tile`) alone, the global kind (tables
-    read from the pre-pass's scratch in device memory, a ring of tip
-    codes), which keeps small 64-state trees resident.
-
-    At the ladder's 20-state step (17 to 20 states) the split kind takes
-    the tile kind's place wherever its threads fill whole warps (C·T a
-    multiple of 32, T even): the same ring, slots and shared memory, and
-    C·T consumer threads and a producer warp. A consumer owns 10 of a
-    (category, pattern pair) column's 20 output states, its partner (the
-    lane 16 away in the same warp) the other 10; two patterns a thread
-    halve the shared-memory bytes a product, which bound the tile kind,
-    the halves' maxima meet by a shuffle and their stores by a
-    ``__syncwarp``, and the producer warp issues the ring's copies off
-    the row chain. At the 1KITE supermatrix's shape (144 taxa, 413,568
-    patterns, 3–5 live slots, +G4) it runs T = 64, 288 threads, one CTA
-    an SM: 12.31 ms a launch against the tile kind's 16.06 (PERF.md §6,
-    NVIDIA H100 80GB HBM3)."""
-    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1
-            or n_slots < 1 or T < 1):
-        return None
-    maxs = _ladder(S)
-    if maxs == 4 and C <= RESIDENT_THREAD_MAX_C:
-        return _thread_config(C, S, n_codes, n_slots, T)
-    rp = 2 if maxs <= 4 else 1
-    if T % rp or C * (T // rp) > MAX_THREADS:
-        return None
-    sp = maxs
-    q = C * max(S, n_codes) * sp
-    fixed = (2 * RESIDENT_NB + 8 * RESIDENT_META_ROWS
-             + _round_up(2 * C * T, 4) + n_slots * C * S * T + n_slots * T)
-    codes = _round_up(2 * T, 4)
-    base = dict(RP=rp, SP=sp, threads=C * (T // rp), Q=q)
-    smem = 4 * (fixed + RESIDENT_NB * (2 * q + codes))
-    if smem <= SMEM_PER_BLOCK:
-        srp = RESIDENT_SPLIT_RP
-        if maxs == RESIDENT_SPLIT_MAXS and T % srp == 0 and C * T % WARP == 0:
-            return dict(base, kind="split", RP=srp,
-                        threads=RESIDENT_SPLIT_H * C * (T // srp) + WARP,
-                        ring=2 * q + codes, smem=smem)
-        return dict(kind="tile", ring=2 * q + codes, smem=smem, **base)
-    smem = 4 * (fixed + RESIDENT_NB * codes)
-    if T != pattern_tile(C) or smem > SMEM_PER_BLOCK:
-        return None
-    return dict(kind="global", ring=codes, smem=smem, **base)
+    (csrc/configs.h resident::walk_config), or None where none fits: a
+    dict of kind (RESIDENT_KINDS), RP (patterns a thread), SP (a table
+    row's stride), threads, Q (floats of one row side's table from the
+    pre-pass), ring (floats of a ring entry) and smem (bytes). Up to 4
+    states and 8 categories the thread kind, at the tiles where it fits;
+    else the tile kind where a ring of 4 entries fits beside the live
+    slots, the split kind in its place at 17 to 20 states where its
+    threads fill whole warps; else, at the widest tile
+    (:func:`pattern_tile`) alone, the global kind."""
+    return query_config(
+        "pllmod_resident_config",
+        ("kind", "RP", "SP", "threads", "Q", "ring", "smem"),
+        RESIDENT_KINDS, C, S, n_codes, n_slots, T)
 
 
 def waves(cf: dict, T: int, Ppad: int) -> int:
@@ -371,55 +337,25 @@ def resident_tile(C: int, S: int, n_codes: int, n_slots: int, Ppad: int):
     return T if resident_config(C, S, n_codes, n_slots, T) else None
 
 
-FUSED_META_BYTES = 128     # the fused walk's ring of 4 idx8 rows
 FUSED_KINDS = ("thread", "tile", "fallback")
 
 
+@functools.lru_cache(maxsize=None)
 def fused_config(C: int, S: int, n_codes: int, T: int):
     """The fused walk's launch configuration at pattern tile T
-    (csrc/fused.cu walk_config), or None where none fits: a dict of kind,
-    RI, RP, IG, SP, NB, threads, Q (floats of one row side's matrix or tip
-    table in the pre-pass scratch), smem (bytes), depth (the sides of a
-    row fetched before an earlier row ends, which the kernel forwards)
-    and lookback (how many rows back such a writer may be). Up to 8
-    states the thread walk ("thread": one thread a category and pattern,
-    children fetched two rows ahead; NB = 3 row buffers of tables in
-    shared memory, or 0 where they do not fit); beyond, the staged tile
-    walk ("tile": RI × RP = 8 × 4 register tiles, 4 × 4 at 20 states, a
-    ring of NB stage buffers) where its threads and one stage buffer fit,
-    else the fallback ("fallback": one thread a category and pattern,
-    matrices read from device memory)."""
-    if C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 1:
-        return None
-    maxs = _ladder(S)
-    rows = max(S, n_codes)
-    if maxs <= 8:
-        rpt = 2 if maxs <= 4 else 1       # patterns a thread
-        if T % rpt or C * (T // rpt) > MAX_THREADS:
-            return None
-        sp = _round_up(S, 4)
-        q, red = C * rows * sp, _round_up(2 * C * T, 4) + 8 * 8  # + idx8
-        nb = 3 if 4 * (6 * q + red) <= SMEM_PER_BLOCK else 0
-        return dict(kind="thread", RI=maxs, RP=rpt, IG=1, SP=sp, NB=nb,
-                    threads=C * (T // rpt), Q=q,
-                    smem=4 * (6 * q + red if nb else red), depth=2,
-                    lookback=2)
-    for kind in ("tile", "fallback"):
-        ri, rp = ((4 if maxs == 20 else 8), 4) if kind == "tile" else (maxs, 1)
-        ig = -(-S // ri)
-        sp = ig * ri
-        threads = C * ig * (T // rp)
-        if T % rp or threads > MAX_THREADS:
-            continue
-        q = C * rows * sp
-        sb = _round_up((q if kind == "tile" else 0) + C * S * T + 2 * T, 4)
-        for nb in (3, 2, 1):
-            smem = 4 * (nb * sb + _round_up(C * ig * T, 4)) + FUSED_META_BYTES
-            if smem <= SMEM_PER_BLOCK:
-                return dict(kind=kind, RI=ri, RP=rp, IG=ig, SP=sp, NB=nb,
-                            threads=threads, Q=q, smem=smem, depth=nb - 1,
-                            lookback=1)
-    return None
+    (csrc/configs.h fused::walk_config), or None where none fits: a dict
+    of kind (FUSED_KINDS), RI, RP, IG, SP, NB, threads, Q (floats of one
+    row side's matrix or tip table in the pre-pass scratch), smem
+    (bytes), depth (the sides of a row fetched before an earlier row
+    ends, which the kernel forwards) and lookback (how many rows back
+    such a writer may be). Up to 8 states the thread walk; beyond, the
+    staged tile walk where its threads and one stage buffer fit, else
+    the fallback (matrices read from device memory)."""
+    return query_config(
+        "pllmod_fused_config",
+        ("kind", "RI", "RP", "IG", "SP", "NB", "threads", "Q", "smem",
+         "depth", "lookback"),
+        FUSED_KINDS, C, S, n_codes, T)
 
 
 def ctas_per_sm(threads: int, smem: int) -> int:
@@ -452,15 +388,9 @@ def fused_tile(C: int, S: int, n_codes: int, Ppad: int) -> int:
                      f"{S} states and {n_codes} codes")
 
 
-GROUP_WALK_THREADS = 512   # __launch_bounds__ of the group-window walks
 GROUP_WALK_KINDS = ("thread", "tile", "wide")
 GROUP_WALK_LANES = (4, 2, 1)
-GROUP_WALK_MAX_LANES = 8   # group_walk.cuh kMaxLanes
 GROUP_WALK_ROW = 8         # ints of a row's entry in the row table
-GROUP_WALK_RING = 4 * GROUP_WALK_ROW   # ints a lane in the ring of steps
-# the tile walk's mbarriers and the slack that aligns its stage buffers
-# to 128 bytes
-GROUP_WALK_BARS, GROUP_WALK_ALIGN = 16, 128
 # registers a thread of each kind, from nvcc's report (ptxas -v) of the
 # libraries: the tile walk takes the 128 that 512 threads allow
 GROUP_WALK_REGS = {"thread": 64, "tile": 128, "wide": 128}
@@ -469,54 +399,19 @@ GROUP_WALK_REGS = {"thread": 64, "tile": 128, "wide": 128}
 @functools.lru_cache(maxsize=None)
 def group_walk_config(C: int, S: int, n_codes: int, T: int, R: int):
     """The group-window walk's launch configuration (kernels 6 and 7) at
-    pattern tile T and R row lanes (csrc/group_walk.cuh walk_config; R at
-    most GROUP_WALK_MAX_LANES), or None where none fits: a dict of kind,
-    RI, RP, IG, SP, threads, Q (floats of one side's matrix or tip table
-    in the pre-pass scratch), smem (bytes) and staged. Up to 8 states the
-    thread walk ("thread": a thread a lane, category and RP patterns, 2
-    up to 4 states; the category maxima of two steps and the ring of
-    step tables in shared memory); beyond, the tile walk ("tile": RI ×
-    RP = 8 × 4 register tiles, 4 × 4 at 20 states; two stage buffers of
-    R rows' two children, 128-byte aligned, with each side's table where
-    that fits a block: staged = 1; its child tiles come by tensor copies
-    where C·S ≤ 256, T and Ppad are multiples of 4, else by cp.async;
-    the category maxima of two steps) where its threads fit, else the
-    wide kind ("wide": RI = MAXS, RP = 1). Cached per shape, as
+    pattern tile T and R row lanes (csrc/configs.h group_walk::
+    walk_config), or None where none fits: a dict of kind
+    (GROUP_WALK_KINDS), RI, RP, IG, SP, threads, Q (floats of one side's
+    matrix or tip table in the pre-pass scratch), smem (bytes) and staged
+    (1 where the tile walk stages each side's table beside its child).
+    Up to 8 states the thread walk; beyond, the tile walk where its
+    threads fit, else the wide kind. Cached per shape, as
     :func:`group_walk_tile` is: every evaluation launches the walk."""
-    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 1
-            or not 1 <= R <= GROUP_WALK_MAX_LANES):
-        return None
-    maxs = _ladder(S)
-    rows = max(S, n_codes)
-    ring = GROUP_WALK_RING * R         # ints of the ring of step tables
-    if maxs <= 8:
-        rp = 2 if maxs <= 4 else 1
-        threads = R * C * (T // rp)
-        smem = 4 * (_round_up(2 * R * C * T, 4) + ring)
-        if (T % rp or threads > GROUP_WALK_THREADS
-                or smem > SMEM_PER_BLOCK):
-            return None
-        return dict(kind="thread", RI=maxs, RP=rp, IG=1, SP=maxs,
-                    threads=threads, Q=C * rows * maxs, smem=smem, staged=0)
-    for kind in ("tile", "wide"):
-        ri, rp = ((4 if maxs == 20 else 8), 4) if kind == "tile" \
-            else (maxs, 1)
-        if T % rp:
-            continue
-        ig = -(-S // ri)
-        threads = R * C * ig * (T // rp)
-        if threads > GROUP_WALK_THREADS:
-            continue
-        q = C * rows * ig * ri
-        for staged in (1, 0):
-            sb = _round_up(_round_up(q * staged, 32) + C * S * T + 2 * T, 32)
-            smem = (4 * (4 * R * sb + _round_up(2 * R * C * ig * T, 4)
-                         + ring)
-                    + GROUP_WALK_BARS + GROUP_WALK_ALIGN)
-            if smem <= SMEM_PER_BLOCK:
-                return dict(kind=kind, RI=ri, RP=rp, IG=ig, SP=ig * ri,
-                            threads=threads, Q=q, smem=smem, staged=staged)
-    return None
+    return query_config(
+        "pllmod_group_walk_config",
+        ("kind", "RI", "RP", "IG", "SP", "threads", "Q", "smem",
+         "staged"),
+        GROUP_WALK_KINDS, C, S, n_codes, T, R)
 
 
 @functools.lru_cache(maxsize=None)
@@ -577,31 +472,18 @@ def launch_group_walk(name: str, device, mats_rows: int, n_rows: int,
            mats.data_ptr(), rowtab.data_ptr())
 
 
+@functools.lru_cache(maxsize=None)
 def child_config(C: int, S: int, n_codes: int, T: int):
     """The child pass's launch configuration at pattern tile T
-    (csrc/levels.cu child_config), or None: a dict of RI, IG, SP, CB
-    (categories a CTA), lookup (tip children from a table, where
+    (csrc/configs.h levels::child_config), or None: a dict of RI, IG, SP,
+    CB (categories a CTA), lookup (tip children from a table, where
     n_codes <= T), threads, mrows (rows of SP floats a category: the
     transposed matrix, and the tip table with the lookup) and smem
     (bytes)."""
-    if C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or T < 4 or T % 4:
-        return None
-    ri = 4 if _ladder(S) in (4, 20) else 8
-    ig = -(-S // ri)
-    sp = ig * ri
-    per_c = ig * (T // 4)
-    if per_c > MAX_THREADS:
-        return None
-    for lookup in ((1, 0) if n_codes <= T else (0,)):
-        mrows = S + (n_codes if lookup else 0)
-        unit = mrows * sp + S * T
-        cb = min(MAX_THREADS // per_c, C,
-                 (SMEM_PER_BLOCK // 4 - 2 * T) // unit)
-        if cb >= 1:
-            return dict(RI=ri, IG=ig, SP=sp, CB=cb, lookup=lookup,
-                        threads=cb * per_c, mrows=mrows,
-                        smem=4 * (cb * unit + 2 * T))
-    return None
+    return query_config(
+        "pllmod_child_config",
+        ("RI", "IG", "SP", "CB", "lookup", "threads", "mrows", "smem"),
+        None, C, S, n_codes, T)
 
 
 def child_tile(C: int, S: int, n_codes: int, Ppad: int, W: int) -> int:
@@ -620,49 +502,24 @@ def child_tile(C: int, S: int, n_codes: int, Ppad: int, W: int) -> int:
 
 LEVEL_MODES = ("child2", "combined")    # kernels 4 and 5: mode + 1 sides
 LEVEL_KINDS = ("simple", "tile")
-LEVEL_THREADS = 512        # __launch_bounds__ of kernels 4 and 5's tiled one
 LEVEL_TILES = (256,) + TILES
 
 
 @functools.lru_cache(maxsize=None)
 def level_config(mode: str, C: int, S: int, n_codes: int, T: int):
     """Kernel 4's (``mode`` "child2") or 5's ("combined") launch
-    configuration at pattern tile T (csrc/levels.cu level_config), or
-    None: a dict of kind, RI (states a thread), IG, SP, Q (floats of a
-    side's table from the pre-pass), threads and smem (bytes). The tiled
-    kernel ("tile": thread (c, ig, pg) owns RI × 4 patterns of category
-    c, every category in one CTA; each row side's transposed matrix or
-    tip table built once by a pre-pass into a scratch of W·sides·Q
-    floats) where T is a multiple of 4 and its C·IG·T/4 threads (at most
-    LEVEL_THREADS) and shared memory fit: each side's region (a tip's
-    table [Q], Q = C·max(S, n_codes)·SP, or an inner child's matrix
-    [C·S·SP] and tile [C·S][T]), the maxima [C·IG][T] and the tip codes
-    [sides][T]; else the simple kernel ("simple": thread (c, p), RI = the
-    register tile MAXS, Q = 0) where its C·T threads fit, its matrices
-    and code table staged where they fit a block. Cached per shape: every
-    level launches it."""
-    if (mode not in LEVEL_MODES or C < 1 or not 1 <= S <= MAX_STATES
-            or n_codes < 1 or T < 1):
+    configuration at pattern tile T (csrc/configs.h levels::
+    level_config), or None: a dict of kind (LEVEL_KINDS), RI (states a
+    thread), IG, SP, Q (floats of a side's table from the pre-pass),
+    threads and smem (bytes). The tiled kernel where T is a multiple of 4
+    and its threads and shared memory fit, else the simple kernel where
+    its C·T threads fit. Cached per shape: every level launches it."""
+    if mode not in LEVEL_MODES:
         return None
-    sides = LEVEL_MODES.index(mode) + 1
-    maxs = _ladder(S)
-    ri = 4 if maxs in (4, 20) else 8
-    ig = -(-S // ri)
-    sp = ig * ri
-    if T % 4 == 0:
-        threads = C * ig * (T // 4)
-        q = C * max(S, n_codes) * sp
-        smem = 4 * (sides * max(q, C * S * (sp + T)) + C * ig * T
-                    + sides * T)
-        if threads <= LEVEL_THREADS and smem <= SMEM_PER_BLOCK:
-            return dict(kind="tile", RI=ri, IG=ig, SP=sp, Q=q,
-                        threads=threads, smem=smem)
-    if C * T <= MAX_THREADS:
-        stage = n_codes * S + sides * C * S * S
-        staged = 4 * (C * T + stage) <= SMEM_PER_BLOCK
-        return dict(kind="simple", RI=maxs, IG=1, SP=S, Q=0, threads=C * T,
-                    smem=4 * (C * T + (stage if staged else 0)))
-    return None
+    return query_config(
+        "pllmod_level_config",
+        ("kind", "RI", "IG", "SP", "Q", "threads", "smem"),
+        LEVEL_KINDS, LEVEL_MODES.index(mode), C, S, n_codes, T)
 
 
 @functools.lru_cache(maxsize=None)
@@ -690,48 +547,25 @@ def level_tile(mode: str, C: int, S: int, n_codes: int, Ppad: int,
 
 
 SUMTABLE_TILES = (256, 128, 64, 32, 16, 8, 4)
-SUMTABLE_BOX_ROWS = 256        # rows of one tensor copy's box
-SUMTABLE_MIN_THREADS = 128     # the rule's least CTA (4 warps)
 
 
 @functools.lru_cache(maxsize=None)
 def sumtable_config(C: int, S: int, n_codes: int, Ppad: int, E: int,
                     tile: int | None = None):
-    """Kernel 8's tiled launch configuration for E edges (csrc/deriv.cu
-    sumtable_config), or None where the tiled kernel takes none and the
-    simple kernel runs: a dict of T (pattern tile), RI (states a thread),
-    IG, SP (states padded to whole i-groups), threads (C · IG · T / 4)
-    and smem (bytes: 128 of alignment slack; the ring's two mbarriers,
-    the two bases and the tip tables; two stages of both sides' CLV
-    tiles, codes and scalers, each 128-byte aligned). The rule, from
-    ``chip_smoke.py``'s kernel-8 sweep: where C·S fits one tensor copy's
-    box (SUMTABLE_BOX_ROWS), the widest tile of SUMTABLE_TILES that
-    divides Ppad with at most 256 threads and whose stages fit a block's
-    shared memory; None instead where that CTA has fewer than
-    SUMTABLE_MIN_THREADS threads or the launch fewer items (E · Ppad / T)
-    than the card has SMs. ``tile`` forces a tile (then only the fit
-    counts). Cached per shape: the BLO launches kernel 8 a hundred times
-    a call."""
-    if (C < 1 or not 1 <= S <= MAX_STATES or n_codes < 1 or Ppad < 1
-            or C * S > SUMTABLE_BOX_ROWS):
-        return None
-    ri = 4 if _ladder(S) in (4, 20) else 8
-    ig = -(-S // ri)
-    sp = ig * ri
-    fixed = _round_up(32 + 2 * C * S * sp + 2 * C * n_codes * sp, 32)
-    for T in SUMTABLE_TILES:
-        if tile not in (None, T) or Ppad % T:
-            continue
-        threads = C * ig * (T // 4)
-        stage = _round_up(2 * _round_up(C * S * T, 32) + 4 * T, 32)
-        smem = 4 * (fixed + 2 * stage) + 128
-        if threads > MAX_THREADS or smem > SMEM_PER_BLOCK:
-            continue
-        if tile is None and (threads < SUMTABLE_MIN_THREADS
-                             or E * (Ppad // T) < SMS):
-            return None
-        return dict(T=T, RI=ri, IG=ig, SP=sp, threads=threads, smem=smem)
-    return None
+    """Kernel 8's tiled launch configuration for E edges (csrc/configs.h
+    deriv::sumtable_config), or None where the tiled kernel takes none
+    and the simple kernel runs: a dict of T (pattern tile), RI (states a
+    thread), IG, SP (states padded to whole i-groups), threads and smem
+    (bytes). The rule, from ``chip_smoke.py``'s kernel-8 sweep: where C·S
+    fits one tensor copy's box, the widest tile of SUMTABLE_TILES that
+    divides Ppad and fits; None instead where that CTA has fewer than 4
+    warps or the launch fewer items (E · Ppad / T) than the card has SMs.
+    ``tile`` forces a tile (then only the fit counts). Cached per shape:
+    the BLO launches kernel 8 a hundred times a call."""
+    return query_config(
+        "pllmod_sumtable_config",
+        ("T", "RI", "IG", "SP", "threads", "smem"),
+        None, C, S, n_codes, Ppad, E, tile or 0)
 
 
 def check_tensors(name: str, specs) -> None:

@@ -29,6 +29,7 @@ is plain torch shared by both.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -303,60 +304,40 @@ def _derivs_plain(st, sc, t, lw, lnB, pw):
 # ---------------------------------------------------------------------------
 # kernel 10: per-edge Newton over K partitions
 # ---------------------------------------------------------------------------
-NEWTON_RED_BYTES = 96 * 8   # the block reduction's doubles (csrc/deriv.cu)
-NEWTON_PART_BYTES = 2 * 16 * 3 * 8   # the cluster form's partials
 NEWTON_CLUSTERS = (2, 4, 8, 16)      # CTAs an edge of the cluster form
 NEWTON_KINDS = ("stream", "cluster")
 
 
-def newton_smem_bytes(cs) -> int:
-    """Shared memory of one streaming kernel-10 CTA: three float32
-    coefficient rows of C·S each for every partition (``cs``: their C·S
-    values) and the block reduction's 96 doubles."""
-    return 12 * sum(cs) + NEWTON_RED_BYTES
-
-
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def newton_slice(Ppad: int, N: int) -> int:
-    """Patterns of one CTA's slice of a partition in a cluster of N
-    (a multiple of 4)."""
-    return _round4(-(-Ppad // N))
-
-
 def newton_config(cs, ppads, force: int = 0):
     """Kernel 10's design for K partitions of C·S ``cs`` and patterns
-    ``ppads`` (csrc/deriv.cu newton_config), or None: a dict of kind,
-    N (CTAs an edge) and smem (bytes a CTA). The rule: the smallest
+    ``ppads`` (csrc/configs.h deriv::newton_config), or None: a dict of
+    kind, N (CTAs an edge) and smem (bytes a CTA). The rule: the smallest
     cluster of NEWTON_CLUSTERS whose CTAs each hold their pattern slice
     of every partition's sumtable, scaler, p-inv and weight rows beside
-    the coefficient and λr / weight rows ("cluster": the edge's inputs are loaded once
-    and the iterations run on chip), else one CTA an edge that streams
-    them every iteration ("stream"). ``force``: 1 the streaming design,
-    a cluster size that cluster, 0 the rule."""
-    fixed = (NEWTON_RED_BYTES + NEWTON_PART_BYTES + 16 * sum(cs)
-             + 4 * _round4(2 * sum(cs)))
-    for n in NEWTON_CLUSTERS:
-        if force not in (0, n):
-            continue
-        smem = fixed + 4 * sum((c + 3) * newton_slice(p, n)
-                               for c, p in zip(cs, ppads))
-        if smem <= _build.SMEM_PER_BLOCK:
-            return dict(kind="cluster", N=n, smem=smem)
-    smem = newton_smem_bytes(cs)
-    if force in (0, 1) and smem <= _build.SMEM_PER_BLOCK:
-        return dict(kind="stream", N=1, smem=smem)
-    return None
+    the coefficient and λr / weight rows ("cluster": the edge's inputs
+    are loaded once and the iterations run on chip), else one CTA an
+    edge that streams them every iteration ("stream"). ``force``: 1 the
+    streaming design, a cluster size that cluster, 0 the rule. Cached
+    per shape."""
+    return _newton_config(tuple(cs), tuple(ppads), force)
+
+
+@functools.lru_cache(maxsize=None)
+def _newton_config(cs: tuple, ppads: tuple, force: int):
+    dims = (ctypes.c_longlong * (2 * len(cs)))(
+        *[v for c, p in zip(cs, ppads) for v in (c, p)])
+    return _build.query_config("pllmod_newton_config", ("kind", "N", "smem"),
+                               NEWTON_KINDS, len(cs), dims, force)
 
 
 def newton_fits(*partitions) -> bool:
-    """Whether kernel 10 takes these partitions at once: their
-    coefficient rows fit a block's shared memory (the port's rule; the
-    JAX package's ``newton_fits_vmem`` is a VMEM gate of the TPU)."""
-    return newton_smem_bytes([p.n_cats * p.states for p in partitions]) \
-        <= _build.SMEM_PER_BLOCK
+    """Whether kernel 10 takes these partitions at once: its streaming
+    design, their coefficient rows in one block's shared memory, fits
+    (the port's rule; the JAX package's ``newton_fits_vmem`` is a VMEM
+    gate of the TPU)."""
+    return newton_config([p.n_cats * p.states for p in partitions],
+                         [p.n_patterns_padded for p in partitions],
+                         1) is not None
 
 
 def newton_edges(partition, st, sc, t0, xmin, xmax, tol, max_iters=10,
@@ -442,9 +423,8 @@ def newton_edges_multi(partitions, sts, scs, t0, scalers, xmin, xmax, tol,
         raise ValueError("newton_edges: max_iters must be at least 1")
     ppads = [r[6] for r in rows]
     if newton_config(cs, ppads, force) is None:
-        raise ValueError(f"{name}: the coefficient rows of C·S {cs} need "
-                         f"{newton_smem_bytes(cs)} bytes of shared memory "
-                         f"per block, more than {_build.SMEM_PER_BLOCK}"
+        raise ValueError(f"{name}: the coefficient rows of C·S {cs} do "
+                         f"not fit a block's shared memory"
                          if force in (0, 1) else
                          f"{name}: a cluster of {force} CTAs an edge does "
                          f"not hold C·S {cs} × patterns {ppads} in shared "

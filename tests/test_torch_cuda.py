@@ -13,8 +13,6 @@ package's dependencies:
 Without a card every test here skips (the check runs in a fixture,
 never at import)."""
 
-import ctypes
-
 import pytest
 import torch
 
@@ -155,58 +153,6 @@ def test_auto_schedule_matches_float64_scan(cuda, states, cats):
     assert (LAUNCHES["pllmod_resident_walk"]
             + LAUNCHES["pllmod_fused_walk"]) == before + 1
     assert abs(got - want) / abs(want) < 1e-6
-
-
-@pytest.mark.parametrize("resident_walk", [True, False])
-@pytest.mark.parametrize("states,cats,n_slots", [
-    (4, 4, 10), (20, 4, 4), (20, 4, 10), (64, 4, 4), (4, 32, 17), (5, 1, 9),
-    (20, 4, 3), (20, 4, 5), (18, 8, 4), (20, 1, 12)])
-def test_smem_formula_matches_library(cuda, states, cats, n_slots,
-                                      resident_walk):
-    """The shared memory the routing rule counts is what a launch
-    requests: the resident walk's whole launch configuration at every
-    tile, and the fused walk's at its default tile (4096 patterns)."""
-    n_codes = 16
-    if resident_walk:
-        for T in _build.TILES:
-            assert _resident_config_lib(cats, states, n_codes, n_slots,
-                                        T) == _build.resident_config(
-                cats, states, n_codes, n_slots, T)
-        return
-    T = _build.fused_tile(cats, states, n_codes, 4096)
-    assert _fused_config_lib(cats, states, n_codes, T) == \
-        _build.fused_config(cats, states, n_codes, T)
-
-
-def _fused_config_lib(C, S, n_codes, T):
-    out = (ctypes.c_longlong * 10)()
-    if not _build.load().pllmod_fused_config(C, S, n_codes, T, out):
-        return None
-    keys = ("kind", "RI", "RP", "IG", "SP", "NB", "threads", "Q", "smem",
-            "depth")
-    got = dict(zip(keys, list(out)))
-    got["kind"] = _build.FUSED_KINDS[got["kind"]]
-    got["lookback"] = 2 if got["kind"] == "thread" else 1
-    return got
-
-
-def _child_config_lib(C, S, n_codes, T):
-    out = (ctypes.c_longlong * 8)()
-    if not _build.load().pllmod_child_config(C, S, n_codes, T, out):
-        return None
-    keys = ("RI", "IG", "SP", "CB", "lookup", "threads", "mrows", "smem")
-    return dict(zip(keys, list(out)))
-
-
-def _level_config_lib(mode, C, S, n_codes, T):
-    out = (ctypes.c_longlong * 7)()
-    if not _build.load().pllmod_level_config(
-            _build.LEVEL_MODES.index(mode), C, S, n_codes, T, out):
-        return None
-    keys = ("kind", "RI", "IG", "SP", "Q", "threads", "smem")
-    got = dict(zip(keys, list(out)))
-    got["kind"] = _build.LEVEL_KINDS[got["kind"]]
-    return got
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda):
@@ -1029,31 +975,6 @@ def test_fused_walk_fallback_and_deep_configs(cuda, states, cats):
     assert seen
 
 
-@pytest.mark.parametrize("states", FUSED_STATES + (5, 16))
-@pytest.mark.parametrize("cats", FUSED_CATS + (32,))
-def test_fused_and_child_configs_match_library(cuda, states, cats):
-    """The Python mirrors of the two launch configurations are what the
-    libraries compute, at every tile."""
-    for n_codes in (states + 1, 16, 200):
-        for T in _build.TILES:
-            assert _fused_config_lib(cats, states, n_codes, T) == \
-                _build.fused_config(cats, states, n_codes, T)
-            assert _child_config_lib(cats, states, n_codes, T) == \
-                _build.child_config(cats, states, n_codes, T)
-
-
-@pytest.mark.parametrize("states", FUSED_STATES + (5, 16))
-@pytest.mark.parametrize("cats", FUSED_CATS + (32, 256))
-def test_level_config_matches_library(cuda, states, cats):
-    """The Python mirror of kernels 4 and 5's launch configuration is
-    what the library computes, at every tile, fitting or not."""
-    for mode in _build.LEVEL_MODES:
-        for n_codes in (states + 1, 16, 200):
-            for T in _build.LEVEL_TILES + (3, 12):
-                assert _level_config_lib(mode, cats, states, n_codes, T) == \
-                    _build.level_config(mode, cats, states, n_codes, T)
-
-
 @pytest.mark.parametrize("states,cats", [(4, 4), (20, 4), (64, 4), (5, 1),
                                          (16, 8), (4, 32)])
 def test_child_pass_every_level_tile_and_ragged(cuda, states, cats):
@@ -1168,17 +1089,6 @@ def test_resident_walk_trees_tiles_and_ragged(cuda, states, cats):
                 _resident_equal(idx8, P5, tc, tab, ns, tile=T)
 
 
-def _resident_config_lib(C, S, n_codes, n_slots, T):
-    out = (ctypes.c_longlong * 7)()
-    if not _build.load().pllmod_resident_config(C, S, n_codes, n_slots, T,
-                                                out):
-        return None
-    keys = ("kind", "RP", "SP", "threads", "Q", "ring", "smem")
-    got = dict(zip(keys, list(out)))
-    got["kind"] = _build.RESIDENT_KINDS[got["kind"]]
-    return got
-
-
 @pytest.mark.parametrize("cats", (1, 2, 4, 8))
 @pytest.mark.parametrize("states", (2, 3, 4))
 def test_resident_thread_kind_slots(cuda, states, cats):
@@ -1227,43 +1137,6 @@ def test_resident_thread_kind_wide(cuda):
     assert tiles
     for T in [None] + tiles:
         assert _resident_equal(idx8, P5, tc, tab, ns, tile=T) == "thread"
-
-
-@pytest.mark.parametrize("states", RESIDENT_STATES + (2, 3, 8, 64))
-@pytest.mark.parametrize("cats", (1, 2, 4, 8, 32))
-def test_resident_config_matches_library(cuda, states, cats):
-    """The Python mirror of the resident walk's launch configuration is
-    what the library computes, at every tile and slot count."""
-    for n_codes in (states + 1, 200):
-        for n_slots in (3, 9, 12, 17):
-            for T in _build.TILES:
-                assert _resident_config_lib(cats, states, n_codes, n_slots,
-                                            T) == _build.resident_config(
-                    cats, states, n_codes, n_slots, T)
-
-
-def _newton_config_lib(cs, ppads, force=0):
-    dims = (ctypes.c_longlong * (2 * len(cs)))(
-        *[v for c, p in zip(cs, ppads) for v in (c, p)])
-    out = (ctypes.c_longlong * 4)()
-    if not _build.load().pllmod_newton_config(len(cs), dims, force, out):
-        return None, None
-    got = dict(kind=deriv.NEWTON_KINDS[out[0]], N=out[1], smem=out[2])
-    return got, out[3]
-
-
-@pytest.mark.parametrize("cs,ppads", [
-    ((16,), (16384,)), ((80,), (4096,)), ((16, 80), (16384, 4096)),
-    ((16,), (512,)), ((16,), (131072,)), ((256,), (4096,)),
-    ((16, 16), (512, 512))])
-def test_newton_config_matches_library(cuda, cs, ppads):
-    """Kernel 10's design rule in Python is the library's, forced or not;
-    every cluster the rule picks can be resident on the card."""
-    for force in (0, 1, 2, 4, 8, 16):
-        got, occ = _newton_config_lib(cs, ppads, force)
-        assert got == deriv.newton_config(cs, ppads, force)
-        if got is not None and force == 0:
-            assert occ >= 1
 
 
 def _newton_case(shapes, cuda, n_sites=512):
@@ -1332,15 +1205,11 @@ def test_newton_every_design_matches_plain(cuda, shapes, n_sites):
 SUMTABLE_STATES = (4, 5, 8, 16, 20, 32, 61, 64)
 
 
-def _sumtable_config_lib(C, S, n_codes, Ppad, E, T=0):
-    """(pllmod_sumtable_config's configuration, the CTAs an SM the card
-    reports for it), or (None, None)."""
-    out = (ctypes.c_longlong * 7)()
-    if not _build.load().pllmod_sumtable_config(C, S, n_codes, Ppad, E, T,
-                                                out):
-        return None, None
-    keys = ("T", "RI", "IG", "SP", "threads", "smem")
-    return dict(zip(keys, list(out)[:6])), out[6]
+def _sumtable_occupancy(C, S, n_codes, Ppad, E):
+    """The CTAs an SM the card holds of kernel 8's tiled kernel at the
+    rule's configuration (-1 where there is none)."""
+    return _build.load().pllmod_sumtable_occupancy(C, S, n_codes, Ppad, E,
+                                                   0)
 
 
 def _sumtables_equal(part, clvs, scalers, eref, basis, **force):
@@ -1400,7 +1269,8 @@ def test_sumtable_kernel_more_items_than_the_grid(cuda, states, cats):
     live = torch.nonzero(torch.as_tensor(
         blo.DirectedTraversal(tree).edge_mask)).flatten().to(cuda)
     n_codes, Ppad = _n_codes(part), part.n_patterns_padded
-    cf, occ = _sumtable_config_lib(cats, states, n_codes, Ppad, 10 ** 4)
+    cf = _build.sumtable_config(cats, states, n_codes, Ppad, 10 ** 4)
+    occ = _sumtable_occupancy(cats, states, n_codes, Ppad, 10 ** 4)
     assert occ >= 1
     grid = occ * torch.cuda.get_device_properties(cuda).multi_processor_count
     E = grid + 1
@@ -1456,27 +1326,6 @@ def test_sumtable_wrapper_refuses_forced_configs(cuda):
         deriv.edge_sumtables(*args, tile=256)     # 1280 threads
     with pytest.raises(ValueError, match="no configuration"):
         deriv.edge_sumtables(*args, tile=3)
-
-
-@pytest.mark.parametrize("states", SUMTABLE_STATES)
-@pytest.mark.parametrize("cats", [1, 4, 8, 32])
-def test_sumtable_config_matches_library(cuda, states, cats):
-    """The Python mirror of kernel 8's configuration is the library's, by
-    the rule and at every forced tile; every configuration the rule picks
-    can be resident on the card."""
-    for n_codes in (states + 1, 16, 230):
-        for Ppad in (128, 512, 4096, 16384, 100):
-            for E in (1, 200, 5000):
-                got, occ = _sumtable_config_lib(cats, states, n_codes, Ppad,
-                                                E)
-                assert got == _build.sumtable_config(cats, states, n_codes,
-                                                     Ppad, E)
-                if got is not None:
-                    assert occ >= 1
-            for T in _build.SUMTABLE_TILES:
-                assert _sumtable_config_lib(cats, states, n_codes, Ppad, 1,
-                                            T)[0] == \
-                    _build.sumtable_config(cats, states, n_codes, Ppad, 1, T)
 
 
 # ---------------------------------------------------------------------------
@@ -1595,29 +1444,6 @@ def test_group_walks_repeated_launches(cuda, tile, lanes):
         got = grouped.grouped_walk(*gargs, gs.order, gs.windows, tile=tile,
                                    lanes=lanes)
         assert all(torch.equal(g[dg, dq], w) for g, w in zip(got, gwant))
-
-
-@pytest.mark.parametrize("states,cats", GROUP_LADDER + [(4, 32), (64, 32)])
-def test_group_walk_config_matches_library(cuda, states, cats):
-    """_build.group_walk_config against both libraries' own queries
-    (pllmod_packed_config, pllmod_grouped_config) at every tile and
-    lane count, fitting or not."""
-    lib = _build.load()
-    out = (ctypes.c_longlong * 9)()
-    for n_codes in (states, 21):
-        for R in (1, 2, 3, 4, 8):
-            for T in _build.TILES:
-                want = _build.group_walk_config(cats, states, n_codes, T, R)
-                for fn in (lib.pllmod_packed_config,
-                           lib.pllmod_grouped_config):
-                    ok = fn(cats, states, n_codes, T, R, out)
-                    assert bool(ok) == (want is not None)
-                    if ok:
-                        got = dict(zip(("kind", "RI", "RP", "IG", "SP",
-                                        "threads", "Q", "smem", "staged"),
-                                       out))
-                        got["kind"] = _build.GROUP_WALK_KINDS[got["kind"]]
-                        assert got == want
 
 
 def test_group_walk_wrappers_raise(cuda):

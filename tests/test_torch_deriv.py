@@ -275,6 +275,10 @@ def test_blo_sweep_kernel_pipeline_matches_plain_path():
                 1e-4) < 5e-4
 
 
+def _round_up(n, k):
+    return -(-n // k) * k
+
+
 @pytest.mark.parametrize("cs,ppads,want", [
     ((16,), (16384,), ("cluster", 8)),           # flagship DNA +G4
     ((80,), (4096,), ("cluster", 8)),            # protein +G4
@@ -291,7 +295,7 @@ def test_newton_config_cluster_size(cs, ppads, want):
     assert (cf["kind"], cf["N"]) == want
     assert cf["smem"] <= _build.SMEM_PER_BLOCK
     if cf["kind"] == "cluster":
-        slices = [deriv.newton_slice(p, cf["N"]) for p in ppads]
+        slices = [_round_up(-(-p // cf["N"]), 4) for p in ppads]
         assert all(s % 4 == 0 and s * cf["N"] >= p
                    for s, p in zip(slices, ppads))
         smaller = [n for n in deriv.NEWTON_CLUSTERS if n < cf["N"]]
@@ -304,16 +308,16 @@ def test_newton_config_cluster_size(cs, ppads, want):
 @pytest.mark.parametrize("C", [1, 4, 8, 32])
 @pytest.mark.parametrize("S", [4, 5, 8, 16, 20, 32, 61, 64])
 def test_sumtable_config_invariants(C, S):
-    """Kernel 8's tiled configuration (the mirror of csrc/deriv.cu
-    sumtable_config): its tile divides Ppad, its threads are C · IG ·
-    T / 4 ≤ 256, its shared memory (mbarriers, bases, tip tables, two
-    stages, 128-byte aligned) fits a block, C·S fits one tensor copy's
-    box; the rule takes the widest tile that fits, or None (the simple
-    kernel) where that tile's CTA has under 4 warps or the launch fewer
-    items than SMs, or no tile fits; a forced tile is that one or
-    None."""
+    """Kernel 8's tiled configuration (csrc/configs.h sumtable_config,
+    through the host library): its tile divides Ppad, its threads are
+    C · IG · T / 4 ≤ 256, its shared memory (mbarriers, bases, tip
+    tables, two stages, 128-byte aligned) fits a block, C·S fits one
+    tensor copy's box; the rule takes the widest tile that fits, or None
+    (the simple kernel) where that tile's CTA has under 4 warps or the
+    launch fewer items than SMs, or no tile fits; a forced tile is that
+    one or None."""
     def r32(n):
-        return _build._round_up(n, 32)
+        return _round_up(n, 32)
     for n_codes in (S + 1, 16, 230):
         for Ppad in (128, 512, 4096, 16384, 100, 102):
             fits = [T for T in _build.SUMTABLE_TILES

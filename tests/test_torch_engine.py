@@ -389,7 +389,8 @@ def test_launch_decisions_at_the_benchmark_cells(cell):
                 DNA246_SUMTABLE
         from pllmod_tpu_torch.ops import deriv
         assert deriv.newton_config([16], [4480]) == DNA246_NEWTON
-        assert deriv.newton_fits(SimpleNamespace(n_cats=4, states=4))
+        assert deriv.newton_fits(SimpleNamespace(n_cats=4, states=4,
+                                                 n_patterns_padded=4480))
 
 
 @pytest.mark.parametrize("schedule", ["resident", "fused"])

@@ -79,7 +79,7 @@ def test_group_walk_config_limits(S, C):
                 cf = _build.group_walk_config(C, S, n_codes, T, R)
                 if cf is None:
                     continue
-                assert cf["threads"] <= _build.GROUP_WALK_THREADS
+                assert cf["threads"] <= 512
                 assert cf["smem"] <= _build.SMEM_PER_BLOCK
                 assert cf["SP"] % 4 == 0 and cf["SP"] >= S
                 assert cf["staged"] in ((0,) if S <= 8 else (0, 1))
@@ -93,8 +93,7 @@ def test_group_walk_config_limits(S, C):
                     assert cf["SP"] == cf["IG"] * cf["RI"]
     assert _build.group_walk_config(C, 65, 66, 4, 1) is None
     assert _build.group_walk_config(C, S, 5, 4, 0) is None
-    assert _build.group_walk_config(C, S, 5, 4,
-                                    _build.GROUP_WALK_MAX_LANES + 1) is None
+    assert _build.group_walk_config(C, S, 5, 4, 9) is None   # 8 lanes
 
 
 def test_group_walk_tile_raises():

@@ -94,8 +94,8 @@ def test_resident_rejects_float64():
 
 
 
-# the resident walk's launch configuration (pure Python, the mirror of
-# csrc/pruning.cu walk_config that the card tests hold to the library)
+# the resident walk's launch configuration (csrc/configs.h walk_config,
+# read through the host library) and its tile rule
 def test_resident_tile_fills_the_card_at_protein():
     """At the protein cell's shape (512 taxa: up to 12 live slots, 4096
     patterns, 20 states +G4) the tile gives at least 95 % of 132 SMs a
@@ -138,7 +138,7 @@ def test_resident_tile_takes_the_split_kind_at_the_supermatrix(ns):
 
 
 def _thread_kind_expected(cats, states):
-    return states <= 4 and cats <= _build.RESIDENT_THREAD_MAX_C
+    return states <= 4 and cats <= 8
 
 
 @pytest.mark.parametrize("states", [2, 3, 4, 5, 8, 10, 16, 20, 32, 64, 17,
@@ -158,7 +158,7 @@ def test_resident_config_across_the_state_ladder(states):
     codes) and the slots with their scaler rows, whole consumer warps
     and a producer warp."""
     seen = set()
-    split = _build._ladder(states) == _build.RESIDENT_SPLIT_MAXS
+    split = _ladder(states) == 20
     for cats in (1, 2, 4, 8, 9, 32):
         for ns in (1, 3, 9, 12):
             for T in _build.TILES:
@@ -172,7 +172,7 @@ def test_resident_config_across_the_state_ladder(states):
                     32 if cf["kind"] == "split" else 0)
                 assert cf["smem"] <= _build.SMEM_PER_BLOCK
                 if cf["kind"] == "thread":
-                    rp, nb = cf["RP"], _build.RESIDENT_THREAD_NB
+                    rp, nb = cf["RP"], 4
                     assert rp == _build.RESIDENT_THREAD_RP
                     assert T % (32 * rp) == 0
                     assert cf["threads"] == T // rp + 32
@@ -209,8 +209,13 @@ def test_resident_config_across_the_state_ladder(states):
 
 # the resident walk's configuration and tile rule before the thread kind,
 # copied here: every shape beyond 4 states or 8 categories keeps them
+def _ladder(S):
+    """The register tile that holds S states (the kernels' state ladder)."""
+    return next(m for m in (4, 8, 16, 20, 32, 64) if S <= m)
+
+
 def _tile_kind_config(C, S, n_codes, n_slots, T):
-    maxs = _build._ladder(S)
+    maxs = _ladder(S)
     rp = 2 if maxs <= 4 else 1
     if T % rp or C * (T // rp) > 256:
         return None

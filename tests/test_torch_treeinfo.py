@@ -363,4 +363,6 @@ def test_newton_multi_k1_is_single(data):
                                  10)
     assert all(torch.equal(a, b) for a, b in zip(wrapped, (t, lnl0, iters)))
     assert deriv.newton_fits(*ti.partitions)
-    assert deriv.newton_smem_bytes([16, 80]) == 12 * 96 + 768
+    assert deriv.newton_config([16, 80], [p.n_patterns_padded for p in
+                                          ti.partitions], 1)["smem"] == \
+        12 * 96 + 768
